@@ -1,0 +1,340 @@
+"""Direct data-driven MPC controller (Nominal / Robust, slack ``NONE``).
+
+Counterpart of ``direct_data_driven_mpc_tpu/control/controller.py``
+with the same constructor, validation rules and method names.
+Construction assembles the static QP once (float64) and derives the
+exact affine solution operator; the per-step solve is a numpy matvec.
+The condensed engine (``control.linear_engine``) takes the operator
+from :meth:`DirectDataDrivenMPCController.solution_operator`.
+
+Not ported yet (ROADMAP.md, queue 1): the CONVEX slack variant (item
+"Generic engine and iterative solvers", ``qp/admm.py``) and the
+NON_CONVEX one (item "The remaining solvers and utilities",
+``qp/nonconvex.py``). The C runtime under ``native/`` is not bound, so
+every per-step solve runs in numpy, which :attr:`solve_path` records.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from direct_data_driven_mpc_tpu_torch.ops.host import (
+    evaluate_persistent_excitation_np,
+    hankel_matrix_np,
+)
+from direct_data_driven_mpc_tpu_torch.qp.assembly import build_qp_spec
+from direct_data_driven_mpc_tpu_torch.qp.solution_map import (
+    compute_solution_operator_np,
+)
+from direct_data_driven_mpc_tpu_torch.qp.spec import (
+    DataDrivenMPCType,
+    QPDims,
+    SlackVarConstraintTypes,
+)
+
+_UNPORTED_SLACK = {
+    SlackVarConstraintTypes.CONVEX: (
+        "ROADMAP.md queue 1, 'Generic engine and iterative solvers' "
+        "(qp/admm.py)"
+    ),
+    SlackVarConstraintTypes.NON_CONVEX: (
+        "ROADMAP.md queue 1, 'The remaining solvers and utilities' "
+        "(qp/nonconvex.py)"
+    ),
+}
+
+
+class DirectDataDrivenMPCController:
+    """Nominal / Robust direct data-driven MPC controller.
+
+    Attributes follow the reference: ``n, m, p, u_d, y_d, N, u_past,
+    y_past, L, Q, R, u_s, y_s, eps_max, lamb_alpha, lamb_sigma, c,
+    slack_var_constraint_type, n_mpc_step, use_terminal_constraint,
+    HLn_ud, HLn_yd, optimal_u``.
+    """
+
+    #: Which implementation runs the per-step solve.
+    solve_path = "numpy"
+
+    def __init__(
+        self,
+        n: int,
+        m: int,
+        p: int,
+        u_d: np.ndarray,
+        y_d: np.ndarray,
+        L: int,
+        Q: np.ndarray,
+        R: np.ndarray,
+        u_s: np.ndarray,
+        y_s: np.ndarray,
+        eps_max: Optional[float] = None,
+        lamb_alpha: Optional[float] = None,
+        lamb_sigma: Optional[float] = None,
+        c: Optional[float] = None,
+        slack_var_constraint_type: SlackVarConstraintTypes = (
+            SlackVarConstraintTypes.CONVEX
+        ),
+        controller_type: DataDrivenMPCType = DataDrivenMPCType.NOMINAL,
+        n_mpc_step: int = 1,
+        use_terminal_constraint: bool = True,
+    ):
+        self.controller_type = controller_type
+        if controller_type not in (
+            DataDrivenMPCType.NOMINAL,
+            DataDrivenMPCType.ROBUST,
+        ):
+            raise ValueError("Unsupported controller type.")
+
+        self.n = n
+        self.m = m
+        self.p = p
+        self.u_d = np.asarray(u_d, dtype=np.float64)
+        self.y_d = np.asarray(y_d, dtype=np.float64)
+        self.N = self.u_d.shape[0]
+
+        # Past windows seeded with the last n data samples (columns).
+        self.u_past = self.u_d[-n:, :].reshape(-1, 1)
+        self.y_past = self.y_d[-n:, :].reshape(-1, 1)
+
+        self.L = L
+        self.Q = np.asarray(Q, dtype=np.float64)
+        self.R = np.asarray(R, dtype=np.float64)
+        self.u_s = np.asarray(u_s, dtype=np.float64)
+        self.y_s = np.asarray(y_s, dtype=np.float64)
+
+        self.eps_max = eps_max
+        self.lamb_alpha = lamb_alpha
+        self.lamb_sigma = lamb_sigma
+        self.c = c
+
+        self.slack_var_constraint_type = slack_var_constraint_type
+        if slack_var_constraint_type not in (
+            SlackVarConstraintTypes.NON_CONVEX,
+            SlackVarConstraintTypes.CONVEX,
+            SlackVarConstraintTypes.NONE,
+        ):
+            raise ValueError("Unsupported slack variable constraint type.")
+
+        if self.controller_type == DataDrivenMPCType.ROBUST:
+            if None in (eps_max, lamb_alpha, lamb_sigma, c):
+                raise ValueError(
+                    "All robust MPC parameters (eps_max, lamb_alpha, "
+                    "lamb_sigma, c) must be provided for a 'ROBUST' "
+                    "controller."
+                )
+            if slack_var_constraint_type in _UNPORTED_SLACK:
+                raise NotImplementedError(
+                    f"{slack_var_constraint_type.name} slack is not "
+                    "ported to the PyTorch package yet; see "
+                    f"{_UNPORTED_SLACK[slack_var_constraint_type]}. "
+                    "Use SlackVarConstraintTypes.NONE."
+                )
+
+        if not 1 <= n_mpc_step <= L:
+            raise ValueError(
+                f"n_mpc_step ({n_mpc_step}) must be in [1, L={L}]."
+            )
+        self.n_mpc_step = n_mpc_step
+        self.use_terminal_constraint = use_terminal_constraint
+        self._status = "unsolved"
+        self._cost_value: Optional[float] = None
+
+        self.evaluate_input_persistent_excitation()
+        self.check_prediction_horizon_length()
+        self.check_weighting_matrices_dimensions()
+        self.initialize_data_driven_mpc()
+
+    # --- validation (reference rules) ----------------------------------
+    def evaluate_input_persistent_excitation(self) -> None:
+        """Persistent excitation of order ``L + 2n``: the length bound
+        and the Hankel rank check."""
+        u_d_n = self.u_d.shape[1]
+        if u_d_n != self.m:
+            raise ValueError(
+                f"The length of the elements of the data sequence ({u_d_n}) "
+                f"should match the number of inputs of the system "
+                f"({self.m})."
+            )
+        N_min = self.m * (self.L + 2 * self.n) + self.L + 2 * self.n - 1
+        if self.N < N_min:
+            raise ValueError(
+                "Initial input trajectory data is not persistently exciting "
+                "of order (L + 2 * n). It does not satisfy the inequality: "
+                "N - L - 2 * n + 1 >= m * (L + 2 * n). The required minimum "
+                f"N is {N_min}, but got {self.N}."
+            )
+        expected_order = self.L + 2 * self.n
+        rank, ok = evaluate_persistent_excitation_np(
+            self.u_d, order=expected_order
+        )
+        if not ok:
+            raise ValueError(
+                "Initial input trajectory data is not persistently exciting "
+                "of order (L + 2 * n). The rank of its induced Hankel "
+                f"matrix ({rank}) does not match the expected rank "
+                f"({u_d_n * expected_order})."
+            )
+
+    def check_prediction_horizon_length(self) -> None:
+        """Nominal: ``L >= n``; Robust: ``L >= 2n``."""
+        if self.controller_type == DataDrivenMPCType.NOMINAL:
+            if self.L < self.n:
+                raise ValueError(
+                    "The prediction horizon (`L`) must be greater than or "
+                    "equal to the estimated system order `n`."
+                )
+        elif self.L < 2 * self.n:
+            raise ValueError(
+                "The prediction horizon (`L`) must be greater than or "
+                "equal to two times the estimated system order `n`."
+            )
+
+    def check_weighting_matrices_dimensions(self) -> None:
+        """Q must be ``(pL, pL)``, R must be ``(mL, mL)``."""
+        if self.Q.shape != (self.p * self.L, self.p * self.L):
+            raise ValueError(
+                "Output weighting square matrix Q should be of order (p * L)"
+            )
+        if self.R.shape != (self.m * self.L, self.m * self.L):
+            raise ValueError(
+                "Input weighting square matrix R should be of order (m * L)"
+            )
+
+    # --- construction --------------------------------------------------
+    def initialize_data_driven_mpc(self) -> None:
+        """Build the Hankels, assemble the static QP, derive the affine
+        solution operator and validate it with an initial solve."""
+        self.HLn_ud = hankel_matrix_np(self.u_d, self.L + self.n)
+        self.HLn_yd = hankel_matrix_np(self.y_d, self.L + self.n)
+
+        dims = QPDims(n=self.n, m=self.m, p=self.p, L=self.L, N=self.N)
+        self._spec = build_qp_spec(
+            self.HLn_ud,
+            self.HLn_yd,
+            dims,
+            Q=self.Q,
+            R=self.R,
+            u_s=self.u_s,
+            y_s=self.y_s,
+            controller_type=self.controller_type,
+            eps_max=self.eps_max,
+            lamb_alpha=self.lamb_alpha,
+            lamb_sigma=self.lamb_sigma,
+            c=self.c,
+            slack_var_constraint_type=self.slack_var_constraint_type,
+            use_terminal_constraint=self.use_terminal_constraint,
+        )
+        self._op = compute_solution_operator_np(self._spec)
+        if not self._op["feasible"]:
+            raise ValueError(
+                "MPC problem is infeasible: the equality "
+                "constraints are inconsistent (primal residuals "
+                f"{self._op['primal_residual_const']:.2e} const / "
+                f"{self._op['primal_residual_gain']:.2e} gain)."
+            )
+        self.update_and_solve_data_driven_mpc()
+
+    @property
+    def spec(self):
+        """The assembled static QP spec."""
+        return self._spec
+
+    def solution_operator(self) -> dict:
+        """The float64 affine solution operator: the entry for
+        ``control.linear_engine.build_affine_block_map``. Keys:
+        ``z_base, Z, u_base, U_gain, cost_P, cost_q, cost_r``."""
+        return self._op
+
+    # --- per-step solve ------------------------------------------------
+    def _theta(self) -> np.ndarray:
+        return np.concatenate(
+            [self.u_past.reshape(-1), self.y_past.reshape(-1)]
+        )
+
+    def update_and_solve_data_driven_mpc(self) -> None:
+        """Solve at the current past window and store the optimal
+        input sequence."""
+        self.solve_mpc_problem()
+        self.get_optimal_control_input()
+
+    def solve_mpc_problem(self) -> str:
+        theta = self._theta()
+        op = self._op
+        u = op["u_base"] + op["U_gain"] @ theta
+        self._u_opt = u
+        self._cost_value = float(
+            theta @ op["cost_P"] @ theta
+            + op["cost_q"] @ theta
+            + op["cost_r"]
+        )
+        self._status = "optimal" if np.isfinite(u).all() else "infeasible"
+        return self._status
+
+    def optimal_solution(self) -> np.ndarray:
+        """The full optimal decision vector ``z*`` at the current past
+        window (for KKT-residual checks)."""
+        return self._op["z_base"] + self._op["Z"] @ self._theta()
+
+    def get_problem_solve_status(self) -> str:
+        return self._status
+
+    def get_optimal_cost_value(self) -> float:
+        return self._cost_value
+
+    def get_optimal_control_input(self) -> np.ndarray:
+        """Store and return ``ubar*[0, L-1]`` flattened."""
+        if self._status == "optimal":
+            self.optimal_u = self._u_opt.flatten()
+            return self.optimal_u
+        raise ValueError("MPC problem was not solved optimally.")
+
+    def get_optimal_control_input_at_step(
+        self, n_step: int = 0
+    ) -> np.ndarray:
+        """The optimal input at prediction step ``n_step`` in
+        ``[0, L-1]``."""
+        if not 0 <= n_step < self.L:
+            raise ValueError(
+                f"The specified prediction time step ({n_step}) is out of "
+                f"range. It should be within [0, {self.L - 1}]."
+            )
+        return self.optimal_u[n_step * self.m : (n_step + 1) * self.m]
+
+    # --- measurement window --------------------------------------------
+    def store_input_output_measurement(
+        self, u_current: np.ndarray, y_current: np.ndarray
+    ) -> None:
+        """Shift the past-n window by one measurement."""
+        expected_u0 = (self.m, 1)
+        expected_y0 = (self.p, 1)
+        if u_current.shape != expected_u0 or y_current.shape != expected_y0:
+            raise ValueError(
+                f"Incorrect dimensions. Expected dimensions are "
+                f"{expected_u0} for u_current and {expected_y0} for "
+                f"y_current, but got {u_current.shape} and "
+                f"{y_current.shape} instead."
+            )
+        self.u_past = np.vstack([self.u_past[self.m :], u_current])
+        self.y_past = np.vstack([self.y_past[self.p :], y_current])
+
+    def set_past_input_output_data(
+        self, u_past: np.ndarray, y_past: np.ndarray
+    ) -> None:
+        """Set the whole past window."""
+        expected_u = (self.n * self.m, 1)
+        expected_y = (self.n * self.p, 1)
+        if u_past.shape != expected_u:
+            raise ValueError(
+                f"Incorrect dimensions. u_past must be shaped as "
+                f"{expected_u}. Got {u_past.shape}. instead"
+            )
+        if y_past.shape != expected_y:
+            raise ValueError(
+                f"Incorrect dimensions. y_past must be shaped as "
+                f"{expected_y}. Got {y_past.shape} instead."
+            )
+        self.u_past = np.asarray(u_past, dtype=np.float64)
+        self.y_past = np.asarray(y_past, dtype=np.float64)

@@ -1,0 +1,368 @@
+"""Condensed linear closed-loop engine.
+
+For slack-``NONE`` controllers the per-step QP solution is an exact
+affine map of the past window, and the plant is linear, so the whole
+closed loop (plant state plus measurement window under MPC feedback)
+is an affine time-invariant recursion
+
+    s_{t+1} = M s_t + c + N w_t,        s = [x; u_past; y_past]
+    [u_t; y_t] = O_s s_t + o_c + O_w w_t
+
+with ``s`` only ``ns + n(m+p)`` numbers (20 for the four-tank plant).
+:func:`build_affine_block_map` composes it in float64 on the host over
+``solves_per_block`` solves of ``n_mpc_step`` plant steps each, then
+casts it onto one device. :func:`linear_batched_rollout` rolls it out
+with the batch as the leading dimension of every product; it is the
+plain reference that the fused engine (``ops.fused_rollout``) is held
+against.
+
+Counterpart of ``direct_data_driven_mpc_tpu/control/linear_engine.py``
+(``AffineBlockMap``, ``build_affine_block_map``, ``build_linear_engine``,
+``linear_closed_loop_rollout`` on the explicit-noise path,
+``make_linear_batched_rollout``). The setpoint-tracking channel
+(``tracking_op``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from direct_data_driven_mpc_tpu_torch.control.loop import ClosedLoopResult
+from direct_data_driven_mpc_tpu_torch.ops.lti import LTIParams
+
+
+class AffineBlockMap(NamedTuple):
+    """Condensed multi-solve block map, every tensor on one device.
+
+    Row convention (batch leads):
+        s'      = s @ M_T   + c    + w @ N_T
+        u_block = s @ OuS_T + ou_c + w @ OuW_T   (K * nb * m outputs)
+        y_block = s @ OyS_T + oy_c + w @ OyW_T   (K * nb * p outputs)
+        s_stack = s @ OsS_T + os_c + w @ OsW_T   (K * S: the state at
+                                                  each solve time)
+    with ``w`` the flattened noise of the whole block (K * nb * p).
+    The cost of one solve at state ``s`` is, with ``theta = s[ns:]``,
+    ``theta P theta + q . theta + r``.
+    """
+
+    M_T: torch.Tensor
+    c: torch.Tensor
+    N_T: torch.Tensor
+    OuS_T: torch.Tensor
+    ou_c: torch.Tensor
+    OuW_T: torch.Tensor
+    OyS_T: torch.Tensor
+    oy_c: torch.Tensor
+    OyW_T: torch.Tensor
+    OsS_T: torch.Tensor
+    os_c: torch.Tensor
+    OsW_T: torch.Tensor
+    cost_P: torch.Tensor  # (n_theta, n_theta)
+    cost_q: torch.Tensor  # (n_theta,)
+    cost_r: torch.Tensor  # ()
+    s_star: torch.Tensor  # (S,) center point (zeros when uncentered)
+    #: Setpoint-channel width; 0 for a plain map. Tracking maps (n_r > 0)
+    #: come only from the JAX package through block_map_from_numpy, and
+    #: the engines here reject them.
+    n_r: int = 0
+    r_bar: Optional[torch.Tensor] = None
+
+
+def block_map_from_numpy(arrays: dict, device, dtype=torch.float32
+                         ) -> AffineBlockMap:
+    """An :class:`AffineBlockMap` from a dict of numpy arrays keyed by
+    the field names (for instance the fields of the JAX package's
+    ``AffineBlockMap``), cast onto ``device`` in ``dtype``."""
+    fields = {}
+    for name in AffineBlockMap._fields:
+        value = arrays.get(name)
+        if name == "n_r":
+            fields[name] = int(value or 0)
+        elif value is None:
+            if name != "r_bar":
+                raise KeyError(f"block map lacks field {name!r}")
+            fields[name] = None
+        else:
+            fields[name] = torch.as_tensor(
+                np.array(value), dtype=dtype, device=device
+            )
+    return AffineBlockMap(**fields)
+
+
+def build_affine_block_map(
+    plant: LTIParams,
+    solution_op: dict,
+    n: int,
+    m: int,
+    p: int,
+    n_mpc_step: int = 1,
+    solves_per_block: int = 1,
+    center: bool = True,
+    device="cpu",
+    dtype=torch.float32,
+) -> AffineBlockMap:
+    """Compose ``solves_per_block`` solve blocks into one affine map
+    (host, float64) and cast it onto ``device`` in ``dtype``.
+
+    Args:
+        plant: LTI plant matrices (the simulated true system; its state
+            dimension may differ from the controller's model order).
+        solution_op: the float64 operator dict of
+            ``compute_solution_operator_np`` (slack-NONE controllers).
+        n, m, p: controller model order / input / output dimensions.
+        n_mpc_step: plant steps per QP solve.
+        solves_per_block: QP solves composed per block.
+        center: roll the deviation from the closed-loop fixed point.
+    """
+    A = np.asarray(plant.A, dtype=np.float64)
+    B = np.asarray(plant.B, dtype=np.float64)
+    C = np.asarray(plant.C, dtype=np.float64)
+    Dm = np.asarray(plant.D, dtype=np.float64)
+    ns = A.shape[0]
+    n_theta = n * (m + p)
+    S = ns + n_theta
+    nb = n_mpc_step
+    K = solves_per_block
+    nw = K * nb * p
+    # Homogeneous coordinates [s; 1; w_block].
+    Dfull = S + 1 + nw
+
+    # Each tracked quantity is a matrix acting on [s; 1; w].
+    X = np.zeros((ns, Dfull))
+    X[:, :ns] = np.eye(ns)
+    TH = np.zeros((n_theta, Dfull))
+    TH[:, ns : ns + n_theta] = np.eye(n_theta)
+    ONE = np.zeros(Dfull)
+    ONE[S] = 1.0
+
+    if nb * m > solution_op["U_gain"].shape[0]:
+        raise ValueError(
+            f"n_mpc_step ({nb}) exceeds the optimized horizon "
+            f"(L = {solution_op['U_gain'].shape[0] // m})."
+        )
+    U_gain = solution_op["U_gain"][: nb * m]  # (nb*m, n_theta)
+    u_base = solution_op["u_base"][: nb * m]
+
+    out_u = np.zeros((K * nb * m, Dfull))
+    out_y = np.zeros((K * nb * p, Dfull))
+    out_s = np.zeros((K * S, Dfull))
+    for k in range(K):
+        # State at this solve time (pre-solve), for the per-solve cost.
+        out_s[k * S : (k + 1) * S] = np.concatenate([X, TH], axis=0)
+        USEQ = U_gain @ TH + np.outer(u_base, ONE)
+        for j in range(nb):
+            t = k * nb + j
+            Uj = USEQ[j * m : (j + 1) * m]  # (m, Dfull)
+            Wj = np.zeros((p, Dfull))
+            Wj[:, S + 1 + t * p : S + 1 + (t + 1) * p] = np.eye(p)
+            Yj = C @ X + Dm @ Uj + Wj
+            X = A @ X + B @ Uj
+            # Shift the measurement window: drop oldest, append current.
+            TH = np.concatenate(
+                [TH[m : n * m], Uj, TH[n * m + p :], Yj], axis=0
+            )
+            out_u[t * m : (t + 1) * m] = Uj
+            out_y[t * p : (t + 1) * p] = Yj
+
+    SP = np.concatenate([X, TH], axis=0)  # (S, Dfull)
+
+    def split(Mrows):
+        return Mrows[:, :S], Mrows[:, S], Mrows[:, S + 1 :]
+
+    M_, c_, N_ = split(SP)
+    OuS, ou_c, OuW = split(out_u)
+    OyS, oy_c, OyW = split(out_y)
+    OsS, os_c, OsW = split(out_s)
+
+    if center:
+        # Re-center on the closed-loop fixed point s* = M s* + c, so the
+        # float32 rollout carries the deviation, which decays toward
+        # the noise floor, instead of setpoint-sized coordinates.
+        #
+        # Guard: with a closed-loop eigenvalue near 1 (an uncontrolled
+        # integrator mode, or the UCON scheme) I - M is (near-)singular
+        # and s* is huge or non-finite; the deviation would then be a
+        # cancellation of two huge numbers. Fall back to the uncentered
+        # map with a warning.
+        IM = np.eye(S) - M_
+        cond_IM = np.linalg.cond(IM)
+        if np.isfinite(cond_IM) and cond_IM < 1e8:
+            s_star = np.linalg.solve(IM, c_)
+        else:
+            s_star = np.full(S, np.nan)
+        s_scale = 1.0 + float(np.abs(c_).max(initial=0.0))
+        if not (
+            np.all(np.isfinite(s_star))
+            and float(np.abs(s_star).max(initial=0.0)) < 1e6 * s_scale
+        ):
+            warnings.warn(
+                "closed-loop fixed point is ill-conditioned "
+                f"(cond(I - M) = {cond_IM:.2e}); centering disabled -- "
+                "the loop has an eigenvalue at/near 1 (marginally "
+                "stable or unstable scheme). Rolling absolute "
+                "coordinates instead.",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+            s_star = np.zeros(S)
+        ou_c = ou_c + OuS @ s_star
+        oy_c = oy_c + OyS @ s_star
+        os_c = os_c + OsS @ s_star
+        c_ = c_ - (s_star - M_ @ s_star)
+    else:
+        s_star = np.zeros(S)
+
+    def cast(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return AffineBlockMap(
+        M_T=cast(M_.T),
+        c=cast(c_),
+        N_T=cast(N_.T),
+        OuS_T=cast(OuS.T),
+        ou_c=cast(ou_c),
+        OuW_T=cast(OuW.T),
+        OyS_T=cast(OyS.T),
+        oy_c=cast(oy_c),
+        OyW_T=cast(OyW.T),
+        OsS_T=cast(OsS.T),
+        os_c=cast(os_c),
+        OsW_T=cast(OsW.T),
+        cost_P=cast(solution_op["cost_P"]),
+        cost_q=cast(solution_op["cost_q"]),
+        cost_r=cast(solution_op["cost_r"]),
+        s_star=cast(s_star),
+    )
+
+
+def build_linear_engine(
+    controller,
+    plant: LTIParams,
+    n_mpc_step: Optional[int] = None,
+    solves_per_block: int = 1,
+    center: bool = True,
+    device="cpu",
+    dtype=torch.float32,
+) -> AffineBlockMap:
+    """Block map straight from a slack-NONE
+    ``DirectDataDrivenMPCController``: its dimensions, its solve cadence
+    (unless ``n_mpc_step`` is given) and its float64 solution
+    operator."""
+    if n_mpc_step is None:
+        n_mpc_step = controller.n_mpc_step
+    return build_affine_block_map(
+        plant,
+        controller.solution_operator(),
+        n=controller.n,
+        m=controller.m,
+        p=controller.p,
+        n_mpc_step=n_mpc_step,
+        solves_per_block=solves_per_block,
+        center=center,
+        device=device,
+        dtype=dtype,
+    )
+
+
+def _block_meta(block_map: AffineBlockMap, p: int):
+    """``(S, K, nb)``: state width, solves per block and plant steps per
+    solve, read off the operator shapes."""
+    S = block_map.M_T.shape[0]
+    K = block_map.os_c.shape[0] // S
+    nb = block_map.oy_c.shape[0] // (K * p)
+    return S, K, nb
+
+
+def linear_batched_rollout(
+    block_map: AffineBlockMap,
+    x0s: torch.Tensor,  # (B, ns)
+    u_pasts: torch.Tensor,  # (B, n, m)
+    y_pasts: torch.Tensor,  # (B, n, p)
+    Ws: torch.Tensor,  # (B, n_steps, p)
+    n_steps: int,
+    n_mpc_step: int = 1,
+) -> ClosedLoopResult:
+    """Batched rollout of the condensed recursion with explicit noise.
+
+    Each block is a handful of ``(B, S + K nb p)``-wide products
+    covering K solves; outputs are trimmed to ``n_steps`` (and the
+    per-solve costs to ``ceil(n_steps / n_mpc_step)``).
+    """
+    if block_map.n_r:
+        raise NotImplementedError(
+            "tracking block maps (n_r > 0) are not ported yet"
+        )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bm = block_map
+    dtype, device = bm.M_T.dtype, bm.M_T.device
+    Bsz, n, m = u_pasts.shape
+    p = y_pasts.shape[2]
+    S, K, nb = _block_meta(bm, p)
+    if nb != n_mpc_step:
+        raise ValueError(
+            f"block map built for n_mpc_step={nb}, called with "
+            f"{n_mpc_step}"
+        )
+    ns = S - n * (m + p)
+    steps_per_outer = K * nb
+    n_solves = math.ceil(n_steps / nb)
+    n_outer = math.ceil(n_steps / steps_per_outer)
+
+    W = torch.zeros(
+        (Bsz, n_outer * steps_per_outer, p), dtype=dtype, device=device
+    )
+    W[:, :n_steps] = Ws.to(dtype)
+    W = W.view(Bsz, n_outer, steps_per_outer * p)
+    s = torch.cat(
+        [x0s.reshape(Bsz, -1), u_pasts.reshape(Bsz, -1),
+         y_pasts.reshape(Bsz, -1)], dim=1,
+    ).to(dtype) - bm.s_star
+
+    U = torch.empty((Bsz, n_outer, K * nb * m), dtype=dtype, device=device)
+    Y = torch.empty((Bsz, n_outer, K * nb * p), dtype=dtype, device=device)
+    Cst = torch.empty((Bsz, n_outer, K), dtype=dtype, device=device)
+    for t in range(n_outer):
+        w = W[:, t]
+        st = s @ bm.OsS_T + bm.os_c + w @ bm.OsW_T
+        theta = st.view(Bsz, K, S)[:, :, ns:]
+        Cst[:, t] = (
+            ((theta @ bm.cost_P) * theta).sum(-1)
+            + theta @ bm.cost_q
+            + bm.cost_r
+        )
+        U[:, t] = s @ bm.OuS_T + bm.ou_c + w @ bm.OuW_T
+        Y[:, t] = s @ bm.OyS_T + bm.oy_c + w @ bm.OyW_T
+        s = s @ bm.M_T + bm.c + w @ bm.N_T
+    s_fin = s + bm.s_star
+    costs = Cst.reshape(Bsz, -1)[:, :n_solves]
+    return ClosedLoopResult(
+        u_sys=U.reshape(Bsz, -1, m)[:, :n_steps],
+        y_sys=Y.reshape(Bsz, -1, p)[:, :n_steps],
+        costs=costs,
+        converged=torch.isfinite(costs),
+        x_final=s_fin[:, :ns],
+        u_past=s_fin[:, ns : ns + n * m].reshape(Bsz, n, m),
+        y_past=s_fin[:, ns + n * m :].reshape(Bsz, n, p),
+    )
+
+
+def make_linear_batched_rollout(
+    block_map: AffineBlockMap,
+    n_steps: int,
+    n_mpc_step: int = 1,
+):
+    """``run(x0s, u_pasts, y_pasts, Ws) -> ClosedLoopResult`` over the
+    condensed recursion (see :func:`linear_batched_rollout`)."""
+
+    def run(x0s, u_pasts, y_pasts, Ws):
+        return linear_batched_rollout(
+            block_map, x0s, u_pasts, y_pasts, Ws,
+            n_steps=n_steps, n_mpc_step=n_mpc_step,
+        )
+
+    return run

@@ -1,0 +1,403 @@
+"""Fused condensed closed-loop rollout: the operator, the kernel's
+wrapper, its plain PyTorch version and the batched entry points.
+
+The condensed recursion of ``control.linear_engine`` is fused into one
+operator ``G`` so that each outer time block is a single product
+
+    out = [w | s] @ G + bias,   columns [s_next | u | y | Z | q-part]
+
+with the per-solve cost ``theta P theta + q . theta + r`` factored on
+the host as ``P = L L^T`` and folded into ``G``: the block emits
+``Z_k = L^T theta_k`` and ``q . theta_k + r``, and the cost of solve k
+is ``||Z_k||^2 + qpart_k``. The rollout runs as the hand-written CUDA
+kernel ``csrc/fused_rollout.cu`` on CUDA tensors (:func:`fused_rollout`)
+and as :func:`fused_rollout_reference` on CPU tensors and in
+comparisons.
+
+Counterpart of ``direct_data_driven_mpc_tpu/ops/pallas_rollout.py``
+(``suggest_solves_per_block``, ``build_theta_operator``,
+``_build_fused_operator``, ``_center_and_pack``,
+``_make_xla_rollout_from_fused``, ``make_fused_batched_rollout``,
+``pallas_batched_rollout``, ``make_amortized_pallas_run``). Differences
+from the TPU layout: no 128-lane column padding, no segment-sum matrix,
+and noise and outputs are batch-major ``(B, n_outer, width)``. The
+``cost_mode="post"`` path (kernel K3) and tracking maps are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
+    AffineBlockMap,
+)
+from direct_data_driven_mpc_tpu_torch.control.loop import ClosedLoopResult
+
+#: Accepted for API parity with the JAX package. On the TPU "high" ran
+#: the cost columns as three bf16 passes; here both values run the
+#: whole operator in float32 and give identical results.
+_COST_PRECISIONS = ("highest", "high")
+
+
+def _check_cost_precision(name: str) -> None:
+    if name not in _COST_PRECISIONS:
+        raise ValueError(
+            f"cost_precision must be one of {sorted(_COST_PRECISIONS)}, "
+            f"got {name!r}"
+        )
+
+
+def build_theta_operator(block_map: AffineBlockMap, ns: int):
+    """The solve-time theta rows of the state-stack operator (rows are
+    k-major: ``[x_k; theta_k]`` per solve), as float64 numpy:
+    ``(OtS_T, otc, OtW_T, K)``."""
+    S = block_map.M_T.shape[0]
+    K = block_map.os_c.shape[0] // S
+    idx = np.concatenate(
+        [np.arange(k * S + ns, (k + 1) * S) for k in range(K)]
+    )
+
+    def f64(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    return (
+        f64(block_map.OsS_T)[:, idx],
+        f64(block_map.os_c)[idx],
+        f64(block_map.OsW_T)[:, idx],
+        K,
+    )
+
+
+def suggest_solves_per_block(
+    ns: int, n: int, m: int, p: int, n_mpc_step: int = 1,
+    n_steps: int | None = None,
+) -> int:
+    """Solves per block of the TPU kernel's tuning: the largest K whose
+    operand ``[w | s]`` fits one 128-lane contraction (``K*nb*p + S <=
+    128``), preferring a K that divides the rollout into whole outer
+    blocks. The CUDA kernel is correct for any K; its own choice is
+    still to be measured on the H100."""
+    S = ns + n * (m + p)
+    K = max((128 - S) // (n_mpc_step * p), 1)
+    if n_steps:
+        spb = n_mpc_step * p  # noise lanes per solve
+        for cand in range(K, 0, -1):
+            n_outer = -(-n_steps // (cand * n_mpc_step))
+            if n_outer * cand * n_mpc_step == n_steps:
+                # accept up to ~6% fewer lanes to avoid time padding
+                if (K - cand) * spb <= 8:
+                    return cand
+    return K
+
+
+class FusedOperator(NamedTuple):
+    """The fused operator on one device.
+
+    ``G`` is ``(nw + S, S + Ku + Kp + K*rank + K)`` with rows ``[w; s]``
+    and column groups ``[s_next | u | y | Z | q-part]``; ``bias`` has
+    one entry per column (``r`` is folded into the q-part)."""
+
+    G: torch.Tensor
+    bias: torch.Tensor
+    S: int
+    nw: int
+    Ku: int
+    Kp: int
+    K: int
+    rank: int
+
+
+def _build_fused_operator(block_map: AffineBlockMap) -> FusedOperator:
+    """Assemble the fused operator on the host in float64 and cast it
+    to the block map's device and dtype."""
+    if block_map.n_r:
+        raise NotImplementedError(
+            "tracking block maps (n_r > 0) are not ported yet"
+        )
+
+    def f64(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    M_T = f64(block_map.M_T)
+    N_T = f64(block_map.N_T)
+    S = M_T.shape[0]
+    nw = N_T.shape[0]
+    P = f64(block_map.cost_P)
+    n_theta = P.shape[0]
+    ns = S - n_theta
+    OtS_T, otc, OtW_T, K = build_theta_operator(block_map, ns)
+    Ku = block_map.ou_c.shape[0]
+    Kp = block_map.oy_c.shape[0]
+
+    # Factor the PSD cost quadratic form P = L L^T (tiny negative
+    # eigenvalues from rounding are clipped to zero).
+    evals, V = np.linalg.eigh(P)
+    L = V * np.sqrt(np.clip(evals, 0.0, None))
+    rank = L.shape[1]
+    q = f64(block_map.cost_q)
+    r = float(f64(block_map.cost_r))
+
+    def blockwise_L(Ot):  # (rows, K*n_theta) -> (rows, K*rank)
+        rows = Ot.shape[0]
+        return (Ot.reshape(rows, K, n_theta) @ L).reshape(rows, K * rank)
+
+    # Row order [w-rows; s-rows] matches sw = [w | s].
+    G = np.concatenate(
+        [
+            np.concatenate([N_T, M_T], axis=0),
+            np.concatenate([f64(block_map.OuW_T), f64(block_map.OuS_T)]),
+            np.concatenate([f64(block_map.OyW_T), f64(block_map.OyS_T)]),
+            np.concatenate([blockwise_L(OtW_T), blockwise_L(OtS_T)]),
+            np.concatenate(
+                [OtW_T.reshape(nw, K, n_theta) @ q,
+                 OtS_T.reshape(S, K, n_theta) @ q]
+            ),
+        ],
+        axis=1,
+    )
+    bias = np.concatenate(
+        [
+            f64(block_map.c),
+            f64(block_map.ou_c),
+            f64(block_map.oy_c),
+            (otc.reshape(K, n_theta) @ L).reshape(K * rank),
+            otc.reshape(K, n_theta) @ q + r,
+        ]
+    )
+    dev, dt = block_map.M_T.device, block_map.M_T.dtype
+    return FusedOperator(
+        G=torch.as_tensor(G, dtype=dt, device=dev).contiguous(),
+        bias=torch.as_tensor(bias, dtype=dt, device=dev).contiguous(),
+        S=S, nw=nw, Ku=Ku, Kp=Kp, K=K, rank=rank,
+    )
+
+
+def fused_rollout_reference(op: FusedOperator, s0: torch.Tensor,
+                            W: torch.Tensor, w_off: int = 0):
+    """Plain PyTorch version of the kernel, in the dtype of ``op``.
+
+    ``s0`` is the centered initial state ``(B, S)``; ``W`` the packed
+    noise ``(B, n_outer, nw)``; block t reads noise block ``(t + w_off)
+    mod n_outer``. Returns ``U (B, n_outer, Ku)``, ``Y (B, n_outer,
+    Kp)``, ``C (B, n_outer, K)`` and the final carry ``s_fin (B, S)``.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Bsz, n_outer, _ = W.shape
+    S, Ku, Kp, K, rank = op.S, op.Ku, op.Kp, op.K, op.rank
+    offY = S + Ku
+    offZ = offY + Kp
+    offQ = offZ + K * rank
+    kw = dict(dtype=op.G.dtype, device=op.G.device)
+    U = torch.empty((Bsz, n_outer, Ku), **kw)
+    Y = torch.empty((Bsz, n_outer, Kp), **kw)
+    C = torch.empty((Bsz, n_outer, K), **kw)
+    s = s0
+    for t in range(n_outer):
+        sw = torch.cat([W[:, (t + w_off) % n_outer], s], dim=1)
+        out = sw @ op.G + op.bias
+        U[:, t] = out[:, S:offY]
+        Y[:, t] = out[:, offY:offZ]
+        z = out[:, offZ:offQ].reshape(Bsz, K, rank)
+        C[:, t] = (z * z).sum(-1) + out[:, offQ:]
+        s = out[:, :S]
+    return U, Y, C, s.contiguous()
+
+
+def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
+                  w_off: int = 0):
+    """The fused rollout (same contract as
+    :func:`fused_rollout_reference`).
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel
+    ``csrc/fused_rollout.cu`` (float32, contiguous) and add one to
+    ``fused_rollout.launches``; anything the kernel does not take
+    raises."""
+    if s0.device.type == "cpu":
+        return fused_rollout_reference(op, s0, W, w_off)
+    if s0.device.type != "cuda":
+        raise ValueError(f"no fused rollout for device {s0.device}")
+    Bsz, n_outer, nw = W.shape
+    S = op.S
+    for name, t, shape in (
+        ("G", op.G, (op.nw + S, S + op.Ku + op.Kp + op.K * op.rank + op.K)),
+        ("bias", op.bias, (op.G.shape[1],)),
+        ("s0", s0, (Bsz, S)),
+        ("W", W, (Bsz, n_outer, op.nw)),
+    ):
+        if t.device != s0.device or t.dtype != torch.float32:
+            raise ValueError(
+                f"{name} must be float32 on {s0.device}; got {t.dtype} "
+                f"on {t.device}"
+            )
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 0 <= w_off < n_outer:
+        raise ValueError(f"w_off={w_off} outside [0, {n_outer})")
+
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("fused_rollout").lib
+    kw = dict(dtype=torch.float32, device=s0.device)
+    U = torch.empty((Bsz, n_outer, op.Ku), **kw)
+    Y = torch.empty((Bsz, n_outer, op.Kp), **kw)
+    C = torch.empty((Bsz, n_outer, op.K), **kw)
+    s_fin = torch.empty((Bsz, S), **kw)
+    with torch.cuda.device(s0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_rollout_launch(
+            op.G.data_ptr(), op.bias.data_ptr(), s0.data_ptr(),
+            W.data_ptr(), U.data_ptr(), Y.data_ptr(), C.data_ptr(),
+            s_fin.data_ptr(), Bsz, S, nw, op.Ku, op.Kp, op.K, op.rank,
+            n_outer, int(w_off), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"fused_rollout kernel launch failed: CUDA error {err}"
+        )
+    fused_rollout.launches += 1
+    return U, Y, C, s_fin
+
+
+#: Kernel launches made by :func:`fused_rollout` in this process.
+fused_rollout.launches = 0
+
+
+def _center_and_pack(block_map, x0s, u_pasts, y_pasts, Ws, n_outer,
+                     steps_per_outer, pad):
+    """Centered initial state ``(B, S)`` and the noise zero-padded to
+    whole outer blocks, batch-major ``(B, n_outer, nw)``, both in the
+    block map's dtype on its device."""
+    if block_map.n_r:
+        raise NotImplementedError(
+            "tracking block maps (n_r > 0) are not ported yet"
+        )
+    dtype = block_map.M_T.dtype
+    Bsz = x0s.shape[0]
+    p = y_pasts.shape[2]
+    s0 = torch.cat(
+        [x0s.reshape(Bsz, -1), u_pasts.reshape(Bsz, -1),
+         y_pasts.reshape(Bsz, -1)], dim=1,
+    ).to(dtype) - block_map.s_star
+    W = Ws.to(dtype)
+    if pad:
+        W = torch.cat(
+            [W, torch.zeros((Bsz, pad, p), dtype=dtype, device=W.device)],
+            dim=1,
+        )
+    return (
+        s0.contiguous(),
+        W.reshape(Bsz, n_outer, steps_per_outer * p).contiguous(),
+    )
+
+
+def _shape(block_map: AffineBlockMap, n_steps: int, n_mpc_step: int):
+    S = block_map.M_T.shape[0]
+    K = block_map.os_c.shape[0] // S
+    steps_per_outer = K * n_mpc_step
+    n_outer = math.ceil(n_steps / steps_per_outer)
+    return S, steps_per_outer, n_outer, n_outer * steps_per_outer - n_steps
+
+
+def make_fused_batched_rollout(
+    block_map: AffineBlockMap,
+    n_steps: int,
+    n_mpc_step: int = 1,
+    cost_precision: str = "high",
+):
+    """``run(x0s, u_pasts, y_pasts, Ws) -> ClosedLoopResult`` through
+    :func:`fused_rollout` (the kernel on CUDA tensors). The operator is
+    assembled here, once; inputs must be on the block map's device."""
+    _check_cost_precision(cost_precision)
+    S, steps_per_outer, n_outer, pad = _shape(
+        block_map, n_steps, n_mpc_step
+    )
+    n_solves = math.ceil(n_steps / n_mpc_step)
+    n_theta = block_map.cost_P.shape[0]
+    ns = S - n_theta
+    op = _build_fused_operator(block_map)
+
+    def run(x0s, u_pasts, y_pasts, Ws):
+        Bsz, n, m = u_pasts.shape
+        p = y_pasts.shape[2]
+        s0, W = _center_and_pack(
+            block_map, x0s, u_pasts, y_pasts, Ws, n_outer,
+            steps_per_outer, pad,
+        )
+        U, Y, C, s_fin = fused_rollout(op, s0, W)
+        s_fin = s_fin + block_map.s_star
+        costs = C.reshape(Bsz, -1)[:, :n_solves]
+        return ClosedLoopResult(
+            u_sys=U.reshape(Bsz, -1, m)[:, :n_steps],
+            y_sys=Y.reshape(Bsz, -1, p)[:, :n_steps],
+            costs=costs,
+            converged=torch.isfinite(costs),
+            x_final=s_fin[:, :ns],
+            u_past=s_fin[:, ns : ns + n * m].reshape(Bsz, n, m),
+            y_past=s_fin[:, ns + n * m :].reshape(Bsz, n, p),
+        )
+
+    return run
+
+
+def pallas_batched_rollout(
+    block_map: AffineBlockMap,
+    x0s: torch.Tensor,  # (B, ns)
+    u_pasts: torch.Tensor,  # (B, n, m)
+    y_pasts: torch.Tensor,  # (B, n, p)
+    Ws: torch.Tensor,  # (B, n_steps, p)
+    n_steps: int,
+    n_mpc_step: int = 1,
+    cost_precision: str = "high",
+) -> ClosedLoopResult:
+    """One-call form of :func:`make_fused_batched_rollout` (the name
+    of the JAX package's entry point)."""
+    return make_fused_batched_rollout(
+        block_map, n_steps, n_mpc_step=n_mpc_step,
+        cost_precision=cost_precision,
+    )(x0s, u_pasts, y_pasts, Ws)
+
+
+def make_amortized_run(
+    block_map: AffineBlockMap,
+    n_steps: int,
+    n_mpc_step: int = 1,
+    cost_precision: str = "high",
+    rollout=fused_rollout,
+):
+    """Throughput harness: ``run(x0s, u_pasts, y_pasts, Ws, R) ->
+    (checksum, ok)`` runs ``R`` back-to-back rollouts.
+
+    Repetition ``i`` rotates the noise by ``(-i) mod n_outer`` outer
+    blocks through the rollout's ``w_off`` index (no copy), so it equals
+    a rollout on the noise rolled by ``i`` blocks. Every repetition's
+    U, Y, last-block costs and final carry fold into a float32 checksum
+    carried on the device, so no repetition's work is dead.
+    ``rollout`` is :func:`fused_rollout` or, to time the plain version
+    on the same inputs, :func:`fused_rollout_reference`."""
+    _check_cost_precision(cost_precision)
+    _, steps_per_outer, n_outer, pad = _shape(
+        block_map, n_steps, n_mpc_step
+    )
+    op = _build_fused_operator(block_map)
+
+    def run(x0s, u_pasts, y_pasts, Ws, R):
+        s0, W = _center_and_pack(
+            block_map, x0s, u_pasts, y_pasts, Ws, n_outer,
+            steps_per_outer, pad,
+        )
+        checksum = torch.zeros((), dtype=torch.float32, device=s0.device)
+        for i in range(R):
+            U, Y, C, s_fin = rollout(op, s0, W, w_off=(-i) % n_outer)
+            checksum = checksum + (
+                C[:, -1].sum() + s_fin.sum() + U.sum() + Y.sum()
+            ).float()
+        return checksum, torch.isfinite(checksum)
+
+    return run

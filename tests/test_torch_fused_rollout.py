@@ -1,0 +1,253 @@
+"""PyTorch port, fused rollout (the module that holds the CUDA kernel):
+the fused operator, the plain version of the kernel and the batched
+entry points against the JAX package (its Pallas kernel in interpret
+mode and its XLA twin). The CUDA kernel itself is tested against the
+plain version in tests/test_torch_cuda.py, on a card."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from direct_data_driven_mpc_tpu.control.linear_engine import (  # noqa: E402
+    build_affine_block_map as jax_build_affine_block_map,
+)
+from direct_data_driven_mpc_tpu.ops import pallas_rollout as jpr  # noqa: E402
+from direct_data_driven_mpc_tpu_torch.control.linear_engine import (  # noqa: E402
+    AffineBlockMap,
+    block_map_from_numpy,
+    make_linear_batched_rollout,
+)
+from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr  # noqa: E402
+
+from tests.test_torch_host import port_setup  # noqa: E402
+
+B = 16
+
+
+def _jax_map(jplant, jctrl, K, jdtype=jnp.float32):
+    return jax_build_affine_block_map(
+        jplant.as_params(), jctrl.solution_operator(), n=4, m=2, p=2,
+        solves_per_block=K, dtype=jdtype,
+    )
+
+
+def _carry(jbm, dtype=torch.float32, device="cpu"):
+    """The JAX block map's fields, as the port's block map."""
+    return block_map_from_numpy(
+        {k: getattr(jbm, k) for k in AffineBlockMap._fields}, device,
+        dtype,
+    )
+
+
+def _inputs(jplant, jctrl, rng, n_steps, batch=B):
+    x0s = np.tile(jplant.get_state()[None], (batch, 1))
+    ups = np.tile(jctrl.u_past.reshape(1, 4, 2), (batch, 1, 1))
+    yps = np.tile(jctrl.y_past.reshape(1, 4, 2), (batch, 1, 1))
+    Ws = 0.002 * rng.uniform(-1, 1, (batch, n_steps, 2))
+    return x0s, ups, yps, Ws
+
+
+def _t(arrays, dtype=torch.float32, device="cpu"):
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrays]
+
+
+def _j(arrays):
+    return [jnp.asarray(a, jnp.float32) for a in arrays]
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return port_setup()
+
+
+def test_suggest_solves_per_block_matches_jax():
+    for args in ((4, 4, 2, 2), (10, 4, 2, 2)):
+        for n_steps in (None, 400, 37):
+            assert fr.suggest_solves_per_block(
+                *args, n_steps=n_steps
+            ) == jpr.suggest_solves_per_block(*args, n_steps=n_steps)
+    assert fr.suggest_solves_per_block(4, 4, 2, 2, n_steps=400) == 50
+
+
+def test_fused_operator_matches_jax_unpadded(setup):
+    """Same columns as the JAX operator without its 128-lane padding,
+    and, in float64, the factored cost reproduces the quadratic form."""
+    jplant, jctrl, _, rng = setup
+    K = 8
+    jbm = _jax_map(jplant, jctrl, K, jnp.float64)
+    op = fr._build_fused_operator(_carry(jbm, torch.float64))
+    G_j, bias_j, _, dims = jpr._build_fused_operator(jbm)
+    G_j, bias_j = np.asarray(G_j), np.asarray(bias_j)
+    widths = [op.S, op.Ku, op.Kp, op.K * op.rank, op.K]
+    assert widths[:3] == [dims["S"], dims["Ku"], dims["Kp"]]
+    assert op.G.shape == (op.nw + op.S, sum(widths))
+    cols, off = [], 0
+    for w, padded in zip(widths, dims["widths"]):
+        cols.append(np.arange(off, off + w))
+        off += padded
+    cols = np.concatenate(cols)
+    # JAX casts its operator to float32: compare at float32 rounding.
+    np.testing.assert_allclose(
+        op.G.float().numpy(), G_j[:, cols], rtol=1e-6, atol=1e-7
+    )
+    np.testing.assert_allclose(
+        op.bias.float().numpy(), bias_j[cols], rtol=1e-6, atol=1e-7
+    )
+
+    # Float64: costs through the factor equal theta P theta + q theta + r.
+    bm = _carry(jbm, torch.float64)
+    sw = torch.as_tensor(rng.uniform(-1, 1, (4, op.nw + op.S)))
+    out = sw @ op.G + op.bias
+    offZ = op.S + op.Ku + op.Kp
+    z = out[:, offZ : offZ + op.K * op.rank].reshape(4, op.K, op.rank)
+    cost = (z * z).sum(-1) + out[:, offZ + op.K * op.rank :]
+    w, s = sw[:, : op.nw], sw[:, op.nw :]
+    st = s @ bm.OsS_T + bm.os_c + w @ bm.OsW_T
+    theta = st.reshape(4, op.K, op.S)[:, :, op.S - 16 :]
+    ref = ((theta @ bm.cost_P) * theta).sum(-1) + theta @ bm.cost_q \
+        + bm.cost_r
+    np.testing.assert_allclose(cost.numpy(), ref.numpy(), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(
+        out[:, : op.S].numpy(), (s @ bm.M_T + bm.c + w @ bm.N_T).numpy(),
+        rtol=0, atol=1e-12,
+    )
+
+
+@pytest.mark.parametrize("n_steps", [40, 37])
+def test_plain_version_matches_jax_kernel(setup, n_steps):
+    jplant, jctrl, _, rng = setup
+    K = 8
+    jbm = _jax_map(jplant, jctrl, K)
+    inputs = _inputs(jplant, jctrl, rng, n_steps)
+    res = fr.pallas_batched_rollout(_carry(jbm), *_t(inputs), n_steps)
+    refs = {
+        "pallas": jpr.pallas_batched_rollout(
+            jbm, *_j(inputs), n_steps=n_steps, batch_block=8,
+            interpret=True,
+        ),
+        "xla": jpr.pallas_batched_rollout(
+            jbm, *_j(inputs), n_steps=n_steps, backend="xla",
+        ),
+    }
+    assert res.u_sys.shape == (B, n_steps, 2)
+    assert res.costs.shape == (B, n_steps)
+    for name, ref in refs.items():
+        for field in ("u_sys", "y_sys", "u_past", "y_past", "x_final"):
+            np.testing.assert_allclose(
+                getattr(res, field).numpy(),
+                np.asarray(getattr(ref, field)), rtol=0, atol=2e-5,
+                err_msg=f"{name}:{field}",
+            )
+        np.testing.assert_allclose(
+            res.costs.numpy(), np.asarray(ref.costs), rtol=1e-3,
+            atol=1e-5, err_msg=f"{name}:costs",
+        )
+
+
+def test_plain_version_matches_classic_engine(setup):
+    """Same block map, two engines of the port: the fused operator's
+    rollout against the condensed recursion it was fused from."""
+    jplant, jctrl, _, rng = setup
+    n_steps = 37
+    bm = _carry(_jax_map(jplant, jctrl, 8))
+    inputs = _t(_inputs(jplant, jctrl, rng, n_steps))
+    res = fr.make_fused_batched_rollout(bm, n_steps)(*inputs)
+    ref = make_linear_batched_rollout(bm, n_steps)(*inputs)
+    for field in ("u_sys", "y_sys", "x_final", "u_past", "y_past"):
+        np.testing.assert_allclose(
+            getattr(res, field).numpy(), getattr(ref, field).numpy(),
+            rtol=0, atol=2e-5, err_msg=field,
+        )
+    np.testing.assert_allclose(
+        res.costs.numpy(), ref.costs.numpy(), rtol=1e-3, atol=1e-5
+    )
+
+
+def test_cost_precisions_agree_bitwise(setup):
+    jplant, jctrl, _, rng = setup
+    n_steps = 40
+    bm = _carry(_jax_map(jplant, jctrl, 8))
+    inputs = _t(_inputs(jplant, jctrl, rng, n_steps))
+    out = {
+        cp: fr.pallas_batched_rollout(
+            bm, *inputs, n_steps, cost_precision=cp
+        )
+        for cp in ("high", "highest")
+    }
+    for field in ("u_sys", "y_sys", "x_final", "u_past", "y_past"):
+        torch.testing.assert_close(
+            getattr(out["high"], field), getattr(out["highest"], field),
+            rtol=0, atol=0,
+        )
+    torch.testing.assert_close(
+        out["high"].costs, out["highest"].costs, rtol=1e-3, atol=1e-5
+    )
+    with pytest.raises(ValueError, match="cost_precision"):
+        fr.make_fused_batched_rollout(bm, n_steps,
+                                      cost_precision="bfloat16")
+
+
+def test_amortized_run_matches_jax(setup):
+    jplant, jctrl, _, rng = setup
+    n_steps, R = 40, 3
+    jbm = _jax_map(jplant, jctrl, 8)
+    inputs = _inputs(jplant, jctrl, rng, n_steps)
+    checksum, ok = fr.make_amortized_run(_carry(jbm), n_steps)(
+        *_t(inputs), R
+    )
+    jsum, jok = jpr.make_amortized_pallas_run(
+        jbm, n_steps, batch_block=8, interpret=True
+    )(*_j(inputs), R)
+    assert bool(ok) and bool(jok)
+    np.testing.assert_allclose(float(checksum), float(jsum), rtol=1e-5)
+
+
+def test_rotation_index_equals_rolled_noise(setup):
+    jplant, jctrl, _, rng = setup
+    n_steps, K = 40, 8
+    bm = _carry(_jax_map(jplant, jctrl, K))
+    op = fr._build_fused_operator(bm)
+    s0, W = fr._center_and_pack(
+        bm, *_t(_inputs(jplant, jctrl, rng, n_steps)), n_steps // K, K, 0
+    )
+    for i in (0, 1, 3):
+        rolled = fr.fused_rollout_reference(
+            op, s0, torch.roll(W, i, dims=1).contiguous()
+        )
+        rotated = fr.fused_rollout_reference(
+            op, s0, W, w_off=(-i) % (n_steps // K)
+        )
+        for a, b in zip(rolled, rotated):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_cpu_tensors_take_plain_version(setup):
+    jplant, jctrl, _, rng = setup
+    n_steps, K = 40, 8
+    bm = _carry(_jax_map(jplant, jctrl, K))
+    op = fr._build_fused_operator(bm)
+    s0, W = fr._center_and_pack(
+        bm, *_t(_inputs(jplant, jctrl, rng, n_steps)), n_steps // K, K, 0
+    )
+    before = fr.fused_rollout.launches
+    got = fr.fused_rollout(op, s0, W, w_off=2)
+    want = fr.fused_rollout_reference(op, s0, W, w_off=2)
+    assert fr.fused_rollout.launches == before == 0
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    meta = fr.FusedOperator(op.G.to("meta"), op.bias.to("meta"),
+                            *op[2:])
+    with pytest.raises(ValueError, match="device"):
+        fr.fused_rollout(meta, s0.to("meta"), W.to("meta"))
+
+
+def test_tracking_maps_rejected(setup):
+    jplant, jctrl, _, _ = setup
+    bm = _carry(_jax_map(jplant, jctrl, 4))._replace(n_r=4)
+    with pytest.raises(NotImplementedError, match="tracking"):
+        fr.make_fused_batched_rollout(bm, 16)
