@@ -1,17 +1,21 @@
-"""Direct data-driven MPC controller (Nominal / Robust, slack ``NONE``).
+"""Direct data-driven MPC controller (Nominal / Robust, slack ``NONE``
+or ``CONVEX``).
 
 Counterpart of ``direct_data_driven_mpc_tpu/control/controller.py``
 with the same constructor, validation rules and method names.
-Construction assembles the static QP once (float64) and derives the
-exact affine solution operator; the per-step solve is a numpy matvec.
-The condensed engine (``control.linear_engine``) takes the operator
-from :meth:`DirectDataDrivenMPCController.solution_operator`.
+Construction assembles the static QP once (float64) and derives either
+the exact affine solution operator (slack ``NONE``; the per-step solve
+is a numpy matvec) or the pre-factorised ADMM operator (``CONVEX``; the
+per-step solve is a warm-started host ADMM, ``qp.admm.admm_solve_np``).
+The condensed engine (``control.linear_engine``) takes the affine
+operator from :meth:`DirectDataDrivenMPCController.solution_operator`;
+the fused ADMM engine (``ops.fused_admm``) takes
+``qp.admm.compute_admm_operator_np(controller.spec)``.
 
-Not ported yet (ROADMAP.md, queue 1): the CONVEX slack variant (item
-"Generic engine and iterative solvers", ``qp/admm.py``) and the
-NON_CONVEX one (item "The remaining solvers and utilities",
-``qp/nonconvex.py``). The C runtime under ``native/`` is not bound, so
-every per-step solve runs in numpy, which :attr:`solve_path` records.
+Not ported yet: the NON_CONVEX slack variant (ROADMAP.md queue 1, item
+"The remaining solvers and utilities", ``qp/nonconvex.py``). The C
+runtime under ``native/`` is not bound, so every per-step solve runs in
+numpy, which :attr:`solve_path` records.
 """
 
 from __future__ import annotations
@@ -24,6 +28,10 @@ from direct_data_driven_mpc_tpu_torch.ops.host import (
     evaluate_persistent_excitation_np,
     hankel_matrix_np,
 )
+from direct_data_driven_mpc_tpu_torch.qp.admm import (
+    admm_solve_np,
+    compute_admm_operator_np,
+)
 from direct_data_driven_mpc_tpu_torch.qp.assembly import build_qp_spec
 from direct_data_driven_mpc_tpu_torch.qp.solution_map import (
     compute_solution_operator_np,
@@ -35,10 +43,6 @@ from direct_data_driven_mpc_tpu_torch.qp.spec import (
 )
 
 _UNPORTED_SLACK = {
-    SlackVarConstraintTypes.CONVEX: (
-        "ROADMAP.md queue 1, 'Generic engine and iterative solvers' "
-        "(qp/admm.py)"
-    ),
     SlackVarConstraintTypes.NON_CONVEX: (
         "ROADMAP.md queue 1, 'The remaining solvers and utilities' "
         "(qp/nonconvex.py)"
@@ -80,6 +84,7 @@ class DirectDataDrivenMPCController:
         controller_type: DataDrivenMPCType = DataDrivenMPCType.NOMINAL,
         n_mpc_step: int = 1,
         use_terminal_constraint: bool = True,
+        admm_iters: int = 200,
     ):
         self.controller_type = controller_type
         if controller_type not in (
@@ -130,7 +135,7 @@ class DirectDataDrivenMPCController:
                     f"{slack_var_constraint_type.name} slack is not "
                     "ported to the PyTorch package yet; see "
                     f"{_UNPORTED_SLACK[slack_var_constraint_type]}. "
-                    "Use SlackVarConstraintTypes.NONE."
+                    "Use SlackVarConstraintTypes.NONE or CONVEX."
                 )
 
         if not 1 <= n_mpc_step <= L:
@@ -139,6 +144,9 @@ class DirectDataDrivenMPCController:
             )
         self.n_mpc_step = n_mpc_step
         self.use_terminal_constraint = use_terminal_constraint
+        #: Iteration cap of the per-step ADMM solve (CONVEX slack).
+        self.admm_iters = admm_iters
+        self._admm_state = None
         self._status = "unsolved"
         self._cost_value: Optional[float] = None
 
@@ -206,7 +214,8 @@ class DirectDataDrivenMPCController:
     # --- construction --------------------------------------------------
     def initialize_data_driven_mpc(self) -> None:
         """Build the Hankels, assemble the static QP, derive the affine
-        solution operator and validate it with an initial solve."""
+        solution operator (or, for CONVEX slack, the ADMM operator) and
+        validate it with an initial solve."""
         self.HLn_ud = hankel_matrix_np(self.u_d, self.L + self.n)
         self.HLn_yd = hankel_matrix_np(self.y_d, self.L + self.n)
 
@@ -227,14 +236,22 @@ class DirectDataDrivenMPCController:
             slack_var_constraint_type=self.slack_var_constraint_type,
             use_terminal_constraint=self.use_terminal_constraint,
         )
-        self._op = compute_solution_operator_np(self._spec)
-        if not self._op["feasible"]:
-            raise ValueError(
-                "MPC problem is infeasible: the equality "
-                "constraints are inconsistent (primal residuals "
-                f"{self._op['primal_residual_const']:.2e} const / "
-                f"{self._op['primal_residual_gain']:.2e} gain)."
-            )
+        self._use_admm = (
+            self._spec.slack_var_constraint_type
+            == SlackVarConstraintTypes.CONVEX
+        )
+        if self._use_admm:
+            self._op = compute_admm_operator_np(self._spec)
+        else:
+            self._op = compute_solution_operator_np(self._spec)
+            if not self._op["feasible"]:
+                raise ValueError(
+                    "MPC problem is infeasible: the equality "
+                    "constraints are inconsistent (primal residuals "
+                    f"{self._op['primal_residual_const']:.2e} const / "
+                    f"{self._op['primal_residual_gain']:.2e} gain)."
+                )
+        self._admm_state = None
         self.update_and_solve_data_driven_mpc()
 
     @property
@@ -245,7 +262,14 @@ class DirectDataDrivenMPCController:
     def solution_operator(self) -> dict:
         """The float64 affine solution operator: the entry for
         ``control.linear_engine.build_affine_block_map``. Keys:
-        ``z_base, Z, u_base, U_gain, cost_P, cost_q, cost_r``."""
+        ``z_base, Z, u_base, U_gain, cost_P, cost_q, cost_r``. A CONVEX
+        slack controller has none and raises."""
+        if self._use_admm:
+            raise ValueError(
+                "CONVEX slack controllers do not condense to an affine "
+                "operator; use qp.admm.compute_admm_operator_np(spec) "
+                "with ops.fused_admm."
+            )
         return self._op
 
     # --- per-step solve ------------------------------------------------
@@ -261,22 +285,40 @@ class DirectDataDrivenMPCController:
         self.get_optimal_control_input()
 
     def solve_mpc_problem(self) -> str:
+        """Solve at the current past window. Status ``optimal``;
+        for CONVEX slack ``optimal_inaccurate`` when the ADMM run hit
+        ``admm_iters`` before its residuals reached 1e-8; ``infeasible``
+        for a non-finite input."""
         theta = self._theta()
         op = self._op
-        u = op["u_base"] + op["U_gain"] @ theta
+        converged = True
+        if self._use_admm:
+            u, cost, self._admm_state, stats = admm_solve_np(
+                op, theta, num_iters=self.admm_iters,
+                state=self._admm_state,
+            )
+            converged = stats.converged
+        else:
+            u = op["u_base"] + op["U_gain"] @ theta
+            cost = float(
+                theta @ op["cost_P"] @ theta
+                + op["cost_q"] @ theta
+                + op["cost_r"]
+            )
         self._u_opt = u
-        self._cost_value = float(
-            theta @ op["cost_P"] @ theta
-            + op["cost_q"] @ theta
-            + op["cost_r"]
-        )
-        self._status = "optimal" if np.isfinite(u).all() else "infeasible"
+        self._cost_value = cost
+        if not np.isfinite(u).all():
+            self._status = "infeasible"
+        else:
+            self._status = "optimal" if converged else "optimal_inaccurate"
         return self._status
 
     def optimal_solution(self) -> np.ndarray:
         """The full optimal decision vector ``z*`` at the current past
-        window (for KKT-residual checks)."""
-        return self._op["z_base"] + self._op["Z"] @ self._theta()
+        window (for KKT-residual checks; slack NONE only)."""
+        return self.solution_operator()["z_base"] + (
+            self._op["Z"] @ self._theta()
+        )
 
     def get_problem_solve_status(self) -> str:
         return self._status
@@ -286,7 +328,7 @@ class DirectDataDrivenMPCController:
 
     def get_optimal_control_input(self) -> np.ndarray:
         """Store and return ``ubar*[0, L-1]`` flattened."""
-        if self._status == "optimal":
+        if self._status in ("optimal", "optimal_inaccurate"):
             self.optimal_u = self._u_opt.flatten()
             return self.optimal_u
         raise ValueError("MPC problem was not solved optimally.")

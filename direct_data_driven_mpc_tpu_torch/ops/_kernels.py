@@ -28,10 +28,18 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C signatures: name -> (argtypes, restype).
 _SIGNATURES = {
     "fused_rollout": {
         "fused_rollout_launch": ([_P] * 8 + [_I] * 9 + [_P], ctypes.c_int),
+    },
+    "fused_admm": {
+        "fused_admm_tile_rows": ([_I] * 5, ctypes.c_int),
+        "fused_admm_smem_bytes": ([_I] * 5, ctypes.c_int),
+        "fused_admm_launch": (
+            [_P] * 24 + [_I] * 8 + [_F] * 3 + [_P], ctypes.c_int
+        ),
     },
 }
 

@@ -1,0 +1,474 @@
+// Fused batched ADMM closed loop (float32, Hopper sm_90a).
+//
+// Replaces direct_data_driven_mpc_tpu/ops/pallas_admm.py::
+// _make_admm_kernel (its math: _make_block_math, _make_iter_extract,
+// _make_plant_step). The TPU kernel's sequential time axis of the grid
+// becomes a loop inside each thread block, and its VMEM scratch carry
+// becomes shared memory. A block owns TB scenarios for the whole
+// rollout; per solve block t it computes
+//
+//   (adds)   pre += a_pre;  vc += a_vc;  zth += a_z           (tracking)
+//   n_iter:  v  = (s - w) @ Vop + vc
+//            vh = alpha v + beta s          (beta = 1 - alpha)
+//            s' = clip(vh + w, lo, hi);  w' = w + vh - s'
+//   extract: m1 = (s - w) @ M1
+//            u = clip(pre_u + m1_u, u_lo, u_hi)
+//            cost = sum_j (zth_j + m1_z,j)^2 + (pre_q + m1_q)
+//            rp = max |v_last - s|,  rd = rho max |s - s_prev|
+//   plant:   [s_flat | u | w_noise] @ M2 + b2
+//              -> [s_flat' | pre_u' | y | pre_q' | vc' | zth']
+//
+// The operators are per scenario: the TPU kernel packed 128 / seg
+// scenarios per row through block-diagonal operators to fill its
+// 128-lane matrix unit, which here would only double the work. All
+// products run in float32 FMA; the TPU's bf16 1-pass / 3-pass tiers are
+// not ported (the schedule's iteration counts are summed into n_iter).
+//
+// What bounds it on the H100: at four-tank (nbox = 60, nxi = 76,
+// S = 20) a solve is ~96 kFLOP (n_iter = 11 iterations of a 60 x 60
+// product, the 60 x 79 extraction and the 24 x 161 plant product)
+// against ~28 bytes of HBM traffic (noise in; u, y, cost, rp, rd out),
+// so the kernel is bound by the float32 FMA pipes and by how well they
+// are fed from shared memory. The design keeps every operator
+// (49 KB at four-tank) and every scenario's carry resident in shared
+// memory for the whole rollout, so nothing but the noise and the
+// outputs touches HBM between solves. Every product is a SIMT
+// register-tiled GEMM over the block's scenarios: the A operand (s - w,
+// or [s | u | w]) is stored scenario-minor, so a thread's four
+// scenarios load as one float4, and each thread accumulates a 4 x 4
+// tile (16 FMAs per two shared-memory float4 loads), its epilogue
+// fusing the elementwise ADMM update or the extraction. Each output
+// is one FMA chain over the contraction in a fixed order, residual
+// maxima are exact (atomicMax on the bits of non-negative floats) and
+// each cost is summed in column order by one thread, so results are
+// deterministic. The elementwise update uses __fmul_rn / __fadd_rn so
+// nvcc does not contract it into FMAs: it rounds as the plain PyTorch
+// version does.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -shared -Xcompiler -fPIC -o libfused_admm.so fused_admm.cu
+
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr size_t SMEM_LIMIT = 232448;  // opt-in shared memory per block
+
+__host__ __device__ inline int ceil4(int x) { return (x + 3) & ~3; }
+
+// Sizes of one launch. Operator rows are padded to a multiple of four
+// floats (zeros) so a thread's four columns load as one float4.
+struct Shape {
+  int B, S, nbm, nbp, nbox, nxi, n_blocks, n_iter;
+  int Mw, D2, W1, W2;      // pre width, plant input, M1 and M2 widths
+  int ldv, ld1, ld2, ldu;  // padded rows of Vop, M1, M2, u bounds
+  int TB, LDS;             // scenarios per block, carry row stride
+};
+
+__host__ __device__ inline Shape make_shape(int S, int nbm, int nbp,
+                                            int nbox, int nxi, int TB) {
+  Shape d{};
+  d.S = S;
+  d.nbm = nbm;
+  d.nbp = nbp;
+  d.nbox = nbox;
+  d.nxi = nxi;
+  d.Mw = nbm + 1;
+  d.D2 = S + nbm + nbp;
+  d.W1 = d.Mw + nxi;
+  d.W2 = S + nbm + nbp + 1 + nbox + nxi;
+  d.ldv = ceil4(nbox);
+  d.ld1 = ceil4(d.W1);
+  d.ld2 = ceil4(d.W2);
+  d.ldu = ceil4(nbm);
+  d.TB = TB;
+  d.LDS = TB + 4;
+  return d;
+}
+
+// Shared-memory floats of the operators and of the per-scenario carry
+// (rows of LDS floats), in the order the kernel lays them out.
+__host__ __device__ inline size_t op_floats(const Shape& d) {
+  return (size_t)d.nbox * d.ldv + (size_t)d.nbox * d.ld1 +
+         (size_t)d.D2 * d.ld2 + d.ld2 + 2 * (size_t)d.ldv + 2 * (size_t)d.ldu;
+}
+__host__ __device__ inline int carry_rows(const Shape& d) {
+  // xin, snext, pre, vc, zth, sa, wa, d[2]
+  return d.D2 + d.S + d.Mw + d.nbox + d.nxi + 4 * d.nbox;
+}
+size_t smem_bytes(const Shape& d) {
+  return sizeof(float) *
+         (op_floats(d) + (size_t)carry_rows(d) * d.LDS + 2 * (size_t)d.TB);
+}
+
+struct Params {
+  const float *Vop, *M1, *M2, *b2, *lo, *hi, *u_lo, *u_hi;
+  const float *s0, *pre0, *vc0, *zth0, *sa0, *wa0, *W, *adds;
+  float *U, *Y, *C, *RP, *RD, *s_fin, *sa_fin, *wa_fin;
+  float alpha, beta, rho;
+};
+
+// Copy a (rows, width) row-major operator into shared memory with rows
+// of ld floats, zero past width.
+__device__ void load_op(float* dst, const float* __restrict__ src, int rows,
+                        int width, int ld) {
+  for (int idx = threadIdx.x; idx < rows * ld; idx += THREADS) {
+    const int r = idx / ld, c = idx - r * ld;
+    dst[idx] = c < width ? src[(size_t)r * width + c] : 0.f;
+  }
+}
+
+// Load a batch-major (B, width) carry into scenario-minor rows
+// dst[j * LDS + r]; rows past B are zero.
+__device__ void load_carry(float* dst, const float* __restrict__ src,
+                           int width, int row0, const Shape& d) {
+  for (int idx = threadIdx.x; idx < d.TB * width; idx += THREADS) {
+    const int r = idx / width, j = idx - r * width;
+    const int b = row0 + r;
+    dst[j * d.LDS + r] = b < d.B ? src[(size_t)b * width + j] : 0.f;
+  }
+}
+
+__device__ void store_carry(float* __restrict__ dst, const float* src,
+                            int width, int row0, const Shape& d) {
+  for (int idx = threadIdx.x; idx < d.TB * width; idx += THREADS) {
+    const int r = idx / width, j = idx - r * width;
+    const int b = row0 + r;
+    if (b < d.B) dst[(size_t)b * width + j] = src[j * d.LDS + r];
+  }
+}
+
+// out[r][c] = sum_k A[k][r] * Op[k][c] for the block's TB scenarios and
+// ncols columns, in 4 x 4 register tiles; epi(r0, c0, acc) consumes a
+// tile (scenarios r0..r0+3, columns c0..c0+3, possibly past ncols). A
+// thread always gets the same tiles for the same (TB, ncols).
+template <class Epi>
+__device__ __forceinline__ void tile_product(const float* A, int lda,
+                                             const float* Op, int ldo,
+                                             int K, int ncols, int TB,
+                                             Epi&& epi) {
+  const int ncg = (ncols + 3) >> 2;
+  const int n_tiles = (TB >> 2) * ncg;
+  for (int tile = threadIdx.x; tile < n_tiles; tile += THREADS) {
+    const int rg = tile / ncg, cg = tile - rg * ncg;
+    const float* a = A + 4 * rg;
+    const float* o = Op + 4 * cg;
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float4 a4 = *reinterpret_cast<const float4*>(a + k * lda);
+      const float4 o4 = *reinterpret_cast<const float4*>(o + k * ldo);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float ov[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], ov[c], acc[r][c]);
+    }
+    epi(4 * rg, 4 * cg, acc);
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// max(a, b) that keeps a NaN, as torch.amax does: a lane that went
+// non-finite reports a NaN residual and is never counted converged.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (b > a || b != b) ? b : a;
+}
+
+__global__ void __launch_bounds__(THREADS)
+fused_admm_kernel(const Params P, const Shape d) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int LDS = d.LDS, TB = d.TB;
+  const int S = d.S, nbm = d.nbm, nbp = d.nbp, nbox = d.nbox, nxi = d.nxi;
+  const int Mw = d.Mw;
+  const int row0 = blockIdx.x * TB;
+  const int tid = threadIdx.x;
+
+  // Operators.
+  float* Vop = sm;
+  float* M1 = Vop + nbox * d.ldv;
+  float* M2 = M1 + nbox * d.ld1;
+  float* b2 = M2 + d.D2 * d.ld2;
+  float* lo = b2 + d.ld2;
+  float* hi = lo + d.ldv;
+  float* ulo = hi + d.ldv;
+  float* uhi = ulo + d.ldu;
+  // Per-scenario carry, scenario-minor rows of LDS floats.
+  float* xin = uhi + d.ldu;           // (D2): [s_flat | u | w_noise]
+  float* snext = xin + d.D2 * LDS;    // (S)
+  float* pre = snext + S * LDS;       // (Mw): [u_theta | q]
+  float* vc = pre + Mw * LDS;         // (nbox)
+  float* zth = vc + nbox * LDS;       // (nxi)
+  float* sa = zth + nxi * LDS;        // (nbox)
+  float* wa = sa + nbox * LDS;        // (nbox)
+  float* dbuf = wa + nbox * LDS;      // (2, nbox): s - w, double-buffered
+  int* rp_bits = reinterpret_cast<int*>(dbuf + 2 * nbox * LDS);  // (TB)
+  int* rd_bits = rp_bits + TB;                                   // (TB)
+
+  load_op(Vop, P.Vop, nbox, nbox, d.ldv);
+  load_op(M1, P.M1, nbox, d.W1, d.ld1);
+  load_op(M2, P.M2, d.D2, d.W2, d.ld2);
+  load_op(b2, P.b2, 1, d.W2, d.ld2);
+  load_op(lo, P.lo, 1, nbox, d.ldv);
+  load_op(hi, P.hi, 1, nbox, d.ldv);
+  load_op(ulo, P.u_lo, 1, nbm, d.ldu);
+  load_op(uhi, P.u_hi, 1, nbm, d.ldu);
+  load_carry(xin, P.s0, S, row0, d);
+  load_carry(pre, P.pre0, Mw, row0, d);
+  load_carry(vc, P.vc0, nbox, row0, d);
+  load_carry(zth, P.zth0, nxi, row0, d);
+  load_carry(sa, P.sa0, nbox, row0, d);
+  load_carry(wa, P.wa0, nbox, row0, d);
+  __syncthreads();
+  for (int idx = tid; idx < nbox * LDS; idx += THREADS)
+    dbuf[idx] = __fsub_rn(sa[idx], wa[idx]);
+  int cur = 0;  // dbuf + cur * nbox * LDS holds s - w
+  const int Wadd = Mw + nbox + nxi;
+
+  for (int t = 0; t < d.n_blocks; ++t) {
+    // This block's noise lands in xin's w rows while the iterations run.
+    for (int idx = tid; idx < TB * nbp; idx += THREADS) {
+      const int r = idx / nbp, i = idx - r * nbp;
+      const int b = row0 + r;
+      float* dst = xin + (S + nbm + i) * LDS + r;
+      if (b < d.B)
+        __pipeline_memcpy_async(
+            dst, P.W + ((size_t)b * d.n_blocks + t) * nbp + i, sizeof(float));
+      else
+        *dst = 0.f;
+    }
+    __pipeline_commit();
+    if (P.adds != nullptr) {
+      const float* a = P.adds + (size_t)t * Wadd;
+      for (int idx = tid; idx < Wadd * TB; idx += THREADS) {
+        const int j = idx / TB, r = idx - j * TB;
+        // pre, vc and zth are consecutive rows of the carry.
+        pre[j * LDS + r] = __fadd_rn(pre[j * LDS + r], a[j]);
+      }
+    }
+    for (int r = tid; r < TB; r += THREADS) rp_bits[r] = rd_bits[r] = 0;
+    __syncthreads();
+
+    // ADMM iterations.
+    for (int it = 0; it < d.n_iter; ++it) {
+      const float* dc = dbuf + cur * nbox * LDS;
+      float* dn = dbuf + (cur ^ 1) * nbox * LDS;
+      const bool last = it == d.n_iter - 1;
+      tile_product(dc, LDS, Vop, d.ldv, nbox, nbox, TB,
+                   [&](int r0, int c0, float (&acc)[4][4]) {
+        float rpm[4] = {0.f, 0.f, 0.f, 0.f}, rdm[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = c0 + c;
+          if (col >= nbox) break;
+          const int o = col * LDS + r0;
+          const float4 vc4 = ld4(vc + o), s4 = ld4(sa + o), w4 = ld4(wa + o);
+          const float vcv[4] = {vc4.x, vc4.y, vc4.z, vc4.w};
+          const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+          const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+          float sn[4], wn[4], dnv[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float v = __fadd_rn(acc[r][c], vcv[r]);
+            const float vh =
+                __fadd_rn(__fmul_rn(P.alpha, v), __fmul_rn(P.beta, sv[r]));
+            sn[r] = fminf(fmaxf(__fadd_rn(vh, wv[r]), lo[col]), hi[col]);
+            wn[r] = __fsub_rn(__fadd_rn(wv[r], vh), sn[r]);
+            dnv[r] = __fsub_rn(sn[r], wn[r]);
+            if (last) {
+              rpm[r] = nan_max(rpm[r], fabsf(__fsub_rn(v, sn[r])));
+              rdm[r] = nan_max(rdm[r], fabsf(__fsub_rn(sn[r], sv[r])));
+            }
+          }
+          *reinterpret_cast<float4*>(sa + o) =
+              make_float4(sn[0], sn[1], sn[2], sn[3]);
+          *reinterpret_cast<float4*>(wa + o) =
+              make_float4(wn[0], wn[1], wn[2], wn[3]);
+          *reinterpret_cast<float4*>(dn + o) =
+              make_float4(dnv[0], dnv[1], dnv[2], dnv[3]);
+        }
+        if (last) {
+          // Non-negative floats order as their bit patterns (a NaN above
+          // every number).
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            atomicMax(&rp_bits[r0 + r], __float_as_int(rpm[r]));
+            atomicMax(&rd_bits[r0 + r], __float_as_int(rdm[r]));
+          }
+        }
+      });
+      cur ^= 1;
+      __syncthreads();
+    }
+
+    // Extraction: t = s - w through M1.
+    const float* tv = dbuf + cur * nbox * LDS;
+    tile_product(tv, LDS, M1, d.ld1, nbox, d.W1, TB,
+                 [&](int r0, int c0, float (&acc)[4][4]) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = c0 + c;
+        if (col >= d.W1) break;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int rr = r0 + r;
+          if (col < nbm) {
+            const float u =
+                fminf(fmaxf(__fadd_rn(pre[col * LDS + rr], acc[r][c]),
+                            ulo[col]),
+                      uhi[col]);
+            xin[(S + col) * LDS + rr] = u;
+            const int b = row0 + rr;
+            if (b < d.B) P.U[((size_t)b * d.n_blocks + t) * nbm + col] = u;
+          } else if (col == nbm) {
+            pre[col * LDS + rr] = __fadd_rn(pre[col * LDS + rr], acc[r][c]);
+          } else {
+            float* zp = zth + (col - Mw) * LDS + rr;
+            const float z = __fadd_rn(*zp, acc[r][c]);
+            *zp = __fmul_rn(z, z);
+          }
+        }
+      }
+    });
+    __pipeline_wait_prior(0);
+    __syncthreads();  // u, z^2, q and the noise are in
+
+    // Cost and residuals, one thread per scenario, in a fixed order.
+    for (int r = tid; r < TB; r += THREADS) {
+      const int b = row0 + r;
+      float c = 0.f;
+      for (int j = 0; j < nxi; ++j) c = __fadd_rn(c, zth[j * LDS + r]);
+      c = __fadd_rn(c, pre[nbm * LDS + r]);
+      float rp = __int_as_float(rp_bits[r]);
+      float rd = __int_as_float(rd_bits[r]);
+      if (d.n_iter == 0) {  // v_last = s_prev = 0: both are max |s|
+        rp = 0.f;
+        for (int j = 0; j < nbox; ++j)
+          rp = nan_max(rp, fabsf(sa[j * LDS + r]));
+        rd = rp;
+      }
+      if (b < d.B) {
+        const size_t o = (size_t)b * d.n_blocks + t;
+        P.C[o] = c;
+        P.RP[o] = rp;
+        P.RD[o] = __fmul_rn(P.rho, rd);
+      }
+    }
+    __syncthreads();  // zth and pre are read before M2 overwrites them
+
+    // Plant step and the next solve's maps: [s_flat | u | w] through M2.
+    const int oU = S, oY = S + nbm, oQ = S + nbm + nbp, oV = oQ + 1;
+    const int oZ = oV + nbox;
+    tile_product(xin, LDS, M2, d.ld2, d.D2, d.W2, TB,
+                 [&](int r0, int c0, float (&acc)[4][4]) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = c0 + c;
+        if (col >= d.W2) break;
+        const float bias = b2[col];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int rr = r0 + r;
+          const float v = __fadd_rn(acc[r][c], bias);
+          if (col < oU) {
+            snext[col * LDS + rr] = v;
+          } else if (col < oY) {
+            pre[(col - oU) * LDS + rr] = v;
+          } else if (col < oQ) {
+            const int b = row0 + rr;
+            if (b < d.B)
+              P.Y[((size_t)b * d.n_blocks + t) * nbp + (col - oY)] = v;
+          } else if (col == oQ) {
+            pre[nbm * LDS + rr] = v;
+          } else if (col < oZ) {
+            vc[(col - oV) * LDS + rr] = v;
+          } else {
+            zth[(col - oZ) * LDS + rr] = v;
+          }
+        }
+      }
+    });
+    __syncthreads();
+    for (int idx = tid; idx < S * LDS; idx += THREADS) xin[idx] = snext[idx];
+    // The next block's first barrier orders this copy before M2 reads
+    // xin again.
+  }
+  __syncthreads();
+  store_carry(P.s_fin, xin, S, row0, d);
+  store_carry(P.sa_fin, sa, nbox, row0, d);
+  store_carry(P.wa_fin, wa, nbox, row0, d);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Scenarios per block the kernel uses for these sizes (the largest of
+// 64, 32, 16, 8, 4 whose operators and carry fit in shared memory), or
+// 0 when none fits.
+int fused_admm_tile_rows(int S, int nbm, int nbp, int nbox, int nxi) {
+  for (int TB = 64; TB >= 4; TB /= 2)
+    if (smem_bytes(make_shape(S, nbm, nbp, nbox, nxi, TB)) <= SMEM_LIMIT)
+      return TB;
+  return 0;
+}
+
+// Dynamic shared memory, in bytes, of a block at those sizes (0 when
+// none fits).
+int fused_admm_smem_bytes(int S, int nbm, int nbp, int nbox, int nxi) {
+  const int TB = fused_admm_tile_rows(S, nbm, nbp, nbox, nxi);
+  return TB ? (int)smem_bytes(make_shape(S, nbm, nbp, nbox, nxi, TB)) : 0;
+}
+
+// Launches the rollout on `stream`; returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue when the sizes do not fit. Pointers
+// are device pointers to contiguous float32 arrays: operators Vop
+// (nbox, nbox), M1 (nbox, nbm+1+nxi), M2 (S+nbm+nbp, W2), b2 (W2), lo,
+// hi (nbox), u_lo, u_hi (nbm); carries s0 (B, S), pre0 (B, nbm+1), vc0,
+// sa0, wa0 (B, nbox), zth0 (B, nxi); noise W (B, n_blocks, nbp); adds
+// (n_blocks, nbm+1+nbox+nxi) or null; outputs U (B, n_blocks, nbm),
+// Y (B, n_blocks, nbp), C, RP, RD (B, n_blocks), s_fin (B, S), sa_fin,
+// wa_fin (B, nbox).
+int fused_admm_launch(const float* Vop, const float* M1, const float* M2,
+                      const float* b2, const float* lo, const float* hi,
+                      const float* u_lo, const float* u_hi, const float* s0,
+                      const float* pre0, const float* vc0, const float* zth0,
+                      const float* sa0, const float* wa0, const float* W,
+                      const float* adds, float* U, float* Y, float* C,
+                      float* RP, float* RD, float* s_fin, float* sa_fin,
+                      float* wa_fin, int B, int S, int nbm, int nbp,
+                      int nbox, int nxi, int n_blocks, int n_iter,
+                      float alpha, float beta, float rho, void* stream) {
+  const int TB = fused_admm_tile_rows(S, nbm, nbp, nbox, nxi);
+  if (TB == 0 || B < 1 || n_blocks < 1 || n_iter < 0)
+    return (int)cudaErrorInvalidValue;
+  Shape d = make_shape(S, nbm, nbp, nbox, nxi, TB);
+  d.B = B;
+  d.n_blocks = n_blocks;
+  d.n_iter = n_iter;
+  const size_t smem = smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const Params P{Vop, M1,   M2,    b2,  lo,  hi,    u_lo,   u_hi,
+                 s0,  pre0, vc0,   zth0, sa0, wa0,  W,      adds,
+                 U,   Y,    C,     RP,  RD,  s_fin, sa_fin, wa_fin,
+                 alpha, beta, rho};
+  const dim3 grid((B + TB - 1) / TB);
+  fused_admm_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(P, d);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

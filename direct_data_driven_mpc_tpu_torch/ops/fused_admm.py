@@ -1,0 +1,669 @@
+"""Fused batched ADMM closed loop: the operators, the kernel's wrapper,
+its plain PyTorch version and the batched entry points.
+
+The iterative solver variants (the CONVEX slack box of the reference,
+direct_data_driven_mpc_controller.py:658-675, and the single-rung
+input/output box of ``qp/box.py``) run the whole closed loop as one
+kernel: per solve, ``n_iter`` warm-started over-relaxed ADMM iterations
+on the ``(nbox, nbox)`` operator, the extraction of the applied input,
+the cost and the residuals, and one fused product that takes the plant
+step and builds the next solve's theta-side maps::
+
+    v  = (s - w) @ Vop + vc;  vh = alpha v + (1 - alpha) s
+    s  = clip(vh + w, lo, hi);  w += vh - s                  (n_iter times)
+    m1 = (s - w) @ M1          -> u = clip(pre_u + m1_u), cost, rp, rd
+    [s_flat | u | w_noise] @ M2 + b2 -> [s' | u_theta' | y | q_theta' |
+                                         vc' | z_theta']
+
+Everything a solve carries stays on the chip between solves. The rollout
+runs as the hand-written CUDA kernel ``csrc/fused_admm.cu`` on CUDA
+tensors (:func:`fused_admm`) and as :func:`fused_admm_reference` on CPU
+tensors and in comparisons.
+
+Counterpart of ``direct_data_driven_mpc_tpu/ops/pallas_admm.py``
+(``_normalize_admm_op``, ``_openloop_block_rows``, ``FusedADMMDims``,
+``build_fused_admm_operator``, ``compute_setpoint_adds``, the block math
+of ``_make_block_math``/``_make_iter_extract``/``_make_plant_step``,
+``_make_admm_kernel``, ``make_fused_admm_rollout`` and the amortized
+loop of ``bench.py``). Differences from the TPU layout, on purpose:
+
+- no scenario packing: the operators are per scenario (``Vop = V_s^T``
+  is ``nbox x nbox``), where the TPU packed ``128 // seg`` scenarios per
+  row through block-diagonal operators to fill its 128-lane matrix unit;
+- batch-major inputs and outputs ``(B, n_blocks, ...)`` instead of the
+  TPU's batch-minor tiles;
+- one float32 precision. The TPU schedule ``iters = (n1, n3, n6)`` ran
+  its tiers as 1-pass bf16, 3-pass bf16 and 6-pass matrix products;
+  here all ``n1 + n3 + n6`` iterations, the cold start and every
+  extraction and plant product run in float32 (TF32 off). The tuple is
+  kept so a caller finds the counterpart.
+
+The adaptive penalty ladder (kernel K5, ``_make_ladder_kernel``) is not
+ported yet; a multi-rung box operator raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from direct_data_driven_mpc_tpu_torch.control.loop import ClosedLoopResult
+from direct_data_driven_mpc_tpu_torch.qp.admm import ADMMState
+
+_OP_KEYS = ("v_c", "V_theta", "V_s", "u_c", "U_theta", "U_s", "cost_P",
+            "cost_q", "cost_r")
+
+
+def _normalize_admm_op(op: dict) -> dict:
+    """Accept both ``qp.admm`` (CONVEX slack) and single-rung
+    ``qp.box`` operator dicts (from this package or the JAX one);
+    return a uniform float64 dict."""
+    out = {}
+    if np.asarray(op["V_s"]).ndim == 3:  # box ladder: require one rung
+        if op["V_s"].shape[0] != 1:
+            raise ValueError(
+                "the fused ADMM engine needs a SINGLE-rung operator "
+                "(build the box operator with a fixed rho; the adaptive "
+                "ladder is kernel K5, not ported yet)."
+            )
+        for k in _OP_KEYS:
+            out[k] = np.asarray(op[k], np.float64)[0]
+        for k in ("lo", "hi", "u_lo", "u_hi"):
+            out[k] = np.asarray(op[k], np.float64)
+        out["rho"] = float(np.asarray(op["rhos"]).ravel()[0])
+    else:
+        for k in _OP_KEYS:
+            out[k] = np.asarray(op[k], np.float64)
+        # Optional setpoint-delta channels (return_setpoint_maps=True).
+        for k in ("V_r", "U_r", "cost_P_ext", "cost_q_ext", "r_bar"):
+            if k in op:
+                out[k] = np.asarray(op[k], np.float64)
+        nbox = out["v_c"].shape[0]
+        b = float(op["bound"])
+        out["lo"] = np.full(nbox, -b)
+        out["hi"] = np.full(nbox, b)
+        nu = out["u_c"].shape[0]
+        out["u_lo"] = np.full(nu, -np.inf)
+        out["u_hi"] = np.full(nu, np.inf)
+        out["rho"] = float(op["rho"])
+    out["alpha"] = float(op["alpha"])
+    return out
+
+
+def _openloop_block_rows(plant, n: int, m: int, p: int, nb: int):
+    """Open-loop Algorithm-2 solve block as row operators on the
+    homogeneous vector ``[s; 1; u_blk; w_blk]`` (float64 host): ``nb``
+    plant steps with the applied input as an input channel. Returns
+    ``(SP, OutY)``: the next condensed state ``s' = [x'; u_past';
+    y_past']`` and the measured outputs."""
+    A = np.asarray(plant.A, np.float64)
+    B = np.asarray(plant.B, np.float64)
+    C = np.asarray(plant.C, np.float64)
+    D = np.asarray(plant.D, np.float64)
+    ns = A.shape[0]
+    n_theta = n * (m + p)
+    S = ns + n_theta
+    Dfull = S + 1 + nb * m + nb * p
+    X = np.zeros((ns, Dfull))
+    X[:, :ns] = np.eye(ns)
+    TH = np.zeros((n_theta, Dfull))
+    TH[:, ns:S] = np.eye(n_theta)
+    out_y = np.zeros((nb * p, Dfull))
+    for j in range(nb):
+        Uj = np.zeros((m, Dfull))
+        Uj[:, S + 1 + j * m : S + 1 + (j + 1) * m] = np.eye(m)
+        Wj = np.zeros((p, Dfull))
+        off = S + 1 + nb * m + j * p
+        Wj[:, off : off + p] = np.eye(p)
+        Yj = C @ X + D @ Uj + Wj
+        X = A @ X + B @ Uj
+        TH = np.concatenate(
+            [TH[m : n * m], Uj, TH[n * m + p :], Yj], axis=0
+        )
+        out_y[j * p : (j + 1) * p] = Yj
+    SP = np.concatenate([X, TH], axis=0)
+    return SP, out_y
+
+
+class FusedADMMDims(NamedTuple):
+    """Sizes of one fused ADMM engine. ``Mw = nb*m + 1`` is the width of
+    ``pre = [u_theta | q_theta]``; ``nxi`` the cost features ``[theta;
+    t]`` (``+ m + p`` with tracking); ``D2 = S + nb*m + nb*p`` the plant
+    product's input ``[s | u | w]``; ``W2`` its output ``[s' |
+    u_theta' | y | q_theta' | vc' | z_theta']``."""
+
+    ns: int
+    n: int
+    m: int
+    p: int
+    nb: int
+    S: int
+    n_theta: int
+    nbox: int
+    nxi: int
+    Mw: int
+    D2: int
+    W2: int
+    rho: float
+    alpha: float
+
+
+class FusedADMMOperator(NamedTuple):
+    """The fused operators on one device (per scenario, unpacked).
+
+    ``Gpre`` ``(S, Mw + nbox + nxi)`` maps the initial state to the first
+    solve's ``[pre | vc | z_theta]``; ``Vop`` ``(nbox, nbox)`` is the
+    iteration operator; ``M1`` ``(nbox, Mw + nxi)`` maps ``t = s - w`` to
+    ``[u | q | z]`` additions; ``M2`` ``(D2, W2)`` with bias ``b2`` is the
+    plant step and next-solve maps. ``track`` holds the host float64
+    setpoint channels (None without tracking)."""
+
+    Gpre: torch.Tensor
+    bpre: torch.Tensor
+    Vop: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+    M1: torch.Tensor
+    M2: torch.Tensor
+    b2: torch.Tensor
+    u_lo: torch.Tensor
+    u_hi: torch.Tensor
+    track: Optional[dict]
+
+
+class ADMMCarry(NamedTuple):
+    """What the engine carries from one solve to the next, batch-major:
+    the plant window ``s (B, S)``, the theta-side maps ``pre (B, Mw)``,
+    ``vc (B, nbox)``, ``zth (B, nxi)`` and the ADMM state ``sa``, ``wa``
+    ``(B, nbox)``."""
+
+    s: torch.Tensor
+    pre: torch.Tensor
+    vc: torch.Tensor
+    zth: torch.Tensor
+    sa: torch.Tensor
+    wa: torch.Tensor
+
+
+def build_fused_admm_operator(
+    plant,
+    admm_op: dict,
+    n: int,
+    m: int,
+    p: int,
+    n_mpc_step: int = 1,
+    track: bool = False,
+    device="cpu",
+    dtype=torch.float32,
+) -> Tuple[FusedADMMOperator, FusedADMMDims]:
+    """Host float64 assembly of the fused-engine operators, cast once at
+    the end to ``dtype`` on ``device``.
+
+    ``plant`` is an ``LTIParams`` (host matrices); ``admm_op`` a float64
+    dict from ``qp.admm.compute_admm_operator_np`` or a single-rung
+    ``qp.box.compute_box_admm_operator_np`` (of this package or the JAX
+    one). ``track=True`` (needs an operator built with
+    ``return_setpoint_maps=True``) extends the cost features to
+    ``[theta; t; dr]`` so a per-block setpoint delta enters as three
+    additive channels on the carried maps (:func:`compute_setpoint_adds`);
+    the iteration operator does not depend on the setpoint.
+    """
+    op = _normalize_admm_op(admm_op)
+    ns = np.asarray(plant.A).shape[0]
+    nb = n_mpc_step
+    n_theta = n * (m + p)
+    S = ns + n_theta
+    nbox = op["v_c"].shape[0]
+    nbm, nbp = nb * m, nb * p
+    nxi = n_theta + nbox + ((m + p) if track else 0)
+    Mw = nbm + 1
+    if op["V_theta"].shape[1] != n_theta:
+        raise ValueError(
+            f"operator theta width {op['V_theta'].shape[1]} != "
+            f"n*(m+p) = {n_theta}"
+        )
+    if nbm > op["u_c"].shape[0]:
+        raise ValueError(
+            f"n_mpc_step ({nb}) exceeds the optimized horizon."
+        )
+    if track and "V_r" not in op:
+        raise ValueError(
+            "setpoint tracking needs the dr channels: build the "
+            "operator with compute_admm_operator_np("
+            "return_setpoint_maps=True)."
+        )
+
+    V_theta, V_s, v_c = op["V_theta"], op["V_s"], op["v_c"]
+    U_theta, U_s, u_c = op["U_theta"], op["U_s"], op["u_c"]
+    if track:
+        cost_P, cost_q = op["cost_P_ext"], op["cost_q_ext"]
+    else:
+        cost_P, cost_q = op["cost_P"], op["cost_q"]
+    cost_r = float(op["cost_r"])
+    # PSD factor of the joint cost quadratic: P = Lc Lc^T.
+    evals, V = np.linalg.eigh(0.5 * (cost_P + cost_P.T))
+    Lc = V * np.sqrt(np.clip(evals, 0.0, None))  # (nxi, nxi)
+    Lc_th = Lc[:n_theta]
+    Lc_t = Lc[n_theta : n_theta + nbox]
+    q_th = cost_q[:n_theta]
+    q_t = cost_q[n_theta : n_theta + nbox]
+
+    # Gpre: s (S) -> [u_theta (nbm) | q_theta (1) | vc (nbox) | zth (nxi)].
+    TH0 = np.zeros((n_theta, S))
+    TH0[:, ns:] = np.eye(n_theta)
+    Gpre = np.concatenate(
+        [(U_theta[:nbm] @ TH0).T, (q_th @ TH0)[:, None],
+         (V_theta @ TH0).T, (Lc_th.T @ TH0).T], axis=1,
+    )
+    bpre = np.concatenate(
+        [u_c[:nbm], [cost_r], v_c, np.zeros(nxi)]
+    )
+
+    # M1: t (nbox) -> [u add (nbm) | q add (1) | z add (nxi)].
+    M1 = np.concatenate([U_s[:nbm].T, q_t[:, None], Lc_t], axis=1)
+
+    # M2: [s (S) | u (nbm) | w (nbp)] -> [s' | u_theta' | y | q_theta' |
+    # vc' | zth'], from affine rows on [s; 1; u; w].
+    SP, OutY = _openloop_block_rows(plant, n, m, p, nb)
+    th_rows = SP[ns:]  # theta after the block
+
+    def derived(mat, const):
+        rows = mat @ th_rows
+        rows[:, S] += const
+        return rows
+
+    rows = np.concatenate(
+        [
+            SP,
+            derived(U_theta[:nbm], u_c[:nbm]),
+            OutY,
+            derived(q_th[None, :], np.array([cost_r])),
+            derived(V_theta, v_c),
+            derived(Lc_th.T, np.zeros(nxi)),
+        ],
+        axis=0,
+    )
+    M2 = np.concatenate([rows[:, :S], rows[:, S + 1 :]], axis=1).T
+    b2 = rows[:, S]
+
+    dims = FusedADMMDims(
+        ns=ns, n=n, m=m, p=p, nb=nb, S=S, n_theta=n_theta, nbox=nbox,
+        nxi=nxi, Mw=Mw, D2=S + nbm + nbp, W2=M2.shape[1],
+        rho=float(op["rho"]), alpha=float(op["alpha"]),
+    )
+    tk = None
+    if track:
+        # Host float64 dr-channel maps for compute_setpoint_adds.
+        tk = {
+            "V_r": op["V_r"],
+            "U_r_nb": op["U_r"][:nbm],
+            "q_dr": cost_q[n_theta + nbox :],
+            "Lc_dr": Lc[n_theta + nbox :],
+            "r_bar": op["r_bar"],
+        }
+
+    def dev(a):
+        return torch.as_tensor(
+            np.ascontiguousarray(a), dtype=dtype, device=device
+        )
+
+    ops = FusedADMMOperator(
+        Gpre=dev(Gpre), bpre=dev(bpre), Vop=dev(V_s.T), lo=dev(op["lo"]),
+        hi=dev(op["hi"]), M1=dev(M1), M2=dev(M2), b2=dev(b2),
+        u_lo=dev(op["u_lo"][:nbm]), u_hi=dev(op["u_hi"][:nbm]), track=tk,
+    )
+    return ops, dims
+
+
+def compute_setpoint_adds(ops: FusedADMMOperator, dims: FusedADMMDims,
+                          setpoints) -> torch.Tensor:
+    """Per-block additive channels for a setpoint schedule (host float64,
+    cast to the operators' dtype and device): row t is ``[pre add (Mw) |
+    vc add (nbox) | zth add (nxi)]`` for ``dr_t = r_t - r_bar``. The
+    cross and pure dr terms of the cost ride the extended z features
+    (``zth add = Lc_dr' dr``) plus one scalar (``q_dr . dr``), so the
+    per-solve cost stays the same factored quadratic."""
+    tk = ops.track
+    if tk is None:
+        raise ValueError("operators were built without track=True")
+    sp = np.asarray(setpoints, np.float64)
+    if sp.ndim == 1:
+        sp = sp[None]
+    dr = sp - tk["r_bar"]
+    adds = np.concatenate(
+        [dr @ tk["U_r_nb"].T, (dr @ tk["q_dr"])[:, None],
+         dr @ tk["V_r"].T, dr @ tk["Lc_dr"]], axis=1,
+    )
+    return torch.as_tensor(adds, dtype=ops.Vop.dtype, device=ops.Vop.device)
+
+
+def fused_admm_reference(ops: FusedADMMOperator, dims: FusedADMMDims,
+                         carry: ADMMCarry, W: torch.Tensor, n_iter: int,
+                         adds: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the kernel, in the dtype of ``ops``: one
+    solve block per step of a Python loop, the same math and iteration
+    count as the kernel.
+
+    ``W`` is the noise ``(B, n_blocks, nb*p)``; ``adds`` the optional
+    setpoint channels ``(n_blocks, Mw + nbox + nxi)``. Returns ``U (B,
+    n_blocks, nb*m)``, ``Y (B, n_blocks, nb*p)``, the cost ``C``, the
+    primal and dual residuals ``RP``, ``RD`` (each ``(B, n_blocks)``)
+    and the final ``s (B, S)``, ``sa``, ``wa`` ``(B, nbox)``.
+
+    The products are split at the cost features (``M1``'s z columns,
+    ``M2``'s zth' columns), so u, y and the carried state do not depend
+    on the width of the cost features: a tracked run at ``dr = 0``
+    reproduces the untracked one bit for bit.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Bsz, n_blocks, _ = W.shape
+    S, nbox, Mw = dims.S, dims.nbox, dims.Mw
+    nbm, nbp = dims.nb * dims.m, dims.nb * dims.p
+    alpha, beta, rho = dims.alpha, 1.0 - dims.alpha, dims.rho
+    Wc = S + nbm + nbp + 1 + nbox  # M2 columns before zth'
+    M1u = ops.M1[:, :Mw].contiguous()
+    M1z = ops.M1[:, Mw:].contiguous()
+    M2c, b2c = ops.M2[:, :Wc].contiguous(), ops.b2[:Wc]
+    M2z, b2z = ops.M2[:, Wc:].contiguous(), ops.b2[Wc:]
+    kw = dict(dtype=ops.Vop.dtype, device=ops.Vop.device)
+    U = torch.empty((Bsz, n_blocks, nbm), **kw)
+    Y = torch.empty((Bsz, n_blocks, nbp), **kw)
+    C = torch.empty((Bsz, n_blocks), **kw)
+    RP = torch.empty((Bsz, n_blocks), **kw)
+    RD = torch.empty((Bsz, n_blocks), **kw)
+    s_flat, pre, vc, zth, s, w = carry
+    for t in range(n_blocks):
+        if adds is not None:
+            pre = pre + adds[t, :Mw]
+            vc = vc + adds[t, Mw : Mw + nbox]
+            zth = zth + adds[t, Mw + nbox :]
+        v_last = torch.zeros_like(s)
+        s_prev = torch.zeros_like(s)
+        for _ in range(n_iter):
+            v = (s - w) @ ops.Vop + vc
+            vh = alpha * v + beta * s
+            s_new = torch.clamp(vh + w, ops.lo, ops.hi)
+            w = w + vh - s_new
+            v_last, s_prev, s = v, s, s_new
+        RP[:, t] = (v_last - s).abs().amax(1)
+        RD[:, t] = rho * (s - s_prev).abs().amax(1)
+        tv = s - w
+        m1 = tv @ M1u
+        u = torch.clamp(pre[:, :nbm] + m1[:, :nbm], ops.u_lo, ops.u_hi)
+        z = zth + tv @ M1z
+        C[:, t] = (z * z).sum(1) + (pre[:, nbm] + m1[:, nbm])
+        U[:, t] = u
+        in2 = torch.cat([s_flat, u, W[:, t]], dim=1)
+        out = in2 @ M2c + b2c
+        s_flat = out[:, :S]
+        pre = torch.cat(
+            [out[:, S : S + nbm], out[:, S + nbm + nbp : Wc - nbox]], dim=1
+        )
+        Y[:, t] = out[:, S + nbm : S + nbm + nbp]
+        vc = out[:, Wc - nbox :]
+        zth = in2 @ M2z + b2z
+    return U, Y, C, RP, RD, s_flat.contiguous(), s, w
+
+
+def _check_kernel_inputs(ops, dims, carry, W, adds):
+    dev = carry.s.device
+    Bsz, n_blocks = W.shape[:2]
+    nbm, nbp = dims.nb * dims.m, dims.nb * dims.p
+    S, nbox, nxi, Mw = dims.S, dims.nbox, dims.nxi, dims.Mw
+    shapes = [
+        ("Vop", ops.Vop, (nbox, nbox)),
+        ("lo", ops.lo, (nbox,)),
+        ("hi", ops.hi, (nbox,)),
+        ("M1", ops.M1, (nbox, Mw + nxi)),
+        ("M2", ops.M2, (dims.D2, dims.W2)),
+        ("b2", ops.b2, (dims.W2,)),
+        ("u_lo", ops.u_lo, (nbm,)),
+        ("u_hi", ops.u_hi, (nbm,)),
+        ("s", carry.s, (Bsz, S)),
+        ("pre", carry.pre, (Bsz, Mw)),
+        ("vc", carry.vc, (Bsz, nbox)),
+        ("zth", carry.zth, (Bsz, nxi)),
+        ("sa", carry.sa, (Bsz, nbox)),
+        ("wa", carry.wa, (Bsz, nbox)),
+        ("W", W, (Bsz, n_blocks, nbp)),
+    ]
+    if adds is not None:
+        shapes.append(("adds", adds, (n_blocks, Mw + nbox + nxi)))
+    for name, t, shape in shapes:
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(
+                f"{name} must be float32 on {dev}; got {t.dtype} on "
+                f"{t.device}"
+            )
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if Bsz < 1 or n_blocks < 1:
+        raise ValueError(f"empty batch or rollout: W {tuple(W.shape)}")
+
+
+def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
+               carry: ADMMCarry, W: torch.Tensor, n_iter: int,
+               adds: Optional[torch.Tensor] = None):
+    """The fused ADMM rollout (same contract as
+    :func:`fused_admm_reference`).
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel
+    ``csrc/fused_admm.cu`` (float32, contiguous) and add one to
+    ``fused_admm.launches``; anything the kernel does not take (dtype,
+    shape, contiguity, operators too large for its shared-memory plan)
+    raises."""
+    if carry.s.device.type == "cpu":
+        return fused_admm_reference(ops, dims, carry, W, n_iter, adds)
+    if carry.s.device.type != "cuda":
+        raise ValueError(f"no fused ADMM rollout for device "
+                         f"{carry.s.device}")
+    _check_kernel_inputs(ops, dims, carry, W, adds)
+    if n_iter < 0:
+        raise ValueError(f"n_iter={n_iter} must be >= 0")
+
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("fused_admm").lib
+    Bsz, n_blocks, nbp = W.shape
+    nbm = dims.nb * dims.m
+    sizes = (dims.S, nbm, nbp, dims.nbox, dims.nxi)
+    if lib.fused_admm_tile_rows(*sizes) == 0:
+        raise ValueError(
+            f"operators too large for the kernel's shared-memory plan "
+            f"(S={dims.S}, nbox={dims.nbox}, nxi={dims.nxi}, "
+            f"nb*m={nbm}, nb*p={nbp})"
+        )
+    kw = dict(dtype=torch.float32, device=carry.s.device)
+    U = torch.empty((Bsz, n_blocks, nbm), **kw)
+    Y = torch.empty((Bsz, n_blocks, nbp), **kw)
+    C, RP, RD = (torch.empty((Bsz, n_blocks), **kw) for _ in range(3))
+    s_fin = torch.empty((Bsz, dims.S), **kw)
+    sa_fin = torch.empty((Bsz, dims.nbox), **kw)
+    wa_fin = torch.empty((Bsz, dims.nbox), **kw)
+    with torch.cuda.device(carry.s.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_admm_launch(
+            ops.Vop.data_ptr(), ops.M1.data_ptr(), ops.M2.data_ptr(),
+            ops.b2.data_ptr(), ops.lo.data_ptr(), ops.hi.data_ptr(),
+            ops.u_lo.data_ptr(), ops.u_hi.data_ptr(),
+            *(c.data_ptr() for c in carry), W.data_ptr(),
+            adds.data_ptr() if adds is not None else None,
+            U.data_ptr(), Y.data_ptr(), C.data_ptr(), RP.data_ptr(),
+            RD.data_ptr(), s_fin.data_ptr(), sa_fin.data_ptr(),
+            wa_fin.data_ptr(),
+            Bsz, *sizes, n_blocks, int(n_iter),
+            dims.alpha, 1.0 - dims.alpha, dims.rho, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"fused_admm kernel launch failed: CUDA error {err}"
+        )
+    fused_admm.launches += 1
+    return U, Y, C, RP, RD, s_fin, sa_fin, wa_fin
+
+
+#: Kernel launches made by :func:`fused_admm` in this process.
+fused_admm.launches = 0
+
+
+def make_fused_admm_rollout(
+    plant,
+    admm_op: dict,
+    n: int,
+    m: int,
+    p: int,
+    n_steps: int,
+    n_mpc_step: int = 1,
+    iters: Tuple[int, int, int] = (0, 10, 2),
+    cold_iters: int = 24,
+    tol: float = 1e-5,
+    setpoints=None,
+    device="cpu",
+    dtype=torch.float32,
+    rollout=fused_admm,
+):
+    """Build the fused batched ADMM closed-loop rollout.
+
+    Args:
+        plant: LTI plant matrices (``LTIParams``, the simulated system).
+        admm_op: float64 operator dict from ``compute_admm_operator_np``
+            (CONVEX slack) or a single-rung
+            ``compute_box_admm_operator_np`` (fixed rho).
+        n, m, p: controller model order / input / output dims.
+        n_steps: closed-loop length (ragged: the last solve block is
+            cut to the remaining steps).
+        n_mpc_step: plant steps per solve (Algorithm 2).
+        iters: per-solve iteration schedule ``(n1, n3, n6)`` of the JAX
+            engine; every tier runs in float32 here, so only the sum
+            ``n1 + n3 + n6`` matters. Convergence is reported per solve
+            (``converged = (rp <= tol) & (rd <= tol)``), not assumed.
+        cold_iters: iterations run before the kernel (plain PyTorch, on
+            the same device) when no warm-start state is given.
+        tol: residual tolerance of the ``converged`` lanes.
+        setpoints: optional schedule of absolute ``[u_s; y_s]`` rows,
+            ``(n_blocks, m + p)`` (one per solve block) or ``(m + p,)``
+            (constant); needs ``admm_op`` built with
+            ``return_setpoint_maps=True``. Enters as per-block additive
+            channels; the ADMM state warm-starts across changes.
+        device, dtype: where and in which dtype the operators live; the
+            inputs of ``run`` must be there too.
+        rollout: :func:`fused_admm` (the kernel on CUDA tensors) or
+            :func:`fused_admm_reference` (the plain version anywhere).
+
+    Returns ``run(x0s, u_pasts, y_pasts, Ws, solver_state0=None) ->
+    ClosedLoopResult`` with ``solver_state = ADMMState(s, w)`` of shape
+    ``(B, nbox)``; pass it back as ``solver_state0`` to continue a
+    segmented run.
+    """
+    track = setpoints is not None
+    ops, dims = build_fused_admm_operator(
+        plant, admm_op, n, m, p, n_mpc_step=n_mpc_step, track=track,
+        device=device, dtype=dtype,
+    )
+    nb, S, ns, nbox, Mw = dims.nb, dims.S, dims.ns, dims.nbox, dims.Mw
+    n_blocks = math.ceil(n_steps / nb)
+    pad = n_blocks * nb - n_steps
+    n_iter = int(sum(iters))
+    adds = None
+    if track:
+        sp = np.asarray(setpoints, np.float64)
+        if sp.ndim == 1:
+            sp = np.tile(sp[None], (n_blocks, 1))
+        if sp.shape != (n_blocks, m + p):
+            raise ValueError(
+                f"setpoints shape {sp.shape} != ({n_blocks}, {m + p}) "
+                f"(one [u_s; y_s] row per solve block)"
+            )
+        adds = compute_setpoint_adds(ops, dims, sp)
+    # Split at the cost features, as in the plain version, so the first
+    # solve's u and vc do not depend on the tracking width.
+    Gc = ops.Gpre[:, : Mw + nbox].contiguous()
+    Gz = ops.Gpre[:, Mw + nbox :].contiguous()
+    alpha, beta = dims.alpha, 1.0 - dims.alpha
+
+    def run(x0s, u_pasts, y_pasts, Ws, solver_state0=None):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        Bsz = x0s.shape[0]
+        s0 = torch.cat(
+            [x0s.reshape(Bsz, -1), u_pasts.reshape(Bsz, -1),
+             y_pasts.reshape(Bsz, -1)], dim=1,
+        ).to(dtype)
+        # Theta-side maps of solve 0.
+        pv = s0 @ Gc + ops.bpre[: Mw + nbox]
+        zth0 = s0 @ Gz + ops.bpre[Mw + nbox :]
+        pre0, vc0 = pv[:, :Mw], pv[:, Mw:]
+        if solver_state0 is None:
+            sa0 = torch.zeros((Bsz, nbox), dtype=dtype, device=s0.device)
+            wa0 = torch.zeros_like(sa0)
+            # Cold start outside the kernel, at the first block's
+            # setpoint (the engine adds block 0's channels itself, so
+            # vc0 passes through unmodified).
+            vc_cold = vc0 if adds is None else vc0 + adds[0, Mw : Mw + nbox]
+            for _ in range(cold_iters):
+                v = (sa0 - wa0) @ ops.Vop + vc_cold
+                vh = alpha * v + beta * sa0
+                s_new = torch.clamp(vh + wa0, ops.lo, ops.hi)
+                wa0 = wa0 + vh - s_new
+                sa0 = s_new
+        else:
+            sa0 = solver_state0[0].to(dtype)
+            wa0 = solver_state0[1].to(dtype)
+        W = Ws.to(dtype)
+        if pad:
+            W = torch.cat(
+                [W, torch.zeros((Bsz, pad, dims.p), dtype=dtype,
+                                device=W.device)], dim=1,
+            )
+        W = W.reshape(Bsz, n_blocks, nb * dims.p)
+        carry = ADMMCarry(*(c.contiguous() for c in
+                            (s0, pre0, vc0, zth0, sa0, wa0)))
+        U, Y, C, RP, RD, s_fin, sa, wa = rollout(
+            ops, dims, carry, W.contiguous(), n_iter, adds
+        )
+        return ClosedLoopResult(
+            u_sys=U.reshape(Bsz, -1, dims.m)[:, :n_steps],
+            y_sys=Y.reshape(Bsz, -1, dims.p)[:, :n_steps],
+            costs=C,
+            converged=(RP <= tol) & (RD <= tol),
+            x_final=s_fin[:, :ns],
+            u_past=s_fin[:, ns : ns + n * m].reshape(Bsz, n, m),
+            y_past=s_fin[:, ns + n * m :].reshape(Bsz, n, p),
+            solver_state=ADMMState(s=sa, w=wa),
+        )
+
+    return run
+
+
+def make_amortized_admm_run(plant, admm_op: dict, n: int, m: int, p: int,
+                            n_steps: int, **kwargs):
+    """Throughput harness (the amortized loop of ``bench.py``):
+    ``run(x0s, u_pasts, y_pasts, Ws, R) -> (checksum, ok)`` runs ``R``
+    back-to-back rollouts, repetition ``i`` on the noise rolled by ``i``
+    steps (``torch.roll`` along time). Every repetition's last-solve
+    costs, u and y fold into a float32 checksum carried on the device,
+    and ``ok`` is true only if the checksum is finite and every solve of
+    every repetition converged, so no repetition's work is dead.
+    ``kwargs`` go to :func:`make_fused_admm_rollout` (``rollout=`` picks
+    the kernel or the plain version)."""
+    rollout_fn = make_fused_admm_rollout(
+        plant, admm_op, n, m, p, n_steps, **kwargs
+    )
+
+    def run(x0s, u_pasts, y_pasts, Ws, R):
+        checksum = torch.zeros((), dtype=torch.float32, device=x0s.device)
+        ok = torch.ones((), dtype=torch.bool, device=x0s.device)
+        for i in range(R):
+            res = rollout_fn(x0s, u_pasts, y_pasts, torch.roll(Ws, i, dims=1))
+            checksum = checksum + (
+                res.costs[:, -1].sum() + res.u_sys.sum() + res.y_sys.sum()
+            ).float()
+            ok = ok & res.converged.all()
+        return checksum, ok & torch.isfinite(checksum)
+
+    return run

@@ -115,6 +115,61 @@ def solution_operator_from_numpy(arrays: dict) -> dict:
     return op
 
 
+def setpoint_channels_np(spec: QPSpec):
+    """Host float64 derivation of the QP's setpoint channels: ``g(r) =
+    Gamma r``, ``b_const(r) = S_r r``, ``r0(r) = r' R0 r`` for ``r =
+    [u_s; y_s]`` (``qp/assembly.py``: both g and b_const vanish at
+    r = 0). Each channel is checked against the baked ``spec.g`` /
+    ``spec.b_const`` / ``spec.r0`` at the spec's own setpoints, so a
+    wrong derivation raises. Returns ``(Gamma, S_r, R0, r_bar)``."""
+    d = spec.dims
+    n, m, p, L = d.n, d.m, d.p, d.L
+    nz, nc = spec.nz, spec.nc
+    if spec.u_s is None or spec.y_s is None:
+        raise ValueError(
+            "spec does not carry its baked setpoints; the setpoint "
+            "channels cannot be checked."
+        )
+    r_bar = np.concatenate([spec.u_s, spec.y_s])
+
+    up, yp = spec.u_pred_slice, spec.y_pred_slice
+    T_u = np.tile(np.eye(m), (L, 1))  # u_sL = T_u @ u_s
+    T_y = np.tile(np.eye(p), (L, 1))
+
+    # g(r) = Gamma @ r  (assembly: g[up] = -H[up,up] @ T_u u_s, ...)
+    Gamma = np.zeros((nz, m + p))
+    Gamma[up, :m] = -spec.H[up, up.start : up.stop] @ T_u
+    Gamma[yp, m:] = -spec.H[yp, yp.start : yp.stop] @ T_y
+    if not np.allclose(Gamma @ r_bar, spec.g, atol=1e-12):
+        raise AssertionError(
+            "setpoint-linearity derivation of g does not reproduce the "
+            "assembled spec.g"
+        )
+
+    # b(theta, r) = S theta + S_r r (terminal rows tile the setpoints).
+    S_r = np.zeros((nc, m + p))
+    if spec.use_terminal_constraint:
+        t0 = nc - n * (m + p)
+        S_r[t0 : t0 + n * m, :m] = np.tile(np.eye(m), (n, 1))
+        S_r[t0 + n * m :, m:] = np.tile(np.eye(p), (n, 1))
+    if not np.allclose(S_r @ r_bar, spec.b_const, atol=1e-12):
+        raise AssertionError(
+            "setpoint-linearity derivation of b_const does not "
+            "reproduce the assembled spec.b_const"
+        )
+
+    # r0(r) = r^T R0 r.
+    R0 = np.zeros((m + p, m + p))
+    R0[:m, :m] = 0.5 * T_u.T @ spec.H[up, up.start : up.stop] @ T_u
+    R0[m:, m:] = 0.5 * T_y.T @ spec.H[yp, yp.start : yp.stop] @ T_y
+    if not np.isclose(r_bar @ R0 @ r_bar, spec.r0, atol=1e-10):
+        raise AssertionError(
+            "setpoint-quadratic derivation of r0 does not reproduce "
+            "the assembled spec.r0"
+        )
+    return Gamma, S_r, R0, r_bar
+
+
 def kkt_residuals(spec: QPSpec, z: np.ndarray, theta: np.ndarray) -> dict:
     """Stationarity and primal residuals of a candidate solution (an
     exact KKT point of a convex QP is its optimum)."""

@@ -1,5 +1,6 @@
-"""PyTorch port, the CUDA kernel on a card: ``fused_rollout`` against
-its plain PyTorch version and against the framework-free goldens.
+"""PyTorch port, the CUDA kernels on a card: ``fused_rollout`` and
+``fused_admm`` against their plain PyTorch versions and against the
+framework-free goldens.
 
 These tests need an NVIDIA card and skip without one. This file
 imports no JAX, so on a machine without it run them with
@@ -21,8 +22,15 @@ from direct_data_driven_mpc_tpu_torch.control.controller import (  # noqa: E402
 from direct_data_driven_mpc_tpu_torch.control.linear_engine import (  # noqa: E402
     build_linear_engine,
 )
+from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa  # noqa: E402
 from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr  # noqa: E402
 from direct_data_driven_mpc_tpu_torch.ops.lti import LTIParams  # noqa: E402
+from direct_data_driven_mpc_tpu_torch.qp.admm import (  # noqa: E402
+    compute_admm_operator_np,
+)
+from direct_data_driven_mpc_tpu_torch.qp.box import (  # noqa: E402
+    compute_box_admm_operator_np,
+)
 from direct_data_driven_mpc_tpu_torch.qp.spec import (  # noqa: E402
     DataDrivenMPCType,
     SlackVarConstraintTypes,
@@ -32,6 +40,9 @@ pytestmark = pytest.mark.cuda
 
 GOLDEN = os.path.join(
     os.path.dirname(__file__), "golden", "four_tank_golden.npz"
+)
+BOX_GOLDEN = os.path.join(
+    os.path.dirname(__file__), "golden", "four_tank_box_golden.npz"
 )
 PLANT = LTIParams(
     A=np.array([[0.921, 0, 0.041, 0], [0, 0.918, 0, 0.033],
@@ -141,3 +152,119 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, golden):
                          .transpose(0, 1))
     with pytest.raises(ValueError, match="w_off"):
         fr.fused_rollout(op, s0, W, w_off=W.shape[1])
+
+
+def _admm_setup(scheme):
+    """The box golden's CONVEX or BOX controller, its operator and the
+    JAX engine's schedule for it (tests/test_fused_admm.py)."""
+    g = np.load(BOX_GOLDEN)
+    L = 30
+    slack = "CONVEX" if scheme == "CONVEX" else "NONE"
+    ctrl = DirectDataDrivenMPCController(
+        n=4, m=2, p=2, u_d=g["u_d"], y_d=g["y_d"], L=L,
+        Q=3.0 * np.eye(2 * L), R=1e-4 * np.eye(2 * L),
+        u_s=np.array([[1.0], [1.0]]), y_s=np.array([[0.65], [0.77]]),
+        eps_max=0.002, lamb_alpha=0.1 / 0.002, lamb_sigma=1000.0,
+        c=float(g["convex_c"]) if scheme == "CONVEX" else 1.0,
+        slack_var_constraint_type=SlackVarConstraintTypes[slack],
+        controller_type=DataDrivenMPCType.ROBUST,
+    )
+    if scheme == "CONVEX":
+        op = compute_admm_operator_np(ctrl.spec)
+        kw = dict(iters=(4, 5, 2), cold_iters=24, tol=1e-5)
+    else:
+        u = float(g["u_box"])
+        op = compute_box_admm_operator_np(ctrl.spec, u_bounds=(-u, u),
+                                          rho=1.0)
+        kw = dict(iters=(0, 14, 4), cold_iters=60, tol=2e-5)
+    return g, op, kw
+
+
+def _admm_inputs(g, scheme, batch, n_steps, device):
+    """Golden initial window for every scenario; scenario 0 gets the
+    golden noise, the others their own draws."""
+    def tile(a):
+        a = np.asarray(a)
+        return torch.as_tensor(np.tile(a[None], (batch,) + (1,) * a.ndim),
+                               dtype=torch.float32, device=device)
+
+    W = 0.002 * np.random.default_rng(0).uniform(-1, 1, (batch, n_steps, 2))
+    W[0] = g["w_sys"][:n_steps]
+    return (tile(g["x0"]), tile(g[f"{scheme}_u_past0"]),
+            tile(g[f"{scheme}_y_past0"]),
+            torch.as_tensor(W, dtype=torch.float32, device=device))
+
+
+@pytest.mark.parametrize(
+    "scheme,batch,n_steps",
+    [("CONVEX", 64, 120), ("BOX", 64, 120), ("CONVEX", 100, 37)],
+)
+def test_admm_kernel_matches_plain_version(cuda, scheme, batch, n_steps):
+    """Kernel K4 against its plain version (u, y, state atol 2e-5; costs
+    rtol 1e-3; converged flags equal), and scenario 0 against the
+    float64 active-set golden (max |du| < 1e-4). Batch 100 leaves the
+    last tile of 64 scenarios ragged."""
+    g, op, kw = _admm_setup(scheme)
+    args = (PLANT, op, 4, 2, 2, n_steps)
+    ins = _admm_inputs(g, scheme, batch, n_steps, cuda)
+    before = fa.fused_admm.launches
+    got = fa.make_fused_admm_rollout(*args, device=cuda, **kw)(*ins)
+    torch.cuda.synchronize()
+    assert fa.fused_admm.launches == before + 1
+    want = fa.make_fused_admm_rollout(
+        *args, device=cuda, rollout=fa.fused_admm_reference, **kw
+    )(*ins)
+    for f in ("u_sys", "y_sys", "x_final", "u_past", "y_past"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                   rtol=0, atol=2e-5, msg=f)
+    for a, b in zip(got.solver_state, want.solver_state):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+    torch.testing.assert_close(got.costs, want.costs, rtol=1e-3, atol=1e-5)
+    assert torch.equal(got.converged, want.converged)
+    assert bool(got.converged.all())
+    du = np.abs(got.u_sys[0].double().cpu().numpy()
+                - g[f"{scheme}_u"][:n_steps]).max()
+    assert du < 1e-4, du
+    if scheme == "BOX":
+        assert float(got.u_sys.abs().max()) <= float(g["u_box"]) + 1e-6
+
+
+def test_admm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    g, op, kw = _admm_setup("CONVEX")
+    ops, dims = fa.build_fused_admm_operator(PLANT, op, 4, 2, 2,
+                                             device=cuda)
+    B, T = 8, 6
+    carry = fa.ADMMCarry(*(
+        torch.zeros(B, w, device=cuda)
+        for w in (dims.S, dims.Mw, dims.nbox, dims.nxi, dims.nbox,
+                  dims.nbox)
+    ))
+    W = torch.zeros(B, T, 2, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fa.fused_admm(ops, dims, carry._replace(sa=carry.sa.double()), W, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.fused_admm(ops, dims, carry, W.transpose(0, 1).contiguous()
+                      .transpose(0, 1), 4)
+    with pytest.raises(ValueError, match="shape"):
+        fa.fused_admm(ops, dims, carry, W[:, :, :1].contiguous(), 4)
+    with pytest.raises(ValueError, match="n_iter"):
+        fa.fused_admm(ops, dims, carry, W, -1)
+    # An operator whose shared-memory plan does not fit one block.
+    nbox = 600
+    big = dims._replace(nbox=nbox, nxi=dims.n_theta + nbox,
+                        W2=dims.D2 + 1 + nbox + dims.n_theta + nbox)
+    big_ops = ops._replace(
+        Vop=torch.zeros(nbox, nbox, device=cuda),
+        lo=torch.zeros(nbox, device=cuda), hi=torch.zeros(nbox, device=cuda),
+        M1=torch.zeros(nbox, big.Mw + big.nxi, device=cuda),
+        M2=torch.zeros(big.D2, big.W2, device=cuda),
+        b2=torch.zeros(big.W2, device=cuda),
+    )
+    big_carry = fa.ADMMCarry(*(
+        torch.zeros(B, w, device=cuda)
+        for w in (big.S, big.Mw, nbox, big.nxi, nbox, nbox)
+    ))
+    before = fa.fused_admm.launches
+    with pytest.raises(ValueError, match="too large"):
+        fa.fused_admm(big_ops, big, big_carry, W, 4)
+    assert fa.fused_admm.launches == before

@@ -47,7 +47,7 @@ def controller_kwargs(u_d, y_d, L=30, n_mpc_step=1, use_terminal=True):
     )
 
 
-def port_setup(n_mpc_step=1, use_terminal=True):
+def port_setup(n_mpc_step=1, use_terminal=True, slack="NONE"):
     """JAX reference setup (seeded data) and the port's controller built
     from the identical numpy data: ``(jax_plant, jax_ctrl, port_ctrl,
     rng)``."""
@@ -57,12 +57,12 @@ def port_setup(n_mpc_step=1, use_terminal=True):
 
     jplant, jctrl, rng = _make_setup(
         n_mpc_step=n_mpc_step, use_terminal=use_terminal,
-        slack=JaxSlack.NONE,
+        slack=JaxSlack[slack],
     )
     ctrl = DirectDataDrivenMPCController(
         **controller_kwargs(jctrl.u_d, jctrl.y_d, n_mpc_step=n_mpc_step,
                             use_terminal=use_terminal),
-        slack_var_constraint_type=SlackVarConstraintTypes.NONE,
+        slack_var_constraint_type=SlackVarConstraintTypes[slack],
         controller_type=DataDrivenMPCType.ROBUST,
     )
     return jplant, jctrl, ctrl, rng
@@ -71,6 +71,18 @@ def port_setup(n_mpc_step=1, use_terminal=True):
 @pytest.fixture(scope="module")
 def setup():
     return port_setup()
+
+
+@pytest.fixture(scope="module")
+def convex_setup():
+    """The CONVEX pair, the JAX controller held to its numpy
+    ``admm_solve_np`` path (it takes its C runtime where one loads) and
+    its first solve redone on that path."""
+    jplant, jctrl, ctrl, rng = port_setup(slack="CONVEX")
+    jctrl._native = None
+    jctrl._admm_state = None
+    jctrl.update_and_solve_data_driven_mpc()
+    return jplant, jctrl, ctrl, rng
 
 
 def test_qp_spec_matches_jax(setup):
@@ -132,20 +144,21 @@ def test_controller_first_solve_matches_jax(setup):
         assert abs(res[key] - jres[key]) < EXACT
 
 
-def test_controller_host_loop_matches_jax(setup):
-    """Ten interactive steps (solve, apply, measure, shift) through
-    both controllers on the same plant and noise."""
-    jplant, jctrl, ctrl, rng = setup
-    W = 0.002 * np.random.default_rng(3).uniform(-1, 1, (10, 2))
+def _host_loop(jplant, ctrl, jctrl, n_steps):
+    """Interactive steps (solve, apply, measure, shift) through both
+    controllers on the same plant and noise: the applied inputs and
+    the solve statuses of each."""
+    W = 0.002 * np.random.default_rng(3).uniform(-1, 1, (n_steps, 2))
     x0 = jplant.get_state().copy()
-    us = {}
+    out = {}
     for name, c in (("port", ctrl), ("jax", jctrl)):
         plant = LTIModel(**FOUR_TANK)
         plant.set_state(x0)
         u0, y0 = c.u_past.copy(), c.y_past.copy()
-        seq = []
-        for k in range(10):
+        seq, status = [], []
+        for k in range(n_steps):
             c.update_and_solve_data_driven_mpc()
+            status.append(c.get_problem_solve_status())
             u = c.get_optimal_control_input_at_step(0)
             y = plant.simulate_step(u, W[k])
             c.store_input_output_measurement(
@@ -154,8 +167,69 @@ def test_controller_host_loop_matches_jax(setup):
             seq.append(u)
         c.set_past_input_output_data(u0, y0)
         c.update_and_solve_data_driven_mpc()
-        us[name] = np.array(seq)
-    np.testing.assert_allclose(us["port"], us["jax"], rtol=0, atol=1e-10)
+        out[name] = (np.array(seq), status)
+    return out
+
+
+def test_controller_host_loop_matches_jax(setup):
+    """Ten interactive steps through both controllers."""
+    jplant, jctrl, ctrl, _ = setup
+    out = _host_loop(jplant, ctrl, jctrl, 10)
+    np.testing.assert_allclose(out["port"][0], out["jax"][0], rtol=0,
+                               atol=1e-10)
+
+
+def test_closed_loop_result_solver_state_defaults_to_none():
+    from direct_data_driven_mpc_tpu_torch.control.loop import (
+        ClosedLoopResult,
+    )
+
+    assert ClosedLoopResult._fields[-1] == "solver_state"
+    res = ClosedLoopResult(*(torch.zeros(1) for _ in range(7)))
+    assert res.solver_state is None
+
+
+def test_convex_controller_first_solve_matches_jax(convex_setup):
+    """CONVEX slack: the host ADMM operator and the warm-started
+    ``admm_solve_np`` solve of the first window, as in the JAX
+    controller."""
+    _, jctrl, ctrl, _ = convex_setup
+    assert ctrl.solve_path == "numpy"
+    assert ctrl.get_problem_solve_status() == jctrl.get_problem_solve_status()
+    assert ctrl.get_problem_solve_status() == "optimal"
+    np.testing.assert_allclose(
+        ctrl.optimal_u, jctrl.optimal_u, rtol=0, atol=1e-10
+    )
+    assert abs(
+        ctrl.get_optimal_cost_value() - jctrl.get_optimal_cost_value()
+    ) < 1e-8
+    with pytest.raises(ValueError, match="CONVEX"):
+        ctrl.solution_operator()
+    with pytest.raises(ValueError, match="CONVEX"):
+        ctrl.optimal_solution()
+
+
+def test_convex_controller_host_loop_matches_jax(convex_setup):
+    """Twenty interactive CONVEX steps, the ADMM state warm-started
+    across steps in both controllers; a two-iteration cap reports
+    ``optimal_inaccurate`` in both."""
+    jplant, jctrl, ctrl, _ = convex_setup
+    out = _host_loop(jplant, ctrl, jctrl, 20)
+    np.testing.assert_allclose(out["port"][0], out["jax"][0], rtol=0,
+                               atol=1e-10)
+    assert out["port"][1] == out["jax"][1]
+    assert set(out["port"][1]) == {"optimal"}
+    for c in (ctrl, jctrl):
+        c.admm_iters = 2
+        c._admm_state = None
+    try:
+        assert ctrl.solve_mpc_problem() == jctrl.solve_mpc_problem() == (
+            "optimal_inaccurate"
+        )
+    finally:
+        for c in (ctrl, jctrl):
+            c.admm_iters = 200
+            c._admm_state = None
 
 
 def test_non_pe_input_raises(setup):
@@ -175,10 +249,7 @@ def test_non_pe_input_raises(setup):
         )
 
 
-@pytest.mark.parametrize(
-    "slack", [SlackVarConstraintTypes.CONVEX,
-              SlackVarConstraintTypes.NON_CONVEX],
-)
+@pytest.mark.parametrize("slack", [SlackVarConstraintTypes.NON_CONVEX])
 def test_unported_slack_raises(setup, slack):
     _, jctrl, _, _ = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):

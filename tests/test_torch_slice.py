@@ -130,8 +130,8 @@ def test_slice_matches_jax_chain():
 
 
 def test_port_never_imports_jax():
-    """Importing the port and running its CPU path leave ``jax`` out of
-    ``sys.modules`` (checked in a fresh interpreter: this test process
+    """Importing the port and running its CPU paths (the condensed and
+    the fused ADMM closed loops) leave ``jax`` out of ``sys.modules`` (checked in a fresh interpreter: this test process
     has JAX loaded by tests/conftest.py)."""
     code = textwrap.dedent(
         """
@@ -143,11 +143,17 @@ def test_port_never_imports_jax():
             build_linear_engine,
         )
         from direct_data_driven_mpc_tpu_torch.ops import _kernels
+        from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa
         from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr
         from direct_data_driven_mpc_tpu_torch.parallel.batch import (
             draw_noise_batch,
         )
-        from chip_smoke import build_four_tank_robust, scenario_batch
+        from direct_data_driven_mpc_tpu_torch.qp import admm, box
+        from chip_smoke import (
+            admm_config,
+            build_four_tank_robust,
+            scenario_batch,
+        )
 
         torch.set_num_threads(1)
         plant, ctrl = build_four_tank_robust()
@@ -160,6 +166,13 @@ def test_port_never_imports_jax():
         )
         assert bool(torch.isfinite(res.u_sys).all())
         assert fr.fused_rollout.launches == 0
+        for name in ("four_tank_convex", "four_tank_box"):
+            plant, ctrl, op, kw = admm_config(name)
+            res = fa.make_fused_admm_rollout(
+                plant.as_params(), op, 4, 2, 2, 20, **kw
+            )(*scenario_batch(plant, ctrl, 2, "cpu"), Ws)
+            assert bool(res.converged.all())
+        assert fa.fused_admm.launches == 0
         assert not _kernels._loaded
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "direct_data_driven_mpc_tpu")
