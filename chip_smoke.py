@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-Drives the port's two main paths through their hand-written CUDA
+Drives the port's four main paths through their hand-written CUDA
 kernels and checks them. First the Monte-Carlo batch of the paper's
 four-tank Robust controller (B = 4096 scenarios x T = 400 closed-loop
 steps, N = 400, L = 30, slack NONE) through
@@ -42,10 +42,50 @@ Then the fused ADMM closed loop of ``bench.py``'s ``four_tank_convex``
     one), L = 15 (nbox 30) and L = 60 (nbox 120, N = 800);
 12. timing: solves/s of the kernel and the plain version, in turns.
 
+Then the adaptive penalty ladder of ``bench.py``'s ``four_tank_ladder``
+(slack NONE, |u| <= 0.85, the default 7-rung ladder, B = 65536 x
+T = 400) through kernel K5 (``ops/csrc/fused_admm.cu``, its ladder
+instantiation):
+
+13. host build: the ladder's stacked operators, the kernel's tile (the
+    rung group) and shared memory, checked against ``ladder_tile_rows``;
+14. main path: ``make_fused_ladder_rollout`` on the card, with the launch
+    count; every solve from index 10 converged (the fraction over all
+    solves and a histogram of the final rungs are printed); kernel vs
+    plain version: rung lanes equal, u, y, state and ADMM state atol
+    2e-5, costs rtol 1e-3 / atol 1e-5;
+15. float64 truth: max |du| against the plain version in float64 (64
+    scenarios, the same rung group) below 1e-4;
+16. variants, kernel vs plain version: a ragged batch, and a segmented
+    run (two segments through ``solver_state0``) whose rung groups sit on
+    different rungs at the cut, against the uninterrupted run;
+17. timing: the kernel and the plain version, in turns.
+
+Then ``bench.py``'s ``large_plant`` (a random stable 10-state, 10-input,
+10-output plant, N = 600, L = 30, B = 65536 x T = 400, K = 25,
+``cost_mode="post"``) through kernel K3 (``ops/csrc/fused_rollout.cu``,
+its no-cost kernel):
+
+18. host build: the controller (seed 0) and the block maps;
+19. main path: ``make_fused_batched_rollout(cost_mode="post")``, with
+    launch counts; kernel vs plain version (u, y, state atol 2e-5; costs
+    rtol 1e-3 / atol 1e-5);
+20. float64 truth: max |du| against the plain version in float64 (64
+    scenarios) below 1e-4; the post-pass costs (cost factor truncated at
+    rtol 1e-6, as in the JAX package) against ``cost_mode="inkernel"``
+    at the same truncation, run by the plain version on 1024 scenarios
+    (rtol 1e-3 / atol 1e-2), and in float64 on the float64 trajectories
+    (atol 1e-8); the truncation's own effect on the costs is printed;
+21. timing: the kernel, the cost post-pass and the plain version, each
+    on its own, and the per-block cuBLAS product.
+
 Any failed check raises. Run from the repository root:
 ``python3 chip_smoke.py``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the kernels'
-record.
+record, each with its time beside its bound: the least time the card
+could take for the same work, the larger of the bytes it must move over
+3.35 TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM's
+published peaks at 700 W).
 """
 
 from __future__ import annotations
@@ -74,13 +114,32 @@ FOUR_TANK = dict(
     D=np.zeros((2, 2)),
     eps_max=0.002,
 )
-KERNELS = ("fused_rollout", "fused_admm")
+KERNELS = ("fused_rollout", "fused_admm")  # kernel libraries (sources)
 B_MAIN, T_MAIN = 4096, 400
 B_ADMM, T_ADMM = 65536, 400  # bench.py's fused ADMM batch
 B_VARIANT = 8192  # the ADMM variants' batch
 ATOL = 2e-5  # u, y and state (tests/test_pallas_rollout.py)
 COST_RTOL, COST_ATOL = 1e-3, 1e-5
+# large_plant's post-pass against its in-kernel costs on the same float32
+# trajectories: each cost there is a small difference of terms near 1e3,
+# so summation order alone moves it by a few 1e-3.
+POST_COST_ATOL = 1e-2
 NORTH_STAR = 1e-4  # max |du| against float64
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published, 700 W
+FP32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time for ``flops`` float32 operations that must move
+    ``nbytes`` of device memory, and which of the two sets it."""
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_mem),
+            "bound_by": "operations" if t_ops >= t_mem else "bytes"}
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def log(msg: str) -> None:
@@ -115,6 +174,41 @@ def build_four_tank_robust(N: int = 400, L: int = 30, seed: int = 0,
         eps_max=eps, lamb_alpha=0.1 / max(eps, 1e-12),
         lamb_sigma=1000.0, c=1.0,
         slack_var_constraint_type=SlackVarConstraintTypes[slack],
+        controller_type=DataDrivenMPCType.ROBUST, n_mpc_step=1,
+    )
+    return plant, ctrl
+
+
+def build_large_plant(N: int = 600, L: int = 30, seed: int = 0):
+    """``bench.py``'s ``large_plant``: ``random_stable_lti(seed=0, ns=10,
+    m=10, p=10)``, u_s = 0.5, y_s its equilibrium output, uniform input
+    data and bounded noise from ``default_rng(seed)``, Robust, slack
+    NONE."""
+    from direct_data_driven_mpc_tpu_torch.control.controller import (
+        DirectDataDrivenMPCController,
+    )
+    from direct_data_driven_mpc_tpu_torch.models.random_lti import (
+        random_stable_lti,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp.spec import (
+        DataDrivenMPCType,
+        SlackVarConstraintTypes,
+    )
+
+    n = m = p = 10
+    plant = random_stable_lti(seed=0, ns=n, m=m, p=p)
+    eps = plant.get_eps_max()
+    u_s = 0.5 * np.ones((m, 1))
+    y_s = plant.get_equilibrium_output_from_input(u_s.ravel()).reshape(-1, 1)
+    rng = np.random.default_rng(seed)
+    u_d = rng.uniform(-1, 1, (N, m))
+    w_d = eps * rng.uniform(-1, 1, (N, p))
+    y_d = plant.simulate(u_d, w_d, N)
+    ctrl = DirectDataDrivenMPCController(
+        n=n, m=m, p=p, u_d=u_d, y_d=y_d, L=L,
+        Q=3.0 * np.eye(p * L), R=1e-4 * np.eye(m * L), u_s=u_s, y_s=y_s,
+        eps_max=eps, lamb_alpha=0.1 / max(eps, 1e-12), lamb_sigma=1000.0,
+        c=1.0, slack_var_constraint_type=SlackVarConstraintTypes.NONE,
         controller_type=DataDrivenMPCType.ROBUST, n_mpc_step=1,
     )
     return plant, ctrl
@@ -198,6 +292,14 @@ def admm_config(name: str):
             ctrl.spec, u_bounds=(-0.85, 0.85), rho=1.0
         )
         return plant, ctrl, op, dict(iters=(0, 14, 4), cold_iters=60,
+                                     tol=2e-5)
+    if name.startswith("four_tank_ladder"):
+        # The default 7-rung ladder from the middle rung (balance ratio
+        # 10); "four_tank_ladder_u3" loosens the box to |u| <= 3.
+        plant, ctrl = build_four_tank_robust()
+        u = 3.0 if name.endswith("_u3") else 0.85
+        op = compute_box_admm_operator_np(ctrl.spec, u_bounds=(-u, u))
+        return plant, ctrl, op, dict(iters=(0, 16, 4), cold_iters=80,
                                      tol=2e-5)
     N, L = {"four_tank_convex_q4": (400, 15),
             "long_horizon_convex": (800, 60)}.get(name, (400, 30))
@@ -424,6 +526,418 @@ def admm_phases(dev, smi) -> dict:
         "max_abs_err": kernel_err,
         "ms": mean["kernel"],
         "plain_ms": mean["plain"],
+        **admm_bound(ops, dims, B_ADMM, T_ADMM, sum(kw["iters"])),
+        # No single PyTorch call runs a closed loop of iterative solves.
+        "library_ms": None,
+    }
+
+
+def admm_bound(ops, dims, B, n_blocks, n_iter, extra_out_floats=0):
+    """Bound of one fused ADMM rollout (K4, or K5 with its per-solve
+    rung lane as ``extra_out_floats``): the products of every solve
+    (``n_iter`` iterations of ``nbox x nbox``, the extraction, the plant
+    step), and the noise, carries and operators read once and the
+    outputs written once."""
+    W1 = dims.Mw + dims.nxi
+    per_solve = 2 * (n_iter * dims.nbox ** 2 + dims.nbox * W1
+                     + dims.D2 * dims.W2)
+    nbm, nbp = dims.nb * dims.m, dims.nb * dims.p
+    carry = dims.S + dims.Mw + dims.nbox + dims.nxi + 2 * dims.nbox
+    out = (nbm + nbp + 3 + extra_out_floats) * n_blocks + dims.S \
+        + 2 * dims.nbox
+    nbytes = 4 * B * (nbp * n_blocks + carry + out) + tensor_bytes(
+        ops.Vop, ops.M1, ops.M2, ops.b2)
+    return bound(per_solve * B * n_blocks, nbytes)
+
+
+def compare_ladder(tag, got, want, rung_got, rung_want):
+    """Ladder kernel against plain version: rung lanes equal, then as
+    :func:`compare_admm`."""
+    if not torch.equal(rung_got, rung_want):
+        raise AssertionError(f"{tag}: rung lanes differ")
+    if not torch.equal(got.solver_state.rho_idx, want.solver_state.rho_idx):
+        raise AssertionError(f"{tag}: final rungs differ")
+    return compare_admm(tag, got, want)
+
+
+def ladder_phases(dev, smi) -> dict:
+    """Phases 13-17: the penalty-ladder closed loop through kernel K5.
+    Returns its record for the ``kernels`` line."""
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        draw_noise_batch,
+    )
+
+    # 13. Host build of four_tank_ladder and its stacked operators.
+    t0 = time.perf_counter()
+    plant, ctrl, op, kw = admm_config("four_tank_ladder")
+    ops, dims = fl.build_fused_ladder_operator(
+        plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, device=dev
+    )
+    R = ops.Vop.shape[0]
+    sizes = (dims.S, dims.nb * dims.m, dims.nb * dims.p, dims.nbox,
+             dims.nxi)
+    lib = _kernels.load("fused_admm").lib
+    tile = lib.fused_ladder_tile_rows(*sizes)
+    smem = lib.fused_ladder_smem_bytes(*sizes)
+    if (tile, smem) != (fl.ladder_tile_rows(dims),
+                        fl.ladder_smem_bytes(dims, tile)):
+        raise AssertionError(f"ladder plan: library ({tile}, {smem}) vs "
+                             f"Python {fl.ladder_tile_rows(dims)}")
+    log(f"ladder host build: four_tank_ladder nbox={dims.nbox}, R={R} "
+        f"rungs rho {float(ops.rhos[0]):.3g} .. {float(ops.rhos[-1]):.3g}"
+        f", per rung Vop {tuple(ops.Vop.shape[1:])}, M1 "
+        f"{tuple(ops.M1.shape[1:])}, M2 {tuple(ops.M2.shape[1:])} "
+        f"({tensor_bytes(ops.Vop, ops.M1, ops.M2, ops.b2)} B stacked) in "
+        f"{time.perf_counter() - t0:.2f} s; kernel tile = rung group "
+        f"{tile} scenarios, {smem} B of shared memory (one rung resident)")
+
+    def inputs(B, T=T_ADMM, seed=0):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        Ws = draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+                              device=dev)
+        return (*scenario_batch(plant, ctrl, B, dev), Ws)
+
+    def pair(op, T=T_ADMM, **extra):
+        """The kernel's and the plain version's rollouts, each keeping
+        its rung lanes in ``lanes``."""
+        lanes = {}
+
+        def keep(fn, key):
+            def rollout(*args):
+                out = fn(*args)
+                lanes[key] = out[5]
+                return out
+            return rollout
+
+        args = (plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, T)
+        kwx = dict(kw, device=dev, **extra)
+        return (fl.make_fused_ladder_rollout(
+                    *args, rollout=keep(fl.fused_ladder, "kernel"), **kwx),
+                fl.make_fused_ladder_rollout(
+                    *args, rollout=keep(fl.fused_ladder_reference, "plain"),
+                    **kwx),
+                lanes)
+
+    # 14. The main path, through the kernel.
+    ins = inputs(B_ADMM)
+    run_k, run_p, lanes = pair(op)
+    fl.fused_ladder.launches = 0
+    res = run_k(*ins)
+    torch.cuda.synchronize()
+    main_launches = fl.fused_ladder.launches
+    if main_launches < 1:
+        raise AssertionError("the ladder main path launched no kernel")
+    if res.u_sys.shape != (B_ADMM, T_ADMM, 2):
+        raise AssertionError(f"ladder shapes {tuple(res.u_sys.shape)}")
+    conv10 = float(res.converged[:, 10:].float().mean())
+    if conv10 != 1.0:
+        raise AssertionError(f"ladder: {1 - conv10:.2e} of the solves "
+                             "from index 10 on did not converge")
+    hist = torch.bincount(res.solver_state.rho_idx.long(), minlength=R)
+    moves = int((lanes["kernel"][:, 1:] != lanes["kernel"][:, :-1]).sum())
+    log(f"ladder main path: four_tank_ladder B={B_ADMM} T={T_ADMM}, iters "
+        f"{kw['iters']} + cold {kw['cold_iters']}, fused_ladder launches "
+        f"{main_launches}; converged: all solves from index 10, "
+        f"{float(res.converged.float().mean()):.6f} of all; final rungs "
+        f"{hist.tolist()} (rung 0 .. {R - 1}); {moves // tile} group rung "
+        f"moves in {B_ADMM // tile} groups")
+    rung_k = lanes["kernel"]
+    want = run_p(*ins)
+    kernel_err, err_c = compare_ladder("four_tank_ladder kernel vs plain",
+                                       res, want, rung_k, lanes["plain"])
+    log(f"ladder kernel vs plain (B={B_ADMM}, T={T_ADMM}): rung lanes "
+        f"equal; max |diff| on u, y, state and solver state "
+        f"{kernel_err:.3e} (atol {ATOL}); costs {err_c:.3e} (rtol "
+        f"{COST_RTOL}, atol {COST_ATOL})")
+
+    # 15. Float64 truth for the first 64 scenarios, in one rung group.
+    run64 = fl.make_fused_ladder_rollout(
+        plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, T_ADMM, device=dev,
+        dtype=torch.float64, rollout=fl.fused_ladder_reference,
+        rung_group=tile, **kw,
+    )
+    u64 = run64(*(a[:64].double() for a in ins)).u_sys
+    du = max_abs(res.u_sys[:64], u64)
+    if not du < NORTH_STAR:
+        raise AssertionError(f"ladder max |du| vs float64 {du:.3e}")
+    log(f"ladder float64 truth (64 scenarios, rung group {tile}): kernel "
+        f"max |du| {du:.3e} (< {NORTH_STAR})")
+
+    # 16. A ragged batch, and a segmented run whose groups sit on
+    # different rungs at the cut: at |u| <= 3 the scenarios started from
+    # the mirrored window walk down the ladder on another path, and the
+    # cut follows the first solve after which the groups' rungs differ.
+    B_r = B_VARIANT - 13
+    fl.fused_ladder.launches = 0
+    got = run_k(*(a[:B_r] for a in ins))
+    if fl.fused_ladder.launches != 1:
+        raise AssertionError("ragged ladder run did not go through K5")
+    err, _ = compare_ladder(f"ladder ragged B={B_r}", got,
+                            run_p(*(a[:B_r] for a in ins)),
+                            lanes["kernel"], lanes["plain"])
+    log(f"ladder variant ragged B={B_r}: rung lanes equal, max |diff| "
+        f"{err:.3e}")
+    _, _, op2, _ = admm_config("four_tank_ladder_u3")
+    x0, up, yp, W = (a[:B_VARIANT].clone() for a in ins)
+    half = B_VARIANT // 2
+    for a in (x0, up, yp):
+        a[half:] *= -1.0
+    full = pair(op2)
+    whole = full[0](x0, up, yp, W)
+    split = full[2]["kernel"].amin(0) != full[2]["kernel"].amax(0)
+    if not bool(split.any()):
+        raise AssertionError("segmented ladder run: the groups never sit "
+                             "on different rungs")
+    T1 = int(split.nonzero()[0]) + 1
+    first = pair(op2, T=T1)
+    second = pair(op2, T=T_ADMM - T1, cold_iters=0)
+    segs = []
+    for i in (0, 1):
+        s1 = first[i](x0, up, yp, W[:, :T1])
+        s2 = second[i](s1.x_final, s1.u_past, s1.y_past, W[:, T1:],
+                       solver_state0=s1.solver_state)
+        segs.append((s1, s2))
+    rungs = segs[0][0].solver_state.rho_idx
+    if int(rungs[0]) == int(rungs[-1]):
+        raise AssertionError("segmented ladder run: the groups share one "
+                             "rung at the cut")
+    seg_err = max(compare_admm(f"ladder segment {h}", segs[0][h],
+                               segs[1][h])[0] for h in (0, 1))
+    du_seg = max_abs(torch.cat([s.u_sys for s in segs[0]], 1), whole.u_sys)
+    if not du_seg < NORTH_STAR:
+        raise AssertionError(f"segmented ladder vs uninterrupted max |du| "
+                             f"{du_seg:.3e} >= {NORTH_STAR}")
+    log(f"ladder variant segmented ({T1} + {T_ADMM - T1} steps, |u| <= 3, "
+        f"half the scenarios mirrored) B={B_VARIANT}: groups on rungs "
+        f"{sorted(set(rungs.tolist()))} at the cut; kernel vs plain max "
+        f"|diff| {seg_err:.3e}; vs the uninterrupted run max |du| "
+        f"{du_seg:.3e} (< {NORTH_STAR})")
+
+    # 17. Timing at the main shape, in turns.
+    solves = B_ADMM * T_ADMM
+    runs = {
+        name: fl.make_amortized_ladder_run(
+            plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, T_ADMM,
+            device=dev, rollout=fn, **kw,
+        )
+        for name, fn in (("kernel", fl.fused_ladder),
+                         ("plain", fl.fused_ladder_reference))
+    }
+    ms = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        before = fl.fused_ladder.launches
+        t, R_t = time_amortized(runs[name], ins, seconds=0.5,
+                                min_reps=4 if name == "kernel" else 2)
+        launched = fl.fused_ladder.launches - before
+        expected = R_t + 2 if name == "kernel" else 0
+        if launched != expected:
+            raise AssertionError(f"ladder {name}: {launched} launches, "
+                                 f"expected {expected}")
+        ms[name].append(t)
+        log(f"ladder timing {name}: {t:.4f} ms/rollout over R={R_t} -> "
+            f"{solves / (t * 1e-3):,.0f} solves/s [{smi}]")
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    log(f"ladder solves/s (mean of 2 turns, four_tank_ladder B={B_ADMM} x "
+        f"T={T_ADMM}, {smi}): "
+        + ", ".join(f"{k} {solves / (v * 1e-3):,.0f}"
+                    for k, v in mean.items()))
+    return {
+        "name": "fused_ladder",
+        "route": "cuda",
+        "source": "direct_data_driven_mpc_tpu_torch/ops/csrc/fused_admm.cu",
+        "replaces": "direct_data_driven_mpc_tpu/ops/pallas_admm.py:1271",
+        "launches": main_launches,
+        "max_abs_err": kernel_err,
+        "ms": mean["kernel"],
+        "plain_ms": mean["plain"],
+        **admm_bound(ops, dims, B_ADMM, T_ADMM, sum(kw["iters"]),
+                     extra_out_floats=1),
+        "library_ms": None,
+    }
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Milliseconds per call of ``fn()`` by CUDA events, after one
+    warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def large_plant_phases(dev, smi) -> dict:
+    """Phases 18-21: ``large_plant`` with ``cost_mode="post"`` through
+    kernel K3. Returns its record for the ``kernels`` line."""
+    from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
+        build_linear_engine,
+    )
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+    from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        draw_noise_batch,
+    )
+
+    B, T, K = B_ADMM, T_ADMM, 25
+    # 18. Host build (float64), then the block maps on the card.
+    t0 = time.perf_counter()
+    plant, ctrl = build_large_plant()
+    if (ctrl.spec.nz, ctrl.spec.nc) != (1761, 1200):
+        raise AssertionError(f"large_plant QP dims {ctrl.spec.nz}, "
+                             f"{ctrl.spec.nc} != 1761, 1200")
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bm = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K,
+                             device=dev)
+    op = fr._build_fused_operator(bm, include_cost=False)
+    lib = _kernels.load("fused_rollout").lib
+    log(f"large_plant host build: nz={ctrl.spec.nz} nc={ctrl.spec.nc} in "
+        f"{t_host:.2f} s; block map K={K} and the operator without cost "
+        f"columns G {tuple(op.G.shape)} in {time.perf_counter() - t0:.2f}"
+        f" s; K3 plan {lib.fused_rollout_nocost_smem_bytes(op.S, op.nw)} "
+        f"B of shared memory (K1's plan would need "
+        f"{lib.fused_rollout_smem_bytes(op.S, op.nw, K) or '> 232448'} B)")
+
+    # 19. The main path, through the kernel.
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Ws = draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+                          device=dev)
+    x0s, ups, yps = scenario_batch(plant, ctrl, B, dev)
+    run = fr.make_fused_batched_rollout(bm, T, cost_mode="post")
+    fr.fused_rollout.launches = fr.fused_rollout_nocost.launches = 0
+    res = run(x0s, ups, yps, Ws)
+    torch.cuda.synchronize()
+    main_launches = fr.fused_rollout_nocost.launches
+    if main_launches < 1 or fr.fused_rollout.launches:
+        raise AssertionError(f"large_plant main path: {main_launches} K3 "
+                             f"and {fr.fused_rollout.launches} K1 launches")
+    if res.u_sys.shape != (B, T, 10) or res.costs.shape != (B, T):
+        raise AssertionError(f"large_plant shapes {tuple(res.u_sys.shape)}"
+                             f" {tuple(res.costs.shape)}")
+    if not bool(res.converged.all()):
+        raise AssertionError("non-finite costs on the large_plant path")
+    log(f"large_plant main path: B={B} T={T} K={K} cost_mode=post, "
+        f"fused_rollout_nocost launches {main_launches}")
+    n_outer = T // K
+    s0, W = fr._center_and_pack(bm, x0s, ups, yps, Ws, n_outer, K, 0)
+    want_k = fr.fused_rollout_reference(op, s0, W)
+    got_k = fr.fused_rollout(op, s0, W)
+    errs = {name: check_close(f"K3 vs plain {name}", g, w, ATOL)
+            for name, g, w in zip(("U", "Y", "s_fin"),
+                                  got_k[:2] + got_k[3:],
+                                  want_k[:2] + want_k[3:])}
+    kernel_err = max(errs.values())
+    post = fr._make_post_cost_fn(bm, 1)
+    c_plain = post(ups, yps, want_k[0].reshape(B, T, 10),
+                   want_k[1].reshape(B, T, 10))
+    err_c = check_close("K3 vs plain costs", res.costs, c_plain, COST_ATOL,
+                        COST_RTOL)
+    log(f"large_plant kernel vs plain (B={B}, T={T}): max |dU| "
+        f"{errs['U']:.3e}, |dY| {errs['Y']:.3e}, |ds_fin| "
+        f"{errs['s_fin']:.3e} (atol {ATOL}); costs {err_c:.3e} (rtol "
+        f"{COST_RTOL}, atol {COST_ATOL})")
+    del want_k, got_k
+
+    # 20. Float64 truth (64 scenarios) and the in-kernel costs. The
+    # post-pass truncates the cost factor at rtol 1e-6, as the JAX
+    # package does, so it is held to the in-kernel costs of an operator
+    # truncated the same way: in float32 on the same trajectories at a
+    # fixed limit (the gap is summation order only: 5.2e-3 before the
+    # truncation, 3.1e-3 after it on the CPU at B = 4, T = 50), and in
+    # float64 on the float64 trajectories, where the two must agree to
+    # rounding.
+    bm64 = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K,
+                               device=dev, dtype=torch.float64)
+    sub = [a[:64].double() for a in (x0s, ups, yps, Ws)]
+    res64 = fr.make_fused_batched_rollout(
+        bm64, T, cost_rank_rtol=1e-6, rollout=fr.fused_rollout_reference
+    )(*sub)
+    du = max_abs(res.u_sys[:64], res64.u_sys)
+    if not du < NORTH_STAR:
+        raise AssertionError(f"large_plant max |du| vs float64 {du:.3e}")
+    n_sub = min(1024, B)
+    c_ink = fr.fused_rollout_reference(
+        fr._build_fused_operator(bm, cost_rank_rtol=1e-6), s0[:n_sub],
+        W[:n_sub],
+    )[2].reshape(n_sub, T)
+    e = check_close("post vs inkernel costs", res.costs[:n_sub], c_ink,
+                    POST_COST_ATOL, COST_RTOL)
+    post64 = fr._make_post_cost_fn(bm64, 1)(sub[1], sub[2], res64.u_sys,
+                                            res64.y_sys)
+    e64 = check_close("float64 post vs inkernel costs", post64,
+                      res64.costs, 1e-8)
+    err_post64 = max_abs(res.costs[:64], res64.costs)
+    untruncated = fr.make_fused_batched_rollout(
+        bm64, T, rollout=fr.fused_rollout_reference
+    )(*sub).costs
+    fault = max_abs(untruncated, res64.costs)
+    log(f"large_plant float64 truth (64 scenarios): kernel max |du| "
+        f"{du:.3e} (< {NORTH_STAR}); post-pass costs vs float64 "
+        f"{err_post64:.3e} (costs {float(res64.costs.min()):.3f} .. "
+        f"{float(res64.costs.max()):.1f}); post vs in-kernel at rank "
+        f"{fr._build_fused_operator(bm, cost_rank_rtol=1e-6).rank}: "
+        f"{n_sub} scenarios, plain version, max |diff| {e:.3e} (rtol "
+        f"{COST_RTOL}, atol {POST_COST_ATOL}); in float64 {e64:.3e} (atol "
+        f"1e-8); the truncation at rtol 1e-6 moves the float64 costs by "
+        f"up to {fault:.3e}")
+
+    # 21. Timing at the main shape: the kernel, the post-pass and the
+    # plain version each alone, then the whole amortized path.
+    u_sys, y_sys = res.u_sys, res.y_sys
+    parts = {
+        "kernel": lambda: fr.fused_rollout(op, s0, W),
+        "plain": lambda: fr.fused_rollout_reference(op, s0, W),
+        "post-pass": lambda: post(ups, yps, u_sys, y_sys),
+    }
+    ms = {k: [] for k in parts}
+    for name in ("kernel", "plain", "post-pass", "post-pass", "plain",
+                 "kernel"):
+        before = fr.fused_rollout_nocost.launches
+        t = cuda_ms(parts[name], reps=4)
+        launched = fr.fused_rollout_nocost.launches - before
+        if launched != (5 if name == "kernel" else 0):
+            raise AssertionError(f"large_plant {name}: {launched} launches")
+        ms[name].append(t)
+        log(f"large_plant timing {name}: {t:.4f} ms per rollout [{smi}]")
+    sw = torch.cat([W[:, 0], s0], dim=1)
+    t_mm = cuda_ms(lambda: torch.addmm(op.bias, sw, op.G), reps=20)
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    whole, R_w = time_amortized(
+        fr.make_amortized_run(bm, T, cost_mode="post"), (x0s, ups, yps, Ws),
+        seconds=0.5, min_reps=2,
+    )
+    solves = B * T
+    log(f"large_plant (B={B} x T={T}, {smi}): kernel {mean['kernel']:.4f} "
+        f"ms, plain {mean['plain']:.4f} ms, post-pass "
+        f"{mean['post-pass']:.4f} ms (means of 2 turns); one per-block "
+        f"cuBLAS product (addmm {tuple(sw.shape)} x {tuple(op.G.shape)}) "
+        f"{t_mm:.4f} ms, x {n_outer} = {t_mm * n_outer:.4f} ms; whole "
+        f"amortized path {whole:.4f} ms per rollout over R={R_w} -> "
+        f"{solves / (whole * 1e-3):,.0f} solves/s")
+    flops = 2.0 * B * n_outer * op.G.shape[0] * op.G.shape[1]
+    nbytes = tensor_bytes(s0, W, op.G, op.bias, res.u_sys, res.y_sys) \
+        + 4 * B * op.S
+    return {
+        "name": "fused_rollout_nocost",
+        "route": "cuda",
+        "source": "direct_data_driven_mpc_tpu_torch/ops/csrc/"
+                  "fused_rollout.cu",
+        "replaces": "direct_data_driven_mpc_tpu/ops/pallas_rollout.py:629",
+        "launches": main_launches,
+        "max_abs_err": kernel_err,
+        "ms": mean["kernel"],
+        "plain_ms": mean["plain"],
+        **bound(flops, nbytes),
+        # A recursion over 16 blocks: no single PyTorch call computes it
+        # (the per-block product alone is logged above).
+        "library_ms": None,
     }
 
 
@@ -642,6 +1156,8 @@ def main() -> int:
         + ", ".join(f"{k} {solves / (v * 1e-3):,.0f}"
                     for k, v in mean.items()))
 
+    flops = 2.0 * B_MAIN * n_outer * op.G.shape[0] * op.G.shape[1]
+    nbytes = tensor_bytes(s0, W, op.G, op.bias, *got)
     k1 = {
         "name": "fused_rollout",
         "route": "cuda",
@@ -652,10 +1168,15 @@ def main() -> int:
         "max_abs_err": kernel_err,
         "ms": mean["kernel"],
         "plain_ms": mean["plain"],
+        **bound(flops, nbytes),
+        # A recursion over 8 blocks: no single PyTorch call computes it.
+        "library_ms": None,
     }
 
     k4 = admm_phases(dev, smi)
-    print(json.dumps({"kernels": [k1, k4]}))
+    k5 = ladder_phases(dev, smi)
+    k3 = large_plant_phases(dev, smi)
+    print(json.dumps({"kernels": [k1, k4, k5, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count(),

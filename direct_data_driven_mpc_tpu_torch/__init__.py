@@ -1,13 +1,16 @@
 """PyTorch / CUDA port of the direct data-driven MPC package.
 
-Runs the condensed closed loop of ``direct_data_driven_mpc_tpu`` (the
-JAX reference, which stays beside it) on an NVIDIA H100: the float64
-host build (``control.controller``, ``qp``), the block-map condensation
-(``control.linear_engine``) and the fused rollout, whose kernel is
-written by hand in CUDA C++ (``ops.fused_rollout``,
-``ops/csrc/fused_rollout.cu``). This package imports ``torch`` and
-numpy and never ``jax``. Importing it builds and loads no kernel; the
-kernel is compiled with ``nvcc`` at its first launch.
+Runs the closed loops of ``direct_data_driven_mpc_tpu`` (the JAX
+reference, which stays beside it) on an NVIDIA H100: the float64 host
+build (``control.controller``, ``qp``), the block-map condensation
+(``control.linear_engine``), the fused condensed rollout
+(``ops.fused_rollout``) and the fused ADMM closed loops with a fixed
+penalty or the adaptive ladder (``ops.fused_admm``,
+``ops.fused_ladder``), whose kernels are written by hand in CUDA C++
+(``ops/csrc/``). This package imports ``torch`` and numpy and never
+``jax``; its entry points run on the card unless given
+``device="cpu"``. Importing it builds and loads no kernel; each kernel
+library is compiled with ``nvcc`` at its first launch.
 """
 
 from direct_data_driven_mpc_tpu_torch.qp.spec import (

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from direct_data_driven_mpc_tpu_torch.control.loop import ClosedLoopResult
+from direct_data_driven_mpc_tpu_torch.device import resolve_device
 from direct_data_driven_mpc_tpu_torch.ops.lti import LTIParams
 
 
@@ -103,7 +104,7 @@ def build_affine_block_map(
     n_mpc_step: int = 1,
     solves_per_block: int = 1,
     center: bool = True,
-    device="cpu",
+    device=None,
     dtype=torch.float32,
 ) -> AffineBlockMap:
     """Compose ``solves_per_block`` solve blocks into one affine map
@@ -118,7 +119,10 @@ def build_affine_block_map(
         n_mpc_step: plant steps per QP solve.
         solves_per_block: QP solves composed per block.
         center: roll the deviation from the closed-loop fixed point.
+        device: where the map lives; None means the CUDA card (raises
+            without one), ``"cpu"`` runs the plain versions.
     """
+    device = resolve_device(device)
     A = np.asarray(plant.A, dtype=np.float64)
     B = np.asarray(plant.B, dtype=np.float64)
     C = np.asarray(plant.C, dtype=np.float64)
@@ -246,7 +250,7 @@ def build_linear_engine(
     n_mpc_step: Optional[int] = None,
     solves_per_block: int = 1,
     center: bool = True,
-    device="cpu",
+    device=None,
     dtype=torch.float32,
 ) -> AffineBlockMap:
     """Block map straight from a slack-NONE

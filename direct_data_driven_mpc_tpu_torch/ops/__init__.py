@@ -1,2 +1,2 @@
-"""Host operations, plant matrices and the fused rollout with its CUDA
-kernel."""
+"""Host operations, plant matrices, and the fused engines with their
+CUDA kernels."""

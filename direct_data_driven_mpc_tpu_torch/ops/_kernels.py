@@ -33,12 +33,22 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "fused_rollout": {
         "fused_rollout_launch": ([_P] * 8 + [_I] * 9 + [_P], ctypes.c_int),
+        "fused_rollout_smem_bytes": ([_I] * 3, ctypes.c_int),
+        "fused_rollout_nocost_smem_bytes": ([_I] * 2, ctypes.c_int),
+        "fused_rollout_nocost_launch": (
+            [_P] * 7 + [_I] * 7 + [_P], ctypes.c_int
+        ),
     },
     "fused_admm": {
         "fused_admm_tile_rows": ([_I] * 5, ctypes.c_int),
         "fused_admm_smem_bytes": ([_I] * 5, ctypes.c_int),
         "fused_admm_launch": (
             [_P] * 24 + [_I] * 8 + [_F] * 3 + [_P], ctypes.c_int
+        ),
+        "fused_ladder_tile_rows": ([_I] * 5, ctypes.c_int),
+        "fused_ladder_smem_bytes": ([_I] * 5, ctypes.c_int),
+        "fused_ladder_launch": (
+            [_P] * 26 + [_I] * 9 + [_F] * 3 + [_P], ctypes.c_int
         ),
     },
 }

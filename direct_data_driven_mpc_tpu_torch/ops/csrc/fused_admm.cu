@@ -1,8 +1,10 @@
-// Fused batched ADMM closed loop (float32, Hopper sm_90a).
+// Fused batched ADMM closed loop (float32, Hopper sm_90a), with a fixed
+// penalty (kernel K4) or the adaptive penalty ladder (kernel K5).
 //
-// Replaces direct_data_driven_mpc_tpu/ops/pallas_admm.py::
+// K4 replaces direct_data_driven_mpc_tpu/ops/pallas_admm.py::
 // _make_admm_kernel (its math: _make_block_math, _make_iter_extract,
-// _make_plant_step). The TPU kernel's sequential time axis of the grid
+// _make_plant_step); K5 replaces _make_ladder_kernel (with
+// _make_ladder_step). Both are instantiations of one kernel body. The TPU kernel's sequential time axis of the grid
 // becomes a loop inside each thread block, and its VMEM scratch carry
 // becomes shared memory. A block owns TB scenarios for the whole
 // rollout; per solve block t it computes
@@ -45,6 +47,28 @@
 // nvcc does not contract it into FMAs: it rounds as the plain PyTorch
 // version does.
 //
+// The ladder (K5, LADDER = true). The box operator is pre-factorised
+// for R penalties rho_0 < ... < rho_{R-1}; a thread block's TB
+// scenarios form one rung group and share one rung ri. After the
+// extraction of each solve the block balances the rung on its group's
+// maxima (rows past B excluded):
+//
+//   rp_blk = max rp,  rd_blk = (max rd) / rho_ri,  s_mag = max |s|,
+//   w_mag = max |w|,  rp_rel = rp_blk / max(max(s_mag, w_mag), 1e-12),
+//   rd_rel = rd_blk / max(w_mag, 1e-12),
+//   ri' = ri + [rp_rel > ratio rd_rel and ri < R-1]
+//            - [rd_rel > ratio rp_rel and ri > 0]
+//
+// (maxima keep a NaN, so a non-finite lane never looks converged), and
+// on a move rescales the scaled dual w by rho_ri / rho_ri' (the ratio
+// rounded to float32 first) and takes the plant step with rung ri''s
+// maps. Only the group's current rung is resident in shared memory
+// (41 KB at four_tank_ladder, where all seven rungs would be 287 KB):
+// the stack stays in global memory, where it lives in L2, and a block
+// whose rung moved re-stages Vop, M1, M2 and b2 between the balancer
+// and the plant step. The divisions and products of the balancer round
+// explicitly, as the plain PyTorch version rounds them in float32.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libfused_admm.so fused_admm.cu
 
@@ -65,10 +89,12 @@ struct Shape {
   int Mw, D2, W1, W2;      // pre width, plant input, M1 and M2 widths
   int ldv, ld1, ld2, ldu;  // padded rows of Vop, M1, M2, u bounds
   int TB, LDS;             // scenarios per block, carry row stride
+  int n_red;               // balancer maxima (4 with the ladder, else 0)
 };
 
 __host__ __device__ inline Shape make_shape(int S, int nbm, int nbp,
-                                            int nbox, int nxi, int TB) {
+                                            int nbox, int nxi, int TB,
+                                            bool ladder) {
   Shape d{};
   d.S = S;
   d.nbm = nbm;
@@ -85,6 +111,7 @@ __host__ __device__ inline Shape make_shape(int S, int nbm, int nbp,
   d.ldu = ceil4(nbm);
   d.TB = TB;
   d.LDS = TB + 4;
+  d.n_red = ladder ? 4 : 0;
   return d;
 }
 
@@ -99,15 +126,24 @@ __host__ __device__ inline int carry_rows(const Shape& d) {
   return d.D2 + d.S + d.Mw + d.nbox + d.nxi + 4 * d.nbox;
 }
 size_t smem_bytes(const Shape& d) {
-  return sizeof(float) *
-         (op_floats(d) + (size_t)carry_rows(d) * d.LDS + 2 * (size_t)d.TB);
+  return sizeof(float) * (op_floats(d) + (size_t)carry_rows(d) * d.LDS +
+                          2 * (size_t)d.TB + d.n_red);
 }
 
+// Vop, M1, M2 and b2 point at one operator (K4) or at the ladder's
+// stack of R, rung-major (K5).
 struct Params {
   const float *Vop, *M1, *M2, *b2, *lo, *hi, *u_lo, *u_hi;
   const float *s0, *pre0, *vc0, *zth0, *sa0, *wa0, *W, *adds;
   float *U, *Y, *C, *RP, *RD, *s_fin, *sa_fin, *wa_fin;
   float alpha, beta, rho;
+  // Ladder only: penalties (R), each group's first rung, the per-solve
+  // post-balance rung (B, n_blocks), the ladder size, the balance ratio.
+  const float* rhos;
+  const int* rung0;
+  int* RUNG;
+  int R;
+  float ratio;
 };
 
 // Copy a (rows, width) row-major operator into shared memory with rows
@@ -185,6 +221,17 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (b > a || b != b) ? b : a;
 }
 
+// Stage rung ri's operators (K4: ri = 0, the only one).
+__device__ __forceinline__ void load_rung(float* Vop, float* M1, float* M2,
+                                          float* b2, const Params& P,
+                                          const Shape& d, int ri) {
+  load_op(Vop, P.Vop + (size_t)ri * d.nbox * d.nbox, d.nbox, d.nbox, d.ldv);
+  load_op(M1, P.M1 + (size_t)ri * d.nbox * d.W1, d.nbox, d.W1, d.ld1);
+  load_op(M2, P.M2 + (size_t)ri * d.D2 * d.W2, d.D2, d.W2, d.ld2);
+  load_op(b2, P.b2 + (size_t)ri * d.W2, 1, d.W2, d.ld2);
+}
+
+template <bool LADDER>
 __global__ void __launch_bounds__(THREADS)
 fused_admm_kernel(const Params P, const Shape d) {
   extern __shared__ float4 smem4[];
@@ -215,11 +262,13 @@ fused_admm_kernel(const Params P, const Shape d) {
   float* dbuf = wa + nbox * LDS;      // (2, nbox): s - w, double-buffered
   int* rp_bits = reinterpret_cast<int*>(dbuf + 2 * nbox * LDS);  // (TB)
   int* rd_bits = rp_bits + TB;                                   // (TB)
+  // Ladder: the group's max rp, rd, |s|, |w| as bits (d.n_red).
+  int* red = rd_bits + TB;
 
-  load_op(Vop, P.Vop, nbox, nbox, d.ldv);
-  load_op(M1, P.M1, nbox, d.W1, d.ld1);
-  load_op(M2, P.M2, d.D2, d.W2, d.ld2);
-  load_op(b2, P.b2, 1, d.W2, d.ld2);
+  int ri = 0;  // the group's rung
+  if constexpr (LADDER) ri = P.rung0[blockIdx.x];
+  float rho = LADDER ? P.rhos[ri] : P.rho;
+  load_rung(Vop, M1, M2, b2, P, d, ri);
   load_op(lo, P.lo, 1, nbox, d.ldv);
   load_op(hi, P.hi, 1, nbox, d.ldv);
   load_op(ulo, P.u_lo, 1, nbm, d.ldu);
@@ -258,6 +307,7 @@ fused_admm_kernel(const Params P, const Shape d) {
       }
     }
     for (int r = tid; r < TB; r += THREADS) rp_bits[r] = rd_bits[r] = 0;
+    if (tid < d.n_red) red[tid] = 0;
     __syncthreads();
 
     // ADMM iterations.
@@ -362,10 +412,52 @@ fused_admm_kernel(const Params P, const Shape d) {
         const size_t o = (size_t)b * d.n_blocks + t;
         P.C[o] = c;
         P.RP[o] = rp;
-        P.RD[o] = __fmul_rn(P.rho, rd);
+        P.RD[o] = __fmul_rn(rho, rd);
+        if constexpr (LADDER) {
+          float s_mag = 0.f, w_mag = 0.f;
+          for (int j = 0; j < nbox; ++j) {
+            s_mag = nan_max(s_mag, fabsf(sa[j * LDS + r]));
+            w_mag = nan_max(w_mag, fabsf(wa[j * LDS + r]));
+          }
+          atomicMax(&red[0], __float_as_int(rp));
+          atomicMax(&red[1], __float_as_int(__fmul_rn(rho, rd)));
+          atomicMax(&red[2], __float_as_int(s_mag));
+          atomicMax(&red[3], __float_as_int(w_mag));
+        }
       }
     }
     __syncthreads();  // zth and pre are read before M2 overwrites them
+
+    if constexpr (LADDER) {
+      // Balance the group's rung; every thread reaches the same ri'.
+      const float tiny = 1e-12f;
+      const float s_mag = __int_as_float(red[2]);
+      const float w_mag = __int_as_float(red[3]);
+      const float rp_rel = __fdiv_rn(__int_as_float(red[0]),
+                                     nan_max(nan_max(s_mag, w_mag), tiny));
+      const float rd_rel = __fdiv_rn(__fdiv_rn(__int_as_float(red[1]), rho),
+                                     nan_max(w_mag, tiny));
+      const bool up = rp_rel > __fmul_rn(P.ratio, rd_rel) && ri < P.R - 1;
+      const bool down = rd_rel > __fmul_rn(P.ratio, rp_rel) && ri > 0;
+      const int rn = ri + (int)up - (int)down;
+      for (int r = tid; r < TB; r += THREADS)
+        if (row0 + r < d.B) P.RUNG[(size_t)(row0 + r) * d.n_blocks + t] = rn;
+      if (rn != ri) {
+        // The unscaled dual rho w is rung-invariant; s - w feeds the
+        // next solve's first iteration.
+        const float fac = __fdiv_rn(P.rhos[ri], P.rhos[rn]);
+        float* dc = dbuf + cur * nbox * LDS;
+        for (int idx = tid; idx < nbox * LDS; idx += THREADS) {
+          const float w = __fmul_rn(wa[idx], fac);
+          wa[idx] = w;
+          dc[idx] = __fsub_rn(sa[idx], w);
+        }
+        load_rung(Vop, M1, M2, b2, P, d, rn);
+        ri = rn;
+        rho = P.rhos[rn];
+        __syncthreads();  // the new rung's operators are in
+      }
+    }
 
     // Plant step and the next solve's maps: [s_flat | u | w] through M2.
     const int oU = S, oY = S + nbm, oQ = S + nbm + nbp, oV = oQ + 1;
@@ -410,25 +502,56 @@ fused_admm_kernel(const Params P, const Shape d) {
   store_carry(P.wa_fin, wa, nbox, row0, d);
 }
 
+// Scenarios per block for these sizes (the largest of 64, 32, 16, 8, 4
+// whose operators and carry fit in shared memory), or 0 when none fits.
+int tile_rows(int S, int nbm, int nbp, int nbox, int nxi, bool ladder) {
+  for (int TB = 64; TB >= 4; TB /= 2)
+    if (smem_bytes(make_shape(S, nbm, nbp, nbox, nxi, TB, ladder)) <=
+        SMEM_LIMIT)
+      return TB;
+  return 0;
+}
+
+template <bool LADDER>
+int launch(const Params& P, Shape d, void* stream) {
+  const size_t smem = smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_admm_kernel<LADDER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((d.B + d.TB - 1) / d.TB);
+  fused_admm_kernel<LADDER><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      P, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Scenarios per block the kernel uses for these sizes (the largest of
-// 64, 32, 16, 8, 4 whose operators and carry fit in shared memory), or
+// Scenarios per block the fixed-penalty kernel uses for these sizes, or
 // 0 when none fits.
 int fused_admm_tile_rows(int S, int nbm, int nbp, int nbox, int nxi) {
-  for (int TB = 64; TB >= 4; TB /= 2)
-    if (smem_bytes(make_shape(S, nbm, nbp, nbox, nxi, TB)) <= SMEM_LIMIT)
-      return TB;
-  return 0;
+  return tile_rows(S, nbm, nbp, nbox, nxi, false);
 }
 
 // Dynamic shared memory, in bytes, of a block at those sizes (0 when
 // none fits).
 int fused_admm_smem_bytes(int S, int nbm, int nbp, int nbox, int nxi) {
   const int TB = fused_admm_tile_rows(S, nbm, nbp, nbox, nxi);
-  return TB ? (int)smem_bytes(make_shape(S, nbm, nbp, nbox, nxi, TB)) : 0;
+  return TB ? (int)smem_bytes(make_shape(S, nbm, nbp, nbox, nxi, TB, false))
+            : 0;
+}
+
+// The same for the ladder kernel: its tile is its rung group.
+int fused_ladder_tile_rows(int S, int nbm, int nbp, int nbox, int nxi) {
+  return tile_rows(S, nbm, nbp, nbox, nxi, true);
+}
+
+int fused_ladder_smem_bytes(int S, int nbm, int nbp, int nbox, int nxi) {
+  const int TB = fused_ladder_tile_rows(S, nbm, nbp, nbox, nxi);
+  return TB ? (int)smem_bytes(make_shape(S, nbm, nbp, nbox, nxi, TB, true))
+            : 0;
 }
 
 // Launches the rollout on `stream`; returns cudaGetLastError() (0 on
@@ -453,22 +576,50 @@ int fused_admm_launch(const float* Vop, const float* M1, const float* M2,
   const int TB = fused_admm_tile_rows(S, nbm, nbp, nbox, nxi);
   if (TB == 0 || B < 1 || n_blocks < 1 || n_iter < 0)
     return (int)cudaErrorInvalidValue;
-  Shape d = make_shape(S, nbm, nbp, nbox, nxi, TB);
+  Shape d = make_shape(S, nbm, nbp, nbox, nxi, TB, false);
   d.B = B;
   d.n_blocks = n_blocks;
   d.n_iter = n_iter;
-  const size_t smem = smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const Params P{Vop, M1,   M2,    b2,  lo,  hi,    u_lo,   u_hi,
-                 s0,  pre0, vc0,   zth0, sa0, wa0,  W,      adds,
-                 U,   Y,    C,     RP,  RD,  s_fin, sa_fin, wa_fin,
-                 alpha, beta, rho};
-  const dim3 grid((B + TB - 1) / TB);
-  fused_admm_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(P, d);
-  return (int)cudaGetLastError();
+  const Params P{Vop,   M1,   M2,   b2,      lo,      hi,     u_lo, u_hi,
+                 s0,    pre0, vc0,  zth0,    sa0,     wa0,    W,    adds,
+                 U,     Y,    C,    RP,      RD,      s_fin,  sa_fin,
+                 wa_fin, alpha, beta, rho,   nullptr, nullptr, nullptr,
+                 1,     0.f};
+  return launch<false>(P, d, stream);
+}
+
+// Launches the ladder rollout (kernel K5) on `stream`, one block per
+// rung group of TB = fused_ladder_tile_rows(...) scenarios; returns
+// cudaGetLastError(), or cudaErrorInvalidValue when the sizes do not
+// fit. As fused_admm_launch without adds, plus: Vop (R, nbox, nbox), M1
+// (R, nbox, nbm+1+nxi), M2 (R, S+nbm+nbp, W2), b2 (R, W2) stacked
+// rung-major; rhos (R); rung0 (ceil(B / TB)) int32, each group's first
+// rung; RUNG (B, n_blocks) int32, the post-balance rung of every solve.
+int fused_ladder_launch(const float* Vop, const float* M1, const float* M2,
+                        const float* b2, const float* lo, const float* hi,
+                        const float* u_lo, const float* u_hi,
+                        const float* rhos, const int* rung0, const float* s0,
+                        const float* pre0, const float* vc0,
+                        const float* zth0, const float* sa0,
+                        const float* wa0, const float* W, float* U, float* Y,
+                        float* C, float* RP, float* RD, int* RUNG,
+                        float* s_fin, float* sa_fin, float* wa_fin, int B,
+                        int S, int nbm, int nbp, int nbox, int nxi,
+                        int n_blocks, int n_iter, int R, float alpha,
+                        float beta, float ratio, void* stream) {
+  const int TB = fused_ladder_tile_rows(S, nbm, nbp, nbox, nxi);
+  if (TB == 0 || B < 1 || n_blocks < 1 || n_iter < 0 || R < 1)
+    return (int)cudaErrorInvalidValue;
+  Shape d = make_shape(S, nbm, nbp, nbox, nxi, TB, true);
+  d.B = B;
+  d.n_blocks = n_blocks;
+  d.n_iter = n_iter;
+  const Params P{Vop,    M1,   M2,   b2,    lo,    hi,    u_lo,  u_hi,
+                 s0,     pre0, vc0,  zth0,  sa0,   wa0,   W,     nullptr,
+                 U,      Y,    C,    RP,    RD,    s_fin, sa_fin,
+                 wa_fin, alpha, beta, 0.f,  rhos,  rung0, RUNG,
+                 R,      ratio};
+  return launch<true>(P, d, stream);
 }
 
 }  // extern "C"

@@ -38,8 +38,9 @@ loop of ``bench.py``). Differences from the TPU layout, on purpose:
   extraction and plant product run in float32 (TF32 off). The tuple is
   kept so a caller finds the counterpart.
 
-The adaptive penalty ladder (kernel K5, ``_make_ladder_kernel``) is not
-ported yet; a multi-rung box operator raises.
+This engine takes one penalty; a multi-rung box operator (the adaptive
+ladder, kernel K5) goes to ``ops.fused_ladder``, whose kernel is the
+ladder instantiation of the same ``csrc/fused_admm.cu`` body.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ import numpy as np
 import torch
 
 from direct_data_driven_mpc_tpu_torch.control.loop import ClosedLoopResult
+from direct_data_driven_mpc_tpu_torch.device import resolve_device
 from direct_data_driven_mpc_tpu_torch.qp.admm import ADMMState
 
 _OP_KEYS = ("v_c", "V_theta", "V_s", "u_c", "U_theta", "U_s", "cost_P",
@@ -66,8 +68,8 @@ def _normalize_admm_op(op: dict) -> dict:
         if op["V_s"].shape[0] != 1:
             raise ValueError(
                 "the fused ADMM engine needs a SINGLE-rung operator "
-                "(build the box operator with a fixed rho; the adaptive "
-                "ladder is kernel K5, not ported yet)."
+                "(build the box operator with a fixed rho, or run the "
+                "adaptive ladder through ops.fused_ladder)."
             )
         for k in _OP_KEYS:
             out[k] = np.asarray(op[k], np.float64)[0]
@@ -196,7 +198,7 @@ def build_fused_admm_operator(
     p: int,
     n_mpc_step: int = 1,
     track: bool = False,
-    device="cpu",
+    device=None,
     dtype=torch.float32,
 ) -> Tuple[FusedADMMOperator, FusedADMMDims]:
     """Host float64 assembly of the fused-engine operators, cast once at
@@ -209,8 +211,10 @@ def build_fused_admm_operator(
     ``return_setpoint_maps=True``) extends the cost features to
     ``[theta; t; dr]`` so a per-block setpoint delta enters as three
     additive channels on the carried maps (:func:`compute_setpoint_adds`);
-    the iteration operator does not depend on the setpoint.
+    the iteration operator does not depend on the setpoint. ``device``
+    None means the CUDA card (raises without one).
     """
+    device = resolve_device(device)
     op = _normalize_admm_op(admm_op)
     ns = np.asarray(plant.A).shape[0]
     nb = n_mpc_step
@@ -524,7 +528,7 @@ def make_fused_admm_rollout(
     cold_iters: int = 24,
     tol: float = 1e-5,
     setpoints=None,
-    device="cpu",
+    device=None,
     dtype=torch.float32,
     rollout=fused_admm,
 ):
@@ -552,7 +556,8 @@ def make_fused_admm_rollout(
             ``return_setpoint_maps=True``. Enters as per-block additive
             channels; the ADMM state warm-starts across changes.
         device, dtype: where and in which dtype the operators live; the
-            inputs of ``run`` must be there too.
+            inputs of ``run`` must be there too. None means the CUDA
+            card (raises without one); ``"cpu"`` runs the plain version.
         rollout: :func:`fused_admm` (the kernel on CUDA tensors) or
             :func:`fused_admm_reference` (the plain version anywhere).
 

@@ -14,14 +14,24 @@ kernel ``csrc/fused_rollout.cu`` on CUDA tensors (:func:`fused_rollout`)
 and as :func:`fused_rollout_reference` on CPU tensors and in
 comparisons.
 
+``cost_mode="post"`` drops the cost columns from the operator (columns
+``[s_next | u | y]`` only; kernel K3, :func:`fused_rollout_nocost`) and
+rebuilds each solve's cost afterwards from the emitted trajectories: the
+past window of solve k is rows ``k*nb .. k*nb + n - 1`` of the
+trajectory with the initial window prepended, so the factored cost
+``||L^T theta||^2 + q . theta + r`` is one stride-``nb`` convolution
+over it (:func:`_make_post_cost_fn`). For large plants the ``K *
+n_theta`` cost columns would dominate the operator; without them it
+stays ``D x (S + Ku + Kp)``.
+
 Counterpart of ``direct_data_driven_mpc_tpu/ops/pallas_rollout.py``
 (``suggest_solves_per_block``, ``build_theta_operator``,
-``_build_fused_operator``, ``_center_and_pack``,
+``_build_fused_operator``, ``_make_post_cost_fn``, ``_center_and_pack``,
 ``_make_xla_rollout_from_fused``, ``make_fused_batched_rollout``,
 ``pallas_batched_rollout``, ``make_amortized_pallas_run``). Differences
 from the TPU layout: no 128-lane column padding, no segment-sum matrix,
-and noise and outputs are batch-major ``(B, n_outer, width)``. The
-``cost_mode="post"`` path (kernel K3) and tracking maps are not ported.
+and noise and outputs are batch-major ``(B, n_outer, width)``. Tracking
+maps are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
     AffineBlockMap,
@@ -99,7 +110,8 @@ class FusedOperator(NamedTuple):
 
     ``G`` is ``(nw + S, S + Ku + Kp + K*rank + K)`` with rows ``[w; s]``
     and column groups ``[s_next | u | y | Z | q-part]``; ``bias`` has
-    one entry per column (``r`` is folded into the q-part)."""
+    one entry per column (``r`` is folded into the q-part). Without
+    cost columns (``cost_mode="post"``) ``K = rank = 0``."""
 
     G: torch.Tensor
     bias: torch.Tensor
@@ -111,9 +123,14 @@ class FusedOperator(NamedTuple):
     rank: int
 
 
-def _build_fused_operator(block_map: AffineBlockMap) -> FusedOperator:
+def _build_fused_operator(block_map: AffineBlockMap,
+                          include_cost: bool = True,
+                          cost_rank_rtol: float = 0.0) -> FusedOperator:
     """Assemble the fused operator on the host in float64 and cast it
-    to the block map's device and dtype."""
+    to the block map's device and dtype. ``include_cost=False`` keeps
+    the column groups ``[s_next | u | y]`` only; ``cost_rank_rtol > 0``
+    drops the cost factor's eigenvalues below that fraction of the
+    largest."""
     if block_map.n_r:
         raise NotImplementedError(
             "tracking block maps (n_r > 0) are not ported yet"
@@ -136,6 +153,9 @@ def _build_fused_operator(block_map: AffineBlockMap) -> FusedOperator:
     # Factor the PSD cost quadratic form P = L L^T (tiny negative
     # eigenvalues from rounding are clipped to zero).
     evals, V = np.linalg.eigh(P)
+    if cost_rank_rtol > 0.0:
+        keep = evals > cost_rank_rtol * max(float(evals.max()), 1e-300)
+        V, evals = V[:, keep], evals[keep]
     L = V * np.sqrt(np.clip(evals, 0.0, None))
     rank = L.shape[1]
     q = f64(block_map.cost_q)
@@ -146,34 +166,111 @@ def _build_fused_operator(block_map: AffineBlockMap) -> FusedOperator:
         return (Ot.reshape(rows, K, n_theta) @ L).reshape(rows, K * rank)
 
     # Row order [w-rows; s-rows] matches sw = [w | s].
-    G = np.concatenate(
-        [
-            np.concatenate([N_T, M_T], axis=0),
-            np.concatenate([f64(block_map.OuW_T), f64(block_map.OuS_T)]),
-            np.concatenate([f64(block_map.OyW_T), f64(block_map.OyS_T)]),
+    cols = [
+        np.concatenate([N_T, M_T], axis=0),
+        np.concatenate([f64(block_map.OuW_T), f64(block_map.OuS_T)]),
+        np.concatenate([f64(block_map.OyW_T), f64(block_map.OyS_T)]),
+    ]
+    biases = [f64(block_map.c), f64(block_map.ou_c), f64(block_map.oy_c)]
+    if include_cost:
+        cols += [
             np.concatenate([blockwise_L(OtW_T), blockwise_L(OtS_T)]),
             np.concatenate(
                 [OtW_T.reshape(nw, K, n_theta) @ q,
                  OtS_T.reshape(S, K, n_theta) @ q]
             ),
-        ],
-        axis=1,
-    )
-    bias = np.concatenate(
-        [
-            f64(block_map.c),
-            f64(block_map.ou_c),
-            f64(block_map.oy_c),
+        ]
+        biases += [
             (otc.reshape(K, n_theta) @ L).reshape(K * rank),
             otc.reshape(K, n_theta) @ q + r,
         ]
-    )
+    else:
+        K = rank = 0
+    G = np.concatenate(cols, axis=1)
+    bias = np.concatenate(biases)
     dev, dt = block_map.M_T.device, block_map.M_T.dtype
     return FusedOperator(
         G=torch.as_tensor(G, dtype=dt, device=dev).contiguous(),
         bias=torch.as_tensor(bias, dtype=dt, device=dev).contiguous(),
         S=S, nw=nw, Ku=Ku, Kp=Kp, K=K, rank=rank,
     )
+
+
+def _make_post_cost_fn(block_map: AffineBlockMap, n_mpc_step: int,
+                       rank_rtol: float = 1e-6):
+    """Per-solve costs rebuilt from the trajectories
+    (``cost_mode="post"``).
+
+    The window quadratic ``theta P theta + q . theta + r`` with ``P = L
+    L^T`` is a 1-D convolution over time: window offset j of solve k is
+    time index ``k*nb + j`` of the past-prepended trajectory, so ``[L^T
+    theta_k; q . theta_k]`` is one stride-``nb`` ``F.conv1d`` with a
+    ``(rank + 1, m + p, n)`` kernel, q riding as the extra output
+    channel. It runs in the block map's dtype, with TF32 off, over batch
+    chunks that keep the ``(cb, rank + 1, n_solves)`` transient under
+    1 GB.
+
+    As in the JAX package, L keeps the eigenvalues of P above
+    ``rank_rtol`` of the largest (98 of 200 at ``large_plant``), so
+    these costs equal the in-kernel ones of an operator built with
+    ``cost_rank_rtol=rank_rtol``. At ``large_plant`` the truncation is
+    not negligible: each cost there is a small difference of terms near
+    1e3, and the dropped curvature moves the costs by up to 11 against
+    the untruncated ones.
+
+    Returns ``cost_fn(u_past, y_past, u_sys, y_sys) -> (B, n_solves)``
+    for time-leading ``(B, T, m or p)`` trajectories."""
+    if block_map.n_r:
+        raise NotImplementedError(
+            "cost_mode='post' does not support tracking maps yet; use "
+            "cost_mode='inkernel'"
+        )
+
+    def f64(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    P = f64(block_map.cost_P)
+    evals, V = np.linalg.eigh(0.5 * (P + P.T))
+    keep = evals > rank_rtol * max(float(evals.max()), 1e-300)
+    L = V[:, keep] * np.sqrt(np.clip(evals[keep], 0.0, None))
+    Lq = np.concatenate([L, f64(block_map.cost_q)[:, None]], axis=1)
+    rank = L.shape[1]
+    dev, dt = block_map.M_T.device, block_map.M_T.dtype
+    r = float(f64(block_map.cost_r))
+    nb = n_mpc_step
+    weights = {}
+
+    def cost_fn(u_past, y_past, u_sys, y_sys):
+        torch.backends.cudnn.allow_tf32 = False
+        Bsz, n, m = u_past.shape
+        p = y_past.shape[2]
+        if (n, m, p) not in weights:
+            Kz = np.concatenate(
+                [Lq[: n * m].reshape(n, m, rank + 1),
+                 Lq[n * m :].reshape(n, p, rank + 1)], axis=1,
+            )  # (n, m + p, rank + 1)
+            weights[n, m, p] = torch.as_tensor(
+                np.ascontiguousarray(Kz.transpose(2, 1, 0)), dtype=dt,
+                device=dev,
+            )
+        weight = weights[n, m, p]
+        n_solves = -(-u_sys.shape[1] // nb)
+        x = torch.cat(
+            [torch.cat([u_past.to(dt), u_sys], dim=1),
+             torch.cat([y_past.to(dt), y_sys], dim=1)], dim=2,
+        )[:, : (n_solves - 1) * nb + n].transpose(1, 2)
+        cb = Bsz
+        while cb > 8 and cb * n_solves * rank * 4 > 1e9:
+            cb //= 2
+        costs = torch.empty((Bsz, n_solves), dtype=dt, device=x.device)
+        for c0 in range(0, Bsz, cb):
+            z = F.conv1d(x[c0 : c0 + cb], weight, stride=nb)
+            costs[c0 : c0 + cb] = (
+                (z[:, :rank] * z[:, :rank]).sum(1) + z[:, rank] + r
+            )
+        return costs
+
+    return cost_fn
 
 
 def fused_rollout_reference(op: FusedOperator, s0: torch.Tensor,
@@ -207,17 +304,8 @@ def fused_rollout_reference(op: FusedOperator, s0: torch.Tensor,
     return U, Y, C, s.contiguous()
 
 
-def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
-                  w_off: int = 0):
-    """The fused rollout (same contract as
-    :func:`fused_rollout_reference`).
-
-    CPU tensors run the plain version. CUDA tensors launch the kernel
-    ``csrc/fused_rollout.cu`` (float32, contiguous) and add one to
-    ``fused_rollout.launches``; anything the kernel does not take
-    raises."""
-    if s0.device.type == "cpu":
-        return fused_rollout_reference(op, s0, W, w_off)
+def _check_kernel_inputs(op: FusedOperator, s0: torch.Tensor,
+                         W: torch.Tensor, w_off: int) -> None:
     if s0.device.type != "cuda":
         raise ValueError(f"no fused rollout for device {s0.device}")
     Bsz, n_outer, nw = W.shape
@@ -241,9 +329,35 @@ def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
     if not 0 <= w_off < n_outer:
         raise ValueError(f"w_off={w_off} outside [0, {n_outer})")
 
+
+def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
+                  w_off: int = 0):
+    """The fused rollout (same contract as
+    :func:`fused_rollout_reference`).
+
+    CPU tensors run the plain version. An operator without cost columns
+    goes to :func:`fused_rollout_nocost`. Other CUDA tensors launch the
+    kernel ``csrc/fused_rollout.cu`` (float32, contiguous) and add one to
+    ``fused_rollout.launches``; anything the kernel does not take,
+    operators too large for its shared-memory plan included, raises
+    before the launch."""
+    if s0.device.type == "cpu":
+        return fused_rollout_reference(op, s0, W, w_off)
+    if op.K == 0:
+        return fused_rollout_nocost(op, s0, W, w_off)
+    _check_kernel_inputs(op, s0, W, w_off)
     from direct_data_driven_mpc_tpu_torch.ops import _kernels
 
     lib = _kernels.load("fused_rollout").lib
+    Bsz, n_outer, nw = W.shape
+    S = op.S
+    smem = lib.fused_rollout_smem_bytes(S, nw, op.K)
+    if smem == 0:
+        raise ValueError(
+            f"operator too large for the fused rollout kernel's "
+            f"shared-memory plan: S={S}, nw={nw} needs more than one "
+            f"block's 232448 bytes; use cost_mode='post'"
+        )
     kw = dict(dtype=torch.float32, device=s0.device)
     U = torch.empty((Bsz, n_outer, op.Ku), **kw)
     Y = torch.empty((Bsz, n_outer, op.Kp), **kw)
@@ -267,6 +381,55 @@ def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
 
 #: Kernel launches made by :func:`fused_rollout` in this process.
 fused_rollout.launches = 0
+
+
+def fused_rollout_nocost(op: FusedOperator, s0: torch.Tensor,
+                         W: torch.Tensor, w_off: int = 0):
+    """The fused rollout of an operator without cost columns
+    (``cost_mode="post"``; same contract as
+    :func:`fused_rollout_reference`, with ``C`` of width 0).
+
+    CPU tensors run the plain version. CUDA tensors launch kernel K3
+    (``fused_rollout_nocost_kernel`` of ``csrc/fused_rollout.cu``) and
+    add one to ``fused_rollout_nocost.launches``; anything the kernel
+    does not take raises before the launch."""
+    if s0.device.type == "cpu":
+        return fused_rollout_reference(op, s0, W, w_off)
+    if op.K != 0:
+        raise ValueError("fused_rollout_nocost needs an operator without "
+                         "cost columns (include_cost=False)")
+    _check_kernel_inputs(op, s0, W, w_off)
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("fused_rollout").lib
+    Bsz, n_outer, nw = W.shape
+    S = op.S
+    if lib.fused_rollout_nocost_smem_bytes(S, nw) == 0:
+        raise ValueError(
+            f"operator too large for the no-cost kernel's shared-memory "
+            f"plan: S={S}, nw={nw}"
+        )
+    kw = dict(dtype=torch.float32, device=s0.device)
+    U = torch.empty((Bsz, n_outer, op.Ku), **kw)
+    Y = torch.empty((Bsz, n_outer, op.Kp), **kw)
+    s_fin = torch.empty((Bsz, S), **kw)
+    with torch.cuda.device(s0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_rollout_nocost_launch(
+            op.G.data_ptr(), op.bias.data_ptr(), s0.data_ptr(),
+            W.data_ptr(), U.data_ptr(), Y.data_ptr(), s_fin.data_ptr(),
+            Bsz, S, nw, op.Ku, op.Kp, n_outer, int(w_off), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"fused_rollout_nocost kernel launch failed: CUDA error {err}"
+        )
+    fused_rollout_nocost.launches += 1
+    return U, Y, torch.empty((Bsz, n_outer, 0), **kw), s_fin
+
+
+#: Kernel launches made by :func:`fused_rollout_nocost` in this process.
+fused_rollout_nocost.launches = 0
 
 
 def _center_and_pack(block_map, x0s, u_pasts, y_pasts, Ws, n_outer,
@@ -305,15 +468,41 @@ def _shape(block_map: AffineBlockMap, n_steps: int, n_mpc_step: int):
     return S, steps_per_outer, n_outer, n_outer * steps_per_outer - n_steps
 
 
+def _cost_mode_parts(block_map, n_mpc_step, cost_mode, cost_rank_rtol):
+    """The operator and, with ``cost_mode="post"``, the cost post-pass."""
+    if cost_mode not in ("inkernel", "post"):
+        raise ValueError(
+            f"cost_mode must be 'inkernel' or 'post', got {cost_mode!r}"
+        )
+    post = cost_mode == "post"
+    post_cost = _make_post_cost_fn(block_map, n_mpc_step) if post else None
+    op = _build_fused_operator(block_map, include_cost=not post,
+                               cost_rank_rtol=cost_rank_rtol)
+    return op, post_cost
+
+
 def make_fused_batched_rollout(
     block_map: AffineBlockMap,
     n_steps: int,
     n_mpc_step: int = 1,
     cost_precision: str = "high",
+    cost_mode: str = "inkernel",
+    cost_rank_rtol: float = 0.0,
+    rollout=fused_rollout,
 ):
     """``run(x0s, u_pasts, y_pasts, Ws) -> ClosedLoopResult`` through
-    :func:`fused_rollout` (the kernel on CUDA tensors). The operator is
-    assembled here, once; inputs must be on the block map's device."""
+    ``rollout``: :func:`fused_rollout` (the kernel on CUDA tensors) or
+    :func:`fused_rollout_reference` (the plain version anywhere, in the
+    block map's dtype). The operator is assembled here, once; inputs
+    must be on the block map's device.
+
+    ``cost_mode="inkernel"`` computes the per-solve costs in the kernel
+    (K1); ``"post"`` runs the operator without cost columns (K3) and
+    rebuilds the costs from the trajectories (:func:`_make_post_cost_fn`,
+    its cost factor truncated at rtol 1e-6); then ``converged`` is
+    ``isfinite(costs)``, as in the JAX package. ``cost_rank_rtol > 0``
+    truncates the in-kernel cost factor the same way (at 1e-6 the two
+    modes compute the same costs)."""
     _check_cost_precision(cost_precision)
     S, steps_per_outer, n_outer, pad = _shape(
         block_map, n_steps, n_mpc_step
@@ -321,7 +510,8 @@ def make_fused_batched_rollout(
     n_solves = math.ceil(n_steps / n_mpc_step)
     n_theta = block_map.cost_P.shape[0]
     ns = S - n_theta
-    op = _build_fused_operator(block_map)
+    op, post_cost = _cost_mode_parts(block_map, n_mpc_step, cost_mode,
+                                     cost_rank_rtol)
 
     def run(x0s, u_pasts, y_pasts, Ws):
         Bsz, n, m = u_pasts.shape
@@ -330,12 +520,17 @@ def make_fused_batched_rollout(
             block_map, x0s, u_pasts, y_pasts, Ws, n_outer,
             steps_per_outer, pad,
         )
-        U, Y, C, s_fin = fused_rollout(op, s0, W)
+        U, Y, C, s_fin = rollout(op, s0, W)
         s_fin = s_fin + block_map.s_star
-        costs = C.reshape(Bsz, -1)[:, :n_solves]
+        u_sys = U.reshape(Bsz, -1, m)[:, :n_steps]
+        y_sys = Y.reshape(Bsz, -1, p)[:, :n_steps]
+        if post_cost is None:
+            costs = C.reshape(Bsz, -1)[:, :n_solves]
+        else:
+            costs = post_cost(u_pasts, y_pasts, u_sys, y_sys)
         return ClosedLoopResult(
-            u_sys=U.reshape(Bsz, -1, m)[:, :n_steps],
-            y_sys=Y.reshape(Bsz, -1, p)[:, :n_steps],
+            u_sys=u_sys,
+            y_sys=y_sys,
             costs=costs,
             converged=torch.isfinite(costs),
             x_final=s_fin[:, :ns],
@@ -355,12 +550,13 @@ def pallas_batched_rollout(
     n_steps: int,
     n_mpc_step: int = 1,
     cost_precision: str = "high",
+    cost_mode: str = "inkernel",
 ) -> ClosedLoopResult:
     """One-call form of :func:`make_fused_batched_rollout` (the name
     of the JAX package's entry point)."""
     return make_fused_batched_rollout(
         block_map, n_steps, n_mpc_step=n_mpc_step,
-        cost_precision=cost_precision,
+        cost_precision=cost_precision, cost_mode=cost_mode,
     )(x0s, u_pasts, y_pasts, Ws)
 
 
@@ -369,6 +565,8 @@ def make_amortized_run(
     n_steps: int,
     n_mpc_step: int = 1,
     cost_precision: str = "high",
+    cost_mode: str = "inkernel",
+    cost_rank_rtol: float = 0.0,
     rollout=fused_rollout,
 ):
     """Throughput harness: ``run(x0s, u_pasts, y_pasts, Ws, R) ->
@@ -377,27 +575,37 @@ def make_amortized_run(
     Repetition ``i`` rotates the noise by ``(-i) mod n_outer`` outer
     blocks through the rollout's ``w_off`` index (no copy), so it equals
     a rollout on the noise rolled by ``i`` blocks. Every repetition's
-    U, Y, last-block costs and final carry fold into a float32 checksum
-    carried on the device, so no repetition's work is dead.
-    ``rollout`` is :func:`fused_rollout` or, to time the plain version
-    on the same inputs, :func:`fused_rollout_reference`."""
+    U, Y, costs (the last block's in the kernel; all of them from the
+    ``cost_mode="post"`` pass, which is part of the timed work) and
+    final carry fold into a float32 checksum carried on the device, so
+    no repetition's work is dead. ``rollout`` is :func:`fused_rollout`
+    or, to time the plain version on the same inputs,
+    :func:`fused_rollout_reference`."""
     _check_cost_precision(cost_precision)
     _, steps_per_outer, n_outer, pad = _shape(
         block_map, n_steps, n_mpc_step
     )
-    op = _build_fused_operator(block_map)
+    op, post_cost = _cost_mode_parts(block_map, n_mpc_step, cost_mode,
+                                     cost_rank_rtol)
 
     def run(x0s, u_pasts, y_pasts, Ws, R):
         s0, W = _center_and_pack(
             block_map, x0s, u_pasts, y_pasts, Ws, n_outer,
             steps_per_outer, pad,
         )
+        Bsz, _, m = u_pasts.shape
+        p = y_pasts.shape[2]
         checksum = torch.zeros((), dtype=torch.float32, device=s0.device)
         for i in range(R):
             U, Y, C, s_fin = rollout(op, s0, W, w_off=(-i) % n_outer)
-            checksum = checksum + (
-                C[:, -1].sum() + s_fin.sum() + U.sum() + Y.sum()
-            ).float()
+            if post_cost is None:
+                c = C[:, -1].sum()
+            else:
+                c = post_cost(
+                    u_pasts, y_pasts, U.reshape(Bsz, -1, m)[:, :n_steps],
+                    Y.reshape(Bsz, -1, p)[:, :n_steps],
+                ).sum()
+            checksum = checksum + (c + s_fin.sum() + U.sum() + Y.sum()).float()
         return checksum, torch.isfinite(checksum)
 
     return run

@@ -1,0 +1,263 @@
+"""Where the time of the port's kernels K5 (``fused_ladder``) and K3
+(``fused_rollout_nocost``) goes, on one NVIDIA card.
+
+Run from the repository root: ``python3 scripts/breakdown_port_kernels.py``.
+It builds patched copies of the kernel sources under
+``build/breakdown/`` (one nvcc each, all together), swaps each in for
+the shipped library and times it with CUDA events at the main shapes of
+``chip_smoke.py``: ``four_tank_ladder`` (B = 65536 x T = 400) and
+``large_plant`` (B = 65536 x T = 400, K = 25). Also timed: the
+fixed-penalty kernel K4 on the ladder's top rung, the plain version's
+per-block cuBLAS product, the cost post-pass (``F.conv1d``) and, as a
+yardstick, the same post-pass as one window-unfold and a matrix
+product; and the device's busy share over each path's amortized
+rollouts (``torch.profiler``). Prints one line per measurement, with the
+card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from direct_data_driven_mpc_tpu_torch.control.linear_engine import (  # noqa: E402
+    build_linear_engine,
+)
+from direct_data_driven_mpc_tpu_torch.ops import _kernels  # noqa: E402
+from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa  # noqa: E402
+from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl  # noqa: E402
+from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr  # noqa: E402
+from direct_data_driven_mpc_tpu_torch.parallel.batch import (  # noqa: E402
+    draw_noise_batch,
+)
+from direct_data_driven_mpc_tpu_torch.qp.box import (  # noqa: E402
+    compute_box_admm_operator_np,
+)
+
+OUT = ROOT / "build" / "breakdown"
+
+
+def replace_last(text: str, old: str, new: str) -> str:
+    i = text.rindex(old)
+    return text[:i] + new + text[i + len(old):]
+
+
+#: (library, tag, what is cut, patch) for every variant.
+VARIANTS = [
+    ("fused_rollout", "k3_no_product", "K3 without its FMA loop",
+     lambda t: replace_last(
+         t, "acc[r][c] = fmaf(av[r], gv[c], acc[r][c]);", ";")),
+    ("fused_rollout", "k3_no_staging", "K3 without copying G tiles",
+     lambda t: t.replace(
+         "__pipeline_memcpy_async(d, G + (size_t)k * Wtot + j, "
+         "sizeof(float));", ";")),
+    ("fused_rollout", "k3_no_stores", "K3 without storing U and Y",
+     lambda t: replace_last(replace_last(
+         t, "U[((size_t)b * n_outer + t) * Ku + (j - S)] = v;", ";"),
+         "Y[((size_t)b * n_outer + t) * Kp + (j - offY)] = v;", ";")),
+    ("fused_admm", "k5_no_balance_reads", "K5 without the group maxima",
+     lambda t: t.replace("j < nbox; ++j) {\n            s_mag",
+                         "j < 0; ++j) {\n            s_mag")),
+]
+
+
+def build(variant):
+    name, tag, _, patch = variant
+    src = (_kernels._CSRC / f"{name}.cu").read_text()
+    patched = patch(src)
+    if patched == src:
+        raise RuntimeError(f"patch {tag} changed nothing")
+    OUT.mkdir(parents=True, exist_ok=True)
+    cu, so = OUT / f"{tag}.cu", OUT / f"lib{tag}.so"
+    cu.write_text(patched)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o",
+                           str(so), str(cu)], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {tag}:\n{proc.stderr}")
+    return tag, _kernels.KernelLibrary(name, so, time.perf_counter() - t0,
+                                       proc.stdout + proc.stderr)
+
+
+def swapped(name, lib, fn):
+    """Run ``fn()`` with ``lib`` in place of the shipped library."""
+    shipped = _kernels._loaded[name]
+    _kernels._loaded[name] = lib
+    try:
+        return fn()
+    finally:
+        _kernels._loaded[name] = shipped
+
+
+def busy_share(fn) -> tuple:
+    """(device ms, wall ms) of ``fn()`` under torch.profiler: the summed
+    time of the device's own activities (kernels, copies; one stream, so
+    they do not overlap) against the host's wall clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_us = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    return dev_us / 1e3, wall
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("breakdown: CUDA is not available; nothing run")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}", flush=True)
+    with ThreadPoolExecutor(len(VARIANTS) + 2) as pool:
+        shipped = pool.map(_kernels.load, ("fused_rollout", "fused_admm"))
+        patched = dict(pool.map(build, VARIANTS))
+        list(shipped)
+    what = {tag: text for _, tag, text, _ in VARIANTS}
+
+    # K5 at four_tank_ladder: the rollout's own kernel arguments.
+    plant, ctrl, op, kw = cs.admm_config("four_tank_ladder")
+    B, T = cs.B_ADMM, cs.T_ADMM
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ins = (*cs.scenario_batch(plant, ctrl, B, dev),
+           draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+                            device=dev))
+    store = {}
+
+    def keep(*args):
+        store["args"] = args
+        return fl.fused_ladder(*args)
+
+    fl.make_fused_ladder_rollout(plant.as_params(), op, 4, 2, 2, T,
+                                 device=dev, rollout=keep, **kw)(*ins)
+    args = list(store["args"])
+    n_iter = args[4]
+
+    def k5(iters=n_iter):
+        return lambda: fl.fused_ladder(*args[:4], iters, *args[5:])
+
+    rows = [("K5 as shipped", k5()), ("K5, 0 iterations", k5(0)),
+            (f"K5, {2 * n_iter} iterations", k5(2 * n_iter))]
+    top = compute_box_admm_operator_np(
+        ctrl.spec, u_bounds=(-0.85, 0.85), rho=float(op["rhos"][-1])
+    )
+    ops4, dims4 = fa.build_fused_admm_operator(plant.as_params(), top, 4,
+                                               2, 2, device=dev)
+    rows.append(("K4 at the top rung (no balancer, no re-staging)",
+                 lambda: fa.fused_admm(ops4, dims4, args[2], args[3],
+                                       n_iter)))
+    rows.append((what["k5_no_balance_reads"], lambda: swapped(
+        "fused_admm", patched["k5_no_balance_reads"], k5())))
+    for label, fn in rows:
+        print(f"four_tank_ladder {label}: "
+              f"{cs.cuda_ms(fn, reps=3):.3f} ms per launch [{smi}]",
+              flush=True)
+    amort = fl.make_amortized_ladder_run(plant.as_params(), op, 4, 2, 2,
+                                         T, device=dev, **kw)
+    d_ms, w_ms = busy_share(lambda: amort(*ins, 2))
+    print(f"four_tank_ladder device busy {d_ms:.1f} ms of {w_ms:.1f} ms "
+          f"wall over 2 amortized rollouts (idle {1 - d_ms / w_ms:.1%})",
+          flush=True)
+    del store, args, ins
+
+    # K3 at large_plant.
+    plant, ctrl = cs.build_large_plant()
+    K = 25
+    bm = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K,
+                             device=dev)
+    op3 = fr._build_fused_operator(bm, include_cost=False)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Ws = draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+                          device=dev)
+    x0s, ups, yps = cs.scenario_batch(plant, ctrl, B, dev)
+    s0, W = fr._center_and_pack(bm, x0s, ups, yps, Ws, T // K, K, 0)
+    U, Y, _, _ = fr.fused_rollout(op3, s0, W)
+    u_sys, y_sys = U.reshape(B, T, 10), Y.reshape(B, T, 10)
+    post = fr._make_post_cost_fn(bm, 1)
+    sw = torch.cat([W[:, 0], s0], dim=1)
+
+    def k3(tag=None):
+        run = lambda: fr.fused_rollout(op3, s0, W)  # noqa: E731
+        return run if tag is None else (
+            lambda: swapped("fused_rollout", patched[tag], run))
+
+    # The same costs as one window unfold and a matrix product: window
+    # slot j of channel c times [L | q] row (j, c), theta's layout.
+    n, m, p = ups.shape[1], 10, 10
+    P = bm.cost_P.double().cpu().numpy()
+    evals, V = np.linalg.eigh(0.5 * (P + P.T))
+    keep = evals > 1e-6 * evals.max()  # the post-pass's truncation
+    L = V[:, keep] * np.sqrt(evals[keep])
+    Lq = np.concatenate([L, bm.cost_q.double().cpu().numpy()[:, None]], 1)
+    rank = L.shape[1]
+    Kz = np.concatenate([Lq[: n * m].reshape(n, m, -1),
+                         Lq[n * m:].reshape(n, p, -1)], 1)  # (n, C, r+1)
+    Wmat = torch.as_tensor(Kz.transpose(1, 0, 2).reshape(-1, rank + 1),
+                           dtype=torch.float32, device=dev)  # (C*n, r+1)
+    r_c = float(bm.cost_r)
+    x_full = torch.cat([torch.cat([ups, u_sys], 1),
+                        torch.cat([yps, y_sys], 1)], 2).transpose(1, 2)
+
+    def unfold_post():
+        out = torch.empty((B, T), device=dev)
+        for c0 in range(0, B, 2048):
+            win = x_full[c0:c0 + 2048].unfold(2, n, 1)[:, :, :T]
+            win = win.permute(0, 2, 1, 3).reshape(-1, (m + p) * n)
+            z = win @ Wmat
+            out[c0:c0 + 2048] = ((z[:, :rank] * z[:, :rank]).sum(1)
+                                 + z[:, rank] + r_c).view(-1, T)
+        return out
+
+    ref = post(ups, yps, u_sys, y_sys)
+    print(f"large_plant unfold yardstick vs post-pass: max |diff| "
+          f"{float((unfold_post() - ref).abs().max()):.3e}", flush=True)
+    rows = [("K3 as shipped", k3()),
+            ("plain version (16 cuBLAS products + copies)",
+             lambda: fr.fused_rollout_reference(op3, s0, W)),
+            ("one per-block cuBLAS product (addmm)",
+             lambda: torch.addmm(op3.bias, sw, op3.G)),
+            ("cost post-pass (F.conv1d, TF32 off)",
+             lambda: post(ups, yps, u_sys, y_sys)),
+            ("the same costs by window unfold + one SGEMM per 2048 "
+             "scenarios", unfold_post)]
+    rows += [(what[tag], k3(tag)) for tag in
+             ("k3_no_product", "k3_no_staging", "k3_no_stores")]
+    for label, fn in rows:
+        print(f"large_plant {label}: {cs.cuda_ms(fn, reps=3):.3f} ms "
+              f"[{smi}]", flush=True)
+    torch.backends.cudnn.benchmark = True
+    print(f"large_plant cost post-pass with cudnn.benchmark: "
+          f"{cs.cuda_ms(lambda: post(ups, yps, u_sys, y_sys), 3):.3f} ms "
+          f"[{smi}]", flush=True)
+    torch.backends.cudnn.benchmark = False
+    amort = fr.make_amortized_run(bm, T, cost_mode="post")
+    d_ms, w_ms = busy_share(lambda: amort(x0s, ups, yps, Ws, 2))
+    print(f"large_plant device busy {d_ms:.1f} ms of {w_ms:.1f} ms wall "
+          f"over 2 amortized rollouts (idle {1 - d_ms / w_ms:.1%})",
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

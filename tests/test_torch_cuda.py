@@ -1,5 +1,6 @@
-"""PyTorch port, the CUDA kernels on a card: ``fused_rollout`` and
-``fused_admm`` against their plain PyTorch versions and against the
+"""PyTorch port, the CUDA kernels on a card: ``fused_rollout`` (K1),
+``fused_rollout_nocost`` (K3), ``fused_admm`` (K4) and ``fused_ladder``
+(K5) against their plain PyTorch versions and against the
 framework-free goldens.
 
 These tests need an NVIDIA card and skip without one. This file
@@ -268,3 +269,186 @@ def test_admm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="too large"):
         fa.fused_admm(big_ops, big, big_carry, W, 4)
     assert fa.fused_admm.launches == before
+
+
+def _ladder_setup(u_box=0.85):
+    """The box golden's BOX controller with the default 7-rung ladder
+    (tests/test_fused_admm.py::test_fused_ladder_matches_golden)."""
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+
+    g, _, kw = _admm_setup("BOX")
+    ctrl = DirectDataDrivenMPCController(
+        n=4, m=2, p=2, u_d=g["u_d"], y_d=g["y_d"], L=30,
+        Q=3.0 * np.eye(60), R=1e-4 * np.eye(60),
+        u_s=np.array([[1.0], [1.0]]), y_s=np.array([[0.65], [0.77]]),
+        eps_max=0.002, lamb_alpha=0.1 / 0.002, lamb_sigma=1000.0, c=1.0,
+        slack_var_constraint_type=SlackVarConstraintTypes.NONE,
+        controller_type=DataDrivenMPCType.ROBUST,
+    )
+    op = compute_box_admm_operator_np(ctrl.spec, u_bounds=(-u_box, u_box))
+    return fl, g, op, kw
+
+
+@pytest.mark.parametrize("u_box,batch,n_steps", [
+    (0.85, 64, 120), (0.85, 100, 37), (3.0, 256, 60),
+])
+def test_ladder_kernel_matches_plain_version(cuda, u_box, batch, n_steps):
+    """Kernel K5 against its plain version: rung lanes equal, u, y, state
+    and ADMM state atol 2e-5, costs rtol 1e-3; at the saturated box,
+    scenario 0 against the float64 golden (max |du| < 1e-4). Batch 100
+    leaves the last rung group short; at |u| <= 3 with half the windows
+    mirrored the groups walk different rung paths."""
+    fl, g, op, kw = _ladder_setup(u_box)
+    ins = _admm_inputs(g, "BOX", batch, n_steps, cuda)
+    if u_box > 1:
+        for a in ins[:3]:
+            a[batch // 2:] *= -1.0
+    lanes = {}
+
+    def keep(fn, key):
+        def rollout(*args):
+            out = fn(*args)
+            lanes[key] = out[5]
+            return out
+        return rollout
+
+    args = (PLANT, op, 4, 2, 2, n_steps)
+    before = fl.fused_ladder.launches
+    got = fl.make_fused_ladder_rollout(
+        *args, device=cuda, rollout=keep(fl.fused_ladder, "k"), **kw
+    )(*ins)
+    torch.cuda.synchronize()
+    assert fl.fused_ladder.launches == before + 1
+    want = fl.make_fused_ladder_rollout(
+        *args, device=cuda, rollout=keep(fl.fused_ladder_reference, "p"),
+        **kw,
+    )(*ins)
+    assert torch.equal(lanes["k"], lanes["p"])
+    if u_box > 1:
+        assert not torch.equal(lanes["k"][0], lanes["k"][-1])
+    for f in ("u_sys", "y_sys", "x_final", "u_past", "y_past"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                   rtol=0, atol=2e-5, msg=f)
+    for a, b in zip(got.solver_state, want.solver_state):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+    torch.testing.assert_close(got.costs, want.costs, rtol=1e-3, atol=1e-5)
+    assert torch.equal(got.converged, want.converged)
+    if u_box < 1 and n_steps == 120:
+        du = np.abs(got.u_sys[0].double().cpu().numpy() - g["BOX_u"]).max()
+        assert du < 1e-4, du
+        assert bool(got.converged[:, 5:].all())
+
+
+def test_ladder_plan_matches_library_and_wrapper_rejects(cuda):
+    """``ladder_tile_rows`` mirrors the library's plan; the wrapper
+    refuses another rung group, rungs outside the ladder and operators
+    too large for one block."""
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+
+    fl, g, op, kw = _ladder_setup()
+    lib = _kernels.load("fused_admm").lib
+    ops, dims = fl.build_fused_ladder_operator(PLANT, op, 4, 2, 2,
+                                               device=cuda)
+    for nbox in (52, 60, 120, 200, 600):
+        d = dims._replace(nbox=nbox, nxi=dims.n_theta + nbox)
+        sizes = (d.S, 2, 2, d.nbox, d.nxi)
+        assert lib.fused_ladder_tile_rows(*sizes) == fl.ladder_tile_rows(d)
+        tile = fl.ladder_tile_rows(d)
+        assert lib.fused_ladder_smem_bytes(*sizes) == (
+            fl.ladder_smem_bytes(d, tile) if tile else 0)
+    B, T = 70, 6
+    carry = fa.ADMMCarry(*(
+        torch.zeros(B, w, device=cuda)
+        for w in (dims.S, dims.Mw, dims.nbox, dims.nxi, dims.nbox,
+                  dims.nbox)
+    ))
+    W = torch.zeros(B, T, 2, device=cuda)
+    rung0 = torch.full((2,), 3, dtype=torch.int32, device=cuda)
+    before = fl.fused_ladder.launches
+    with pytest.raises(ValueError, match="rung_group"):
+        fl.fused_ladder(ops, dims, carry, W, 4, rung0, 32)
+    with pytest.raises(ValueError, match="outside the ladder"):
+        fl.fused_ladder(ops, dims, carry, W, 4, rung0 + 4, 64)
+    with pytest.raises(ValueError, match="int32"):
+        fl.fused_ladder(ops, dims, carry, W, 4, rung0.long(), 64)
+    with pytest.raises(ValueError, match="float32"):
+        fl.fused_ladder(ops, dims, carry._replace(wa=carry.wa.double()), W,
+                        4, rung0, 64)
+    assert fl.fused_ladder.launches == before
+
+
+def _large_plant_op(cuda, K=25):
+    """``large_plant`` (bench.py, seed 0) and its operator without cost
+    columns."""
+    from chip_smoke import build_large_plant
+
+    plant, ctrl = build_large_plant()
+    bm = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K,
+                             device=cuda)
+    return plant, ctrl, bm, fr._build_fused_operator(bm, include_cost=False)
+
+
+@pytest.mark.parametrize("batch,n_steps,w_off", [(4096, 100, 1),
+                                                 (333, 50, 0)])
+def test_nocost_kernel_matches_plain_version(cuda, batch, n_steps, w_off):
+    """Kernel K3 at large_plant (460 rows, 710 columns) against its plain
+    version. The bar is the float64 one (1e-4): in the transient (|u| up
+    to 7) every float32 path is 2e-5 to 3e-5 from float64, so where
+    cuBLAS takes another summation order than the kernel (small batches)
+    the two differ at that level. u also within 1e-4 of float64."""
+    plant, ctrl, bm, op = _large_plant_op(cuda)
+    rng = np.random.default_rng(0)
+    x0s, ups, yps = (
+        torch.as_tensor(np.tile(np.asarray(a).reshape(1, -1), (batch, 1)),
+                        dtype=torch.float32, device=cuda).reshape(shape)
+        for a, shape in ((plant.get_state(), (batch, 10)),
+                         (ctrl.u_past, (batch, 10, 10)),
+                         (ctrl.y_past, (batch, 10, 10)))
+    )
+    Ws = torch.as_tensor(0.002 * rng.uniform(-1, 1, (batch, n_steps, 10)),
+                         dtype=torch.float32, device=cuda)
+    n_outer = math.ceil(n_steps / 25)
+    s0, W = fr._center_and_pack(bm, x0s, ups, yps, Ws, n_outer, 25,
+                                n_outer * 25 - n_steps)
+    before = fr.fused_rollout_nocost.launches
+    got = fr.fused_rollout(op, s0, W, w_off=w_off)
+    torch.cuda.synchronize()
+    assert fr.fused_rollout_nocost.launches == before + 1
+    want = fr.fused_rollout_reference(op, s0, W, w_off=w_off)
+    for a, b in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    assert got[2].shape == (batch, n_outer, 0)
+    res = fr.make_fused_batched_rollout(bm, n_steps, cost_mode="post")(
+        x0s, ups, yps, Ws
+    )
+    bm64 = build_linear_engine(ctrl, plant.as_params(), solves_per_block=25,
+                               device=cuda, dtype=torch.float64)
+    u64 = fr.make_fused_batched_rollout(
+        bm64, n_steps, rollout=fr.fused_rollout_reference
+    )(
+        x0s[:8].double(), ups[:8].double(), yps[:8].double(),
+        Ws[:8].double(),
+    ).u_sys
+    assert float((res.u_sys[:8].double() - u64).abs().max()) < 1e-4
+
+
+def test_nocost_and_k1_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """K1 raises before the launch on an operator too large for its
+    shared-memory plan (large_plant with cost columns: 460 rows); K3
+    refuses an operator with cost columns and bad inputs."""
+    plant, ctrl, bm, op = _large_plant_op(cuda)
+    full = fr._build_fused_operator(bm)
+    B, n_outer = 8, 2
+    s0 = torch.zeros(B, op.S, device=cuda)
+    W = torch.zeros(B, n_outer, op.nw, device=cuda)
+    before = (fr.fused_rollout.launches, fr.fused_rollout_nocost.launches)
+    with pytest.raises(ValueError, match="S=210, nw=250"):
+        fr.fused_rollout(full, s0, W)
+    with pytest.raises(ValueError, match="without cost columns"):
+        fr.fused_rollout_nocost(full, s0, W)
+    with pytest.raises(ValueError, match="float32"):
+        fr.fused_rollout_nocost(op, s0.double(), W)
+    with pytest.raises(ValueError, match="w_off"):
+        fr.fused_rollout_nocost(op, s0, W, w_off=n_outer)
+    assert (fr.fused_rollout.launches,
+            fr.fused_rollout_nocost.launches) == before

@@ -84,8 +84,8 @@ def _t(arrays, dtype=torch.float32):
 
 
 def _run(plant, op, n, m, p, T, inputs, dtype=torch.float32, **kw):
-    return fa.make_fused_admm_rollout(plant, op, n, m, p, T, dtype=dtype,
-                                      **kw)(*_t(inputs, dtype))
+    return fa.make_fused_admm_rollout(plant, op, n, m, p, T, device="cpu",
+                                      dtype=dtype, **kw)(*_t(inputs, dtype))
 
 
 def _assert_dict_close(got, want, keys, atol=EXACT):
@@ -173,8 +173,8 @@ def test_fused_operator_from_jax_dict_equals_port_dict(golden, convex,
         ops = convex[1:]
     kw = dict(n_mpc_step=4, track=True) if case == "track_nb4" else {}
     (got, dims), (want, jdims) = (
-        fa.build_fused_admm_operator(PLANT, o, 4, 2, 2, dtype=torch.float64,
-                                     **kw)
+        fa.build_fused_admm_operator(PLANT, o, 4, 2, 2, device="cpu",
+                                     dtype=torch.float64, **kw)
         for o in ops
     )
     assert dims == jdims
@@ -190,7 +190,8 @@ def test_fused_operator_from_jax_dict_equals_port_dict(golden, convex,
 
 
 def test_fused_operator_shapes_and_rejections(golden, convex, box_ctrl):
-    ops, dims = fa.build_fused_admm_operator(PLANT, convex[1], 4, 2, 2)
+    ops, dims = fa.build_fused_admm_operator(PLANT, convex[1], 4, 2, 2,
+                                             device="cpu")
     # Four-tank, L = 30: S = 20, nbox = 60, nxi = 76.
     assert (dims.S, dims.nbox, dims.nxi, dims.Mw) == (20, 60, 76, 3)
     assert tuple(ops.Vop.shape) == (60, 60)
@@ -199,11 +200,12 @@ def test_fused_operator_shapes_and_rejections(golden, convex, box_ctrl):
     assert ops.Vop.dtype == torch.float32 and ops.track is None
     with pytest.raises(ValueError, match="SINGLE-rung"):
         fa.build_fused_admm_operator(
-            PLANT, _box_op(golden, box_ctrl.spec), 4, 2, 2
+            PLANT, _box_op(golden, box_ctrl.spec), 4, 2, 2, device="cpu"
         )
     no_maps = {k: v for k, v in convex[1].items() if k != "V_r"}
     with pytest.raises(ValueError, match="setpoint tracking"):
-        fa.build_fused_admm_operator(PLANT, no_maps, 4, 2, 2, track=True)
+        fa.build_fused_admm_operator(PLANT, no_maps, 4, 2, 2, track=True,
+                                     device="cpu")
     with pytest.raises(ValueError, match="track=True"):
         fa.compute_setpoint_adds(ops, dims, convex[1]["r_bar"])
 
@@ -378,7 +380,7 @@ def test_segmented_run_matches_uninterrupted(golden, convex):
     (tests/test_fused_admm.py:234-266)."""
     T = 60
     x0, up, yp, W = _t(_tile(golden, "CONVEX", T))
-    kw = dict(iters=CONVEX_ITERS)
+    kw = dict(iters=CONVEX_ITERS, device="cpu")
     full = fa.make_fused_admm_rollout(PLANT, convex[1], 4, 2, 2, T,
                                       cold_iters=24, **kw)(x0, up, yp, W)
     seg1 = fa.make_fused_admm_rollout(PLANT, convex[1], 4, 2, 2, 30,
@@ -398,14 +400,15 @@ def test_segmented_run_matches_uninterrupted(golden, convex):
 
 def test_cpu_tensors_take_plain_version(golden, convex):
     T = 12
-    ops, dims = fa.build_fused_admm_operator(PLANT, convex[1], 4, 2, 2)
+    ops, dims = fa.build_fused_admm_operator(PLANT, convex[1], 4, 2, 2,
+                                             device="cpu")
     run = fa.make_fused_admm_rollout(PLANT, convex[1], 4, 2, 2, T,
-                                     iters=CONVEX_ITERS)
+                                     iters=CONVEX_ITERS, device="cpu")
     inputs = _t(_tile(golden, "CONVEX", T))
     before = fa.fused_admm.launches
     res = run(*inputs)
     ref = fa.make_fused_admm_rollout(
-        PLANT, convex[1], 4, 2, 2, T, iters=CONVEX_ITERS,
+        PLANT, convex[1], 4, 2, 2, T, iters=CONVEX_ITERS, device="cpu",
         rollout=fa.fused_admm_reference,
     )(*inputs)
     assert fa.fused_admm.launches == before == 0
@@ -424,7 +427,7 @@ def test_amortized_run_folds_every_repetition(golden, convex):
     """The throughput harness's checksum is the sum over R rollouts on
     the noise rolled by 0..R-1 steps of the last costs, u and y."""
     T, R = 16, 3
-    kw = dict(iters=CONVEX_ITERS, cold_iters=24, tol=1e-5)
+    kw = dict(iters=CONVEX_ITERS, cold_iters=24, tol=1e-5, device="cpu")
     x0, up, yp, W = _t(_tile(golden, "CONVEX", T))
     checksum, ok = fa.make_amortized_admm_run(
         PLANT, convex[1], 4, 2, 2, T, **kw
@@ -439,6 +442,6 @@ def test_amortized_run_folds_every_repetition(golden, convex):
     # An iteration budget too small to converge clears the flag.
     _, ok = fa.make_amortized_admm_run(
         PLANT, convex[1], 4, 2, 2, T, iters=(0, 1, 0), cold_iters=0,
-        tol=1e-9,
+        tol=1e-9, device="cpu",
     )(x0, up, yp, W, 1)
     assert not bool(ok)

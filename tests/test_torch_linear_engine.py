@@ -75,7 +75,7 @@ def test_block_map_matches_jax_f64(n_mpc_step, use_terminal, K):
     kw = dict(n=4, m=2, p=2, n_mpc_step=n_mpc_step, solves_per_block=K)
     port = build_affine_block_map(
         jplant.as_params(), ctrl.solution_operator(), **kw,
-        dtype=torch.float64,
+        device="cpu", dtype=torch.float64,
     )
     ref = jax_build_affine_block_map(
         jplant.as_params(), jctrl.solution_operator(), **kw,
@@ -99,7 +99,7 @@ def test_uncentered_fallback_matches_jax(a_diag):
     with pytest.warns(RuntimeWarning, match="centering disabled"):
         port = build_affine_block_map(
             LTIParams(*plant), op, n=1, m=1, p=1, solves_per_block=3,
-            dtype=torch.float64,
+            device="cpu", dtype=torch.float64,
         )
     with pytest.warns(RuntimeWarning, match="centering disabled"):
         ref = jax_build_affine_block_map(
@@ -129,7 +129,8 @@ def test_batched_rollout_matches_jax(n_steps, dtype, jdtype, atol):
     jplant, jctrl, ctrl, rng = port_setup()
     K, B = 8, 16
     bm = build_linear_engine(
-        ctrl, jplant.as_params(), solves_per_block=K, dtype=dtype
+        ctrl, jplant.as_params(), solves_per_block=K, device="cpu",
+        dtype=dtype,
     )
     jbm = jax_build_affine_block_map(
         jplant.as_params(), jctrl.solution_operator(), n=4, m=2, p=2,
@@ -175,7 +176,8 @@ def test_classic_engine_matches_golden(golden, scheme, dtype, budget):
         slack_var_constraint_type=SlackVarConstraintTypes.NONE,
         controller_type=DataDrivenMPCType.ROBUST,
     )
-    bm = build_linear_engine(ctrl, PLANT, solves_per_block=10, dtype=dtype)
+    bm = build_linear_engine(ctrl, PLANT, solves_per_block=10,
+                             device="cpu", dtype=dtype)
 
     def t(a):
         return torch.as_tensor(np.asarray(a)[None], dtype=dtype)

@@ -89,7 +89,8 @@ def test_slice_matches_jax_chain():
     assert (ctrl.spec.nz, ctrl.spec.nc) == (571, 168)
     K = suggest_solves_per_block(4, 4, 2, 2, n_steps=T)
     assert K == 50
-    bm = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K)
+    bm = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K,
+                             device="cpu")
     Ws = 0.002 * np.random.default_rng(1).uniform(-1, 1, (B, T, 2))
     args = [
         torch.as_tensor(np.asarray(a, np.float64)).to(torch.float32)
@@ -116,7 +117,7 @@ def test_slice_matches_jax_chain():
     )
     # The classic engine at the benchmark's K = 100 on the same inputs.
     bm100 = build_linear_engine(
-        ctrl, plant.as_params(), solves_per_block=100
+        ctrl, plant.as_params(), solves_per_block=100, device="cpu"
     )
     classic = make_linear_batched_rollout(bm100, T)(*args, W_t)
     np.testing.assert_allclose(
@@ -130,9 +131,11 @@ def test_slice_matches_jax_chain():
 
 
 def test_port_never_imports_jax():
-    """Importing the port and running its CPU paths (the condensed and
-    the fused ADMM closed loops) leave ``jax`` out of ``sys.modules`` (checked in a fresh interpreter: this test process
-    has JAX loaded by tests/conftest.py)."""
+    """Importing the port and running its CPU paths (the condensed loop
+    with in-kernel and post-pass costs, the fused ADMM and ladder closed
+    loops, the random plant) leave ``jax`` out of ``sys.modules``
+    (checked in a fresh interpreter: this test process has JAX loaded by
+    tests/conftest.py)."""
     code = textwrap.dedent(
         """
         import sys
@@ -143,7 +146,11 @@ def test_port_never_imports_jax():
             build_linear_engine,
         )
         from direct_data_driven_mpc_tpu_torch.ops import _kernels
+        from direct_data_driven_mpc_tpu_torch.models.random_lti import (
+            random_stable_lti,
+        )
         from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa
+        from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
         from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr
         from direct_data_driven_mpc_tpu_torch.parallel.batch import (
             draw_noise_batch,
@@ -158,21 +165,29 @@ def test_port_never_imports_jax():
         torch.set_num_threads(1)
         plant, ctrl = build_four_tank_robust()
         bm = build_linear_engine(ctrl, plant.as_params(),
-                                 solves_per_block=8)
+                                 solves_per_block=8, device="cpu")
         gen = torch.Generator().manual_seed(0)
         Ws = draw_noise_batch(gen, 2, 20, 2, 0.002, device="cpu")
-        res = fr.make_fused_batched_rollout(bm, 20)(
-            *scenario_batch(plant, ctrl, 2, "cpu"), Ws
-        )
-        assert bool(torch.isfinite(res.u_sys).all())
+        for mode in ("inkernel", "post"):
+            res = fr.make_fused_batched_rollout(bm, 20, cost_mode=mode)(
+                *scenario_batch(plant, ctrl, 2, "cpu"), Ws
+            )
+            assert bool(torch.isfinite(res.costs).all())
         assert fr.fused_rollout.launches == 0
+        assert fr.fused_rollout_nocost.launches == 0
+        assert random_stable_lti(0, 3, 2, 2).A.shape == (3, 3)
         for name in ("four_tank_convex", "four_tank_box"):
             plant, ctrl, op, kw = admm_config(name)
             res = fa.make_fused_admm_rollout(
-                plant.as_params(), op, 4, 2, 2, 20, **kw
+                plant.as_params(), op, 4, 2, 2, 20, device="cpu", **kw
             )(*scenario_batch(plant, ctrl, 2, "cpu"), Ws)
             assert bool(res.converged.all())
-        assert fa.fused_admm.launches == 0
+        plant, ctrl, op, kw = admm_config("four_tank_ladder")
+        res = fl.make_fused_ladder_rollout(
+            plant.as_params(), op, 4, 2, 2, 20, device="cpu", **kw
+        )(*scenario_batch(plant, ctrl, 2, "cpu"), Ws)
+        assert bool(res.converged[:, 10:].all())
+        assert fa.fused_admm.launches == fl.fused_ladder.launches == 0
         assert not _kernels._loaded
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "direct_data_driven_mpc_tpu")
