@@ -35,8 +35,9 @@ _SIGNATURES = {
         "fused_rollout_launch": ([_P] * 8 + [_I] * 9 + [_P], ctypes.c_int),
         "fused_rollout_smem_bytes": ([_I] * 3, ctypes.c_int),
         "fused_rollout_nocost_smem_bytes": ([_I] * 2, ctypes.c_int),
+        "fused_rollout_nocost_tile_rows": ([], ctypes.c_int),
         "fused_rollout_nocost_launch": (
-            [_P] * 7 + [_I] * 7 + [_P], ctypes.c_int
+            [_P] * 7 + [_I] * 8 + [_P], ctypes.c_int
         ),
     },
     "fused_admm": {

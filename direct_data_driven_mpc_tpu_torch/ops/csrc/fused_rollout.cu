@@ -40,20 +40,45 @@
 // every step and the per-chunk cost epilogue add about as much again.
 //
 // K3 (fused_rollout_nocost_kernel) replaces the same function's body
-// `kernel_nocost`: the same recursion with columns [s_next | U | Y]
-// only; the costs are rebuilt afterwards from the trajectories (a
-// convolution in the PyTorch wrapper, as the JAX package ran it in
-// XLA). At large_plant (a 10-state, 10-input, 10-output plant, K = 25:
-// D = 460 rows, 710 columns, B = 65536, 16 blocks) one rollout is
-// 685 GFLOP against 3.15 GB of HBM traffic (noise in; U, Y out), so it
-// is bound by the float32 FMA pipes. K1's plan (all D rows of two
-// 128-column chunks of G in shared memory, 471 KB here) does not fit
-// one block, so K3 tiles the contraction too: G streams through two
-// cp.async buffers of BK rows x BN columns (32 KB), each output's
-// 4 x 4 register tile accumulates over the row tiles in order (one FMA
-// chain per output, as in K1), and the epilogue writes U and Y straight
-// from the registers. Per block: sw transposed (D x 36 floats), the
-// two G tiles and the next state (TB x S): 126 KB at large_plant.
+// `kernel_nocost` (pallas_rollout.py:629, launched at :743 and :760):
+// the same recursion with columns [s_next | U | Y] only; the costs are
+// rebuilt afterwards from the trajectories (a convolution in the PyTorch
+// wrapper, as the JAX package ran it in XLA). At large_plant (a
+// 10-state, 10-input, 10-output plant, K = 25: D = 460 rows, 710
+// columns, B = 65536, 16 blocks) one rollout is 685 GFLOP against
+// 3.15 GB of HBM traffic (noise in; U, Y out), so arithmetic bounds it.
+// It runs on the tensor cores at float32 grade, as the TPU kernel ran
+// these columns at HIGHEST (a 6-pass bf16 emulation): 3xTF32. Each
+// operand x splits into hi = tf32(x) and lo = tf32(x - hi), rounded as
+// cvt.rna rounds, and warp-level mma.sync m16n8k8 TF32 products give
+// a_lo b_hi, a_hi b_lo, then a_hi b_hi; what is dropped (a_lo b_lo,
+// lo's rounding) is ~2^-22 of each product. The bound is 3 x 685 GFLOP
+// at 495 TFLOP/s = 4.15 ms; mma.sync itself peaks near two thirds of
+// that rate on the H100 (wgmma has the rest).
+//
+// Design: a thread block owns NC_BM = 64 scenarios for the whole
+// rollout, so each block reads G (1.3 MB, resident in L2) once per step
+// for 64 scenarios. Its [w | s] tile stays in shared memory, row-major
+// with a row stride of 4 mod 8 floats so that a warp's fragment loads
+// hit 32 different banks; s_next goes to its own buffer and is swapped
+// in after the step's last column chunk. G streams through a ring of
+// NC_STAGES tiles of NC_BK rows x NC_BN columns filled by cp.async: a
+// thread waits on its own copy groups, so one barrier per tile frees
+// the oldest slot and publishes the newest. Each chunk of NC_BN output
+// columns keeps its float32 accumulators in registers across all D rows
+// (a 32 x 64 tile per warp, 8 warps). The tensor cores' own accumulation
+// truncates, which summed over D rows cost 1.5e-4 on u at large_plant,
+// so each 16 x 8 tile sums one ring tile's products from zero (small
+// ones first) and adds that to its accumulator in float32. The
+// epilogue writes U and Y from the registers, two columns per store. G
+// is split as its fragments are loaded rather than once on the host:
+// at this warp tile both cost about two other instructions per mma, and
+// splitting here keeps the ring, the shared memory and the L2 reads at
+// one float per element. Per block at large_plant: the ring 50.7 KB,
+// [w | s] 119.8 KB, s_next 53.8 KB: 224 KB. The wrapper pads G's rows
+// to a multiple of 4 floats (16-byte copies). What holds it back
+// (PERF.md): the splits, the ring's copies and barriers, and the U, Y
+// stores, each 1-2.5 ms beside the mma pipe's own time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libfused_rollout.so fused_rollout.cu
@@ -64,7 +89,6 @@
 namespace {
 
 constexpr int TB = 32;        // batch rows per thread block
-constexpr int BK = 32;        // G rows per shared-memory tile (K3)
 constexpr size_t SMEM_LIMIT = 232448;  // opt-in shared memory per block
 constexpr int BN = 128;       // G columns per shared-memory chunk
 constexpr int THREADS = 256;  // (TB / 4) row groups x (BN / 4) col groups
@@ -247,141 +271,255 @@ fused_rollout_kernel(const float* __restrict__ G,     // (D, Wtot)
   }
 }
 
-// Start the asynchronous copy of G's tile [k0, k0 + BK) x [j0, j0 + BN)
-// into dst (BK x BN, zero outside G) as one cp.async group.
-__device__ __forceinline__ void stage_tile(const float* __restrict__ G,
-                                           float* dst, int k0, int j0,
-                                           int D, int Wtot) {
-  constexpr int ROWS = THREADS / BN;  // rows copied per pass
-  const int c = threadIdx.x % BN;
-  const int j = j0 + c;
-  for (int i = threadIdx.x / BN; i < BK; i += ROWS) {
-    const int k = k0 + i;
-    float* d = dst + i * BN + c;
-    if (k < D && j < Wtot)
-      __pipeline_memcpy_async(d, G + (size_t)k * Wtot + j, sizeof(float));
-    else
-      *d = 0.f;
+// K3's plan: scenarios per block, output columns per chunk, G rows per
+// ring stage and ring depth; the warp grid over the block's tile.
+constexpr int NC_BM = 64;
+constexpr int NC_BN = 256;
+constexpr int NC_BK = 16;
+constexpr int NC_STAGES = 3;
+constexpr int NC_LDB = NC_BN + 8;  // ring row stride: 8 mod 32 floats, so
+                                   // b-fragment loads hit 32 banks
+constexpr int NC_THREADS = 256;
+constexpr int NC_WARPS = NC_THREADS / 32;
+constexpr int NC_WARPS_M = NC_BM / 32;  // each warp owns 32 scenarios
+constexpr int NC_WARPS_N = NC_WARPS / NC_WARPS_M;
+constexpr int NC_NT = NC_BN / (8 * NC_WARPS_N);  // n8 tiles per warp
+static_assert(NC_WARPS_M * NC_WARPS_N == NC_WARPS, "warp grid");
+static_assert(NC_NT * 8 * NC_WARPS_N == NC_BN, "warp columns");
+static_assert(NC_BK % 8 == 0, "k8 steps per ring stage");
+
+// Row stride of the [w | s] tile: D rounded up to whole ring tiles (the
+// padding columns stay zero), plus 4, so the stride is 4 mod 8.
+__host__ __device__ constexpr int nocost_lda(int D) {
+  return (D + NC_BK - 1) / NC_BK * NC_BK + 4;
+}
+
+// x rounded to TF32 in float32 bits: cvt.rna.tf32.f32's rounding (to
+// nearest, ties away from zero) for finite x, as two integer operations
+// (nvcc lowers cvt.rna to four, with a test for infinity).
+__device__ __forceinline__ unsigned tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to ~2^-22 relative, both TF32 (x - hi is exact).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// c += a b for one 16 x 8 x 8 TF32 tile (float32 accumulators).
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Start the asynchronous copy of `width` floats per scenario, from
+// src + b * stride for the block's scenarios b, into columns [0, width)
+// of the block's rows of A (zero past B) as one cp.async group.
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src,
+                                           size_t stride, int width,
+                                           float* A, int lda, int row0,
+                                           int B) {
+  const int lane = threadIdx.x % 32;
+  for (int r = threadIdx.x / 32; r < NC_BM; r += NC_WARPS) {
+    float* a = A + r * lda;
+    const float* s = src + (size_t)(row0 + r) * stride;
+    for (int i = lane; i < width; i += 32) {
+      if (row0 + r < B)
+        __pipeline_memcpy_async(a + i, s + i, sizeof(float));
+      else
+        a[i] = 0.f;
+    }
   }
   __pipeline_commit();
 }
 
-__global__ void __launch_bounds__(THREADS)
-fused_rollout_nocost_kernel(const float* __restrict__ G,     // (D, Wtot)
+__global__ void __launch_bounds__(NC_THREADS, 1)
+fused_rollout_nocost_kernel(const float* __restrict__ G,     // (D, ldg)
                             const float* __restrict__ bias,  // (Wtot,)
                             const float* __restrict__ s0,    // (B, S)
                             const float* __restrict__ W,  // (B, n_outer, nw)
                             float* __restrict__ U,  // (B, n_outer, Ku)
                             float* __restrict__ Y,  // (B, n_outer, Kp)
                             float* __restrict__ s_fin,  // (B, S)
-                            int B, int S, int nw, int Ku, int Kp,
+                            int B, int S, int nw, int Ku, int Kp, int ldg,
                             int n_outer, int w_off) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D = nw + S;
   const int offY = S + Ku;
   const int Wtot = offY + Kp;
-  const int n_chunks = (Wtot + BN - 1) / BN;
-  const int n_k = (D + BK - 1) / BK;
-  const int per_step = n_chunks * n_k;  // G tiles per time block
+  const int n_k = (D + NC_BK - 1) / NC_BK;  // ring tiles per chunk
+  const int total = n_k * ((Wtot + NC_BN - 1) / NC_BN) * n_outer;
+  const int lda = nocost_lda(D);
+  const bool pairs = (S | Ku | Kp) % 2 == 0;  // float2 stores are aligned
 
-  float* swT = smem;                    // (D, LDS): sw transposed
-  float* Gbuf[2] = {swT + D * LDS,      // (BK, BN) tile, double-buffered
-                    swT + D * LDS + BK * BN};
-  float* snext = Gbuf[1] + BK * BN;     // (TB, S)
+  float* ring = smem;                                  // NC_STAGES tiles
+  float* A = ring + NC_STAGES * NC_BK * NC_LDB;        // (NC_BM, lda)
+  float* snext = A + NC_BM * lda;                      // (NC_BM, S)
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * TB;
-  const int cg = tid % (BN / 4);  // column group: columns 4cg .. 4cg+3
-  const int rg = tid / (BN / 4);  // row group: rows 4rg .. 4rg+3
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4;  // mma fragment row and column
+  const int wm = warp / NC_WARPS_N, wn = warp % NC_WARPS_N;
+  const int row0 = blockIdx.x * NC_BM;
 
-  stage_tile(G, Gbuf[0], 0, 0, D, Wtot);
-  for (int idx = tid; idx < TB * S; idx += THREADS) {
-    const int r = idx / S, j = idx % S;
-    const int b = row0 + r;
-    swT[(nw + j) * LDS + r] = b < B ? s0[(size_t)b * S + j] : 0.f;
-  }
-  int g = 0;  // tiles consumed so far; tile g sits in Gbuf[g & 1]
+  // The ring's tiles in order (step, chunk, row tile), each one cp.async
+  // group: G's rows [pk, pk + NC_BK) x columns [pj, pj + NC_BN) into
+  // slot pm mod NC_STAGES, zero past its D rows and ldg columns; G is
+  // the same for every step. Each thread copies 16 bytes at column cc
+  // of rows ci, ci + CR, ...; past the last tile, an empty group keeps
+  // the count of groups per tile at one.
+  constexpr int CV = NC_BN / 4, CR = NC_THREADS / CV, CP = NC_BK / CR;
+  static_assert(CP * CR == NC_BK, "ring copies per thread");
+  const int ci = threadIdx.x / CV, cc = 4 * (threadIdx.x % CV);
+  int pm = 0, pk = 0, pj = 0;
+  auto stage = [&]() {
+    if (pm < total) {
+      float* d = ring + (pm % NC_STAGES) * NC_BK * NC_LDB + ci * NC_LDB + cc;
+      const float* s = G + (size_t)(pk + ci) * ldg + pj + cc;
+#pragma unroll
+      for (int u = 0; u < CP; ++u) {
+        if (pj + cc < ldg && pk + ci + u * CR < D)
+          __pipeline_memcpy_async(d + u * CR * NC_LDB,
+                                  s + (size_t)u * CR * ldg, 16);
+        else
+          *reinterpret_cast<float4*>(d + u * CR * NC_LDB) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      pk += NC_BK;
+      if (pk >= n_k * NC_BK) {
+        pk = 0;
+        pj += NC_BN;
+        if (pj >= Wtot) pj = 0;
+      }
+    }
+    ++pm;
+    __pipeline_commit();
+  };
+  for (int m = 0; m < NC_STAGES - 1; ++m) stage();
+
+  // [w | s | 0] for the first step; rows past B are zero. The noise of
+  // a step is row block (t + w_off) mod n_outer of each scenario's W.
+  const size_t wstride = (size_t)n_outer * nw;
+  stage_rows(W + (size_t)w_off * nw, wstride, nw, A, lda, row0, B);
+  stage_rows(s0, S, S, A + nw, lda, row0, B);
+  for (int r = warp; r < NC_BM; r += NC_WARPS)
+    for (int i = D + lane; i < lda; i += 32) A[r * lda + i] = 0.f;
+  __pipeline_wait_prior(0);
+
+  int m = 0;  // ring tiles consumed so far
   for (int t = 0; t < n_outer; ++t) {
-    const int tw = (t + w_off) % n_outer;
-    for (int idx = tid; idx < TB * nw; idx += THREADS) {
-      const int r = idx / nw, i = idx % nw;
-      const int b = row0 + r;
-      swT[i * LDS + r] =
-          b < B ? W[((size_t)b * n_outer + tw) * nw + i] : 0.f;
-    }
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int j0 = ch * BN;
-      float acc[4][4];
+    for (int j0 = 0; j0 < Wtot; j0 += NC_BN) {
+      float acc[2][NC_NT][4] = {};
+      for (int kt = 0; kt < n_k; ++kt, ++m) {
+        __pipeline_wait_prior(NC_STAGES - 2);  // this thread's copies of
+        __syncthreads();  // tile m are in, and everyone's; tile m - 1 is
+                          // done, so its slot takes tile m + STAGES - 1
+        stage();  // tile m + NC_STAGES - 1
+        const float* Gs =
+            ring + (m % NC_STAGES) * NC_BK * NC_LDB + wn * NC_NT * 8 + g;
+        const float* As = A + (wm * 32 + g) * lda + kt * NC_BK + q;
+        // The tile's A fragments, split (KS k8 steps, 2 m16 tiles); then
+        // per n8 tile the B fragments. Each 16 x 8 output tile sums the
+        // tile's products outside the accumulator, small ones first, and
+        // is added to it in float32 (the tensor cores' own accumulation
+        // truncates, which over all D rows would cost float32 grade).
+        constexpr int KS = NC_BK / 8;
+        unsigned ahi[KS][2][4], alo[KS][2][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-      for (int kc = 0; kc < n_k; ++kc, ++g) {
-        // Prefetch the next tile in (step, chunk, row tile) order (the
-        // first again after the last: G is the same for every step).
-        // Its buffer was last read before the previous tile's second
-        // barrier.
-        const int nxt = ch * n_k + kc + 1;
-        if (t < n_outer - 1 || nxt < per_step) {
-          const int m = nxt % per_step;
-          stage_tile(G, Gbuf[(g + 1) & 1], (m % n_k) * BK, (m / n_k) * BN,
-                     D, Wtot);
-          __pipeline_wait_prior(1);
-        } else {
-          __pipeline_wait_prior(0);
+          for (int mi = 0; mi < 2; ++mi) {
+            const float* a = As + mi * 16 * lda + 8 * ks;
+            split_tf32(a[0], ahi[ks][mi][0], alo[ks][mi][0]);
+            split_tf32(a[8 * lda], ahi[ks][mi][1], alo[ks][mi][1]);
+            split_tf32(a[4], ahi[ks][mi][2], alo[ks][mi][2]);
+            split_tf32(a[8 * lda + 4], ahi[ks][mi][3], alo[ks][mi][3]);
+          }
+#pragma unroll
+        for (int ni = 0; ni < NC_NT; ++ni) {
+          unsigned bhi[KS][2], blo[KS][2];
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            const float* b = Gs + (8 * ks + q) * NC_LDB + ni * 8;
+            split_tf32(b[0], bhi[ks][0], blo[ks][0]);
+            split_tf32(b[4 * NC_LDB], bhi[ks][1], blo[ks][1]);
+          }
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            float d[4] = {};
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks) {
+              mma_tf32(d, alo[ks][mi], bhi[ks][0], bhi[ks][1]);
+              mma_tf32(d, ahi[ks][mi], blo[ks][0], blo[ks][1]);
+              mma_tf32(d, ahi[ks][mi], bhi[ks][0], bhi[ks][1]);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mi][ni][e] += d[e];
+          }
         }
-        __syncthreads();  // tile g, the noise and the carry are in
-        const float* Gs = Gbuf[g & 1];
-        const float* a = swT + kc * BK * LDS + 4 * rg;
-        const int kend = min(BK, D - kc * BK);
-#pragma unroll 4
-        for (int i = 0; i < kend; ++i) {
-          const float4 a4 = *reinterpret_cast<const float4*>(a + i * LDS);
-          const float4 g4 =
-              *reinterpret_cast<const float4*>(&Gs[i * BN + 4 * cg]);
-          const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-          const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              acc[r][c] = fmaf(av[r], gv[c], acc[r][c]);
-        }
-        __syncthreads();  // every thread is done with tile g
       }
-      // Epilogue from the registers: the next state to shared memory,
-      // U and Y to global memory.
+      // Epilogue from the registers: element (2h + e) of tile (mi, ni)
+      // is row g + 8h, column 2q + e. The next state goes to shared
+      // memory, U and Y to global memory, two columns per store where
+      // both fall in U or in Y (every index is then even).
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = j0 + 4 * cg + c;
+      for (int ni = 0; ni < NC_NT; ++ni) {
+        const int j = j0 + (wn * NC_NT + ni) * 8 + 2 * q;
         if (j >= Wtot) break;
-        const float bj = bias[j];
+        const bool two = j + 1 < Wtot;
+        const float b0 = __ldg(bias + j), b1 = two ? __ldg(bias + j + 1) : 0.f;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = 4 * rg + r;
-          const int b = row0 + row;
-          const float v = acc[r][c] + bj;
-          if (j < S)
-            snext[row * S + j] = v;
-          else if (b < B && j < offY)
-            U[((size_t)b * n_outer + t) * Ku + (j - S)] = v;
-          else if (b < B)
-            Y[((size_t)b * n_outer + t) * Kp + (j - offY)] = v;
-        }
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wm * 32 + mi * 16 + g + 8 * h;
+            const int b = row0 + r;
+            const float v[2] = {acc[mi][ni][2 * h] + b0,
+                                acc[mi][ni][2 * h + 1] + b1};
+            float* u = U + ((size_t)b * n_outer + t) * Ku - S;
+            float* y = Y + ((size_t)b * n_outer + t) * Kp - offY;
+            if (pairs && b < B && j >= S && j + 1 < offY) {
+              *reinterpret_cast<float2*>(u + j) = make_float2(v[0], v[1]);
+            } else if (pairs && b < B && j >= offY && two) {
+              *reinterpret_cast<float2*>(y + j) = make_float2(v[0], v[1]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int je = j + e;
+                if (e && !two) break;
+                if (je < S)
+                  snext[r * S + je] = v[e];
+                else if (b < B)
+                  (je < offY ? u : y)[je] = v[e];
+              }
+            }
+          }
       }
     }
-    __syncthreads();  // snext is complete; swT is no longer read
+    __syncthreads();  // snext is complete; A is no longer read this step
 
-    for (int idx = tid; idx < TB * S; idx += THREADS) {
-      const int r = idx / S, j = idx % S;
-      const float v = snext[idx];
-      swT[(nw + j) * LDS + r] = v;
+    // The next step's noise is copied in while s <- s_next (the final
+    // carry goes out after the last step); the wait covers the copies
+    // of this thread, the next tile's barrier everyone's, and orders
+    // the snext reads before the next epilogue's writes.
+    if (t + 1 < n_outer)
+      stage_rows(W + (size_t)((t + 1 + w_off) % n_outer) * nw, wstride, nw,
+                 A, lda, row0, B);
+    for (int r = warp; r < NC_BM; r += NC_WARPS) {
       const int b = row0 + r;
-      if (t == n_outer - 1 && b < B) s_fin[(size_t)b * S + j] = v;
+      for (int j = lane; j < S; j += 32) {
+        const float v = snext[r * S + j];
+        A[r * lda + nw + j] = v;
+        if (t == n_outer - 1 && b < B) s_fin[(size_t)b * S + j] = v;
+      }
     }
-    // The next step's first tile barrier orders this copy and the noise
-    // writes before the product reads swT.
+    __pipeline_wait_prior(0);
   }
 }
 
@@ -392,8 +530,9 @@ size_t smem_bytes(int S, int nw, int K) {
                           (size_t)TB * S + (size_t)TB * K);
 }
 size_t nocost_smem_bytes(int S, int nw) {
-  const size_t D = (size_t)nw + S;
-  return sizeof(float) * (D * LDS + 2 * (size_t)BK * BN + (size_t)TB * S);
+  return sizeof(float) * ((size_t)NC_STAGES * NC_BK * NC_LDB +
+                          (size_t)NC_BM * nocost_lda(nw + S) +
+                          (size_t)NC_BM * S);
 }
 
 }  // namespace
@@ -412,6 +551,9 @@ int fused_rollout_nocost_smem_bytes(int S, int nw) {
   const size_t b = nocost_smem_bytes(S, nw);
   return b <= SMEM_LIMIT ? (int)b : 0;
 }
+
+// Scenarios per K3 block.
+int fused_rollout_nocost_tile_rows() { return NC_BM; }
 
 // Launches the rollout on `stream`; returns cudaGetLastError() (0 on
 // success). Pointers are device pointers to contiguous float32 arrays
@@ -435,23 +577,26 @@ int fused_rollout_launch(const float* G, const float* bias,
 
 // Launches the no-cost rollout (K3) on `stream`; returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue when the
-// shape does not fit. G is (nw + S, S + Ku + Kp); U, Y and s_fin as for
-// fused_rollout_launch.
+// shape does not fit or G's row stride ldg (>= S + Ku + Kp, in floats)
+// is not a multiple of 4. G is (nw + S, ldg), 16-byte aligned; U, Y and
+// s_fin as for fused_rollout_launch.
 int fused_rollout_nocost_launch(const float* G, const float* bias,
                                 const float* s0, const float* W, float* U,
                                 float* Y, float* s_fin, int B, int S,
-                                int nw, int Ku, int Kp, int n_outer,
-                                int w_off, void* stream) {
+                                int nw, int Ku, int Kp, int ldg,
+                                int n_outer, int w_off, void* stream) {
   const size_t smem = nocost_smem_bytes(S, nw);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  if (smem > SMEM_LIMIT || ldg % 4 || ldg < S + Ku + Kp ||
+      reinterpret_cast<size_t>(G) % 16)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fused_rollout_nocost_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + TB - 1) / TB);
-  fused_rollout_nocost_kernel<<<grid, THREADS, smem,
+  const dim3 grid((B + NC_BM - 1) / NC_BM);
+  fused_rollout_nocost_kernel<<<grid, NC_THREADS, smem,
                                 (cudaStream_t)stream>>>(
-      G, bias, s0, W, U, Y, s_fin, B, S, nw, Ku, Kp, n_outer, w_off);
+      G, bias, s0, W, U, Y, s_fin, B, S, nw, Ku, Kp, ldg, n_outer, w_off);
   return (int)cudaGetLastError();
 }
 

@@ -390,9 +390,10 @@ def fused_rollout_nocost(op: FusedOperator, s0: torch.Tensor,
     :func:`fused_rollout_reference`, with ``C`` of width 0).
 
     CPU tensors run the plain version. CUDA tensors launch kernel K3
-    (``fused_rollout_nocost_kernel`` of ``csrc/fused_rollout.cu``) and
-    add one to ``fused_rollout_nocost.launches``; anything the kernel
-    does not take raises before the launch."""
+    (``fused_rollout_nocost_kernel`` of ``csrc/fused_rollout.cu``, the
+    products on the tensor cores at float32 grade: 3xTF32, within 1e-4
+    of the plain version) and add one to ``fused_rollout_nocost.launches``;
+    anything the kernel does not take raises before the launch."""
     if s0.device.type == "cpu":
         return fused_rollout_reference(op, s0, W, w_off)
     if op.K != 0:
@@ -409,6 +410,14 @@ def fused_rollout_nocost(op: FusedOperator, s0: torch.Tensor,
             f"operator too large for the no-cost kernel's shared-memory "
             f"plan: S={S}, nw={nw}"
         )
+    # The kernel copies G in 16-byte pieces: rows padded to a multiple
+    # of 4 floats, on an aligned base.
+    width = op.G.shape[1]
+    ldg = -(-width // 4) * 4
+    G = op.G
+    if ldg != width or G.data_ptr() % 16:
+        G = torch.zeros((G.shape[0], ldg), dtype=G.dtype, device=G.device)
+        G[:, :width] = op.G
     kw = dict(dtype=torch.float32, device=s0.device)
     U = torch.empty((Bsz, n_outer, op.Ku), **kw)
     Y = torch.empty((Bsz, n_outer, op.Kp), **kw)
@@ -416,9 +425,9 @@ def fused_rollout_nocost(op: FusedOperator, s0: torch.Tensor,
     with torch.cuda.device(s0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_rollout_nocost_launch(
-            op.G.data_ptr(), op.bias.data_ptr(), s0.data_ptr(),
+            G.data_ptr(), op.bias.data_ptr(), s0.data_ptr(),
             W.data_ptr(), U.data_ptr(), Y.data_ptr(), s_fin.data_ptr(),
-            Bsz, S, nw, op.Ku, op.Kp, n_outer, int(w_off), stream,
+            Bsz, S, nw, op.Ku, op.Kp, ldg, n_outer, int(w_off), stream,
         )
     if err != 0:
         raise RuntimeError(

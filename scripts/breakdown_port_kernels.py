@@ -1,5 +1,6 @@
 """Where the time of the port's kernels K5 (``fused_ladder``) and K3
-(``fused_rollout_nocost``) goes, on one NVIDIA card.
+(``fused_rollout_nocost``) goes, on one NVIDIA card, and what K3's
+float32 add per ring tile does for its accuracy.
 
 Run from the repository root: ``python3 scripts/breakdown_port_kernels.py``.
 It builds patched copies of the kernel sources under
@@ -47,24 +48,36 @@ from direct_data_driven_mpc_tpu_torch.qp.box import (  # noqa: E402
 OUT = ROOT / "build" / "breakdown"
 
 
-def replace_last(text: str, old: str, new: str) -> str:
-    i = text.rindex(old)
-    return text[:i] + new + text[i + len(old):]
-
-
 #: (library, tag, what is cut, patch) for every variant.
 VARIANTS = [
-    ("fused_rollout", "k3_no_product", "K3 without its FMA loop",
-     lambda t: replace_last(
-         t, "acc[r][c] = fmaf(av[r], gv[c], acc[r][c]);", ";")),
-    ("fused_rollout", "k3_no_staging", "K3 without copying G tiles",
+    ("fused_rollout", "k3_no_product", "K3 without its product (no mma, "
+     "so no fragment loads or splits either)",
+     lambda t: t.replace('  asm("mma.sync', '  if (false) asm("mma.sync')),
+    ("fused_rollout", "k3_no_split", "K3 without the hi/lo splits (raw "
+     "float32 bits into all three passes)",
+     lambda t: t.replace("  hi = tf32(x);\n  lo = tf32(x - __uint_as_float(hi));",
+                         "  hi = __float_as_uint(x);\n  lo = hi;")),
+    ("fused_rollout", "k3_no_staging", "K3 without copying G into the ring",
      lambda t: t.replace(
-         "__pipeline_memcpy_async(d, G + (size_t)k * Wtot + j, "
-         "sizeof(float));", ";")),
+         "__pipeline_memcpy_async(d + u * CR * NC_LDB,\n"
+         "                                  s + (size_t)u * CR * ldg, 16);",
+         ";")),
     ("fused_rollout", "k3_no_stores", "K3 without storing U and Y",
-     lambda t: replace_last(replace_last(
-         t, "U[((size_t)b * n_outer + t) * Ku + (j - S)] = v;", ";"),
-         "Y[((size_t)b * n_outer + t) * Kp + (j - offY)] = v;", ";")),
+     lambda t: t.replace(
+         "*reinterpret_cast<float2*>(u + j) = make_float2(v[0], v[1]);", ";"
+     ).replace(
+         "*reinterpret_cast<float2*>(y + j) = make_float2(v[0], v[1]);", ";"
+     ).replace("(je < offY ? u : y)[je] = v[e];", ";")),
+    ("fused_rollout", "k3_tensor_core_sum", "K3 summing every row in the "
+     "tensor cores' own accumulators (no float32 add per ring tile)",
+     lambda t: t.replace("            float d[4] = {};",
+                         "            float (&d)[4] = acc[mi][ni];").replace(
+         "            for (int e = 0; e < 4; ++e) acc[mi][ni][e] += d[e];",
+         "            for (int e = 0; e < 0; ++e) acc[mi][ni][e] += d[e];")),
+    ("fused_rollout", "k3_half_tile", "K3 with 32 scenarios per block "
+     "(twice the reads of G, a 32 x 32 warp tile)",
+     lambda t: t.replace("constexpr int NC_BM = 64;",
+                         "constexpr int NC_BM = 32;")),
     ("fused_admm", "k5_no_balance_reads", "K5 without the group maxima",
      lambda t: t.replace("j < nbox; ++j) {\n            s_mag",
                          "j < 0; ++j) {\n            s_mag")),
@@ -242,10 +255,18 @@ def main() -> int:
             ("the same costs by window unfold + one SGEMM per 2048 "
              "scenarios", unfold_post)]
     rows += [(what[tag], k3(tag)) for tag in
-             ("k3_no_product", "k3_no_staging", "k3_no_stores")]
+             ("k3_no_product", "k3_no_split", "k3_no_staging",
+              "k3_no_stores", "k3_tensor_core_sum", "k3_half_tile")]
     for label, fn in rows:
         print(f"large_plant {label}: {cs.cuda_ms(fn, reps=3):.3f} ms "
               f"[{smi}]", flush=True)
+    # What the float32 add per ring tile buys: the largest |dU| of K3 and
+    # of K3 summing in the tensor cores against the plain version.
+    want = fr.fused_rollout_reference(op3, s0, W)[0]
+    for label, fn in (("K3 as shipped", k3()),
+                      (what["k3_tensor_core_sum"], k3("k3_tensor_core_sum"))):
+        print(f"large_plant {label}: max |dU| against the plain version "
+              f"{float((fn()[0] - want).abs().max()):.3e}", flush=True)
     torch.backends.cudnn.benchmark = True
     print(f"large_plant cost post-pass with cudnn.benchmark: "
           f"{cs.cuda_ms(lambda: post(ups, yps, u_sys, y_sys), 3):.3f} ms "

@@ -432,15 +432,52 @@ def test_nocost_kernel_matches_plain_version(cuda, batch, n_steps, w_off):
     assert float((res.u_sys[:8].double() - u64).abs().max()) < 1e-4
 
 
+@pytest.mark.parametrize("plant_name,w_off", [("four_tank", 2),
+                                               ("large_plant", 3)])
+def test_nocost_kernel_ragged_tile(cuda, golden, plant_name, w_off):
+    """K3 with a ragged batch (one tile of scenarios and 3 more) against
+    the plain version on u, y and the final carry at the float64 bar
+    (1e-4: the kernel's 3xTF32 products sum in another order than
+    cuBLAS), at the four-tank's small operator (D = 120, K = 50) and at
+    large_plant's (D = 460, 710 columns); one launch per call."""
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+
+    batch = _kernels.load("fused_rollout").lib.fused_rollout_nocost_tile_rows()
+    batch += 3
+    if plant_name == "four_tank":
+        bm = build_linear_engine(_controller(golden), PLANT,
+                                 solves_per_block=50, device=cuda)
+        op = fr._build_fused_operator(bm, include_cost=False)
+        s0, W = _packed(golden, bm, 200, batch, cuda)
+    else:
+        _, _, _, op = _large_plant_op(cuda)
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        s0 = torch.rand((batch, op.S), generator=gen, device=cuda) - 0.5
+        W = 0.002 * (torch.rand((batch, 8, op.nw), generator=gen,
+                                device=cuda) - 0.5)
+    before = fr.fused_rollout_nocost.launches
+    got = fr.fused_rollout_nocost(op, s0, W, w_off=w_off)
+    torch.cuda.synchronize()
+    assert fr.fused_rollout_nocost.launches == before + 1
+    want = fr.fused_rollout_reference(op, s0, W, w_off=w_off)
+    for a, b in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
 def test_nocost_and_k1_wrappers_reject_what_the_kernels_do_not_take(cuda):
     """K1 raises before the launch on an operator too large for its
     shared-memory plan (large_plant with cost columns: 460 rows); K3
-    refuses an operator with cost columns and bad inputs."""
+    refuses an operator with cost columns, bad inputs and an operator
+    beyond its own plan (1000 noise rows: the [w | s] tile of 64
+    scenarios alone needs 312 KB)."""
     plant, ctrl, bm, op = _large_plant_op(cuda)
     full = fr._build_fused_operator(bm)
     B, n_outer = 8, 2
     s0 = torch.zeros(B, op.S, device=cuda)
     W = torch.zeros(B, n_outer, op.nw, device=cuda)
+    nw = 1000
+    wide = op._replace(G=torch.zeros(nw + op.S, op.G.shape[1], device=cuda),
+                       nw=nw)
     before = (fr.fused_rollout.launches, fr.fused_rollout_nocost.launches)
     with pytest.raises(ValueError, match="S=210, nw=250"):
         fr.fused_rollout(full, s0, W)
@@ -450,5 +487,8 @@ def test_nocost_and_k1_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fr.fused_rollout_nocost(op, s0.double(), W)
     with pytest.raises(ValueError, match="w_off"):
         fr.fused_rollout_nocost(op, s0, W, w_off=n_outer)
+    with pytest.raises(ValueError, match="too large.*S=210, nw=1000"):
+        fr.fused_rollout_nocost(wide, s0, torch.zeros(B, n_outer, nw,
+                                                      device=cuda))
     assert (fr.fused_rollout.launches,
             fr.fused_rollout_nocost.launches) == before

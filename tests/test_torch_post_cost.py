@@ -5,6 +5,8 @@ against the JAX package; and the port's device rule (entry points run
 on the card unless told otherwise). The CUDA kernel itself is tested
 against the plain version in tests/test_torch_cuda.py, on a card."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -184,10 +186,12 @@ def test_amortized_post_run_folds_every_repetition():
     assert abs(float(checksum) - want) <= 1e-4 * abs(want)
 
 
+@functools.lru_cache(maxsize=1)
 def _large_plant(K=25, N=600, L=30):
     """``bench.py``'s large_plant (seed 0) in both packages, from the
     same numpy data: the random 10 x 10 x 10 plant, N = 600, L = 30,
-    ``u_s = 0.5``, ``y_s`` its equilibrium output."""
+    ``u_s = 0.5``, ``y_s`` its equilibrium output (built once per
+    process; the tests only read it)."""
     from direct_data_driven_mpc_tpu_torch.control.controller import (
         DirectDataDrivenMPCController,
     )
@@ -285,6 +289,79 @@ def test_large_plant_matches_jax():
     )
     torch.testing.assert_close(post64, res64.costs, rtol=0, atol=1e-8)
     assert bool(post.converged.all())
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) as cvt.rna.tf32.f32 rounds a
+    finite float32: to nearest, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32x3_rollout(op, s0, W, w_off=0):
+    """Kernel K3's arithmetic in plain PyTorch: each operand split into
+    hi = tf32(x) and lo = tf32(x - hi); per 16 rows of G (one ring tile)
+    the products a_lo b_hi, a_hi b_lo and a_hi b_hi summed from zero,
+    then added to the float32 accumulator."""
+    Bsz, n_outer, _ = W.shape
+    S, Ku = op.S, op.Ku
+    G_hi = _tf32(op.G)
+    G_lo = _tf32(op.G - G_hi)
+    U = torch.empty((Bsz, n_outer, Ku))
+    Y = torch.empty((Bsz, n_outer, op.Kp))
+    s = s0
+    for t in range(n_outer):
+        sw = torch.cat([W[:, (t + w_off) % n_outer], s], dim=1)
+        a_hi = _tf32(sw)
+        a_lo = _tf32(sw - a_hi)
+        out = torch.zeros((Bsz, op.G.shape[1]))
+        for k in range(0, sw.shape[1], 16):
+            rows = slice(k, k + 16)
+            out += (a_lo[:, rows] @ G_hi[rows] + a_hi[:, rows] @ G_lo[rows]
+                    + a_hi[:, rows] @ G_hi[rows])
+        out += op.bias
+        U[:, t] = out[:, S:S + Ku]
+        Y[:, t] = out[:, S + Ku:]
+        s = out[:, :S]
+    return U, Y, torch.empty((Bsz, n_outer, 0)), s.contiguous()
+
+
+def test_large_plant_tf32x3_meets_the_float64_bar():
+    """The precision of kernel K3 (3xTF32 on the tensor cores), emulated
+    on the CPU at large_plant (B = 4, T = 50): u, y and the final state
+    within 1e-4 of float64 and of the JAX post path (measured on the
+    CPU: u 1.8e-5 from float64, where the float32 plain version is at
+    2.4e-5, and 2.9e-5 from JAX), and the split itself exact to 2^-21 of
+    each operand."""
+    plant, ctrl, bm, jbm = _large_plant()
+    T = 50
+    inputs = _inputs(plant, ctrl, T, np.random.default_rng(5))
+    op = fr._build_fused_operator(bm, include_cost=False)
+    hi = _tf32(op.G)
+    lo = _tf32(op.G - hi)
+    assert torch.equal(hi.view(torch.int32) & 0x1FFF,
+                       torch.zeros_like(hi, dtype=torch.int32))
+    assert float(((hi + lo) - op.G).abs().max()) <= (
+        2.0 ** -21 * float(op.G.abs().max()))
+    got = fr.make_fused_batched_rollout(
+        bm, T, cost_mode="post", rollout=_tf32x3_rollout
+    )(*_t(inputs))
+    bm64 = le.build_linear_engine(ctrl, plant.as_params(),
+                                  solves_per_block=25, device="cpu",
+                                  dtype=torch.float64)
+    res64 = fr.make_fused_batched_rollout(bm64, T, cost_mode="post")(
+        *_t(inputs, torch.float64)
+    )
+    ref = jpr.pallas_batched_rollout(jbm, *_j(inputs), n_steps=T,
+                                     backend="xla", cost_mode="post")
+    for field in ("u_sys", "y_sys", "x_final"):
+        g = getattr(got, field).double()
+        assert float((g - getattr(res64, field)).abs().max()) < 1e-4, field
+        np.testing.assert_allclose(
+            g.numpy(), np.asarray(getattr(ref, field)), rtol=0, atol=1e-4,
+            err_msg=field,
+        )
+    assert bool(got.converged.all())
 
 
 def test_cost_rank_rtol_matches_jax():
