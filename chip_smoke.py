@@ -44,11 +44,13 @@ Then the fused ADMM closed loop of ``bench.py``'s ``four_tank_convex``
 
 Then the adaptive penalty ladder of ``bench.py``'s ``four_tank_ladder``
 (slack NONE, |u| <= 0.85, the default 7-rung ladder, B = 65536 x
-T = 400) through kernel K5 (``ops/csrc/fused_admm.cu``, its ladder
-instantiation):
+T = 400) through kernel K5 (``fused_ladder_kernel`` of
+``ops/csrc/fused_admm.cu``):
 
 13. host build: the ladder's stacked operators, the kernel's tile (the
-    rung group) and shared memory, checked against ``ladder_tile_rows``;
+    rung group) and shared memory, checked against ``ladder_tile_rows``
+    and ``ladder_kernel_smem_bytes``; K5's blocks per SM, registers and
+    local (spill) bytes per thread;
 14. main path: ``make_fused_ladder_rollout`` on the card, with the launch
     count; every solve from index 10 converged (the fraction over all
     solves and a histogram of the final rungs are printed); kernel vs
@@ -66,14 +68,16 @@ Then ``bench.py``'s ``large_plant`` (a random stable 10-state, 10-input,
 ``cost_mode="post"``) through kernel K3 (``ops/csrc/fused_rollout.cu``,
 its no-cost kernel, whose products run on the tensor cores as 3xTF32):
 
-18. host build: the controller (seed 0) and the block maps;
+18. host build: the controller (seed 0) and the block maps; K3's plan
+    from the library against ``nocost_plan`` at K = 25 and 50;
 19. main path: ``make_fused_batched_rollout(cost_mode="post")``, with
     launch counts; kernel vs plain version on u, y and the final state
     at atol 1e-4 (the kernel sums its 3xTF32 products in another order
     than cuBLAS, and every float32 path of large_plant sits 2e-5 to
     3e-5 from float64), the post-pass costs on the two trajectories at
     rtol 1e-3 / atol 1e-2 (each cost is a small difference of terms
-    near 1e3);
+    near 1e3); then K = 50 solves per block (B = 8192), where K3 takes
+    32 scenarios per block, against the plain version at 1e-4;
 20. float64 truth: max |du| and |dy| against the plain version in
     float64 (1024 scenarios), each below 1e-4; the post-pass costs (cost
     factor truncated at rtol 1e-6, as in the JAX package) against
@@ -97,6 +101,7 @@ bound kept beside it), the H100 SXM's published peaks at 700 W.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -597,16 +602,29 @@ def ladder_phases(dev, smi) -> dict:
     tile = lib.fused_ladder_tile_rows(*sizes)
     smem = lib.fused_ladder_smem_bytes(*sizes)
     if (tile, smem) != (fl.ladder_tile_rows(dims),
-                        fl.ladder_smem_bytes(dims, tile)):
+                        fl.ladder_kernel_smem_bytes(dims, tile)):
         raise AssertionError(f"ladder plan: library ({tile}, {smem}) vs "
                              f"Python {fl.ladder_tile_rows(dims)}")
+    per_sm = lib.fused_ladder_blocks_per_sm(*sizes)
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = lib.fused_ladder_kernel_attributes(dims.nbox, ctypes.byref(regs),
+                                             ctypes.byref(local))
+    if per_sm < 1 or err:
+        raise AssertionError(f"K5 occupancy {per_sm}, attributes error "
+                             f"{err}")
     log(f"ladder host build: four_tank_ladder nbox={dims.nbox}, R={R} "
         f"rungs rho {float(ops.rhos[0]):.3g} .. {float(ops.rhos[-1]):.3g}"
         f", per rung Vop {tuple(ops.Vop.shape[1:])}, M1 "
         f"{tuple(ops.M1.shape[1:])}, M2 {tuple(ops.M2.shape[1:])} "
         f"({tensor_bytes(ops.Vop, ops.M1, ops.M2, ops.b2)} B stacked) in "
         f"{time.perf_counter() - t0:.2f} s; kernel tile = rung group "
-        f"{tile} scenarios, {smem} B of shared memory (one rung resident)")
+        f"{tile} scenarios (group rule {fl.ladder_smem_bytes(dims, tile)} "
+        f"B), {smem} B of shared memory per block (one rung resident, s "
+        f"and w in registers)")
+    log(f"K5 occupancy: {per_sm} blocks per SM "
+        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+        f"{regs.value} registers and {local.value} local (spill) bytes per "
+        f"thread (cudaFuncGetAttributes)")
 
     def inputs(B, T=T_ADMM, seed=0):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -801,6 +819,7 @@ def large_plant_phases(dev, smi) -> dict:
     )
 
     B, T, K = B_ADMM, T_ADMM, 25
+    K50 = 50  # bench.py's other large_plant depth: K3's 32-row plan
     # 18. Host build (float64), then the block maps on the card.
     t0 = time.perf_counter()
     plant, ctrl = build_large_plant()
@@ -816,10 +835,18 @@ def large_plant_phases(dev, smi) -> dict:
     log(f"large_plant host build: nz={ctrl.spec.nz} nc={ctrl.spec.nc} in "
         f"{t_host:.2f} s; block map K={K} and the operator without cost "
         f"columns G {tuple(op.G.shape)} in {time.perf_counter() - t0:.2f}"
-        f" s; K3 plan {lib.fused_rollout_nocost_tile_rows()} scenarios "
-        f"per block, {lib.fused_rollout_nocost_smem_bytes(op.S, op.nw)} "
-        f"B of shared memory (K1's plan would need "
+        f" s; K3 plan {lib.fused_rollout_nocost_tile_rows(op.S, op.nw)} "
+        f"scenarios per block, "
+        f"{lib.fused_rollout_nocost_smem_bytes(op.S, op.nw)} B of shared "
+        f"memory (K1's plan would need "
         f"{lib.fused_rollout_smem_bytes(op.S, op.nw, K) or '> 232448'} B)")
+    for k in (K, K50):
+        nw = op.nw // K * k
+        plan = (lib.fused_rollout_nocost_tile_rows(op.S, nw),
+                lib.fused_rollout_nocost_smem_bytes(op.S, nw))
+        if plan != fr.nocost_plan(op.S, nw):
+            raise AssertionError(f"K3 plan at K={k}: library {plan} vs "
+                                 f"Python {fr.nocost_plan(op.S, nw)}")
 
     # 19. The main path, through the kernel.
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -863,6 +890,33 @@ def large_plant_phases(dev, smi) -> dict:
         f"{errs['s_fin']:.3e} (atol {K3_ATOL}); costs {err_c:.3e} (rtol "
         f"{COST_RTOL}, atol {POST_COST_ATOL})")
     del want_k, got_k
+    # K = 50 solves per block, where the 64-scenario plan does not fit
+    # and K3 takes 32 scenarios per block.
+    bm50 = build_linear_engine(ctrl, plant.as_params(),
+                               solves_per_block=K50, device=dev)
+    op50 = fr._build_fused_operator(bm50, include_cost=False)
+    rows50 = lib.fused_rollout_nocost_tile_rows(op50.S, op50.nw)
+    if rows50 != 32:
+        raise AssertionError(f"K3 at K={K50}: {rows50} scenarios per block")
+    s50, W50 = fr._center_and_pack(
+        bm50, x0s[:B_VARIANT], ups[:B_VARIANT], yps[:B_VARIANT],
+        Ws[:B_VARIANT], T // K50, K50, 0,
+    )
+    before = fr.fused_rollout_nocost.launches
+    got50 = fr.fused_rollout(op50, s50, W50)
+    torch.cuda.synchronize()
+    if fr.fused_rollout_nocost.launches != before + 1:
+        raise AssertionError(f"large_plant K={K50} did not go through K3")
+    want50 = fr.fused_rollout_reference(op50, s50, W50)
+    err50 = max(check_close(f"K3 K={K50} vs plain {name}", g, w, K3_ATOL)
+                for name, g, w in zip(("U", "Y", "s_fin"),
+                                      got50[:2] + got50[3:],
+                                      want50[:2] + want50[3:]))
+    log(f"large_plant K={K50} (B={B_VARIANT}, T={T}): K3 at "
+        f"{rows50} scenarios per block, "
+        f"{lib.fused_rollout_nocost_smem_bytes(op50.S, op50.nw)} B; vs "
+        f"plain max |diff| on U, Y, s_fin {err50:.3e} (atol {K3_ATOL})")
+    del bm50, op50, s50, W50, got50, want50
 
     # 20. Float64 truth (1024 scenarios) and the in-kernel costs. The
     # post-pass truncates the cost factor at rtol 1e-6, as the JAX

@@ -35,7 +35,7 @@ _SIGNATURES = {
         "fused_rollout_launch": ([_P] * 8 + [_I] * 9 + [_P], ctypes.c_int),
         "fused_rollout_smem_bytes": ([_I] * 3, ctypes.c_int),
         "fused_rollout_nocost_smem_bytes": ([_I] * 2, ctypes.c_int),
-        "fused_rollout_nocost_tile_rows": ([], ctypes.c_int),
+        "fused_rollout_nocost_tile_rows": ([_I] * 2, ctypes.c_int),
         "fused_rollout_nocost_launch": (
             [_P] * 7 + [_I] * 8 + [_P], ctypes.c_int
         ),
@@ -50,6 +50,10 @@ _SIGNATURES = {
         "fused_ladder_smem_bytes": ([_I] * 5, ctypes.c_int),
         "fused_ladder_launch": (
             [_P] * 26 + [_I] * 9 + [_F] * 3 + [_P], ctypes.c_int
+        ),
+        "fused_ladder_blocks_per_sm": ([_I] * 5, ctypes.c_int),
+        "fused_ladder_kernel_attributes": (
+            [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)], ctypes.c_int
         ),
     },
 }

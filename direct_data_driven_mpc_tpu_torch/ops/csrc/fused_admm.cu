@@ -1,10 +1,10 @@
 // Fused batched ADMM closed loop (float32, Hopper sm_90a), with a fixed
-// penalty (kernel K4) or the adaptive penalty ladder (kernel K5).
+// penalty (kernel K4, fused_admm_kernel) or the adaptive penalty ladder
+// (kernel K5, fused_ladder_kernel).
 //
 // K4 replaces direct_data_driven_mpc_tpu/ops/pallas_admm.py::
 // _make_admm_kernel (its math: _make_block_math, _make_iter_extract,
-// _make_plant_step); K5 replaces _make_ladder_kernel (with
-// _make_ladder_step). Both are instantiations of one kernel body. The TPU kernel's sequential time axis of the grid
+// _make_plant_step). The TPU kernel's sequential time axis of the grid
 // becomes a loop inside each thread block, and its VMEM scratch carry
 // becomes shared memory. A block owns TB scenarios for the whole
 // rollout; per solve block t it computes
@@ -47,11 +47,11 @@
 // nvcc does not contract it into FMAs: it rounds as the plain PyTorch
 // version does.
 //
-// The ladder (K5, LADDER = true). The box operator is pre-factorised
-// for R penalties rho_0 < ... < rho_{R-1}; a thread block's TB
-// scenarios form one rung group and share one rung ri. After the
-// extraction of each solve the block balances the rung on its group's
-// maxima (rows past B excluded):
+// K5 replaces _make_ladder_kernel (with _make_ladder_step). The box
+// operator is pre-factorised for R penalties rho_0 < ... < rho_{R-1}; a
+// thread block's TB scenarios form one rung group and share one rung
+// ri. After the extraction of each solve the block balances the rung on
+// its group's maxima (rows past B excluded):
 //
 //   rp_blk = max rp,  rd_blk = (max rd) / rho_ri,  s_mag = max |s|,
 //   w_mag = max |w|,  rp_rel = rp_blk / max(max(s_mag, w_mag), 1e-12),
@@ -68,6 +68,36 @@
 // whose rung moved re-stages Vop, M1, M2 and b2 between the balancer
 // and the plant step. The divisions and products of the balancer round
 // explicitly, as the plain PyTorch version rounds them in float32.
+//
+// K5's iterations (20 per solve at four_tank_ladder, 52 x 52 products)
+// are latency-bound, not FMA-bound: laid out as K4, one 143.6 KB block
+// held an SM, so each SM ran 8 warps; a block barrier ended every
+// iteration; the epilogue read s, w and vc and wrote s, w and d in
+// shared memory; the iterations ran at 31 % of the FMA peak. K5 keeps
+// K4's extraction and plant products and changes the iterations:
+// - Warp-owned scenarios. Warp k owns the group's scenarios 8k .. 8k+7
+//   for the whole rollout; lane l takes rows 4 (l >> 4) .. +3 of them
+//   and columns 4 (l & 15) + 64 j .. +3, for j < NT = ceil(nbox / 64).
+//   The d = s - w slab is scenario-minor, so a warp reads and writes
+//   only its own columns of it: the iteration loop needs no block
+//   barrier, only __syncwarp between the product's reads and the
+//   epilogue's writes, and one d buffer.
+// - Register residency. s and w stay in the owning lanes' registers for
+//   the whole rollout (loaded once, stored once), and vc and the bounds
+//   for each solve: an iteration's epilogue touches shared memory only
+//   to write d. The residual maxima reduce over the 16 lanes of a row
+//   group by shuffles (maxima are exact, so every bit is kept), the
+//   group maxima through one slot per warp; the balancer's |s| and |w|
+//   maxima and the rescale on a rung move read the registers too.
+// - Two blocks per SM. Without s, w and the second d in shared memory a
+//   block takes 100.7 KB at four_tank_ladder, so two fit an SM
+//   (__launch_bounds__(256, 2) caps a thread at 128 registers): 16
+//   warps hide each other's shared-memory and FMA latency.
+// It stays in float32 FMA, with the same FMA chain per output: the rung
+// moves are discontinuous functions of the group maxima, so any change
+// of rounding could flip a rung in some of the 409,600 group decisions
+// of a rollout. So K5 is bit-equal to its plain version (u, y, state,
+// s, w and every rung), as it was.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libfused_admm.so fused_admm.cu
@@ -89,7 +119,7 @@ struct Shape {
   int Mw, D2, W1, W2;      // pre width, plant input, M1 and M2 widths
   int ldv, ld1, ld2, ldu;  // padded rows of Vop, M1, M2, u bounds
   int TB, LDS;             // scenarios per block, carry row stride
-  int n_red;               // balancer maxima (4 with the ladder, else 0)
+  int n_red;               // 4 in the ladder's group rule, else 0
 };
 
 __host__ __device__ inline Shape make_shape(int S, int nbm, int nbp,
@@ -116,7 +146,11 @@ __host__ __device__ inline Shape make_shape(int S, int nbm, int nbp,
 }
 
 // Shared-memory floats of the operators and of the per-scenario carry
-// (rows of LDS floats), in the order the kernel lays them out.
+// (rows of LDS floats), in the order K4 lays them out. With ladder =
+// true, smem_bytes is the rung group's rule: K5's tile is the largest TB
+// that fits K4's layout plus the balancer's maxima (the layout K5 had
+// before its own), so the groups, which are part of the result, do not
+// move when K5's layout shrinks.
 __host__ __device__ inline size_t op_floats(const Shape& d) {
   return (size_t)d.nbox * d.ldv + (size_t)d.nbox * d.ld1 +
          (size_t)d.D2 * d.ld2 + d.ld2 + 2 * (size_t)d.ldv + 2 * (size_t)d.ldu;
@@ -231,7 +265,85 @@ __device__ __forceinline__ void load_rung(float* Vop, float* M1, float* M2,
   load_op(b2, P.b2 + (size_t)ri * d.W2, 1, d.W2, d.ld2);
 }
 
-template <bool LADDER>
+// The extraction of solve t: (s - w) through M1 over the block's d slab
+// tv; u (clipped) into xin's u rows and U, q into pre, z^2 into zth.
+__device__ __forceinline__ void extract_step(const float* tv, const float* M1,
+                                             const float* ulo,
+                                             const float* uhi, float* xin,
+                                             float* pre, float* zth,
+                                             const Params& P, const Shape& d,
+                                             int row0, int t) {
+  const int LDS = d.LDS, S = d.S, nbm = d.nbm, Mw = d.Mw;
+  tile_product(tv, LDS, M1, d.ld1, d.nbox, d.W1, d.TB,
+               [&](int r0, int c0, float (&acc)[4][4]) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = c0 + c;
+      if (col >= d.W1) break;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int rr = r0 + r;
+        if (col < nbm) {
+          const float u =
+              fminf(fmaxf(__fadd_rn(pre[col * LDS + rr], acc[r][c]),
+                          ulo[col]),
+                    uhi[col]);
+          xin[(S + col) * LDS + rr] = u;
+          const int b = row0 + rr;
+          if (b < d.B) P.U[((size_t)b * d.n_blocks + t) * nbm + col] = u;
+        } else if (col == nbm) {
+          pre[col * LDS + rr] = __fadd_rn(pre[col * LDS + rr], acc[r][c]);
+        } else {
+          float* zp = zth + (col - Mw) * LDS + rr;
+          const float z = __fadd_rn(*zp, acc[r][c]);
+          *zp = __fmul_rn(z, z);
+        }
+      }
+    }
+  });
+}
+
+// The plant step of solve t and the next solve's maps: [s_flat | u | w]
+// (xin) through M2 + b2 -> s_next, pre, Y, vc, zth.
+__device__ __forceinline__ void plant_step(const float* M2, const float* b2,
+                                           const float* xin, float* snext,
+                                           float* pre, float* vc, float* zth,
+                                           const Params& P, const Shape& d,
+                                           int row0, int t) {
+  const int LDS = d.LDS, S = d.S, nbm = d.nbm, nbp = d.nbp;
+  const int oU = S, oY = S + nbm, oQ = S + nbm + nbp, oV = oQ + 1;
+  const int oZ = oV + d.nbox;
+  tile_product(xin, LDS, M2, d.ld2, d.D2, d.W2, d.TB,
+               [&](int r0, int c0, float (&acc)[4][4]) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = c0 + c;
+      if (col >= d.W2) break;
+      const float bias = b2[col];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int rr = r0 + r;
+        const float v = __fadd_rn(acc[r][c], bias);
+        if (col < oU) {
+          snext[col * LDS + rr] = v;
+        } else if (col < oY) {
+          pre[(col - oU) * LDS + rr] = v;
+        } else if (col < oQ) {
+          const int b = row0 + rr;
+          if (b < d.B)
+            P.Y[((size_t)b * d.n_blocks + t) * nbp + (col - oY)] = v;
+        } else if (col == oQ) {
+          pre[nbm * LDS + rr] = v;
+        } else if (col < oZ) {
+          vc[(col - oV) * LDS + rr] = v;
+        } else {
+          zth[(col - oZ) * LDS + rr] = v;
+        }
+      }
+    }
+  });
+}
+
 __global__ void __launch_bounds__(THREADS)
 fused_admm_kernel(const Params P, const Shape d) {
   extern __shared__ float4 smem4[];
@@ -262,13 +374,9 @@ fused_admm_kernel(const Params P, const Shape d) {
   float* dbuf = wa + nbox * LDS;      // (2, nbox): s - w, double-buffered
   int* rp_bits = reinterpret_cast<int*>(dbuf + 2 * nbox * LDS);  // (TB)
   int* rd_bits = rp_bits + TB;                                   // (TB)
-  // Ladder: the group's max rp, rd, |s|, |w| as bits (d.n_red).
-  int* red = rd_bits + TB;
 
-  int ri = 0;  // the group's rung
-  if constexpr (LADDER) ri = P.rung0[blockIdx.x];
-  float rho = LADDER ? P.rhos[ri] : P.rho;
-  load_rung(Vop, M1, M2, b2, P, d, ri);
+  const float rho = P.rho;
+  load_rung(Vop, M1, M2, b2, P, d, 0);
   load_op(lo, P.lo, 1, nbox, d.ldv);
   load_op(hi, P.hi, 1, nbox, d.ldv);
   load_op(ulo, P.u_lo, 1, nbm, d.ldu);
@@ -307,7 +415,6 @@ fused_admm_kernel(const Params P, const Shape d) {
       }
     }
     for (int r = tid; r < TB; r += THREADS) rp_bits[r] = rd_bits[r] = 0;
-    if (tid < d.n_red) red[tid] = 0;
     __syncthreads();
 
     // ADMM iterations.
@@ -363,34 +470,8 @@ fused_admm_kernel(const Params P, const Shape d) {
     }
 
     // Extraction: t = s - w through M1.
-    const float* tv = dbuf + cur * nbox * LDS;
-    tile_product(tv, LDS, M1, d.ld1, nbox, d.W1, TB,
-                 [&](int r0, int c0, float (&acc)[4][4]) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = c0 + c;
-        if (col >= d.W1) break;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int rr = r0 + r;
-          if (col < nbm) {
-            const float u =
-                fminf(fmaxf(__fadd_rn(pre[col * LDS + rr], acc[r][c]),
-                            ulo[col]),
-                      uhi[col]);
-            xin[(S + col) * LDS + rr] = u;
-            const int b = row0 + rr;
-            if (b < d.B) P.U[((size_t)b * d.n_blocks + t) * nbm + col] = u;
-          } else if (col == nbm) {
-            pre[col * LDS + rr] = __fadd_rn(pre[col * LDS + rr], acc[r][c]);
-          } else {
-            float* zp = zth + (col - Mw) * LDS + rr;
-            const float z = __fadd_rn(*zp, acc[r][c]);
-            *zp = __fmul_rn(z, z);
-          }
-        }
-      }
-    });
+    extract_step(dbuf + cur * nbox * LDS, M1, ulo, uhi, xin, pre, zth, P, d,
+                 row0, t);
     __pipeline_wait_prior(0);
     __syncthreads();  // u, z^2, q and the noise are in
 
@@ -413,84 +494,12 @@ fused_admm_kernel(const Params P, const Shape d) {
         P.C[o] = c;
         P.RP[o] = rp;
         P.RD[o] = __fmul_rn(rho, rd);
-        if constexpr (LADDER) {
-          float s_mag = 0.f, w_mag = 0.f;
-          for (int j = 0; j < nbox; ++j) {
-            s_mag = nan_max(s_mag, fabsf(sa[j * LDS + r]));
-            w_mag = nan_max(w_mag, fabsf(wa[j * LDS + r]));
-          }
-          atomicMax(&red[0], __float_as_int(rp));
-          atomicMax(&red[1], __float_as_int(__fmul_rn(rho, rd)));
-          atomicMax(&red[2], __float_as_int(s_mag));
-          atomicMax(&red[3], __float_as_int(w_mag));
-        }
       }
     }
     __syncthreads();  // zth and pre are read before M2 overwrites them
 
-    if constexpr (LADDER) {
-      // Balance the group's rung; every thread reaches the same ri'.
-      const float tiny = 1e-12f;
-      const float s_mag = __int_as_float(red[2]);
-      const float w_mag = __int_as_float(red[3]);
-      const float rp_rel = __fdiv_rn(__int_as_float(red[0]),
-                                     nan_max(nan_max(s_mag, w_mag), tiny));
-      const float rd_rel = __fdiv_rn(__fdiv_rn(__int_as_float(red[1]), rho),
-                                     nan_max(w_mag, tiny));
-      const bool up = rp_rel > __fmul_rn(P.ratio, rd_rel) && ri < P.R - 1;
-      const bool down = rd_rel > __fmul_rn(P.ratio, rp_rel) && ri > 0;
-      const int rn = ri + (int)up - (int)down;
-      for (int r = tid; r < TB; r += THREADS)
-        if (row0 + r < d.B) P.RUNG[(size_t)(row0 + r) * d.n_blocks + t] = rn;
-      if (rn != ri) {
-        // The unscaled dual rho w is rung-invariant; s - w feeds the
-        // next solve's first iteration.
-        const float fac = __fdiv_rn(P.rhos[ri], P.rhos[rn]);
-        float* dc = dbuf + cur * nbox * LDS;
-        for (int idx = tid; idx < nbox * LDS; idx += THREADS) {
-          const float w = __fmul_rn(wa[idx], fac);
-          wa[idx] = w;
-          dc[idx] = __fsub_rn(sa[idx], w);
-        }
-        load_rung(Vop, M1, M2, b2, P, d, rn);
-        ri = rn;
-        rho = P.rhos[rn];
-        __syncthreads();  // the new rung's operators are in
-      }
-    }
-
     // Plant step and the next solve's maps: [s_flat | u | w] through M2.
-    const int oU = S, oY = S + nbm, oQ = S + nbm + nbp, oV = oQ + 1;
-    const int oZ = oV + nbox;
-    tile_product(xin, LDS, M2, d.ld2, d.D2, d.W2, TB,
-                 [&](int r0, int c0, float (&acc)[4][4]) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = c0 + c;
-        if (col >= d.W2) break;
-        const float bias = b2[col];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int rr = r0 + r;
-          const float v = __fadd_rn(acc[r][c], bias);
-          if (col < oU) {
-            snext[col * LDS + rr] = v;
-          } else if (col < oY) {
-            pre[(col - oU) * LDS + rr] = v;
-          } else if (col < oQ) {
-            const int b = row0 + rr;
-            if (b < d.B)
-              P.Y[((size_t)b * d.n_blocks + t) * nbp + (col - oY)] = v;
-          } else if (col == oQ) {
-            pre[nbm * LDS + rr] = v;
-          } else if (col < oZ) {
-            vc[(col - oV) * LDS + rr] = v;
-          } else {
-            zth[(col - oZ) * LDS + rr] = v;
-          }
-        }
-      }
-    });
+    plant_step(M2, b2, xin, snext, pre, vc, zth, P, d, row0, t);
     __syncthreads();
     for (int idx = tid; idx < S * LDS; idx += THREADS) xin[idx] = snext[idx];
     // The next block's first barrier orders this copy before M2 reads
@@ -500,6 +509,388 @@ fused_admm_kernel(const Params P, const Shape d) {
   store_carry(P.s_fin, xin, S, row0, d);
   store_carry(P.sa_fin, sa, nbox, row0, d);
   store_carry(P.wa_fin, wa, nbox, row0, d);
+}
+
+// ---------------------------------------------------------------------
+// K5: the ladder kernel. A warp owns WARP_ROWS scenarios of the group;
+// lane l owns rows r0 = WARP_ROWS warp + 4 (l >> 4) .. r0 + 3 and, for
+// j < NT, columns 4 (l & 15) + 64 j .. + 3 of v, s and w. Register
+// arrays are [tile j][column c][row r].
+
+constexpr int WARPS = THREADS / 32;
+constexpr int WARP_ROWS = 8;
+constexpr unsigned FULL = 0xffffffffu;
+
+// K5's shared-memory floats: one rung's operators, the carry rows xin,
+// snext, pre, vc, zth and d = s - w (s and w live in registers), and
+// each warp's four partial group maxima.
+__host__ __device__ inline size_t ladder_kernel_floats(const Shape& d) {
+  return op_floats(d) +
+         (size_t)(d.D2 + d.S + d.Mw + d.nbox + d.nxi + d.nbox) * d.LDS +
+         4 * WARPS;
+}
+size_t ladder_kernel_smem_bytes(const Shape& d) {
+  return sizeof(float) * ladder_kernel_floats(d);
+}
+
+// x maximised (nan_max) over the 16 lanes of the caller's row group.
+__device__ __forceinline__ float row_group_max(float x) {
+#pragma unroll
+  for (int off = 8; off >= 1; off >>= 1)
+    x = nan_max(x, __shfl_xor_sync(FULL, x, off));
+  return x;
+}
+
+// acc[j][c][r] = sum_k d[k][r0 + r] Vop[k][oc[j] + c], one FMA chain per
+// output over k = 0 .. nbox-1 from zero, as tile_product sums it. dcol is
+// d + r0; oc[j] is clamped inside the row, so a lane past nbox reads
+// valid memory and its sums are discarded.
+template <int NT>
+__device__ __forceinline__ void warp_product(const float* dcol, int LDS,
+                                             const float* Vop, int ldv,
+                                             int nbox, const int (&oc)[NT],
+                                             float (&acc)[NT][4][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[j][c][r] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < nbox; ++k) {
+    const float4 a4 = ld4(dcol + k * LDS);
+    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float4 o4 = ld4(Vop + k * ldv + oc[j]);
+      const float ov[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          acc[j][c][r] = fmaf(av[r], ov[c], acc[j][c][r]);
+    }
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(THREADS, NT == 1 ? 2 : 1)
+fused_ladder_kernel(const Params P, const Shape d) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int LDS = d.LDS, TB = d.TB;
+  const int S = d.S, nbm = d.nbm, nbp = d.nbp, nbox = d.nbox, nxi = d.nxi;
+  const int Mw = d.Mw;
+  const int row0 = blockIdx.x * TB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // Operators, as K4 lays them out.
+  float* Vop = sm;
+  float* M1 = Vop + nbox * d.ldv;
+  float* M2 = M1 + nbox * d.ld1;
+  float* b2 = M2 + d.D2 * d.ld2;
+  float* lo = b2 + d.ld2;
+  float* hi = lo + d.ldv;
+  float* ulo = hi + d.ldv;
+  float* uhi = ulo + d.ldu;
+  // Per-scenario carry, scenario-minor rows of LDS floats.
+  float* xin = uhi + d.ldu;           // (D2): [s_flat | u | w_noise]
+  float* snext = xin + d.D2 * LDS;    // (S)
+  float* pre = snext + S * LDS;       // (Mw): [u_theta | q]
+  float* vc = pre + Mw * LDS;         // (nbox)
+  float* zth = vc + nbox * LDS;       // (nxi)
+  float* dbuf = zth + nxi * LDS;      // (nbox): s - w
+  float* part = dbuf + nbox * LDS;    // (WARPS, 4): max rp, rd, |s|, |w|
+
+  // The lane's share, rows lr0 .. lr0 + 3: warp-uniform `owner`,
+  // lane-level `mine`.
+  const bool owner = WARP_ROWS * warp < TB;
+  const int lr0 = WARP_ROWS * warp + 4 * (lane >> 4);
+  const bool mine = owner && lr0 < TB;
+  const int cg = lane & 15;
+  int oc[NT];  // the product's column offsets, clamped inside the row
+#pragma unroll
+  for (int j = 0; j < NT; ++j) oc[j] = min(4 * cg + 64 * j, d.ldv - 4);
+  // Column c of tile j is 4 cg + 64 j + c; it exists below nbox.
+  auto col_of = [&](int j, int c) { return 4 * cg + 64 * j + c; };
+  float* drow = dbuf + lr0;
+
+  int ri = P.rung0[blockIdx.x];  // the group's rung
+  float rho = P.rhos[ri];
+  load_rung(Vop, M1, M2, b2, P, d, ri);
+  load_op(lo, P.lo, 1, nbox, d.ldv);
+  load_op(hi, P.hi, 1, nbox, d.ldv);
+  load_op(ulo, P.u_lo, 1, nbm, d.ldu);
+  load_op(uhi, P.u_hi, 1, nbm, d.ldu);
+  load_carry(xin, P.s0, S, row0, d);
+  load_carry(pre, P.pre0, Mw, row0, d);
+  load_carry(vc, P.vc0, nbox, row0, d);
+  load_carry(zth, P.zth0, nxi, row0, d);
+  // s and w into the owning lanes' registers (zero past B and nbox).
+  float s[NT][4][4], w[NT][4][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int col = col_of(j, c), b = row0 + lr0 + r;
+        const bool ok = mine && col < nbox && b < d.B;
+        const size_t o = (size_t)b * nbox + col;
+        s[j][c][r] = ok ? P.sa0[o] : 0.f;
+        w[j][c][r] = ok ? P.wa0[o] : 0.f;
+      }
+  __syncthreads();
+  float lor[NT][4], hir[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = col_of(j, c);
+      lor[j][c] = col < nbox ? lo[col] : 0.f;
+      hir[j][c] = col < nbox ? hi[col] : 0.f;
+    }
+  // d = s - w, the lane's columns.
+  auto store_d = [&]() {
+    if (!mine) return;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = col_of(j, c);
+        if (col < nbox)
+          *reinterpret_cast<float4*>(drow + col * LDS) = make_float4(
+              __fsub_rn(s[j][c][0], w[j][c][0]),
+              __fsub_rn(s[j][c][1], w[j][c][1]),
+              __fsub_rn(s[j][c][2], w[j][c][2]),
+              __fsub_rn(s[j][c][3], w[j][c][3]));
+      }
+  };
+  store_d();
+
+  for (int t = 0; t < d.n_blocks; ++t) {
+    // This block's noise lands in xin's w rows while the iterations run.
+    for (int idx = tid; idx < TB * nbp; idx += THREADS) {
+      const int r = idx / nbp, i = idx - r * nbp;
+      const int b = row0 + r;
+      float* dst = xin + (S + nbm + i) * LDS + r;
+      if (b < d.B)
+        __pipeline_memcpy_async(
+            dst, P.W + ((size_t)b * d.n_blocks + t) * nbp + i, sizeof(float));
+      else
+        *dst = 0.f;
+    }
+    __pipeline_commit();
+
+    // ADMM iterations, each warp on its own scenarios, no block barrier.
+    // rpm, rdm: the last iteration's residual maxima per row.
+    float rpm[4] = {0.f, 0.f, 0.f, 0.f}, rdm[4] = {0.f, 0.f, 0.f, 0.f};
+    if (owner) {
+      float vcr[NT][4][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = col_of(j, c);
+          const float4 v4 = mine && col < nbox ? ld4(vc + col * LDS + lr0)
+                                               : make_float4(0.f, 0.f, 0.f,
+                                                             0.f);
+          vcr[j][c][0] = v4.x;
+          vcr[j][c][1] = v4.y;
+          vcr[j][c][2] = v4.z;
+          vcr[j][c][3] = v4.w;
+        }
+      for (int it = 0; it < d.n_iter; ++it) {
+        const bool last = it == d.n_iter - 1;
+        float acc[NT][4][4];
+        __syncwarp();  // the warp's d writes are in
+        warp_product<NT>(drow, LDS, Vop, d.ldv, nbox, oc, acc);
+        __syncwarp();  // every lane has read d
+        if (!mine) continue;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int col = col_of(j, c);
+            if (col >= nbox) continue;
+            float dnv[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const float v = __fadd_rn(acc[j][c][r], vcr[j][c][r]);
+              const float sv = s[j][c][r], wv = w[j][c][r];
+              const float vh =
+                  __fadd_rn(__fmul_rn(P.alpha, v), __fmul_rn(P.beta, sv));
+              const float sn =
+                  fminf(fmaxf(__fadd_rn(vh, wv), lor[j][c]), hir[j][c]);
+              const float wn = __fsub_rn(__fadd_rn(wv, vh), sn);
+              dnv[r] = __fsub_rn(sn, wn);
+              if (last) {
+                rpm[r] = nan_max(rpm[r], fabsf(__fsub_rn(v, sn)));
+                rdm[r] = nan_max(rdm[r], fabsf(__fsub_rn(sn, sv)));
+              }
+              s[j][c][r] = sn;
+              w[j][c][r] = wn;
+            }
+            *reinterpret_cast<float4*>(drow + col * LDS) =
+                make_float4(dnv[0], dnv[1], dnv[2], dnv[3]);
+          }
+      }
+      // Per row: the residuals, max |s| and max |w| over the nbox lanes
+      // (a row group's 16 lanes), then the warp's maxima over its rows
+      // before B, as one slot of the group maxima.
+      float smag[4] = {0.f, 0.f, 0.f, 0.f}, wmag[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {  // zero past nbox and TB
+            smag[r] = nan_max(smag[r], fabsf(s[j][c][r]));
+            wmag[r] = nan_max(wmag[r], fabsf(w[j][c][r]));
+          }
+      float g[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        smag[r] = row_group_max(smag[r]);
+        wmag[r] = row_group_max(wmag[r]);
+        if (d.n_iter == 0) {  // v_last = s_prev = 0: both are max |s|
+          rpm[r] = rdm[r] = smag[r];
+        } else {
+          rpm[r] = row_group_max(rpm[r]);
+          rdm[r] = row_group_max(rdm[r]);
+        }
+        if (mine && row0 + lr0 + r < d.B) {
+          g[0] = nan_max(g[0], rpm[r]);
+          g[1] = nan_max(g[1], __fmul_rn(rho, rdm[r]));
+          g[2] = nan_max(g[2], smag[r]);
+          g[3] = nan_max(g[3], wmag[r]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        g[i] = nan_max(g[i], __shfl_xor_sync(FULL, g[i], 16));
+        if (lane == 0) part[4 * warp + i] = g[i];
+      }
+    } else if (lane < 4) {
+      part[4 * warp + lane] = 0.f;
+    }
+    __syncthreads();  // every warp's d and maxima are in
+
+    // Extraction: t = s - w through M1.
+    extract_step(dbuf, M1, ulo, uhi, xin, pre, zth, P, d, row0, t);
+    __pipeline_wait_prior(0);
+    __syncthreads();  // u, z^2, q and the noise are in
+
+    // Cost and residuals of the warp's scenarios: each lane sums every
+    // 16th z^2 of its rows, the row group sums the 16 partial sums.
+    if (owner) {
+      float cs[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int j = cg; mine && j < nxi; j += 16) {
+        const float4 z4 = ld4(zth + j * LDS + lr0);
+        cs[0] = __fadd_rn(cs[0], z4.x);
+        cs[1] = __fadd_rn(cs[1], z4.y);
+        cs[2] = __fadd_rn(cs[2], z4.z);
+        cs[3] = __fadd_rn(cs[3], z4.w);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int off = 8; off >= 1; off >>= 1)
+          cs[r] = __fadd_rn(cs[r], __shfl_xor_sync(FULL, cs[r], off));
+        const int b = row0 + lr0 + r;
+        if (mine && cg == r && b < d.B) {
+          const size_t o = (size_t)b * d.n_blocks + t;
+          P.C[o] = __fadd_rn(cs[r], pre[nbm * LDS + lr0 + r]);
+          P.RP[o] = rpm[r];
+          P.RD[o] = __fmul_rn(rho, rdm[r]);
+        }
+      }
+    }
+    __syncthreads();  // zth and pre are read before M2 overwrites them
+
+    // Balance the group's rung; every thread reaches the same ri'.
+    {
+      float red[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < WARPS; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) red[i] = nan_max(red[i], part[4 * k + i]);
+      const float tiny = 1e-12f;
+      const float s_mag = red[2], w_mag = red[3];
+      const float rp_rel =
+          __fdiv_rn(red[0], nan_max(nan_max(s_mag, w_mag), tiny));
+      const float rd_rel =
+          __fdiv_rn(__fdiv_rn(red[1], rho), nan_max(w_mag, tiny));
+      const bool up = rp_rel > __fmul_rn(P.ratio, rd_rel) && ri < P.R - 1;
+      const bool down = rd_rel > __fmul_rn(P.ratio, rp_rel) && ri > 0;
+      const int rn = ri + (int)up - (int)down;
+      if (mine) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int b = row0 + lr0 + r;
+          if (cg == r && b < d.B) P.RUNG[(size_t)b * d.n_blocks + t] = rn;
+        }
+      }
+      if (rn != ri) {
+        // The unscaled dual rho w is rung-invariant; s - w feeds the
+        // next solve's first iteration.
+        const float fac = __fdiv_rn(P.rhos[ri], P.rhos[rn]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) w[j][c][r] = __fmul_rn(w[j][c][r], fac);
+        store_d();
+        load_rung(Vop, M1, M2, b2, P, d, rn);
+        ri = rn;
+        rho = P.rhos[rn];
+        __syncthreads();  // the new rung's operators are in
+      }
+    }
+
+    // Plant step and the next solve's maps: [s_flat | u | w] through M2.
+    plant_step(M2, b2, xin, snext, pre, vc, zth, P, d, row0, t);
+    __syncthreads();
+    for (int idx = tid; idx < S * LDS; idx += THREADS) xin[idx] = snext[idx];
+    // The next block's barrier after its iterations orders this copy
+    // before M2 reads xin again.
+  }
+  __syncthreads();
+  store_carry(P.s_fin, xin, S, row0, d);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int col = col_of(j, c), b = row0 + lr0 + r;
+        if (mine && col < nbox && b < d.B) {
+          P.sa_fin[(size_t)b * nbox + col] = s[j][c][r];
+          P.wa_fin[(size_t)b * nbox + col] = w[j][c][r];
+        }
+      }
+}
+
+using LadderKernel = void (*)(const Params, const Shape);
+
+// K5's instantiation for nbox box lanes (NT = ceil(nbox / 64) column
+// tiles per lane), or null beyond three.
+LadderKernel ladder_kernel_for(int nbox) {
+  if (nbox <= 64) return fused_ladder_kernel<1>;
+  if (nbox <= 128) return fused_ladder_kernel<2>;
+  if (nbox <= 192) return fused_ladder_kernel<3>;
+  return nullptr;
+}
+
+// Give `kernel` its dynamic shared memory, with the SM's carveout at
+// its largest so two blocks of the NT = 1 instantiation fit.
+cudaError_t ladder_prepare(LadderKernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 // Scenarios per block for these sizes (the largest of 64, 32, 16, 8, 4
@@ -512,16 +903,25 @@ int tile_rows(int S, int nbm, int nbp, int nbox, int nxi, bool ladder) {
   return 0;
 }
 
-template <bool LADDER>
 int launch(const Params& P, Shape d, void* stream) {
   const size_t smem = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_admm_kernel<LADDER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((d.B + d.TB - 1) / d.TB);
-  fused_admm_kernel<LADDER><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      P, d);
+  fused_admm_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(P, d);
+  return (int)cudaGetLastError();
+}
+
+int launch_ladder(const Params& P, Shape d, void* stream) {
+  const LadderKernel kernel = ladder_kernel_for(d.nbox);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = ladder_kernel_smem_bytes(d);
+  const cudaError_t err = ladder_prepare(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((d.B + d.TB - 1) / d.TB);
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(P, d);
   return (int)cudaGetLastError();
 }
 
@@ -543,15 +943,51 @@ int fused_admm_smem_bytes(int S, int nbm, int nbp, int nbox, int nxi) {
             : 0;
 }
 
-// The same for the ladder kernel: its tile is its rung group.
+// Scenarios per block of the ladder kernel, its rung group: the largest
+// tile that fits the group rule (smem_bytes with ladder = true), or 0.
 int fused_ladder_tile_rows(int S, int nbm, int nbp, int nbox, int nxi) {
   return tile_rows(S, nbm, nbp, nbox, nxi, true);
 }
 
+// Dynamic shared memory, in bytes, of a K5 block of that group (0 when
+// no group fits).
 int fused_ladder_smem_bytes(int S, int nbm, int nbp, int nbox, int nxi) {
   const int TB = fused_ladder_tile_rows(S, nbm, nbp, nbox, nxi);
-  return TB ? (int)smem_bytes(make_shape(S, nbm, nbp, nbox, nxi, TB, true))
+  return TB ? (int)ladder_kernel_smem_bytes(
+                  make_shape(S, nbm, nbp, nbox, nxi, TB, true))
             : 0;
+}
+
+// K5 blocks resident per SM at those sizes
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), 0 when none fits, or
+// minus a CUDA error.
+int fused_ladder_blocks_per_sm(int S, int nbm, int nbp, int nbox, int nxi) {
+  const int TB = fused_ladder_tile_rows(S, nbm, nbp, nbox, nxi);
+  const LadderKernel kernel = ladder_kernel_for(nbox);
+  if (TB == 0 || kernel == nullptr) return 0;
+  const size_t bytes =
+      ladder_kernel_smem_bytes(make_shape(S, nbm, nbp, nbox, nxi, TB, true));
+  cudaError_t err = ladder_prepare(kernel, bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        THREADS, bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// Registers per thread and local (spill) bytes per thread of the K5
+// instantiation for nbox box lanes (cudaFuncGetAttributes); returns the
+// CUDA error, or cudaErrorInvalidValue when no instantiation takes nbox.
+int fused_ladder_kernel_attributes(int nbox, int* registers,
+                                   int* local_bytes) {
+  const LadderKernel kernel = ladder_kernel_for(nbox);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }
 
 // Launches the rollout on `stream`; returns cudaGetLastError() (0 on
@@ -585,13 +1021,13 @@ int fused_admm_launch(const float* Vop, const float* M1, const float* M2,
                  U,     Y,    C,    RP,      RD,      s_fin,  sa_fin,
                  wa_fin, alpha, beta, rho,   nullptr, nullptr, nullptr,
                  1,     0.f};
-  return launch<false>(P, d, stream);
+  return launch(P, d, stream);
 }
 
 // Launches the ladder rollout (kernel K5) on `stream`, one block per
 // rung group of TB = fused_ladder_tile_rows(...) scenarios; returns
 // cudaGetLastError(), or cudaErrorInvalidValue when the sizes do not
-// fit. As fused_admm_launch without adds, plus: Vop (R, nbox, nbox), M1
+// fit (nbox above 192 included). As fused_admm_launch without adds, plus: Vop (R, nbox, nbox), M1
 // (R, nbox, nbm+1+nxi), M2 (R, S+nbm+nbp, W2), b2 (R, W2) stacked
 // rung-major; rhos (R); rung0 (ceil(B / TB)) int32, each group's first
 // rung; RUNG (B, n_blocks) int32, the post-balance rung of every solve.
@@ -619,7 +1055,7 @@ int fused_ladder_launch(const float* Vop, const float* M1, const float* M2,
                  U,      Y,    C,    RP,    RD,    s_fin, sa_fin,
                  wa_fin, alpha, beta, 0.f,  rhos,  rung0, RUNG,
                  R,      ratio};
-  return launch<true>(P, d, stream);
+  return launch_ladder(P, d, stream);
 }
 
 }  // extern "C"

@@ -56,26 +56,30 @@
 // at 495 TFLOP/s = 4.15 ms; mma.sync itself peaks near two thirds of
 // that rate on the H100 (wgmma has the rest).
 //
-// Design: a thread block owns NC_BM = 64 scenarios for the whole
-// rollout, so each block reads G (1.3 MB, resident in L2) once per step
-// for 64 scenarios. Its [w | s] tile stays in shared memory, row-major
-// with a row stride of 4 mod 8 floats so that a warp's fragment loads
-// hit 32 different banks; s_next goes to its own buffer and is swapped
-// in after the step's last column chunk. G streams through a ring of
-// NC_STAGES tiles of NC_BK rows x NC_BN columns filled by cp.async: a
-// thread waits on its own copy groups, so one barrier per tile frees
-// the oldest slot and publishes the newest. Each chunk of NC_BN output
-// columns keeps its float32 accumulators in registers across all D rows
-// (a 32 x 64 tile per warp, 8 warps). The tensor cores' own accumulation
-// truncates, which summed over D rows cost 1.5e-4 on u at large_plant,
-// so each 16 x 8 tile sums one ring tile's products from zero (small
-// ones first) and adds that to its accumulator in float32. The
-// epilogue writes U and Y from the registers, two columns per store. G
-// is split as its fragments are loaded rather than once on the host:
+// Design: a thread block owns BM = 64 scenarios for the whole rollout,
+// so each block reads G (1.3 MB, resident in L2) once per step for 64
+// scenarios. Where that plan does not fit shared memory (at large_plant,
+// K > 28 solves per block) the block owns BM = 32 scenarios, which
+// reads G twice as often and takes D up to 1200 rows (K <= 99). Its
+// [w | s] tile stays in shared memory, row-major with a row stride of
+// 4 mod 8 floats so that a warp's fragment loads hit 32 different banks;
+// s_next goes to its own buffer and is swapped in after the step's last
+// column chunk. G streams through a ring of NC_STAGES tiles of NC_BK
+// rows x NC_BN columns filled by cp.async: a thread waits on its own
+// copy groups, so one barrier per tile frees the oldest slot and
+// publishes the newest. Each chunk of NC_BN output columns keeps its
+// float32 accumulators in registers across all D rows (a 32 x 64 tile
+// per warp at BM = 64, 32 x 32 at BM = 32; 8 warps). The tensor cores'
+// own accumulation truncates, which summed over D rows cost 1.5e-4 on u
+// at large_plant, so each 16 x 8 tile sums one ring tile's products from
+// zero (small ones first) and adds that to its accumulator in float32.
+// The epilogue writes U and Y from the registers, two columns per store.
+// G is split as its fragments are loaded rather than once on the host:
 // at this warp tile both cost about two other instructions per mma, and
 // splitting here keeps the ring, the shared memory and the L2 reads at
-// one float per element. Per block at large_plant: the ring 50.7 KB,
-// [w | s] 119.8 KB, s_next 53.8 KB: 224 KB. The wrapper pads G's rows
+// one float per element. Per block at large_plant (K = 25, BM = 64): the
+// ring 50.7 KB, [w | s] 119.8 KB, s_next 53.8 KB: 224 KB; at K = 50 the
+// 32-row plan takes 170 KB. The wrapper pads G's rows
 // to a multiple of 4 floats (16-byte copies). What holds it back
 // (PERF.md): the splits, the ring's copies and barriers, and the U, Y
 // stores, each 1-2.5 ms beside the mma pipe's own time.
@@ -271,9 +275,10 @@ fused_rollout_kernel(const float* __restrict__ G,     // (D, Wtot)
   }
 }
 
-// K3's plan: scenarios per block, output columns per chunk, G rows per
-// ring stage and ring depth; the warp grid over the block's tile.
-constexpr int NC_BM = 64;
+// K3's plan: output columns per chunk, G rows per ring stage and ring
+// depth. The scenarios per block, BM, are a template parameter: 64 where
+// that plan fits shared memory, else 32 (twice the reads of G, but the
+// [w | s] tile is half as large, so D up to 1200 rows fits).
 constexpr int NC_BN = 256;
 constexpr int NC_BK = 16;
 constexpr int NC_STAGES = 3;
@@ -281,12 +286,19 @@ constexpr int NC_LDB = NC_BN + 8;  // ring row stride: 8 mod 32 floats, so
                                    // b-fragment loads hit 32 banks
 constexpr int NC_THREADS = 256;
 constexpr int NC_WARPS = NC_THREADS / 32;
-constexpr int NC_WARPS_M = NC_BM / 32;  // each warp owns 32 scenarios
-constexpr int NC_WARPS_N = NC_WARPS / NC_WARPS_M;
-constexpr int NC_NT = NC_BN / (8 * NC_WARPS_N);  // n8 tiles per warp
-static_assert(NC_WARPS_M * NC_WARPS_N == NC_WARPS, "warp grid");
-static_assert(NC_NT * 8 * NC_WARPS_N == NC_BN, "warp columns");
 static_assert(NC_BK % 8 == 0, "k8 steps per ring stage");
+
+// The warp grid over a block of BM scenarios: each warp owns 32
+// scenarios and NT n8 tiles of each column chunk (BM = 64: 2 x 4 warps,
+// 8 tiles; BM = 32: 1 x 8 warps, 4 tiles).
+template <int BM>
+struct NcGrid {
+  static constexpr int WARPS_M = BM / 32;
+  static constexpr int WARPS_N = NC_WARPS / WARPS_M;
+  static constexpr int NT = NC_BN / (8 * WARPS_N);  // n8 tiles per warp
+  static_assert(WARPS_M * WARPS_N == NC_WARPS, "warp grid");
+  static_assert(NT * 8 * WARPS_N == NC_BN, "warp columns");
+};
 
 // Row stride of the [w | s] tile: D rounded up to whole ring tiles (the
 // padding columns stay zero), plus 4, so the stride is 4 mod 8.
@@ -319,14 +331,15 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4],
 }
 
 // Start the asynchronous copy of `width` floats per scenario, from
-// src + b * stride for the block's scenarios b, into columns [0, width)
-// of the block's rows of A (zero past B) as one cp.async group.
+// src + b * stride for the block's BM scenarios b, into columns
+// [0, width) of the block's rows of A (zero past B) as one cp.async group.
+template <int BM>
 __device__ __forceinline__ void stage_rows(const float* __restrict__ src,
                                            size_t stride, int width,
                                            float* A, int lda, int row0,
                                            int B) {
   const int lane = threadIdx.x % 32;
-  for (int r = threadIdx.x / 32; r < NC_BM; r += NC_WARPS) {
+  for (int r = threadIdx.x / 32; r < BM; r += NC_WARPS) {
     float* a = A + r * lda;
     const float* s = src + (size_t)(row0 + r) * stride;
     for (int i = lane; i < width; i += 32) {
@@ -339,6 +352,7 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ src,
   __pipeline_commit();
 }
 
+template <int BM>
 __global__ void __launch_bounds__(NC_THREADS, 1)
 fused_rollout_nocost_kernel(const float* __restrict__ G,     // (D, ldg)
                             const float* __restrict__ bias,  // (Wtot,)
@@ -349,6 +363,8 @@ fused_rollout_nocost_kernel(const float* __restrict__ G,     // (D, ldg)
                             float* __restrict__ s_fin,  // (B, S)
                             int B, int S, int nw, int Ku, int Kp, int ldg,
                             int n_outer, int w_off) {
+  constexpr int NC_WARPS_N = NcGrid<BM>::WARPS_N;
+  constexpr int NC_NT = NcGrid<BM>::NT;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D = nw + S;
@@ -360,13 +376,13 @@ fused_rollout_nocost_kernel(const float* __restrict__ G,     // (D, ldg)
   const bool pairs = (S | Ku | Kp) % 2 == 0;  // float2 stores are aligned
 
   float* ring = smem;                                  // NC_STAGES tiles
-  float* A = ring + NC_STAGES * NC_BK * NC_LDB;        // (NC_BM, lda)
-  float* snext = A + NC_BM * lda;                      // (NC_BM, S)
+  float* A = ring + NC_STAGES * NC_BK * NC_LDB;        // (BM, lda)
+  float* snext = A + BM * lda;                         // (BM, S)
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, q = lane % 4;  // mma fragment row and column
   const int wm = warp / NC_WARPS_N, wn = warp % NC_WARPS_N;
-  const int row0 = blockIdx.x * NC_BM;
+  const int row0 = blockIdx.x * BM;
 
   // The ring's tiles in order (step, chunk, row tile), each one cp.async
   // group: G's rows [pk, pk + NC_BK) x columns [pj, pj + NC_BN) into
@@ -406,9 +422,9 @@ fused_rollout_nocost_kernel(const float* __restrict__ G,     // (D, ldg)
   // [w | s | 0] for the first step; rows past B are zero. The noise of
   // a step is row block (t + w_off) mod n_outer of each scenario's W.
   const size_t wstride = (size_t)n_outer * nw;
-  stage_rows(W + (size_t)w_off * nw, wstride, nw, A, lda, row0, B);
-  stage_rows(s0, S, S, A + nw, lda, row0, B);
-  for (int r = warp; r < NC_BM; r += NC_WARPS)
+  stage_rows<BM>(W + (size_t)w_off * nw, wstride, nw, A, lda, row0, B);
+  stage_rows<BM>(s0, S, S, A + nw, lda, row0, B);
+  for (int r = warp; r < BM; r += NC_WARPS)
     for (int i = D + lane; i < lda; i += 32) A[r * lda + i] = 0.f;
   __pipeline_wait_prior(0);
 
@@ -509,9 +525,9 @@ fused_rollout_nocost_kernel(const float* __restrict__ G,     // (D, ldg)
     // of this thread, the next tile's barrier everyone's, and orders
     // the snext reads before the next epilogue's writes.
     if (t + 1 < n_outer)
-      stage_rows(W + (size_t)((t + 1 + w_off) % n_outer) * nw, wstride, nw,
-                 A, lda, row0, B);
-    for (int r = warp; r < NC_BM; r += NC_WARPS) {
+      stage_rows<BM>(W + (size_t)((t + 1 + w_off) % n_outer) * nw, wstride,
+                     nw, A, lda, row0, B);
+    for (int r = warp; r < BM; r += NC_WARPS) {
       const int b = row0 + r;
       for (int j = lane; j < S; j += 32) {
         const float v = snext[r * S + j];
@@ -529,10 +545,33 @@ size_t smem_bytes(int S, int nw, int K) {
   return sizeof(float) * (D * LDS + 2 * D * BN + (size_t)TB * LDO +
                           (size_t)TB * S + (size_t)TB * K);
 }
-size_t nocost_smem_bytes(int S, int nw) {
+size_t nocost_smem_bytes(int S, int nw, int BM) {
   return sizeof(float) * ((size_t)NC_STAGES * NC_BK * NC_LDB +
-                          (size_t)NC_BM * nocost_lda(nw + S) +
-                          (size_t)NC_BM * S);
+                          (size_t)BM * nocost_lda(nw + S) + (size_t)BM * S);
+}
+
+// K3's scenarios per block: 64 where that plan fits one block's shared
+// memory, else 32, else 0 (the shape does not fit).
+int nocost_tile_rows(int S, int nw) {
+  for (int BM = 64; BM >= 32; BM /= 2)
+    if (nocost_smem_bytes(S, nw, BM) <= SMEM_LIMIT) return BM;
+  return 0;
+}
+
+template <int BM>
+int nocost_launch(const float* G, const float* bias, const float* s0,
+                  const float* W, float* U, float* Y, float* s_fin, int B,
+                  int S, int nw, int Ku, int Kp, int ldg, int n_outer,
+                  int w_off, cudaStream_t stream) {
+  const size_t smem = nocost_smem_bytes(S, nw, BM);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_rollout_nocost_kernel<BM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + BM - 1) / BM);
+  fused_rollout_nocost_kernel<BM><<<grid, NC_THREADS, smem, stream>>>(
+      G, bias, s0, W, U, Y, s_fin, B, S, nw, Ku, Kp, ldg, n_outer, w_off);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -546,14 +585,17 @@ int fused_rollout_smem_bytes(int S, int nw, int K) {
   return b <= SMEM_LIMIT ? (int)b : 0;
 }
 
-// The same for the no-cost kernel (K3).
+// The same for the no-cost kernel (K3), at the plan it launches.
 int fused_rollout_nocost_smem_bytes(int S, int nw) {
-  const size_t b = nocost_smem_bytes(S, nw);
-  return b <= SMEM_LIMIT ? (int)b : 0;
+  const int BM = nocost_tile_rows(S, nw);
+  return BM ? (int)nocost_smem_bytes(S, nw, BM) : 0;
 }
 
-// Scenarios per K3 block.
-int fused_rollout_nocost_tile_rows() { return NC_BM; }
+// Scenarios per K3 block at this shape: 64, 32, or 0 when neither plan
+// fits one block.
+int fused_rollout_nocost_tile_rows(int S, int nw) {
+  return nocost_tile_rows(S, nw);
+}
 
 // Launches the rollout on `stream`; returns cudaGetLastError() (0 on
 // success). Pointers are device pointers to contiguous float32 arrays
@@ -585,19 +627,13 @@ int fused_rollout_nocost_launch(const float* G, const float* bias,
                                 float* Y, float* s_fin, int B, int S,
                                 int nw, int Ku, int Kp, int ldg,
                                 int n_outer, int w_off, void* stream) {
-  const size_t smem = nocost_smem_bytes(S, nw);
-  if (smem > SMEM_LIMIT || ldg % 4 || ldg < S + Ku + Kp ||
+  const int BM = nocost_tile_rows(S, nw);
+  if (BM == 0 || ldg % 4 || ldg < S + Ku + Kp ||
       reinterpret_cast<size_t>(G) % 16)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_rollout_nocost_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + NC_BM - 1) / NC_BM);
-  fused_rollout_nocost_kernel<<<grid, NC_THREADS, smem,
-                                (cudaStream_t)stream>>>(
-      G, bias, s0, W, U, Y, s_fin, B, S, nw, Ku, Kp, ldg, n_outer, w_off);
-  return (int)cudaGetLastError();
+  return (BM == 64 ? nocost_launch<64> : nocost_launch<32>)(
+      G, bias, s0, W, U, Y, s_fin, B, S, nw, Ku, Kp, ldg, n_outer, w_off,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

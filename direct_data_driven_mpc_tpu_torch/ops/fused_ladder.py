@@ -33,7 +33,11 @@ for these sizes, on the CPU as on the card.
 shared memory (41 KB at ``four_tank_ladder``; all seven rungs would be
 287 KB, more than a block may hold). The stack stays in global memory,
 where it lives in L2, and a block whose rung moved re-stages its
-operators between the balancer and the plant step.
+operators between the balancer and the plant step. Each warp owns eight
+of the group's scenarios, whose ``s`` and ``w`` stay in its registers
+for the whole rollout, so two blocks share an SM
+(:func:`ladder_kernel_smem_bytes`); the group is still sized by the
+rule the kernel had before (:func:`ladder_smem_bytes`).
 
 **Warm restart.** ``solver_state0.rho_idx`` carries every row's rung;
 each group resumes at the rung its rows carry (its ``w`` is scaled for
@@ -144,10 +148,10 @@ def build_fused_ladder_operator(
     return ops, dims
 
 
-def ladder_smem_bytes(dims: FusedADMMDims, tile: int) -> int:
-    """Shared memory of one ladder thread block of ``tile`` scenarios,
-    laid out as ``csrc/fused_admm.cu`` lays it out (one rung's
-    operators, the carry, the residual bits and the balancer maxima)."""
+def _op_floats(dims: FusedADMMDims) -> int:
+    """Shared-memory floats of one rung's operators and the bounds, rows
+    padded to a multiple of 4 floats, as ``csrc/fused_admm.cu`` lays
+    them out."""
     def ceil4(x):
         return (x + 3) & ~3
 
@@ -156,18 +160,43 @@ def ladder_smem_bytes(dims: FusedADMMDims, tile: int) -> int:
     D2 = S + nbm + nbp
     W1, W2 = Mw + nxi, D2 + 1 + nbox + nxi
     ldv, ld1, ld2, ldu = ceil4(nbox), ceil4(W1), ceil4(W2), ceil4(nbm)
-    op_floats = (nbox * ldv + nbox * ld1 + D2 * ld2 + ld2 + 2 * ldv
-                 + 2 * ldu)
-    carry_rows = D2 + S + Mw + nbox + nxi + 4 * nbox
-    return 4 * (op_floats + carry_rows * (tile + 4) + 2 * tile + 4)
+    return nbox * ldv + nbox * ld1 + D2 * ld2 + ld2 + 2 * ldv + 2 * ldu
+
+
+def ladder_smem_bytes(dims: FusedADMMDims, tile: int) -> int:
+    """The rung-group rule: the bytes by which :func:`ladder_tile_rows`
+    sizes a group of ``tile`` scenarios. It is the layout the ladder
+    kernel had before its own (the fixed-penalty kernel's: one rung's
+    operators; the carry with ``s``, ``w`` and a double-buffered
+    ``s - w``; the residual bits and the balancer maxima), kept so the
+    groups, which are part of the result, do not move. The kernel's own
+    block is :func:`ladder_kernel_smem_bytes`."""
+    nbm, nbp = dims.nb * dims.m, dims.nb * dims.p
+    S, nbox, nxi, Mw = dims.S, dims.nbox, dims.nxi, dims.Mw
+    carry_rows = S + nbm + nbp + S + Mw + nbox + nxi + 4 * nbox
+    return 4 * (_op_floats(dims) + carry_rows * (tile + 4) + 2 * tile + 4)
+
+
+def ladder_kernel_smem_bytes(dims: FusedADMMDims, tile: int) -> int:
+    """Shared memory of one ladder kernel block of ``tile`` scenarios,
+    as ``csrc/fused_admm.cu`` lays it out (``fused_ladder_smem_bytes``):
+    one rung's operators, the carry rows ``[s | u | w]``, ``s_next``,
+    ``pre``, ``vc``, ``zth`` and ``d = s - w`` (``s`` and ``w`` live in
+    registers), and four group maxima per warp. 100,736 bytes at
+    ``four_tank_ladder``, so two blocks share an SM."""
+    nbm, nbp = dims.nb * dims.m, dims.nb * dims.p
+    S, nbox, nxi, Mw = dims.S, dims.nbox, dims.nxi, dims.Mw
+    carry_rows = S + nbm + nbp + S + Mw + nbox + nxi + nbox
+    return 4 * (_op_floats(dims) + carry_rows * (tile + 4) + 4 * 8)
 
 
 def ladder_tile_rows(dims: FusedADMMDims) -> int:
     """Scenarios per thread block of the ladder kernel for these sizes
-    (the largest of 64, 32, 16, 8, 4 that fits one block's shared
-    memory; 0 when none does): the default rung group. Mirrors
-    ``fused_ladder_tile_rows`` of the ``.cu``, so the CPU and the card
-    group alike without a card at hand."""
+    (the largest of 64, 32, 16, 8, 4 whose group rule,
+    :func:`ladder_smem_bytes`, fits one block's shared memory; 0 when
+    none does): the default rung group. Mirrors ``fused_ladder_tile_rows``
+    of the ``.cu``, so the CPU and the card group alike without a card
+    at hand."""
     for tile in (64, 32, 16, 8, 4):
         if ladder_smem_bytes(dims, tile) <= _SMEM_LIMIT:
             return tile

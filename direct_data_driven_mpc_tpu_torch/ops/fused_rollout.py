@@ -52,6 +52,8 @@ from direct_data_driven_mpc_tpu_torch.control.loop import ClosedLoopResult
 #: the cost columns as three bf16 passes; here both values run the
 #: whole operator in float32 and give identical results.
 _COST_PRECISIONS = ("highest", "high")
+#: Opt-in shared memory of one thread block (bytes), as in the .cu.
+_SMEM_LIMIT = 232448
 
 
 def _check_cost_precision(name: str) -> None:
@@ -356,7 +358,7 @@ def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
         raise ValueError(
             f"operator too large for the fused rollout kernel's "
             f"shared-memory plan: S={S}, nw={nw} needs more than one "
-            f"block's 232448 bytes; use cost_mode='post'"
+            f"block's {_SMEM_LIMIT} bytes; use cost_mode='post'"
         )
     kw = dict(dtype=torch.float32, device=s0.device)
     U = torch.empty((Bsz, n_outer, op.Ku), **kw)
@@ -383,6 +385,23 @@ def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
 fused_rollout.launches = 0
 
 
+def nocost_plan(S: int, nw: int):
+    """``(rows, bytes)``: the scenarios per thread block of kernel K3 and
+    its shared memory at a state of ``S`` and ``nw`` noise rows, as
+    ``csrc/fused_rollout.cu`` plans them (``fused_rollout_nocost_tile_rows``
+    and ``fused_rollout_nocost_smem_bytes``): 64 scenarios where that plan
+    fits one block, else 32; ``(0, bytes of the 32-row plan)`` when
+    neither fits. A block holds the ring of G (3 stages of 16 rows of
+    256 + 8 floats), the ``[w | s]`` tile (rows padded to whole ring
+    tiles plus 4 floats) and ``s_next``."""
+    lda = -(-(nw + S) // 16) * 16 + 4
+    for rows in (64, 32):
+        nbytes = 4 * (3 * 16 * 264 + rows * lda + rows * S)
+        if nbytes <= _SMEM_LIMIT:
+            return rows, nbytes
+    return 0, nbytes
+
+
 def fused_rollout_nocost(op: FusedOperator, s0: torch.Tensor,
                          W: torch.Tensor, w_off: int = 0):
     """The fused rollout of an operator without cost columns
@@ -392,7 +411,8 @@ def fused_rollout_nocost(op: FusedOperator, s0: torch.Tensor,
     CPU tensors run the plain version. CUDA tensors launch kernel K3
     (``fused_rollout_nocost_kernel`` of ``csrc/fused_rollout.cu``, the
     products on the tensor cores at float32 grade: 3xTF32, within 1e-4
-    of the plain version) and add one to ``fused_rollout_nocost.launches``;
+    of the plain version; 64 or 32 scenarios per block, by
+    :func:`nocost_plan`) and add one to ``fused_rollout_nocost.launches``;
     anything the kernel does not take raises before the launch."""
     if s0.device.type == "cpu":
         return fused_rollout_reference(op, s0, W, w_off)
@@ -400,16 +420,18 @@ def fused_rollout_nocost(op: FusedOperator, s0: torch.Tensor,
         raise ValueError("fused_rollout_nocost needs an operator without "
                          "cost columns (include_cost=False)")
     _check_kernel_inputs(op, s0, W, w_off)
+    Bsz, n_outer, nw = W.shape
+    S = op.S
+    rows, nbytes = nocost_plan(S, nw)
+    if rows == 0:
+        raise ValueError(
+            f"operator too large for the no-cost kernel's shared-memory "
+            f"plan: S={S}, nw={nw} needs {nbytes} bytes at 32 scenarios "
+            f"per block, more than one block's {_SMEM_LIMIT}"
+        )
     from direct_data_driven_mpc_tpu_torch.ops import _kernels
 
     lib = _kernels.load("fused_rollout").lib
-    Bsz, n_outer, nw = W.shape
-    S = op.S
-    if lib.fused_rollout_nocost_smem_bytes(S, nw) == 0:
-        raise ValueError(
-            f"operator too large for the no-cost kernel's shared-memory "
-            f"plan: S={S}, nw={nw}"
-        )
     # The kernel copies G in 16-byte pieces: rows padded to a multiple
     # of 4 floats, on an aligned base.
     width = op.G.shape[1]

@@ -2,6 +2,14 @@
 (``fused_rollout_nocost``) goes, on one NVIDIA card, and what K3's
 float32 add per ring tile does for its accuracy.
 
+K5 is timed as shipped, at 0 and at twice its iterations (the fixed
+and per-iteration costs), and pinned to one block per SM; K3 with parts
+of its work cut, held to its 32-row plan at K = 25, and at K = 50
+solves per block, where that plan is the one it runs. Last, the largest
+difference between K4 or K5 and its plain version over batch sizes (30
+closed-loop steps): where cuBLAS sums the plain version's products as
+one FMA chain, the two are bit-equal.
+
 Run from the repository root: ``python3 scripts/breakdown_port_kernels.py``.
 It builds patched copies of the kernel sources under
 ``build/breakdown/`` (one nvcc each, all together), swaps each in for
@@ -74,13 +82,15 @@ VARIANTS = [
                          "            float (&d)[4] = acc[mi][ni];").replace(
          "            for (int e = 0; e < 4; ++e) acc[mi][ni][e] += d[e];",
          "            for (int e = 0; e < 0; ++e) acc[mi][ni][e] += d[e];")),
-    ("fused_rollout", "k3_half_tile", "K3 with 32 scenarios per block "
-     "(twice the reads of G, a 32 x 32 warp tile)",
-     lambda t: t.replace("constexpr int NC_BM = 64;",
-                         "constexpr int NC_BM = 32;")),
-    ("fused_admm", "k5_no_balance_reads", "K5 without the group maxima",
-     lambda t: t.replace("j < nbox; ++j) {\n            s_mag",
-                         "j < 0; ++j) {\n            s_mag")),
+    ("fused_rollout", "k3_32_rows", "K3 held to its 32-row plan (twice "
+     "the reads of G, a 32 x 32 warp tile)",
+     lambda t: t.replace("for (int BM = 64; BM >= 32; BM /= 2)",
+                         "for (int BM = 32; BM >= 32; BM /= 2)")),
+    ("fused_admm", "k5_one_block_per_sm", "K5 pinned to one block per SM "
+     "(the same code, its dynamic shared memory raised to a whole "
+     "block's 232,448 bytes)",
+     lambda t: t.replace("const size_t smem = ladder_kernel_smem_bytes(d);",
+                         "const size_t smem = SMEM_LIMIT;")),
 ]
 
 
@@ -129,6 +139,47 @@ def busy_share(fn) -> tuple:
     dev_us = sum(e.device_time_total for e in prof.events()
                  if e.device_type == DeviceType.CUDA)
     return dev_us / 1e3, wall
+
+
+def bit_equality_by_batch(dev) -> None:
+    """Max |diff| on u, y, the final state, s and w between the ADMM
+    kernels and their plain versions, by batch size: K5 at nbox 52
+    (L = 30) and 120 (L = 64), K4 at four_tank_convex (nbox 60)."""
+    from direct_data_driven_mpc_tpu_torch.qp.admm import (
+        compute_admm_operator_np,
+    )
+
+    T = 30
+    for tag, L in (("K5 nbox 52", 30), ("K5 nbox 120", 64),
+                   ("K4 nbox 60", 30)):
+        k4 = tag.startswith("K4")
+        plant, ctrl = cs.build_four_tank_robust(
+            L=L, slack="CONVEX" if k4 else "NONE")
+        if k4:
+            op = compute_admm_operator_np(ctrl.spec)
+            make, plain = fa.make_fused_admm_rollout, fa.fused_admm_reference
+            kw = dict(iters=(4, 5, 2), cold_iters=24, tol=1e-5)
+        else:
+            op = compute_box_admm_operator_np(ctrl.spec,
+                                              u_bounds=(-0.85, 0.85))
+            make = fl.make_fused_ladder_rollout
+            plain = fl.fused_ladder_reference
+            kw = dict(iters=(0, 16, 4), cold_iters=80, tol=2e-5)
+        args = (plant.as_params(), op, 4, 2, 2, T)
+        run_k = make(*args, device=dev, **kw)
+        run_p = make(*args, device=dev, rollout=plain, **kw)
+        for B in (1000, 2043, 4083, 6131, 8179, 16381):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            ins = (*cs.scenario_batch(plant, ctrl, B, dev),
+                   draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+                                    device=dev))
+            got, want = run_k(*ins), run_p(*ins)
+            diff = max(float((getattr(got, f) - getattr(want, f)).abs().max())
+                       for f in ("u_sys", "y_sys", "x_final"))
+            diff_sw = max(float((a - b).abs().max()) for a, b in
+                          zip(got.solver_state[:2], want.solver_state[:2]))
+            print(f"bit-equality {tag} B={B}: kernel vs plain max |diff| "
+                  f"u, y, state {diff:.3e}, s, w {diff_sw:.3e}", flush=True)
 
 
 def main() -> int:
@@ -180,8 +231,8 @@ def main() -> int:
     rows.append(("K4 at the top rung (no balancer, no re-staging)",
                  lambda: fa.fused_admm(ops4, dims4, args[2], args[3],
                                        n_iter)))
-    rows.append((what["k5_no_balance_reads"], lambda: swapped(
-        "fused_admm", patched["k5_no_balance_reads"], k5())))
+    rows.append((what["k5_one_block_per_sm"], lambda: swapped(
+        "fused_admm", patched["k5_one_block_per_sm"], k5())))
     for label, fn in rows:
         print(f"four_tank_ladder {label}: "
               f"{cs.cuda_ms(fn, reps=3):.3f} ms per launch [{smi}]",
@@ -256,10 +307,27 @@ def main() -> int:
              "scenarios", unfold_post)]
     rows += [(what[tag], k3(tag)) for tag in
              ("k3_no_product", "k3_no_split", "k3_no_staging",
-              "k3_no_stores", "k3_tensor_core_sum", "k3_half_tile")]
+              "k3_no_stores", "k3_tensor_core_sum", "k3_32_rows")]
     for label, fn in rows:
         print(f"large_plant {label}: {cs.cuda_ms(fn, reps=3):.3f} ms "
               f"[{smi}]", flush=True)
+    # K = 50 solves per block, where the 64-row plan does not fit and K3
+    # runs its 32-row plan (8 blocks of 50 solves).
+    bm50 = build_linear_engine(ctrl, plant.as_params(), solves_per_block=50,
+                               device=dev)
+    op50 = fr._build_fused_operator(bm50, include_cost=False)
+    s50, W50 = fr._center_and_pack(bm50, x0s, ups, yps, Ws, T // 50, 50, 0)
+    print(f"large_plant K=50 plan {fr.nocost_plan(op50.S, op50.nw)}",
+          flush=True)
+    for label, fn in (
+        ("K3 at K=50 (32-row plan, as shipped)",
+         lambda: fr.fused_rollout(op50, s50, W50)),
+        ("plain version at K=50 (8 cuBLAS products + copies)",
+         lambda: fr.fused_rollout_reference(op50, s50, W50)),
+    ):
+        print(f"large_plant {label}: {cs.cuda_ms(fn, reps=3):.3f} ms "
+              f"[{smi}]", flush=True)
+    del bm50, op50, s50, W50
     # What the float32 add per ring tile buys: the largest |dU| of K3 and
     # of K3 summing in the tensor cores against the plain version.
     want = fr.fused_rollout_reference(op3, s0, W)[0]
@@ -277,6 +345,7 @@ def main() -> int:
     print(f"large_plant device busy {d_ms:.1f} ms of {w_ms:.1f} ms wall "
           f"over 2 amortized rollouts (idle {1 - d_ms / w_ms:.1%})",
           flush=True)
+    bit_equality_by_batch(dev)
     return 0
 
 

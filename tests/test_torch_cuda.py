@@ -355,7 +355,7 @@ def test_ladder_plan_matches_library_and_wrapper_rejects(cuda):
         assert lib.fused_ladder_tile_rows(*sizes) == fl.ladder_tile_rows(d)
         tile = fl.ladder_tile_rows(d)
         assert lib.fused_ladder_smem_bytes(*sizes) == (
-            fl.ladder_smem_bytes(d, tile) if tile else 0)
+            fl.ladder_kernel_smem_bytes(d, tile) if tile else 0)
     B, T = 70, 6
     carry = fa.ADMMCarry(*(
         torch.zeros(B, w, device=cuda)
@@ -377,6 +377,119 @@ def test_ladder_plan_matches_library_and_wrapper_rejects(cuda):
     assert fl.fused_ladder.launches == before
 
 
+def _bit_equal_inputs(ctrl, plant_state, batch, n_steps, cuda):
+    """Every scenario from the controller's initial window, each with its
+    own noise (numpy, seed 0)."""
+    def tile(a, shape):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=cuda).reshape(shape).expand(
+            batch, *shape[1:]).contiguous()
+
+    W = 0.002 * np.random.default_rng(0).uniform(-1, 1, (batch, n_steps, 2))
+    return (tile(plant_state, (1, 4)), tile(ctrl.u_past, (1, 4, 2)),
+            tile(ctrl.y_past, (1, 4, 2)),
+            torch.as_tensor(W, dtype=torch.float32, device=cuda))
+
+
+def _assert_bit_equal(got, want):
+    for f in ("u_sys", "y_sys", "x_final", "u_past", "y_past"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f, a, b in zip(got.solver_state._fields, got.solver_state,
+                       want.solver_state):
+        assert torch.equal(a, b), f"solver_state.{f}"
+    torch.testing.assert_close(got.costs, want.costs, rtol=1e-3, atol=1e-5)
+    assert torch.equal(got.converged, want.converged)
+
+
+@pytest.mark.parametrize("L,batch,iters,init_rung", [
+    (30, 8192 - 13, (0, 16, 4), None),  # nbox 52: NT = 1, ragged group
+    (30, 8192 - 13, (0, 0, 0), None),   # n_iter = 0
+    (30, 8192 - 13, (0, 16, 4), 0),     # from the bottom rung: forced moves
+    (64, 8192 - 13, (0, 16, 4), None),  # nbox 120: NT = 2, 16-row groups
+])
+def test_ladder_kernel_bit_equal_to_plain_version(cuda, L, batch, iters,
+                                                  init_rung):
+    """Kernel K5 (warp-owned scenarios, s and w in registers) is
+    bit-equal to its plain version: u, y, the final windows, s, w, every
+    rung lane and the final rungs equal (each v is the same FMA chain,
+    the update rounds explicitly, residual maxima are exact); only the
+    costs, summed in another order, are held at rtol 1e-3 / atol 1e-5.
+    The batch is 8179: below about 8000 scenarios cuBLAS sums the plain
+    version's products in another order (measured on an H100 at B =
+    1000 to 6131: up to 8.3e-7 apart; bit-equal from 8179 on)."""
+    from chip_smoke import build_four_tank_robust
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+
+    plant, ctrl = build_four_tank_robust(L=L)
+    op = compute_box_admm_operator_np(ctrl.spec, u_bounds=(-0.85, 0.85))
+    n_steps = 30
+    ins = _bit_equal_inputs(ctrl, plant.get_state(), batch, n_steps, cuda)
+    lanes = {}
+
+    def keep(fn, key):
+        def rollout(*args):
+            out = fn(*args)
+            lanes[key] = out[5]
+            return out
+        return rollout
+
+    kw = dict(iters=iters, cold_iters=80, tol=2e-5, init_rung=init_rung,
+              device=cuda)
+    args = (plant.as_params(), op, 4, 2, 2, n_steps)
+    run = fl.make_fused_ladder_rollout(
+        *args, rollout=keep(fl.fused_ladder, "k"), **kw)
+    assert run.rung_group == (64 if L == 30 else 16)
+    before = fl.fused_ladder.launches
+    got = run(*ins)
+    torch.cuda.synchronize()
+    assert fl.fused_ladder.launches == before + 1
+    want = fl.make_fused_ladder_rollout(
+        *args, rollout=keep(fl.fused_ladder_reference, "p"), **kw)(*ins)
+    assert torch.equal(lanes["k"], lanes["p"])
+    if sum(iters):  # the groups walk the ladder
+        assert bool((lanes["k"][:, 1:] != lanes["k"][:, :-1]).any())
+    _assert_bit_equal(got, want)
+
+
+def test_admm_kernel_bit_equal_to_plain_version(cuda):
+    """Kernel K4 stays bit-equal to its plain version at four_tank_convex
+    (nbox 60) on a ragged batch: u, y, the final windows, s and w equal,
+    costs at rtol 1e-3 / atol 1e-5. The batch is 8179, where cuBLAS sums
+    the plain version's products as one FMA chain (at B = 1000 to 6131
+    it does not, and the two are up to 1.5e-5 apart)."""
+    from chip_smoke import build_four_tank_robust
+
+    plant, ctrl = build_four_tank_robust(slack="CONVEX")
+    op = compute_admm_operator_np(ctrl.spec)
+    n_steps, batch = 30, 8192 - 13
+    ins = _bit_equal_inputs(ctrl, plant.get_state(), batch, n_steps, cuda)
+    kw = dict(iters=(4, 5, 2), cold_iters=24, tol=1e-5, device=cuda)
+    args = (plant.as_params(), op, 4, 2, 2, n_steps)
+    before = fa.fused_admm.launches
+    got = fa.make_fused_admm_rollout(*args, **kw)(*ins)
+    torch.cuda.synchronize()
+    assert fa.fused_admm.launches == before + 1
+    want = fa.make_fused_admm_rollout(
+        *args, rollout=fa.fused_admm_reference, **kw)(*ins)
+    _assert_bit_equal(got, want)
+
+
+def test_ladder_kernel_two_blocks_per_sm(cuda):
+    """At four_tank_ladder the K5 block (100,736 bytes, at most 128
+    registers a thread) leaves room for two per SM."""
+    import ctypes
+
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("fused_admm").lib
+    assert lib.fused_ladder_smem_bytes(20, 2, 2, 52, 68) == 100736
+    assert lib.fused_ladder_blocks_per_sm(20, 2, 2, 52, 68) == 2
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    assert lib.fused_ladder_kernel_attributes(52, ctypes.byref(regs),
+                                              ctypes.byref(local)) == 0
+    assert 0 < regs.value <= 128
+
+
 def _large_plant_op(cuda, K=25):
     """``large_plant`` (bench.py, seed 0) and its operator without cost
     columns."""
@@ -388,15 +501,12 @@ def _large_plant_op(cuda, K=25):
     return plant, ctrl, bm, fr._build_fused_operator(bm, include_cost=False)
 
 
-@pytest.mark.parametrize("batch,n_steps,w_off", [(4096, 100, 1),
-                                                 (333, 50, 0)])
-def test_nocost_kernel_matches_plain_version(cuda, batch, n_steps, w_off):
-    """Kernel K3 at large_plant (460 rows, 710 columns) against its plain
-    version. The bar is the float64 one (1e-4): in the transient (|u| up
-    to 7) every float32 path is 2e-5 to 3e-5 from float64, so where
-    cuBLAS takes another summation order than the kernel (small batches)
-    the two differ at that level. u also within 1e-4 of float64."""
-    plant, ctrl, bm, op = _large_plant_op(cuda)
+def _nocost_against_plain(cuda, batch, n_steps, w_off, K=25):
+    """K3 at large_plant with K solves per block against its plain
+    version (u, y and the final carry at 1e-4), one launch; and the
+    ``cost_mode="post"`` path's u within 1e-4 of float64 on 8
+    scenarios."""
+    plant, ctrl, bm, op = _large_plant_op(cuda, K)
     rng = np.random.default_rng(0)
     x0s, ups, yps = (
         torch.as_tensor(np.tile(np.asarray(a).reshape(1, -1), (batch, 1)),
@@ -407,9 +517,9 @@ def test_nocost_kernel_matches_plain_version(cuda, batch, n_steps, w_off):
     )
     Ws = torch.as_tensor(0.002 * rng.uniform(-1, 1, (batch, n_steps, 10)),
                          dtype=torch.float32, device=cuda)
-    n_outer = math.ceil(n_steps / 25)
-    s0, W = fr._center_and_pack(bm, x0s, ups, yps, Ws, n_outer, 25,
-                                n_outer * 25 - n_steps)
+    n_outer = math.ceil(n_steps / K)
+    s0, W = fr._center_and_pack(bm, x0s, ups, yps, Ws, n_outer, K,
+                                n_outer * K - n_steps)
     before = fr.fused_rollout_nocost.launches
     got = fr.fused_rollout(op, s0, W, w_off=w_off)
     torch.cuda.synchronize()
@@ -421,7 +531,7 @@ def test_nocost_kernel_matches_plain_version(cuda, batch, n_steps, w_off):
     res = fr.make_fused_batched_rollout(bm, n_steps, cost_mode="post")(
         x0s, ups, yps, Ws
     )
-    bm64 = build_linear_engine(ctrl, plant.as_params(), solves_per_block=25,
+    bm64 = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K,
                                device=cuda, dtype=torch.float64)
     u64 = fr.make_fused_batched_rollout(
         bm64, n_steps, rollout=fr.fused_rollout_reference
@@ -430,6 +540,40 @@ def test_nocost_kernel_matches_plain_version(cuda, batch, n_steps, w_off):
         Ws[:8].double(),
     ).u_sys
     assert float((res.u_sys[:8].double() - u64).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("batch,n_steps,w_off", [(4096, 100, 1),
+                                                 (333, 50, 0)])
+def test_nocost_kernel_matches_plain_version(cuda, batch, n_steps, w_off):
+    """Kernel K3 at large_plant (460 rows, 710 columns, 64 scenarios per
+    block) against its plain version. The bar is the float64 one (1e-4):
+    in the transient (|u| up to 7) every float32 path is 2e-5 to 3e-5
+    from float64, so where cuBLAS takes another summation order than the
+    kernel (small batches) the two differ at that level. u also within
+    1e-4 of float64."""
+    _nocost_against_plain(cuda, batch, n_steps, w_off)
+
+
+@pytest.mark.parametrize("batch,w_off", [(1024, 2), (100, 0)])
+def test_nocost_kernel_32_row_plan(cuda, batch, w_off):
+    """K3 at large_plant with K = 50 solves per block (D = 710 rows: the
+    64-scenario plan needs 289,792 bytes, so the block takes 32) against
+    its plain version and float64 at 1e-4, as at K = 25."""
+    assert fr.nocost_plan(210, 500) == (32, 170240)
+    _nocost_against_plain(cuda, batch, 200, w_off, K=50)
+
+
+def test_nocost_plan_matches_library(cuda):
+    """``nocost_plan`` mirrors the library's plan at large_plant's state
+    (S = 210) for K = 25 .. 100 solves per block (nw = 10 K)."""
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("fused_rollout").lib
+    for K in (25, 28, 29, 50, 99, 100):
+        rows, nbytes = fr.nocost_plan(210, 10 * K)
+        assert lib.fused_rollout_nocost_tile_rows(210, 10 * K) == rows
+        assert lib.fused_rollout_nocost_smem_bytes(210, 10 * K) == (
+            nbytes if rows else 0)
 
 
 @pytest.mark.parametrize("plant_name,w_off", [("four_tank", 2),
@@ -442,15 +586,16 @@ def test_nocost_kernel_ragged_tile(cuda, golden, plant_name, w_off):
     large_plant's (D = 460, 710 columns); one launch per call."""
     from direct_data_driven_mpc_tpu_torch.ops import _kernels
 
-    batch = _kernels.load("fused_rollout").lib.fused_rollout_nocost_tile_rows()
-    batch += 3
+    lib = _kernels.load("fused_rollout").lib
     if plant_name == "four_tank":
         bm = build_linear_engine(_controller(golden), PLANT,
                                  solves_per_block=50, device=cuda)
         op = fr._build_fused_operator(bm, include_cost=False)
+        batch = lib.fused_rollout_nocost_tile_rows(op.S, op.nw) + 3
         s0, W = _packed(golden, bm, 200, batch, cuda)
     else:
         _, _, _, op = _large_plant_op(cuda)
+        batch = lib.fused_rollout_nocost_tile_rows(op.S, op.nw) + 3
         gen = torch.Generator(device=cuda).manual_seed(1)
         s0 = torch.rand((batch, op.S), generator=gen, device=cuda) - 0.5
         W = 0.002 * (torch.rand((batch, 8, op.nw), generator=gen,
@@ -468,8 +613,8 @@ def test_nocost_and_k1_wrappers_reject_what_the_kernels_do_not_take(cuda):
     """K1 raises before the launch on an operator too large for its
     shared-memory plan (large_plant with cost columns: 460 rows); K3
     refuses an operator with cost columns, bad inputs and an operator
-    beyond its own plan (1000 noise rows: the [w | s] tile of 64
-    scenarios alone needs 312 KB)."""
+    beyond both of its plans (1000 noise rows: even the 32-scenario plan
+    needs 233,728 bytes, more than a block's 232,448)."""
     plant, ctrl, bm, op = _large_plant_op(cuda)
     full = fr._build_fused_operator(bm)
     B, n_outer = 8, 2

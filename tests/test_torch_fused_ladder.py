@@ -348,6 +348,23 @@ def test_tile_plan_and_cpu_tensors_take_plain_version(golden, ladder):
                                      init_rung=7)
 
 
+def test_kernel_block_is_smaller_than_the_group_rule(ladder):
+    """The ladder kernel keeps s and w in registers, so its block of 64
+    scenarios at four_tank_ladder takes 100,736 bytes, two of which (each
+    with the 1 KB the SM reserves per block) fit an SM's 228 KB; the rung
+    group is still sized by the 143,568-byte rule (the test above)."""
+    _, op = ladder
+    _, dims = fl.build_fused_ladder_operator(PLANT, op, 4, 2, 2,
+                                             device="cpu")
+    tile = fl.ladder_tile_rows(dims)
+    assert fl.ladder_kernel_smem_bytes(dims, tile) == 100736
+    assert 2 * (fl.ladder_kernel_smem_bytes(dims, tile) + 1024) <= 228 * 1024
+    for nbox in (52, 60, 120):
+        d = dims._replace(nbox=nbox, nxi=dims.n_theta + nbox)
+        t = fl.ladder_tile_rows(d)
+        assert fl.ladder_kernel_smem_bytes(d, t) < fl.ladder_smem_bytes(d, t)
+
+
 def test_amortized_run_covers_every_repetition(golden, ladder):
     """The checksum is the sum over R rollouts on the noise rolled by
     0..R-1 steps of the last costs, u and y; ``ok`` needs every solve

@@ -151,6 +151,18 @@ def test_post_rejects_tracking_maps_and_unknown_modes():
         fr.make_fused_batched_rollout(tracking, 8, cost_mode="post")
 
 
+@pytest.mark.parametrize("K,plan", [
+    (25, (64, 224256)), (28, (64, 232448)), (29, (32, 143616)),
+    (50, (32, 170240)), (99, (32, 231680)), (100, (0, 233728)),
+])
+def test_nocost_plan_at_large_plant(K, plan):
+    """K3's plan at large_plant (S = 210, nw = 10 K): 64 scenarios per
+    block up to K = 28, where that plan fills the 232,448 bytes a block
+    may hold exactly; 32 up to K = 99 (the reference ran K = 50); none
+    beyond, where the wrapper raises before loading the library."""
+    assert fr.nocost_plan(210, 10 * K) == plan
+
+
 def test_nocost_cpu_tensors_take_plain_version():
     plant, ctrl, rng, _, bm = _four_tank(1)
     op = fr._build_fused_operator(bm, include_cost=False)
