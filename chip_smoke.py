@@ -28,7 +28,8 @@ Then the fused ADMM closed loop of ``bench.py``'s ``four_tank_convex``
 ``direct_data_driven_mpc_tpu_torch/ops/csrc/fused_admm.cu``:
 
 8. host build: the CONVEX controller and the fused operators, the
-   kernel's tile and shared memory;
+   kernel's tile and shared memory checked against ``admm_plan``; K4's
+   blocks per SM, registers and local (spill) bytes per thread;
 9. main path: ``make_fused_admm_rollout`` on the card, with the launch
    count; every solve converged; kernel vs plain version (u, y, final
    state and ADMM state atol 2e-5; costs rtol 1e-3, atol 1e-5;
@@ -379,13 +380,29 @@ def admm_phases(dev, smi) -> dict:
     sizes = (dims.S, dims.nb * dims.m, dims.nb * dims.p, dims.nbox,
              dims.nxi)
     lib = _kernels.load("fused_admm").lib
+    tile = lib.fused_admm_tile_rows(*sizes)
+    smem = lib.fused_admm_smem_bytes(*sizes)
+    if (tile, smem) != fa.admm_plan(dims):
+        raise AssertionError(f"K4 plan: library ({tile}, {smem}) vs Python "
+                             f"{fa.admm_plan(dims)}")
+    per_sm = lib.fused_admm_blocks_per_sm(*sizes)
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = lib.fused_admm_kernel_attributes(dims.nbox, ctypes.byref(regs),
+                                           ctypes.byref(local))
+    if per_sm < 1 or err:
+        raise AssertionError(f"K4 occupancy {per_sm}, attributes error "
+                             f"{err}")
     log(f"ADMM host build: four_tank_convex nz={ctrl.spec.nz} "
         f"nc={ctrl.spec.nc}, first solve {ctrl.get_problem_solve_status()}"
         f", {t_host:.2f} s; fused operators Vop "
         f"{tuple(ops.Vop.shape)}, M1 {tuple(ops.M1.shape)}, M2 "
         f"{tuple(ops.M2.shape)} in {time.perf_counter() - t0:.2f} s; "
-        f"kernel tile {lib.fused_admm_tile_rows(*sizes)} scenarios, "
-        f"{lib.fused_admm_smem_bytes(*sizes)} B of shared memory")
+        f"kernel tile {tile} scenarios (warp-owned, s and w in "
+        f"registers), {smem} B of shared memory per block")
+    log(f"K4 occupancy: {per_sm} blocks per SM "
+        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+        f"{regs.value} registers and {local.value} local (spill) bytes per "
+        f"thread (cudaFuncGetAttributes)")
 
     def inputs(plant, ctrl, B, T=T_ADMM, seed=0):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1061,7 +1078,8 @@ def main() -> int:
         log(f"  {lib.name}.cu -> {lib.path.name} in "
             f"{lib.build_seconds:.2f} s")
         for line in lib.compiler_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill", "smem")):
                 log(f"  ptxas: {line.strip()}")
 
     # 3. Host build (float64), then the block maps on the card.

@@ -46,6 +46,10 @@ _SIGNATURES = {
         "fused_admm_launch": (
             [_P] * 24 + [_I] * 8 + [_F] * 3 + [_P], ctypes.c_int
         ),
+        "fused_admm_blocks_per_sm": ([_I] * 5, ctypes.c_int),
+        "fused_admm_kernel_attributes": (
+            [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)], ctypes.c_int
+        ),
         "fused_ladder_tile_rows": ([_I] * 5, ctypes.c_int),
         "fused_ladder_smem_bytes": ([_I] * 5, ctypes.c_int),
         "fused_ladder_launch": (

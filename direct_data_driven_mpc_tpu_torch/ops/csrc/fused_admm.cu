@@ -31,21 +31,48 @@
 // product, the 60 x 79 extraction and the 24 x 161 plant product)
 // against ~28 bytes of HBM traffic (noise in; u, y, cost, rp, rd out),
 // so the kernel is bound by the float32 FMA pipes and by how well they
-// are fed from shared memory. The design keeps every operator
-// (49 KB at four-tank) and every scenario's carry resident in shared
-// memory for the whole rollout, so nothing but the noise and the
-// outputs touches HBM between solves. Every product is a SIMT
-// register-tiled GEMM over the block's scenarios: the A operand (s - w,
-// or [s | u | w]) is stored scenario-minor, so a thread's four
-// scenarios load as one float4, and each thread accumulates a 4 x 4
-// tile (16 FMAs per two shared-memory float4 loads), its epilogue
-// fusing the elementwise ADMM update or the extraction. Each output
-// is one FMA chain over the contraction in a fixed order, residual
-// maxima are exact (atomicMax on the bits of non-negative floats) and
-// each cost is summed in column order by one thread, so results are
-// deterministic. The elementwise update uses __fmul_rn / __fadd_rn so
-// nvcc does not contract it into FMAs: it rounds as the plain PyTorch
-// version does.
+// are fed from shared memory. Every operator (49 KB at four-tank) and
+// every scenario's carry stays on the SM for the whole rollout, so
+// nothing but the noise and the outputs touches HBM between solves.
+//
+// The iterations are most of the work, and they are latency-bound, not
+// FMA-bound, unless each SM runs many warps and nothing stalls them all
+// at once. So both kernels share one body (admm_rollout):
+// - Warp-owned scenarios. Warp k owns the block's scenarios 8k .. 8k+7
+//   for the whole rollout; lane l takes rows 4 (l >> 4) .. +3 of them
+//   and columns 4 (l & 15) + 64 j .. +3, for j < NT = ceil(nbox / 64).
+//   The d = s - w slab is scenario-minor, so a warp reads and writes
+//   only its own columns of it: the iteration loop needs no block
+//   barrier, only __syncwarp between the product's reads and the
+//   epilogue's writes, and one d buffer.
+// - Register residency. s and w stay in the owning lanes' registers for
+//   the whole rollout (loaded once, stored once), and vc (with K4's
+//   tracking add) and the bounds for each solve: an iteration's
+//   epilogue touches shared memory only to write d. The residual maxima
+//   reduce over the 16 lanes of a row group by shuffles; maxima are
+//   exact, so every bit is kept.
+// - Two blocks per SM at NT = 1: __launch_bounds__(256, 2) caps a thread
+//   at 128 registers, and the block stays under 115,712 bytes (K4 at
+//   four_tank_convex: 111,168; K5 at four_tank_ladder: 100,736), so 16
+//   warps hide each other's shared-memory and FMA latency.
+// - The extraction and the plant step are SIMT register-tiled GEMMs
+//   over the block's scenarios (tile_product): the A operand (s - w, or
+//   [s | u | w]) is stored scenario-minor, so a thread's four scenarios
+//   load as one float4, and each thread accumulates a 4 x 4 tile, its
+//   epilogue fusing the extraction or the next solve's maps. Each cost
+//   is summed by the row group's 16 lanes and shuffles.
+// Each output of a product is one FMA chain over the contraction, from
+// zero, in a fixed order, and the elementwise update uses __fmul_rn /
+// __fadd_rn so nvcc does not contract it into FMAs: it rounds as the
+// plain PyTorch version does, and u, y, the state, s and w are
+// bit-equal to it where cuBLAS sums its products as one chain too.
+//
+// K4's tile is free (each scenario is independent): the largest of 64,
+// 32, 16, 8, 4 scenarios whose block fits (64 at four_tank_convex, 32
+// at nbox 120), with its snext rows laid over the d slab, which is dead
+// from the extraction until the next solve stores d from the registers
+// again. Its tracking adds go to pre and zth before the barrier that
+// precedes the extraction, and to vc as it enters the registers.
 //
 // K5 replaces _make_ladder_kernel (with _make_ladder_step). The box
 // operator is pre-factorised for R penalties rho_0 < ... < rho_{R-1}; a
@@ -67,43 +94,19 @@
 // the stack stays in global memory, where it lives in L2, and a block
 // whose rung moved re-stages Vop, M1, M2 and b2 between the balancer
 // and the plant step. The divisions and products of the balancer round
-// explicitly, as the plain PyTorch version rounds them in float32.
-//
-// K5's iterations (20 per solve at four_tank_ladder, 52 x 52 products)
-// are latency-bound, not FMA-bound: laid out as K4, one 143.6 KB block
-// held an SM, so each SM ran 8 warps; a block barrier ended every
-// iteration; the epilogue read s, w and vc and wrote s, w and d in
-// shared memory; the iterations ran at 31 % of the FMA peak. K5 keeps
-// K4's extraction and plant products and changes the iterations:
-// - Warp-owned scenarios. Warp k owns the group's scenarios 8k .. 8k+7
-//   for the whole rollout; lane l takes rows 4 (l >> 4) .. +3 of them
-//   and columns 4 (l & 15) + 64 j .. +3, for j < NT = ceil(nbox / 64).
-//   The d = s - w slab is scenario-minor, so a warp reads and writes
-//   only its own columns of it: the iteration loop needs no block
-//   barrier, only __syncwarp between the product's reads and the
-//   epilogue's writes, and one d buffer.
-// - Register residency. s and w stay in the owning lanes' registers for
-//   the whole rollout (loaded once, stored once), and vc and the bounds
-//   for each solve: an iteration's epilogue touches shared memory only
-//   to write d. The residual maxima reduce over the 16 lanes of a row
-//   group by shuffles (maxima are exact, so every bit is kept), the
-//   group maxima through one slot per warp; the balancer's |s| and |w|
-//   maxima and the rescale on a rung move read the registers too.
-// - Two blocks per SM. Without s, w and the second d in shared memory a
-//   block takes 100.7 KB at four_tank_ladder, so two fit an SM
-//   (__launch_bounds__(256, 2) caps a thread at 128 registers): 16
-//   warps hide each other's shared-memory and FMA latency.
-// It stays in float32 FMA, with the same FMA chain per output: the rung
-// moves are discontinuous functions of the group maxima, so any change
-// of rounding could flip a rung in some of the 409,600 group decisions
-// of a rollout. So K5 is bit-equal to its plain version (u, y, state,
-// s, w and every rung), as it was.
+// explicitly, as the plain PyTorch version rounds them in float32. The
+// rung moves are discontinuous functions of the group maxima, so any
+// change of rounding could flip a rung: K5 is bit-equal to its plain
+// version in every rung too. The group, part of the result, is sized by
+// rung_group_bytes, the layout both kernels had before their redesigns.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libfused_admm.so fused_admm.cu
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -119,12 +122,10 @@ struct Shape {
   int Mw, D2, W1, W2;      // pre width, plant input, M1 and M2 widths
   int ldv, ld1, ld2, ldu;  // padded rows of Vop, M1, M2, u bounds
   int TB, LDS;             // scenarios per block, carry row stride
-  int n_red;               // 4 in the ladder's group rule, else 0
 };
 
 __host__ __device__ inline Shape make_shape(int S, int nbm, int nbp,
-                                            int nbox, int nxi, int TB,
-                                            bool ladder) {
+                                            int nbox, int nxi, int TB) {
   Shape d{};
   d.S = S;
   d.nbm = nbm;
@@ -141,27 +142,26 @@ __host__ __device__ inline Shape make_shape(int S, int nbm, int nbp,
   d.ldu = ceil4(nbm);
   d.TB = TB;
   d.LDS = TB + 4;
-  d.n_red = ladder ? 4 : 0;
   return d;
 }
 
-// Shared-memory floats of the operators and of the per-scenario carry
-// (rows of LDS floats), in the order K4 lays them out. With ladder =
-// true, smem_bytes is the rung group's rule: K5's tile is the largest TB
-// that fits K4's layout plus the balancer's maxima (the layout K5 had
-// before its own), so the groups, which are part of the result, do not
-// move when K5's layout shrinks.
+// Shared-memory floats of one operator set (Vop, M1, M2, b2) and of the
+// bounds, rows padded to a multiple of four floats.
 __host__ __device__ inline size_t op_floats(const Shape& d) {
   return (size_t)d.nbox * d.ldv + (size_t)d.nbox * d.ld1 +
          (size_t)d.D2 * d.ld2 + d.ld2 + 2 * (size_t)d.ldv + 2 * (size_t)d.ldu;
 }
-__host__ __device__ inline int carry_rows(const Shape& d) {
-  // xin, snext, pre, vc, zth, sa, wa, d[2]
-  return d.D2 + d.S + d.Mw + d.nbox + d.nxi + 4 * d.nbox;
-}
-size_t smem_bytes(const Shape& d) {
-  return sizeof(float) * (op_floats(d) + (size_t)carry_rows(d) * d.LDS +
-                          2 * (size_t)d.TB + d.n_red);
+
+// The rung-group rule: K5's group of TB scenarios is the largest TB for
+// which the layout both kernels had before their redesigns fits one
+// block: the operators; the carry rows xin, snext, pre, vc, zth, s, w
+// and a double-buffered s - w; TB residual bits each for rp and rd; the
+// balancer's four maxima. The groups are part of K5's result, so this
+// rule does not follow either kernel's layout.
+size_t rung_group_bytes(const Shape& d) {
+  const int rows = d.D2 + d.S + d.Mw + d.nbox + d.nxi + 4 * d.nbox;
+  return sizeof(float) *
+         (op_floats(d) + (size_t)rows * d.LDS + 2 * (size_t)d.TB + 4);
 }
 
 // Vop, M1, M2 and b2 point at one operator (K4) or at the ladder's
@@ -344,193 +344,28 @@ __device__ __forceinline__ void plant_step(const float* M2, const float* b2,
   });
 }
 
-__global__ void __launch_bounds__(THREADS)
-fused_admm_kernel(const Params P, const Shape d) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int LDS = d.LDS, TB = d.TB;
-  const int S = d.S, nbm = d.nbm, nbp = d.nbp, nbox = d.nbox, nxi = d.nxi;
-  const int Mw = d.Mw;
-  const int row0 = blockIdx.x * TB;
-  const int tid = threadIdx.x;
-
-  // Operators.
-  float* Vop = sm;
-  float* M1 = Vop + nbox * d.ldv;
-  float* M2 = M1 + nbox * d.ld1;
-  float* b2 = M2 + d.D2 * d.ld2;
-  float* lo = b2 + d.ld2;
-  float* hi = lo + d.ldv;
-  float* ulo = hi + d.ldv;
-  float* uhi = ulo + d.ldu;
-  // Per-scenario carry, scenario-minor rows of LDS floats.
-  float* xin = uhi + d.ldu;           // (D2): [s_flat | u | w_noise]
-  float* snext = xin + d.D2 * LDS;    // (S)
-  float* pre = snext + S * LDS;       // (Mw): [u_theta | q]
-  float* vc = pre + Mw * LDS;         // (nbox)
-  float* zth = vc + nbox * LDS;       // (nxi)
-  float* sa = zth + nxi * LDS;        // (nbox)
-  float* wa = sa + nbox * LDS;        // (nbox)
-  float* dbuf = wa + nbox * LDS;      // (2, nbox): s - w, double-buffered
-  int* rp_bits = reinterpret_cast<int*>(dbuf + 2 * nbox * LDS);  // (TB)
-  int* rd_bits = rp_bits + TB;                                   // (TB)
-
-  const float rho = P.rho;
-  load_rung(Vop, M1, M2, b2, P, d, 0);
-  load_op(lo, P.lo, 1, nbox, d.ldv);
-  load_op(hi, P.hi, 1, nbox, d.ldv);
-  load_op(ulo, P.u_lo, 1, nbm, d.ldu);
-  load_op(uhi, P.u_hi, 1, nbm, d.ldu);
-  load_carry(xin, P.s0, S, row0, d);
-  load_carry(pre, P.pre0, Mw, row0, d);
-  load_carry(vc, P.vc0, nbox, row0, d);
-  load_carry(zth, P.zth0, nxi, row0, d);
-  load_carry(sa, P.sa0, nbox, row0, d);
-  load_carry(wa, P.wa0, nbox, row0, d);
-  __syncthreads();
-  for (int idx = tid; idx < nbox * LDS; idx += THREADS)
-    dbuf[idx] = __fsub_rn(sa[idx], wa[idx]);
-  int cur = 0;  // dbuf + cur * nbox * LDS holds s - w
-  const int Wadd = Mw + nbox + nxi;
-
-  for (int t = 0; t < d.n_blocks; ++t) {
-    // This block's noise lands in xin's w rows while the iterations run.
-    for (int idx = tid; idx < TB * nbp; idx += THREADS) {
-      const int r = idx / nbp, i = idx - r * nbp;
-      const int b = row0 + r;
-      float* dst = xin + (S + nbm + i) * LDS + r;
-      if (b < d.B)
-        __pipeline_memcpy_async(
-            dst, P.W + ((size_t)b * d.n_blocks + t) * nbp + i, sizeof(float));
-      else
-        *dst = 0.f;
-    }
-    __pipeline_commit();
-    if (P.adds != nullptr) {
-      const float* a = P.adds + (size_t)t * Wadd;
-      for (int idx = tid; idx < Wadd * TB; idx += THREADS) {
-        const int j = idx / TB, r = idx - j * TB;
-        // pre, vc and zth are consecutive rows of the carry.
-        pre[j * LDS + r] = __fadd_rn(pre[j * LDS + r], a[j]);
-      }
-    }
-    for (int r = tid; r < TB; r += THREADS) rp_bits[r] = rd_bits[r] = 0;
-    __syncthreads();
-
-    // ADMM iterations.
-    for (int it = 0; it < d.n_iter; ++it) {
-      const float* dc = dbuf + cur * nbox * LDS;
-      float* dn = dbuf + (cur ^ 1) * nbox * LDS;
-      const bool last = it == d.n_iter - 1;
-      tile_product(dc, LDS, Vop, d.ldv, nbox, nbox, TB,
-                   [&](int r0, int c0, float (&acc)[4][4]) {
-        float rpm[4] = {0.f, 0.f, 0.f, 0.f}, rdm[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = c0 + c;
-          if (col >= nbox) break;
-          const int o = col * LDS + r0;
-          const float4 vc4 = ld4(vc + o), s4 = ld4(sa + o), w4 = ld4(wa + o);
-          const float vcv[4] = {vc4.x, vc4.y, vc4.z, vc4.w};
-          const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-          const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
-          float sn[4], wn[4], dnv[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float v = __fadd_rn(acc[r][c], vcv[r]);
-            const float vh =
-                __fadd_rn(__fmul_rn(P.alpha, v), __fmul_rn(P.beta, sv[r]));
-            sn[r] = fminf(fmaxf(__fadd_rn(vh, wv[r]), lo[col]), hi[col]);
-            wn[r] = __fsub_rn(__fadd_rn(wv[r], vh), sn[r]);
-            dnv[r] = __fsub_rn(sn[r], wn[r]);
-            if (last) {
-              rpm[r] = nan_max(rpm[r], fabsf(__fsub_rn(v, sn[r])));
-              rdm[r] = nan_max(rdm[r], fabsf(__fsub_rn(sn[r], sv[r])));
-            }
-          }
-          *reinterpret_cast<float4*>(sa + o) =
-              make_float4(sn[0], sn[1], sn[2], sn[3]);
-          *reinterpret_cast<float4*>(wa + o) =
-              make_float4(wn[0], wn[1], wn[2], wn[3]);
-          *reinterpret_cast<float4*>(dn + o) =
-              make_float4(dnv[0], dnv[1], dnv[2], dnv[3]);
-        }
-        if (last) {
-          // Non-negative floats order as their bit patterns (a NaN above
-          // every number).
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            atomicMax(&rp_bits[r0 + r], __float_as_int(rpm[r]));
-            atomicMax(&rd_bits[r0 + r], __float_as_int(rdm[r]));
-          }
-        }
-      });
-      cur ^= 1;
-      __syncthreads();
-    }
-
-    // Extraction: t = s - w through M1.
-    extract_step(dbuf + cur * nbox * LDS, M1, ulo, uhi, xin, pre, zth, P, d,
-                 row0, t);
-    __pipeline_wait_prior(0);
-    __syncthreads();  // u, z^2, q and the noise are in
-
-    // Cost and residuals, one thread per scenario, in a fixed order.
-    for (int r = tid; r < TB; r += THREADS) {
-      const int b = row0 + r;
-      float c = 0.f;
-      for (int j = 0; j < nxi; ++j) c = __fadd_rn(c, zth[j * LDS + r]);
-      c = __fadd_rn(c, pre[nbm * LDS + r]);
-      float rp = __int_as_float(rp_bits[r]);
-      float rd = __int_as_float(rd_bits[r]);
-      if (d.n_iter == 0) {  // v_last = s_prev = 0: both are max |s|
-        rp = 0.f;
-        for (int j = 0; j < nbox; ++j)
-          rp = nan_max(rp, fabsf(sa[j * LDS + r]));
-        rd = rp;
-      }
-      if (b < d.B) {
-        const size_t o = (size_t)b * d.n_blocks + t;
-        P.C[o] = c;
-        P.RP[o] = rp;
-        P.RD[o] = __fmul_rn(rho, rd);
-      }
-    }
-    __syncthreads();  // zth and pre are read before M2 overwrites them
-
-    // Plant step and the next solve's maps: [s_flat | u | w] through M2.
-    plant_step(M2, b2, xin, snext, pre, vc, zth, P, d, row0, t);
-    __syncthreads();
-    for (int idx = tid; idx < S * LDS; idx += THREADS) xin[idx] = snext[idx];
-    // The next block's first barrier orders this copy before M2 reads
-    // xin again.
-  }
-  __syncthreads();
-  store_carry(P.s_fin, xin, S, row0, d);
-  store_carry(P.sa_fin, sa, nbox, row0, d);
-  store_carry(P.wa_fin, wa, nbox, row0, d);
-}
-
 // ---------------------------------------------------------------------
-// K5: the ladder kernel. A warp owns WARP_ROWS scenarios of the group;
-// lane l owns rows r0 = WARP_ROWS warp + 4 (l >> 4) .. r0 + 3 and, for
-// j < NT, columns 4 (l & 15) + 64 j .. + 3 of v, s and w. Register
-// arrays are [tile j][column c][row r].
+// The rollout body of both kernels. A warp owns WARP_ROWS scenarios of
+// the block; lane l owns rows r0 = WARP_ROWS warp + 4 (l >> 4) .. r0 + 3
+// and, for j < NT, columns 4 (l & 15) + 64 j .. + 3 of v, s and w.
+// Register arrays are [tile j][column c][row r].
 
 constexpr int WARPS = THREADS / 32;
 constexpr int WARP_ROWS = 8;
 constexpr unsigned FULL = 0xffffffffu;
 
-// K5's shared-memory floats: one rung's operators, the carry rows xin,
-// snext, pre, vc, zth and d = s - w (s and w live in registers), and
-// each warp's four partial group maxima.
-__host__ __device__ inline size_t ladder_kernel_floats(const Shape& d) {
-  return op_floats(d) +
-         (size_t)(d.D2 + d.S + d.Mw + d.nbox + d.nxi + d.nbox) * d.LDS +
-         4 * WARPS;
-}
-size_t ladder_kernel_smem_bytes(const Shape& d) {
-  return sizeof(float) * ladder_kernel_floats(d);
+// A block's shared-memory floats: the operators (K5: one rung's), the
+// carry rows xin, pre, vc, zth and d = s - w (s and w live in
+// registers). K5 adds its own snext rows and four group maxima per warp;
+// K4 lays snext over d, which is dead from the extraction until the
+// next solve, so d takes max(nbox, S) rows.
+template <bool LADDER>
+size_t kernel_smem_bytes(const Shape& d) {
+  const int rows = d.D2 + d.Mw + d.nbox + d.nxi;
+  const size_t floats =
+      LADDER ? op_floats(d) + (size_t)(rows + d.S + d.nbox) * d.LDS + 4 * WARPS
+             : op_floats(d) + (size_t)(rows + std::max(d.nbox, d.S)) * d.LDS;
+  return sizeof(float) * floats;
 }
 
 // x maximised (nan_max) over the 16 lanes of the caller's row group.
@@ -573,9 +408,11 @@ __device__ __forceinline__ void warp_product(const float* dcol, int LDS,
   }
 }
 
-template <int NT>
-__global__ void __launch_bounds__(THREADS, NT == 1 ? 2 : 1)
-fused_ladder_kernel(const Params P, const Shape d) {
+// K4 (LADDER = false: fixed penalty P.rho, optional tracking adds) or K5
+// (LADDER = true: the block is a rung group, balanced after each solve).
+template <int NT, bool LADDER>
+__device__ __forceinline__ void admm_rollout(const Params& P,
+                                             const Shape& d) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int LDS = d.LDS, TB = d.TB;
@@ -584,7 +421,7 @@ fused_ladder_kernel(const Params P, const Shape d) {
   const int row0 = blockIdx.x * TB;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // Operators, as K4 lays them out.
+  // Operators.
   float* Vop = sm;
   float* M1 = Vop + nbox * d.ldv;
   float* M2 = M1 + nbox * d.ld1;
@@ -594,13 +431,13 @@ fused_ladder_kernel(const Params P, const Shape d) {
   float* ulo = hi + d.ldv;
   float* uhi = ulo + d.ldu;
   // Per-scenario carry, scenario-minor rows of LDS floats.
-  float* xin = uhi + d.ldu;           // (D2): [s_flat | u | w_noise]
-  float* snext = xin + d.D2 * LDS;    // (S)
-  float* pre = snext + S * LDS;       // (Mw): [u_theta | q]
+  float* xin = uhi + d.ldu;  // (D2): [s_flat | u | w_noise]
+  float* pre = xin + (d.D2 + (LADDER ? S : 0)) * LDS;  // (Mw): [u_theta | q]
   float* vc = pre + Mw * LDS;         // (nbox)
   float* zth = vc + nbox * LDS;       // (nxi)
   float* dbuf = zth + nxi * LDS;      // (nbox): s - w
-  float* part = dbuf + nbox * LDS;    // (WARPS, 4): max rp, rd, |s|, |w|
+  float* snext = LADDER ? xin + d.D2 * LDS : dbuf;  // (S)
+  float* part = dbuf + nbox * LDS;    // K5: (WARPS, 4): max rp, rd, |s|, |w|
 
   // The lane's share, rows lr0 .. lr0 + 3: warp-uniform `owner`,
   // lane-level `mine`.
@@ -615,8 +452,12 @@ fused_ladder_kernel(const Params P, const Shape d) {
   auto col_of = [&](int j, int c) { return 4 * cg + 64 * j + c; };
   float* drow = dbuf + lr0;
 
-  int ri = P.rung0[blockIdx.x];  // the group's rung
-  float rho = P.rhos[ri];
+  int ri = 0;  // K5: the group's rung
+  float rho = P.rho;
+  if (LADDER) {
+    ri = P.rung0[blockIdx.x];
+    rho = P.rhos[ri];
+  }
   load_rung(Vop, M1, M2, b2, P, d, ri);
   load_op(lo, P.lo, 1, nbox, d.ldv);
   load_op(hi, P.hi, 1, nbox, d.ldv);
@@ -666,7 +507,8 @@ fused_ladder_kernel(const Params P, const Shape d) {
               __fsub_rn(s[j][c][3], w[j][c][3]));
       }
   };
-  store_d();
+  if (LADDER) store_d();
+  const int Wadd = Mw + nbox + nxi;
 
   for (int t = 0; t < d.n_blocks; ++t) {
     // This block's noise lands in xin's w rows while the iterations run.
@@ -681,6 +523,23 @@ fused_ladder_kernel(const Params P, const Shape d) {
         *dst = 0.f;
     }
     __pipeline_commit();
+    // K4's tracking adds: pre and zth take theirs here (the extraction
+    // reads them after the barrier that ends the iterations), vc as it
+    // is loaded into the registers.
+    const float* add = nullptr;
+    if (!LADDER) {
+      if (P.adds != nullptr) {
+        add = P.adds + (size_t)t * Wadd;
+        for (int idx = tid; idx < (Mw + nxi) * TB; idx += THREADS) {
+          const int j = idx / TB, r = idx - j * TB;
+          // pre, vc and zth are consecutive rows, as the adds are laid.
+          const int row = j < Mw ? j : j + nbox;
+          pre[row * LDS + r] = __fadd_rn(pre[row * LDS + r], add[row]);
+        }
+      }
+      __syncwarp();  // the warp's snext has left d for xin
+      store_d();
+    }
 
     // ADMM iterations, each warp on its own scenarios, no block barrier.
     // rpm, rdm: the last iteration's residual maxima per row.
@@ -692,9 +551,13 @@ fused_ladder_kernel(const Params P, const Shape d) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int col = col_of(j, c);
-          const float4 v4 = mine && col < nbox ? ld4(vc + col * LDS + lr0)
-                                               : make_float4(0.f, 0.f, 0.f,
-                                                             0.f);
+          float4 v4 = mine && col < nbox ? ld4(vc + col * LDS + lr0)
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+          if (!LADDER && add != nullptr && mine && col < nbox) {
+            const float a = add[Mw + col];
+            v4 = make_float4(__fadd_rn(v4.x, a), __fadd_rn(v4.y, a),
+                             __fadd_rn(v4.z, a), __fadd_rn(v4.w, a));
+          }
           vcr[j][c][0] = v4.x;
           vcr[j][c][1] = v4.y;
           vcr[j][c][2] = v4.z;
@@ -735,46 +598,52 @@ fused_ladder_kernel(const Params P, const Shape d) {
                 make_float4(dnv[0], dnv[1], dnv[2], dnv[3]);
           }
       }
-      // Per row: the residuals, max |s| and max |w| over the nbox lanes
-      // (a row group's 16 lanes), then the warp's maxima over its rows
-      // before B, as one slot of the group maxima.
+      // Per row: the residuals (and, for K5 or when n_iter = 0, max |s|;
+      // for K5 max |w|) over the nbox lanes (a row group's 16 lanes).
+      // K5 then takes the warp's maxima over its rows before B, as one
+      // slot of the group maxima.
+      const bool need_smag = LADDER || d.n_iter == 0;
       float smag[4] = {0.f, 0.f, 0.f, 0.f}, wmag[4] = {0.f, 0.f, 0.f, 0.f};
+      if (need_smag) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
+          for (int c = 0; c < 4; ++c)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {  // zero past nbox and TB
-            smag[r] = nan_max(smag[r], fabsf(s[j][c][r]));
-            wmag[r] = nan_max(wmag[r], fabsf(w[j][c][r]));
-          }
+            for (int r = 0; r < 4; ++r) {  // zero past nbox and TB
+              smag[r] = nan_max(smag[r], fabsf(s[j][c][r]));
+              if (LADDER) wmag[r] = nan_max(wmag[r], fabsf(w[j][c][r]));
+            }
+      }
       float g[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        smag[r] = row_group_max(smag[r]);
-        wmag[r] = row_group_max(wmag[r]);
+        if (need_smag) smag[r] = row_group_max(smag[r]);
+        if (LADDER) wmag[r] = row_group_max(wmag[r]);
         if (d.n_iter == 0) {  // v_last = s_prev = 0: both are max |s|
           rpm[r] = rdm[r] = smag[r];
         } else {
           rpm[r] = row_group_max(rpm[r]);
           rdm[r] = row_group_max(rdm[r]);
         }
-        if (mine && row0 + lr0 + r < d.B) {
+        if (LADDER && mine && row0 + lr0 + r < d.B) {
           g[0] = nan_max(g[0], rpm[r]);
           g[1] = nan_max(g[1], __fmul_rn(rho, rdm[r]));
           g[2] = nan_max(g[2], smag[r]);
           g[3] = nan_max(g[3], wmag[r]);
         }
       }
+      if (LADDER) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        g[i] = nan_max(g[i], __shfl_xor_sync(FULL, g[i], 16));
-        if (lane == 0) part[4 * warp + i] = g[i];
+        for (int i = 0; i < 4; ++i) {
+          g[i] = nan_max(g[i], __shfl_xor_sync(FULL, g[i], 16));
+          if (lane == 0) part[4 * warp + i] = g[i];
+        }
       }
-    } else if (lane < 4) {
+    } else if (LADDER && lane < 4) {
       part[4 * warp + lane] = 0.f;
     }
-    __syncthreads();  // every warp's d and maxima are in
+    __syncthreads();  // every warp's d (and K5's maxima) are in
 
     // Extraction: t = s - w through M1.
     extract_step(dbuf, M1, ulo, uhi, xin, pre, zth, P, d, row0, t);
@@ -806,10 +675,10 @@ fused_ladder_kernel(const Params P, const Shape d) {
         }
       }
     }
-    __syncthreads();  // zth and pre are read before M2 overwrites them
+    __syncthreads();  // zth, pre and d are read before M2 overwrites them
 
-    // Balance the group's rung; every thread reaches the same ri'.
-    {
+    // K5: balance the group's rung; every thread reaches the same ri'.
+    if (LADDER) {
       float red[4] = {0.f, 0.f, 0.f, 0.f};
       for (int k = 0; k < WARPS; ++k)
 #pragma unroll
@@ -851,8 +720,16 @@ fused_ladder_kernel(const Params P, const Shape d) {
     // Plant step and the next solve's maps: [s_flat | u | w] through M2.
     plant_step(M2, b2, xin, snext, pre, vc, zth, P, d, row0, t);
     __syncthreads();
-    for (int idx = tid; idx < S * LDS; idx += THREADS) xin[idx] = snext[idx];
-    // The next block's barrier after its iterations orders this copy
+    if (LADDER) {
+      for (int idx = tid; idx < S * LDS; idx += THREADS) xin[idx] = snext[idx];
+    } else if (mine) {
+      // K4: each warp moves its own scenarios' snext out of d, so the
+      // next solve may store d over it after a __syncwarp.
+      for (int i = cg; i < S; i += 16)
+        *reinterpret_cast<float4*>(xin + i * LDS + lr0) =
+            ld4(snext + i * LDS + lr0);
+    }
+    // The barrier after the next solve's iterations orders this copy
     // before M2 reads xin again.
   }
   __syncthreads();
@@ -871,20 +748,36 @@ fused_ladder_kernel(const Params P, const Shape d) {
       }
 }
 
-using LadderKernel = void (*)(const Params, const Shape);
+// At NT = 1, two blocks share an SM: at most 128 registers a thread.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, NT == 1 ? 2 : 1)
+fused_admm_kernel(const Params P, const Shape d) {
+  admm_rollout<NT, false>(P, d);
+}
 
-// K5's instantiation for nbox box lanes (NT = ceil(nbox / 64) column
-// tiles per lane), or null beyond three.
-LadderKernel ladder_kernel_for(int nbox) {
-  if (nbox <= 64) return fused_ladder_kernel<1>;
-  if (nbox <= 128) return fused_ladder_kernel<2>;
-  if (nbox <= 192) return fused_ladder_kernel<3>;
+template <int NT>
+__global__ void __launch_bounds__(THREADS, NT == 1 ? 2 : 1)
+fused_ladder_kernel(const Params P, const Shape d) {
+  admm_rollout<NT, true>(P, d);
+}
+
+using RolloutKernel = void (*)(const Params, const Shape);
+
+// The instantiation for nbox box lanes (NT = ceil(nbox / 64) column tiles
+// per lane), or null beyond three.
+template <bool LADDER>
+RolloutKernel kernel_for(int nbox) {
+  if (nbox <= 64) return LADDER ? fused_ladder_kernel<1> : fused_admm_kernel<1>;
+  if (nbox <= 128)
+    return LADDER ? fused_ladder_kernel<2> : fused_admm_kernel<2>;
+  if (nbox <= 192)
+    return LADDER ? fused_ladder_kernel<3> : fused_admm_kernel<3>;
   return nullptr;
 }
 
 // Give `kernel` its dynamic shared memory, with the SM's carveout at
 // its largest so two blocks of the NT = 1 instantiation fit.
-cudaError_t ladder_prepare(LadderKernel kernel, size_t smem) {
+cudaError_t prepare(RolloutKernel kernel, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -893,36 +786,71 @@ cudaError_t ladder_prepare(LadderKernel kernel, size_t smem) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// Scenarios per block for these sizes (the largest of 64, 32, 16, 8, 4
-// whose operators and carry fit in shared memory), or 0 when none fits.
-int tile_rows(int S, int nbm, int nbp, int nbox, int nxi, bool ladder) {
-  for (int TB = 64; TB >= 4; TB /= 2)
-    if (smem_bytes(make_shape(S, nbm, nbp, nbox, nxi, TB, ladder)) <=
+constexpr int TILES[] = {64, 32, 16, 8, 4};
+
+// K4's scenarios per block: the largest of TILES whose block fits in
+// shared memory (the most warps owning scenarios), or 0 when none fits
+// or nbox is above 192.
+int admm_tile_rows(int S, int nbm, int nbp, int nbox, int nxi) {
+  if (kernel_for<false>(nbox) == nullptr) return 0;
+  for (int TB : TILES)
+    if (kernel_smem_bytes<false>(make_shape(S, nbm, nbp, nbox, nxi, TB)) <=
         SMEM_LIMIT)
       return TB;
   return 0;
 }
 
-int launch(const Params& P, Shape d, void* stream) {
-  const size_t smem = smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((d.B + d.TB - 1) / d.TB);
-  fused_admm_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(P, d);
-  return (int)cudaGetLastError();
+// K5's rung group: the largest of TILES whose group rule fits, or 0.
+int rung_group_rows(int S, int nbm, int nbp, int nbox, int nxi) {
+  for (int TB : TILES)
+    if (rung_group_bytes(make_shape(S, nbm, nbp, nbox, nxi, TB)) <=
+        SMEM_LIMIT)
+      return TB;
+  return 0;
 }
 
-int launch_ladder(const Params& P, Shape d, void* stream) {
-  const LadderKernel kernel = ladder_kernel_for(d.nbox);
+template <bool LADDER>
+int launch(const Params& P, const Shape& d, void* stream) {
+  const RolloutKernel kernel = kernel_for<LADDER>(d.nbox);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = ladder_kernel_smem_bytes(d);
-  const cudaError_t err = ladder_prepare(kernel, smem);
+  const size_t smem = kernel_smem_bytes<LADDER>(d);
+  const cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((d.B + d.TB - 1) / d.TB);
   kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(P, d);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel resident per SM at a tile of TB scenarios
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), 0 when no tile fits,
+// or minus a CUDA error.
+template <bool LADDER>
+int blocks_per_sm(int S, int nbm, int nbp, int nbox, int nxi, int TB) {
+  const RolloutKernel kernel = kernel_for<LADDER>(nbox);
+  if (TB == 0 || kernel == nullptr) return 0;
+  const size_t bytes =
+      kernel_smem_bytes<LADDER>(make_shape(S, nbm, nbp, nbox, nxi, TB));
+  cudaError_t err = prepare(kernel, bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        THREADS, bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// Registers and local (spill) bytes per thread of the instantiation for
+// nbox box lanes (cudaFuncGetAttributes); returns the CUDA error, or
+// cudaErrorInvalidValue when no instantiation takes nbox.
+template <bool LADDER>
+int kernel_attributes(int nbox, int* registers, int* local_bytes) {
+  const RolloutKernel kernel = kernel_for<LADDER>(nbox);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }
 
 }  // namespace
@@ -932,62 +860,59 @@ extern "C" {
 // Scenarios per block the fixed-penalty kernel uses for these sizes, or
 // 0 when none fits.
 int fused_admm_tile_rows(int S, int nbm, int nbp, int nbox, int nxi) {
-  return tile_rows(S, nbm, nbp, nbox, nxi, false);
+  return admm_tile_rows(S, nbm, nbp, nbox, nxi);
 }
 
-// Dynamic shared memory, in bytes, of a block at those sizes (0 when
+// Dynamic shared memory, in bytes, of a K4 block at those sizes (0 when
 // none fits).
 int fused_admm_smem_bytes(int S, int nbm, int nbp, int nbox, int nxi) {
-  const int TB = fused_admm_tile_rows(S, nbm, nbp, nbox, nxi);
-  return TB ? (int)smem_bytes(make_shape(S, nbm, nbp, nbox, nxi, TB, false))
+  const int TB = admm_tile_rows(S, nbm, nbp, nbox, nxi);
+  return TB ? (int)kernel_smem_bytes<false>(
+                  make_shape(S, nbm, nbp, nbox, nxi, TB))
             : 0;
 }
 
+// K4 blocks resident per SM at those sizes, 0 when none fits, or minus
+// a CUDA error.
+int fused_admm_blocks_per_sm(int S, int nbm, int nbp, int nbox, int nxi) {
+  return blocks_per_sm<false>(S, nbm, nbp, nbox, nxi,
+                              admm_tile_rows(S, nbm, nbp, nbox, nxi));
+}
+
+// Registers and local (spill) bytes per thread of the K4 instantiation
+// for nbox box lanes; 0, a CUDA error, or cudaErrorInvalidValue.
+int fused_admm_kernel_attributes(int nbox, int* registers,
+                                 int* local_bytes) {
+  return kernel_attributes<false>(nbox, registers, local_bytes);
+}
+
 // Scenarios per block of the ladder kernel, its rung group: the largest
-// tile that fits the group rule (smem_bytes with ladder = true), or 0.
+// tile that fits the group rule (rung_group_bytes), or 0.
 int fused_ladder_tile_rows(int S, int nbm, int nbp, int nbox, int nxi) {
-  return tile_rows(S, nbm, nbp, nbox, nxi, true);
+  return rung_group_rows(S, nbm, nbp, nbox, nxi);
 }
 
 // Dynamic shared memory, in bytes, of a K5 block of that group (0 when
 // no group fits).
 int fused_ladder_smem_bytes(int S, int nbm, int nbp, int nbox, int nxi) {
-  const int TB = fused_ladder_tile_rows(S, nbm, nbp, nbox, nxi);
-  return TB ? (int)ladder_kernel_smem_bytes(
-                  make_shape(S, nbm, nbp, nbox, nxi, TB, true))
+  const int TB = rung_group_rows(S, nbm, nbp, nbox, nxi);
+  return TB ? (int)kernel_smem_bytes<true>(
+                  make_shape(S, nbm, nbp, nbox, nxi, TB))
             : 0;
 }
 
-// K5 blocks resident per SM at those sizes
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), 0 when none fits, or
-// minus a CUDA error.
+// K5 blocks resident per SM at those sizes, 0 when none fits, or minus
+// a CUDA error.
 int fused_ladder_blocks_per_sm(int S, int nbm, int nbp, int nbox, int nxi) {
-  const int TB = fused_ladder_tile_rows(S, nbm, nbp, nbox, nxi);
-  const LadderKernel kernel = ladder_kernel_for(nbox);
-  if (TB == 0 || kernel == nullptr) return 0;
-  const size_t bytes =
-      ladder_kernel_smem_bytes(make_shape(S, nbm, nbp, nbox, nxi, TB, true));
-  cudaError_t err = ladder_prepare(kernel, bytes);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                        THREADS, bytes);
-  return err == cudaSuccess ? blocks : -(int)err;
+  return blocks_per_sm<true>(S, nbm, nbp, nbox, nxi,
+                             rung_group_rows(S, nbm, nbp, nbox, nxi));
 }
 
-// Registers per thread and local (spill) bytes per thread of the K5
-// instantiation for nbox box lanes (cudaFuncGetAttributes); returns the
-// CUDA error, or cudaErrorInvalidValue when no instantiation takes nbox.
+// Registers and local (spill) bytes per thread of the K5 instantiation
+// for nbox box lanes; 0, a CUDA error, or cudaErrorInvalidValue.
 int fused_ladder_kernel_attributes(int nbox, int* registers,
                                    int* local_bytes) {
-  const LadderKernel kernel = ladder_kernel_for(nbox);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err != cudaSuccess) return (int)err;
-  *registers = a.numRegs;
-  *local_bytes = (int)a.localSizeBytes;
-  return 0;
+  return kernel_attributes<true>(nbox, registers, local_bytes);
 }
 
 // Launches the rollout on `stream`; returns cudaGetLastError() (0 on
@@ -1009,10 +934,10 @@ int fused_admm_launch(const float* Vop, const float* M1, const float* M2,
                       float* wa_fin, int B, int S, int nbm, int nbp,
                       int nbox, int nxi, int n_blocks, int n_iter,
                       float alpha, float beta, float rho, void* stream) {
-  const int TB = fused_admm_tile_rows(S, nbm, nbp, nbox, nxi);
+  const int TB = admm_tile_rows(S, nbm, nbp, nbox, nxi);
   if (TB == 0 || B < 1 || n_blocks < 1 || n_iter < 0)
     return (int)cudaErrorInvalidValue;
-  Shape d = make_shape(S, nbm, nbp, nbox, nxi, TB, false);
+  Shape d = make_shape(S, nbm, nbp, nbox, nxi, TB);
   d.B = B;
   d.n_blocks = n_blocks;
   d.n_iter = n_iter;
@@ -1021,7 +946,7 @@ int fused_admm_launch(const float* Vop, const float* M1, const float* M2,
                  U,     Y,    C,    RP,      RD,      s_fin,  sa_fin,
                  wa_fin, alpha, beta, rho,   nullptr, nullptr, nullptr,
                  1,     0.f};
-  return launch(P, d, stream);
+  return launch<false>(P, d, stream);
 }
 
 // Launches the ladder rollout (kernel K5) on `stream`, one block per
@@ -1043,10 +968,10 @@ int fused_ladder_launch(const float* Vop, const float* M1, const float* M2,
                         int S, int nbm, int nbp, int nbox, int nxi,
                         int n_blocks, int n_iter, int R, float alpha,
                         float beta, float ratio, void* stream) {
-  const int TB = fused_ladder_tile_rows(S, nbm, nbp, nbox, nxi);
+  const int TB = rung_group_rows(S, nbm, nbp, nbox, nxi);
   if (TB == 0 || B < 1 || n_blocks < 1 || n_iter < 0 || R < 1)
     return (int)cudaErrorInvalidValue;
-  Shape d = make_shape(S, nbm, nbp, nbox, nxi, TB, true);
+  Shape d = make_shape(S, nbm, nbp, nbox, nxi, TB);
   d.B = B;
   d.n_blocks = n_blocks;
   d.n_iter = n_iter;
@@ -1055,7 +980,7 @@ int fused_ladder_launch(const float* Vop, const float* M1, const float* M2,
                  U,      Y,    C,    RP,    RD,    s_fin, sa_fin,
                  wa_fin, alpha, beta, 0.f,  rhos,  rung0, RUNG,
                  R,      ratio};
-  return launch_ladder(P, d, stream);
+  return launch<true>(P, d, stream);
 }
 
 }  // extern "C"

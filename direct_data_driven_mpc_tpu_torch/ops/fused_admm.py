@@ -57,6 +57,10 @@ from direct_data_driven_mpc_tpu_torch.qp.admm import ADMMState
 
 _OP_KEYS = ("v_c", "V_theta", "V_s", "u_c", "U_theta", "U_s", "cost_P",
             "cost_q", "cost_r")
+#: Opt-in shared memory of one thread block (bytes), as in the .cu.
+_SMEM_LIMIT = 232448
+#: The widest box the kernels take: three 64-column tiles per lane.
+_MAX_NBOX = 192
 
 
 def _normalize_admm_op(op: dict) -> dict:
@@ -451,17 +455,53 @@ def _check_kernel_inputs(ops, dims, carry, W, adds):
         raise ValueError(f"empty batch or rollout: W {tuple(W.shape)}")
 
 
+def _op_floats(dims: FusedADMMDims) -> int:
+    """Shared-memory floats of one operator set (``Vop``, ``M1``, ``M2``,
+    ``b2``) and the bounds, rows padded to a multiple of 4 floats, as
+    ``csrc/fused_admm.cu`` lays them out (``op_floats``)."""
+    def ceil4(x):
+        return (x + 3) & ~3
+
+    nbm, nbp = dims.nb * dims.m, dims.nb * dims.p
+    S, nbox, nxi, Mw = dims.S, dims.nbox, dims.nxi, dims.Mw
+    D2 = S + nbm + nbp
+    W1, W2 = Mw + nxi, D2 + 1 + nbox + nxi
+    ldv, ld1, ld2, ldu = ceil4(nbox), ceil4(W1), ceil4(W2), ceil4(nbm)
+    return nbox * ldv + nbox * ld1 + D2 * ld2 + ld2 + 2 * ldv + 2 * ldu
+
+
+def admm_plan(dims: FusedADMMDims) -> Tuple[int, int]:
+    """``(rows, bytes)``: kernel K4's scenarios per thread block and its
+    shared memory, as ``csrc/fused_admm.cu`` plans them
+    (``fused_admm_tile_rows`` and ``fused_admm_smem_bytes``): the largest
+    of 64, 32, 16, 8, 4 scenarios whose block fits, so the most warps
+    own scenarios; ``(0, bytes of the 4-row block)`` when none fits or
+    ``nbox`` is above 192. A block holds the operators, the carry rows
+    ``[s | u | w]``, ``pre``, ``vc``, ``zth`` and ``d = s - w``, over
+    which ``s_next`` is laid (``max(nbox, S)`` rows); ``s`` and ``w``
+    live in registers. 111,168 bytes for 64 scenarios at
+    ``four_tank_convex``, so two blocks share an SM."""
+    D2 = dims.S + dims.nb * (dims.m + dims.p)
+    rows_per = D2 + dims.Mw + dims.nbox + dims.nxi + max(dims.nbox, dims.S)
+    for rows in (64, 32, 16, 8, 4):
+        nbytes = 4 * (_op_floats(dims) + rows_per * (rows + 4))
+        if nbytes <= _SMEM_LIMIT and dims.nbox <= _MAX_NBOX:
+            return rows, nbytes
+    return 0, nbytes
+
+
 def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
                carry: ADMMCarry, W: torch.Tensor, n_iter: int,
                adds: Optional[torch.Tensor] = None):
     """The fused ADMM rollout (same contract as
     :func:`fused_admm_reference`).
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel
-    ``csrc/fused_admm.cu`` (float32, contiguous) and add one to
+    CPU tensors run the plain version. CUDA tensors launch kernel K4
+    (``fused_admm_kernel`` of ``csrc/fused_admm.cu``, float32,
+    contiguous; :func:`admm_plan` scenarios per block) and add one to
     ``fused_admm.launches``; anything the kernel does not take (dtype,
     shape, contiguity, operators too large for its shared-memory plan)
-    raises."""
+    raises before the launch."""
     if carry.s.device.type == "cpu":
         return fused_admm_reference(ops, dims, carry, W, n_iter, adds)
     if carry.s.device.type != "cuda":
@@ -471,18 +511,20 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
     if n_iter < 0:
         raise ValueError(f"n_iter={n_iter} must be >= 0")
 
+    rows, nbytes = admm_plan(dims)
+    if rows == 0:
+        raise ValueError(
+            f"operators too large for the kernel's shared-memory plan "
+            f"(S={dims.S}, nbox={dims.nbox}, nxi={dims.nxi}): {nbytes} "
+            f"bytes at 4 scenarios per block, more than one block's "
+            f"{_SMEM_LIMIT}, or nbox above {_MAX_NBOX}"
+        )
     from direct_data_driven_mpc_tpu_torch.ops import _kernels
 
     lib = _kernels.load("fused_admm").lib
     Bsz, n_blocks, nbp = W.shape
     nbm = dims.nb * dims.m
     sizes = (dims.S, nbm, nbp, dims.nbox, dims.nxi)
-    if lib.fused_admm_tile_rows(*sizes) == 0:
-        raise ValueError(
-            f"operators too large for the kernel's shared-memory plan "
-            f"(S={dims.S}, nbox={dims.nbox}, nxi={dims.nxi}, "
-            f"nb*m={nbm}, nb*p={nbp})"
-        )
     kw = dict(dtype=torch.float32, device=carry.s.device)
     U = torch.empty((Bsz, n_blocks, nbm), **kw)
     Y = torch.empty((Bsz, n_blocks, nbp), **kw)

@@ -66,8 +66,10 @@ import torch.nn.functional as F
 from direct_data_driven_mpc_tpu_torch.control.loop import ClosedLoopResult
 from direct_data_driven_mpc_tpu_torch.device import resolve_device
 from direct_data_driven_mpc_tpu_torch.ops.fused_admm import (
+    _SMEM_LIMIT,
     ADMMCarry,
     FusedADMMDims,
+    _op_floats,
     build_fused_admm_operator,
 )
 from direct_data_driven_mpc_tpu_torch.qp.box import BoxADMMState
@@ -79,8 +81,6 @@ BALANCE_RATIO = 10.0
 CONVERGED_FROM = 10
 _STACKED_KEYS = ("v_c", "V_theta", "V_s", "u_c", "U_theta", "U_s",
                  "cost_P", "cost_q", "cost_r")
-#: Opt-in shared memory of one thread block (bytes), as in the .cu.
-_SMEM_LIMIT = 232448
 
 
 class FusedLadderOperator(NamedTuple):
@@ -148,29 +148,14 @@ def build_fused_ladder_operator(
     return ops, dims
 
 
-def _op_floats(dims: FusedADMMDims) -> int:
-    """Shared-memory floats of one rung's operators and the bounds, rows
-    padded to a multiple of 4 floats, as ``csrc/fused_admm.cu`` lays
-    them out."""
-    def ceil4(x):
-        return (x + 3) & ~3
-
-    nbm, nbp = dims.nb * dims.m, dims.nb * dims.p
-    S, nbox, nxi, Mw = dims.S, dims.nbox, dims.nxi, dims.Mw
-    D2 = S + nbm + nbp
-    W1, W2 = Mw + nxi, D2 + 1 + nbox + nxi
-    ldv, ld1, ld2, ldu = ceil4(nbox), ceil4(W1), ceil4(W2), ceil4(nbm)
-    return nbox * ldv + nbox * ld1 + D2 * ld2 + ld2 + 2 * ldv + 2 * ldu
-
-
 def ladder_smem_bytes(dims: FusedADMMDims, tile: int) -> int:
     """The rung-group rule: the bytes by which :func:`ladder_tile_rows`
-    sizes a group of ``tile`` scenarios. It is the layout the ladder
-    kernel had before its own (the fixed-penalty kernel's: one rung's
-    operators; the carry with ``s``, ``w`` and a double-buffered
-    ``s - w``; the residual bits and the balancer maxima), kept so the
-    groups, which are part of the result, do not move. The kernel's own
-    block is :func:`ladder_kernel_smem_bytes`."""
+    sizes a group of ``tile`` scenarios (``rung_group_bytes`` in the
+    .cu). It is the layout both ADMM kernels had before their redesigns
+    (one rung's operators; the carry with ``s``, ``w`` and a
+    double-buffered ``s - w``; the residual bits and the balancer
+    maxima), kept so the groups, which are part of the result, do not
+    move. The kernel's own block is :func:`ladder_kernel_smem_bytes`."""
     nbm, nbp = dims.nb * dims.m, dims.nb * dims.p
     S, nbox, nxi, Mw = dims.S, dims.nbox, dims.nxi, dims.Mw
     carry_rows = S + nbm + nbp + S + Mw + nbox + nxi + 4 * nbox

@@ -1,9 +1,9 @@
-"""Where the time of the port's kernels K5 (``fused_ladder``) and K3
-(``fused_rollout_nocost``) goes, on one NVIDIA card, and what K3's
-float32 add per ring tile does for its accuracy.
+"""Where the time of the port's kernels K4 (``fused_admm``), K5
+(``fused_ladder``) and K3 (``fused_rollout_nocost``) goes, on one NVIDIA
+card, and what K3's float32 add per ring tile does for its accuracy.
 
-K5 is timed as shipped, at 0 and at twice its iterations (the fixed
-and per-iteration costs), and pinned to one block per SM; K3 with parts
+K4 and K5 are timed as shipped, at 0 and at twice their iterations (the
+fixed and per-iteration costs), and pinned to one block per SM; K3 with parts
 of its work cut, held to its 32-row plan at K = 25, and at K = 50
 solves per block, where that plan is the one it runs. Last, the largest
 difference between K4 or K5 and its plain version over batch sizes (30
@@ -14,7 +14,8 @@ Run from the repository root: ``python3 scripts/breakdown_port_kernels.py``.
 It builds patched copies of the kernel sources under
 ``build/breakdown/`` (one nvcc each, all together), swaps each in for
 the shipped library and times it with CUDA events at the main shapes of
-``chip_smoke.py``: ``four_tank_ladder`` (B = 65536 x T = 400) and
+``chip_smoke.py``: ``four_tank_convex`` and ``four_tank_ladder``
+(B = 65536 x T = 400 each) and
 ``large_plant`` (B = 65536 x T = 400, K = 25). Also timed: the
 fixed-penalty kernel K4 on the ladder's top rung, the plain version's
 per-block cuBLAS product, the cost post-pass (``F.conv1d``) and, as a
@@ -89,8 +90,17 @@ VARIANTS = [
     ("fused_admm", "k5_one_block_per_sm", "K5 pinned to one block per SM "
      "(the same code, its dynamic shared memory raised to a whole "
      "block's 232,448 bytes)",
-     lambda t: t.replace("const size_t smem = ladder_kernel_smem_bytes(d);",
-                         "const size_t smem = SMEM_LIMIT;")),
+     lambda t: t.replace(
+         "const size_t smem = kernel_smem_bytes<LADDER>(d);",
+         "const size_t smem = LADDER ? SMEM_LIMIT : "
+         "kernel_smem_bytes<LADDER>(d);")),
+    ("fused_admm", "k4_one_block_per_sm", "K4 pinned to one block per SM "
+     "(the same code, its dynamic shared memory raised to a whole "
+     "block's 232,448 bytes)",
+     lambda t: t.replace(
+         "const size_t smem = kernel_smem_bytes<LADDER>(d);",
+         "const size_t smem = LADDER ? kernel_smem_bytes<LADDER>(d) : "
+         "SMEM_LIMIT;")),
 ]
 
 
@@ -144,17 +154,19 @@ def busy_share(fn) -> tuple:
 def bit_equality_by_batch(dev) -> None:
     """Max |diff| on u, y, the final state, s and w between the ADMM
     kernels and their plain versions, by batch size: K5 at nbox 52
-    (L = 30) and 120 (L = 64), K4 at four_tank_convex (nbox 60)."""
+    (L = 30) and 120 (L = 64), K4 at four_tank_convex (nbox 60) and
+    long_horizon_convex (nbox 120)."""
     from direct_data_driven_mpc_tpu_torch.qp.admm import (
         compute_admm_operator_np,
     )
 
     T = 30
     for tag, L in (("K5 nbox 52", 30), ("K5 nbox 120", 64),
-                   ("K4 nbox 60", 30)):
+                   ("K4 nbox 60", 30), ("K4 nbox 120", 60)):
         k4 = tag.startswith("K4")
         plant, ctrl = cs.build_four_tank_robust(
-            L=L, slack="CONVEX" if k4 else "NONE")
+            N=800 if L == 60 else 400, L=L,
+            slack="CONVEX" if k4 else "NONE")
         if k4:
             op = compute_admm_operator_np(ctrl.spec)
             make, plain = fa.make_fused_admm_rollout, fa.fused_admm_reference
@@ -199,6 +211,38 @@ def main() -> int:
         patched = dict(pool.map(build, VARIANTS))
         list(shipped)
     what = {tag: text for _, tag, text, _ in VARIANTS}
+
+    # K4 at four_tank_convex: the rollout's own kernel arguments.
+    plant, ctrl, op, kw = cs.admm_config("four_tank_convex")
+    B, T = cs.B_ADMM, cs.T_ADMM
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ins = (*cs.scenario_batch(plant, ctrl, B, dev),
+           draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+                            device=dev))
+    store = {}
+
+    def keep4(*args):
+        store["args"] = args
+        return fa.fused_admm(*args)
+
+    fa.make_fused_admm_rollout(plant.as_params(), op, 4, 2, 2, T,
+                               device=dev, rollout=keep4, **kw)(*ins)
+    args = list(store["args"])
+    n_iter = args[4]
+
+    def k4(iters=n_iter):
+        return lambda: fa.fused_admm(*args[:4], iters, *args[5:])
+
+    for label, fn in (
+        ("K4 as shipped", k4()), ("K4, 0 iterations", k4(0)),
+        (f"K4, {2 * n_iter} iterations", k4(2 * n_iter)),
+        (what["k4_one_block_per_sm"], lambda: swapped(
+            "fused_admm", patched["k4_one_block_per_sm"], k4())),
+    ):
+        print(f"four_tank_convex {label}: "
+              f"{cs.cuda_ms(fn, reps=3):.3f} ms per launch [{smi}]",
+              flush=True)
+    del store, args, ins
 
     # K5 at four_tank_ladder: the rollout's own kernel arguments.
     plant, ctrl, op, kw = cs.admm_config("four_tank_ladder")

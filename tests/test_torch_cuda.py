@@ -451,20 +451,34 @@ def test_ladder_kernel_bit_equal_to_plain_version(cuda, L, batch, iters,
     _assert_bit_equal(got, want)
 
 
-def test_admm_kernel_bit_equal_to_plain_version(cuda):
-    """Kernel K4 stays bit-equal to its plain version at four_tank_convex
-    (nbox 60) on a ragged batch: u, y, the final windows, s and w equal,
-    costs at rtol 1e-3 / atol 1e-5. The batch is 8179, where cuBLAS sums
-    the plain version's products as one FMA chain (at B = 1000 to 6131
-    it does not, and the two are up to 1.5e-5 apart)."""
+@pytest.mark.parametrize("L,N,iters,track,rows", [
+    (30, 400, (4, 5, 2), False, 64),   # four_tank_convex, nbox 60: NT = 1
+    (60, 800, (4, 5, 2), False, 32),   # long_horizon_convex, nbox 120: NT = 2
+    (30, 400, (4, 6, 2), True, 64),    # tracked: the adds on pre, vc, zth
+    (30, 400, (0, 0, 0), False, 64),   # n_iter = 0: rp = rd = max |s|
+])
+def test_admm_kernel_bit_equal_to_plain_version(cuda, L, N, iters, track,
+                                                rows):
+    """Kernel K4 (warp-owned scenarios, s and w in registers) stays
+    bit-equal to its plain version on a ragged batch: u, y, the final
+    windows, s and w equal, costs (summed by 16 lanes, in another order)
+    at rtol 1e-3 / atol 1e-5. The batch is 8179, where cuBLAS sums the
+    plain version's products as one FMA chain (at B = 1000 to 6131 it
+    does not, and the two are up to 1.5e-5 apart)."""
     from chip_smoke import build_four_tank_robust
 
-    plant, ctrl = build_four_tank_robust(slack="CONVEX")
-    op = compute_admm_operator_np(ctrl.spec)
+    plant, ctrl = build_four_tank_robust(N=N, L=L, slack="CONVEX")
+    op = compute_admm_operator_np(ctrl.spec, return_setpoint_maps=track)
     n_steps, batch = 30, 8192 - 13
     ins = _bit_equal_inputs(ctrl, plant.get_state(), batch, n_steps, cuda)
-    kw = dict(iters=(4, 5, 2), cold_iters=24, tol=1e-5, device=cuda)
+    kw = dict(iters=iters, cold_iters=24, tol=1e-5, device=cuda)
+    if track:  # four phases around the baked setpoints
+        phases = np.repeat([1.0, 0.85, 1.1, 0.95], 8)[:n_steps]
+        kw["setpoints"] = phases[:, None] * op["r_bar"][None]
     args = (plant.as_params(), op, 4, 2, 2, n_steps)
+    _, dims = fa.build_fused_admm_operator(*args[:5], track=track,
+                                           device=cuda)
+    assert fa.admm_plan(dims)[0] == rows
     before = fa.fused_admm.launches
     got = fa.make_fused_admm_rollout(*args, **kw)(*ins)
     torch.cuda.synchronize()
@@ -472,6 +486,49 @@ def test_admm_kernel_bit_equal_to_plain_version(cuda):
     want = fa.make_fused_admm_rollout(
         *args, rollout=fa.fused_admm_reference, **kw)(*ins)
     _assert_bit_equal(got, want)
+
+
+def test_admm_kernel_two_blocks_per_sm(cuda):
+    """At four_tank_convex the K4 block (111,168 bytes, at most 128
+    registers a thread, nothing spilled) leaves room for two per SM."""
+    import ctypes
+
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("fused_admm").lib
+    sizes = (20, 2, 2, 60, 76)
+    assert lib.fused_admm_tile_rows(*sizes) == 64
+    assert lib.fused_admm_smem_bytes(*sizes) == 111168
+    assert lib.fused_admm_blocks_per_sm(*sizes) == 2
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    assert lib.fused_admm_kernel_attributes(60, ctypes.byref(regs),
+                                            ctypes.byref(local)) == 0
+    assert 0 < regs.value <= 128
+    assert local.value == 0
+
+
+def test_admm_plan_matches_library(cuda):
+    """``admm_plan`` mirrors the library's K4 plan (rows and bytes, 0
+    bytes where no block fits) at the four-tank window for boxes of 4 to
+    196 lanes, with and without tracking features, at one and four
+    steps per solve."""
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("fused_admm").lib
+    g, op, kw = _admm_setup("CONVEX")
+    _, dims = fa.build_fused_admm_operator(PLANT, op, 4, 2, 2, device=cuda)
+    for nb in (1, 4):
+        for extra in (0, 4):
+            for nbox in range(4, 200, 8):
+                nxi = dims.n_theta + nbox + extra
+                D2 = dims.S + 4 * nb
+                d = dims._replace(nb=nb, Mw=2 * nb + 1, D2=D2, nbox=nbox,
+                                  nxi=nxi, W2=D2 + 1 + nbox + nxi)
+                sizes = (d.S, 2 * nb, 2 * nb, nbox, nxi)
+                rows, nbytes = fa.admm_plan(d)
+                assert lib.fused_admm_tile_rows(*sizes) == rows, sizes
+                assert lib.fused_admm_smem_bytes(*sizes) == (
+                    nbytes if rows else 0), sizes
 
 
 def test_ladder_kernel_two_blocks_per_sm(cuda):

@@ -445,3 +445,77 @@ def test_amortized_run_folds_every_repetition(golden, convex):
         tol=1e-9, device="cpu",
     )(x0, up, yp, W, 1)
     assert not bool(ok)
+
+
+def _sized(dims, nbox, S=None, nb=1, extra=0):
+    """``dims`` resized to a box of ``nbox`` lanes (and optionally a
+    plant window of ``S``, ``nb`` steps per solve and ``extra`` tracking
+    features), as the fused operators would size it."""
+    S = dims.S if S is None else S
+    nxi = dims.n_theta + nbox + extra
+    D2 = S + nb * (dims.m + dims.p)
+    return dims._replace(S=S, nb=nb, Mw=nb * dims.m + 1, D2=D2, nbox=nbox,
+                         nxi=nxi, W2=D2 + 1 + nbox + nxi)
+
+
+@pytest.fixture(scope="module")
+def convex_dims(convex):
+    return fa.build_fused_admm_operator(PLANT, convex[1], 4, 2, 2,
+                                        device="cpu")[1]
+
+
+@pytest.mark.parametrize("nbox,plan", [
+    (30, (64, 56944)),    # four_tank_convex_q4 (L = 15)
+    (52, (64, 95168)),    # the box engines (L = 30, slack NONE)
+    (60, (64, 111168)),   # four_tank_convex: two blocks per SM
+    (120, (32, 212224)),  # long_horizon_convex (L = 60): NT = 2
+    (144, (4, 226992)),   # the last box that fits at S = 20
+    (148, (0, 237872)),   # the reach edge
+])
+def test_admm_plan_pins_rows_and_bytes(convex_dims, nbox, plan):
+    """K4's plan (``admm_plan``, mirrored from ``csrc/fused_admm.cu``) at
+    the four-tank window (S = 20, one step per solve): 64 scenarios per
+    block up to nbox 60, where two 111,168-byte blocks (each with the
+    1 KB the SM reserves per block) fit an SM's 228 KB; 32 at nbox 120;
+    none past nbox 144."""
+    assert fa.admm_plan(_sized(convex_dims, nbox)) == plan
+    if nbox == 60:
+        assert 2 * (plan[1] + 1024) <= 228 * 1024
+
+
+def test_admm_plan_keeps_the_old_reach(convex_dims):
+    """Every size the fixed-penalty kernel took before its redesign
+    (the rung-group rule's layout without the balancer's four maxima)
+    still launches, with at least as many scenarios per block; beyond
+    three 64-column tiles per lane (nbox 192) none does, even where the
+    block would fit."""
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+
+    checked = 0
+    for S in (6, 20, 44, 120):
+        for nb in (1, 4):
+            for extra in (0, 4):
+                for nbox in range(4, 200, 4):
+                    d = _sized(convex_dims, nbox, S, nb, extra)
+                    old = next((t for t in (64, 32, 16, 8, 4)
+                                if fl.ladder_smem_bytes(d, t) - 16
+                                <= fa._SMEM_LIMIT), 0)
+                    rows = fa.admm_plan(d)[0]
+                    assert rows >= old, (S, nb, extra, nbox, old, rows)
+                    checked += old > 0
+    assert checked > 300
+    thin = convex_dims._replace(nxi=4, W2=convex_dims.D2 + 1 + 192 + 4)
+    assert fa.admm_plan(thin._replace(nbox=192))[0] > 0
+    assert fa.admm_plan(thin._replace(nbox=193, W2=thin.W2 + 1))[0] == 0
+
+
+def test_rung_group_rule_unchanged(convex_dims):
+    """K5's rung groups are sized by the layout both ADMM kernels had
+    before their redesigns, so they stay where they were: 64 scenarios
+    at nbox 52 and 60, 16 at nbox 120."""
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+
+    for nbox, group in ((52, 64), (60, 64), (120, 16)):
+        d = _sized(convex_dims, nbox)
+        assert fl.ladder_tile_rows(d) == group
+    assert fl.ladder_smem_bytes(_sized(convex_dims, 60), 64) == 166096
