@@ -3,41 +3,58 @@
 // (K3, the cost_mode="post" path).
 //
 // K1 replaces direct_data_driven_mpc_tpu/ops/pallas_rollout.py::
-// _make_rollout_from_fused (kernel bodies `kernel_split` and `kernel`):
-// the TPU kernel's sequential time axis of the grid becomes a loop
-// inside each thread block, and its VMEM scratch carry becomes shared
-// memory. Per outer time block t every batch row computes
+// _make_rollout_from_fused (kernel bodies `kernel_split` and `kernel`).
+// Per outer time block t every scenario computes
 //
-//     sw  = [W_{(t + w_off) mod n_outer} | s]                (D = nw + S)
-//     out = sw @ G + bias   columns [s_next | U | Y | Z | q-part]
+//     sw  = [W_{(t + w_off) mod n_outer} | s_t]              (D = nw + S)
+//     out = sw @ G + bias   columns [s_{t+1} | U | Y | Z | q-part]
 //     C_k = sum_{d < rank} Z_{k,d}^2 + qpart_k              (k < K)
-//     s  <- s_next
-//
-// G is the unpadded fused operator (no 128-lane column padding; the
-// column order of the TPU operator is kept). The segment-sum matrix of
-// the TPU kernel is not needed: each solve's cost is summed directly,
-// in a fixed order, so costs are deterministic.
 //
 // What bounds it on the H100: at the four-tank shape (B = 4096, T = 400,
 // K = 50, D = 120, 1070 columns) one rollout is ~8.4 GFLOP of float32
 // FMA work against ~46 MB of HBM traffic (the noise in, U/Y/C out), so
-// it is compute-bound on the float32 FMA pipes (no tensor cores: the
-// state, u and y columns must stay at float32 grade, atol 2e-5). The
-// design does the work as a SIMT register-tiled GEMM: a block owns
-// TB batch rows for the whole rollout with sw resident in shared memory
-// (transposed, so a thread's rows load as one float4), and each thread
-// accumulates a 4x4 register tile (16 FMAs per two shared-memory float4
-// loads). G (0.5 MB, resident in L2 across blocks and steps) is
-// streamed through two shared-memory buffers of BN columns: the next
-// chunk's cp.async copies are in flight while the current chunk is
-// multiplied, so the L2 latency hides behind the FMAs. Outputs go
-// straight to global memory in batch-major layout (B, n_outer, width),
-// which is what the PyTorch wrapper returns.
+// it is compute-bound on the float32 FMA pipes. No tensor cores: U, Y
+// and the state are bit-equal to the plain version's one FMA chain.
 //
-// Where this version stands (PERF.md has the numbers): the product
-// alone reaches ~40% of the float32 peak, held by shared-memory
-// bandwidth at a 4x4 tile with one 8-warp block per SM; re-staging G
-// every step and the per-chunk cost epilogue add about as much again.
+// The TPU ran all 1070 columns of a block as one 128-lane contraction
+// per grid step, in series over t. Only the S = 20 state columns carry
+// from one block to the next; the other 1050 of row (b, t) are a pure
+// function of that row's [w | s_t]. So K1 is two kernels on one stream:
+//
+// 1. fused_rollout_state_kernel, the recursion alone: s_{t+1} = [w | s_t]
+//    @ G[:, :S] + bias[:S], 1.9 % of the work, a chain of n_outer x D
+//    dependent FMAs per output, so it wants many scenarios in flight: 16
+//    per block (256 blocks at the main shape), each warp 16 scenarios x
+//    2 groups of 4 state columns. Its two transposed [w | s] tiles (row
+//    stride 17: fills and reads hit 32 banks) take turns: step t + 1's
+//    noise arrives by cp.async while step t computes into the other
+//    tile. G's state columns sit in shared memory, in chunks of 64. The
+//    pass also assembles the product's rows [w | s_t | 0] (the noise
+//    rotation applied), (B, n_outer, D rounded up to 24) floats, written
+//    coalesced: 15.7 MB at the main shape, read back from L2.
+// 2. fused_rollout_product_kernel, every other column of all B x n_outer
+//    rows (b, t) as one product: 32768 x 120 times 120 x 1050 at the main
+//    shape, 256 row tiles x 8 column tiles = 2048 blocks of 128 threads,
+//    two per SM. A thread owns 8 rows x one slot of 17 columns (136 FMAs
+//    per 7 shared-memory loads); a warp is 4 row groups x 8 slots, whose
+//    rows lie 28 floats apart and whose slot columns 20, so its 16-byte
+//    loads hit 32 banks. The rows and the tile's packed columns stream
+//    through a 3-stage cp.async ring of 24-row slices of D (91,008 B a
+//    block, whatever D is; a pass's last slice also brings its bias),
+//    all 16-byte copies. A slot either stores 16
+//    columns of U or of Y (16-byte stores where the widths allow), or
+//    holds one solve's Z columns and its q column (rank 16 + 1 = 17 at
+//    the main shape), so the cost is summed in its registers: no
+//    cross-thread or cross-block sum, no atomics, and Z (800 of the 1070
+//    columns) is never stored. The wrapper packs G's columns into slots
+//    once per operator (the slot table and packed copies are cached with
+//    it); a solve with more than 17 such columns takes several passes
+//    over D, its cost carried in registers from pass to pass.
+//
+// Each s, U and Y value is fmaf over i = 0 .. D-1 in order from 0, then
+// __fadd_rn(., bias): the previous kernel's chain and, at the main shape,
+// cuBLAS's, so all three stay bit-equal. Each cost sums its squares in
+// column order and then its q-part, as before.
 //
 // K3 (fused_rollout_nocost_kernel) replaces the same function's body
 // `kernel_nocost` (pallas_rollout.py:629, launched at :743 and :760):
@@ -92,186 +109,353 @@
 
 namespace {
 
-constexpr int TB = 32;        // batch rows per thread block
 constexpr size_t SMEM_LIMIT = 232448;  // opt-in shared memory per block
-constexpr int BN = 128;       // G columns per shared-memory chunk
-constexpr int THREADS = 256;  // (TB / 4) row groups x (BN / 4) col groups
-constexpr int LDS = TB + 4;   // row stride of the transposed sw tile
-constexpr int LDO = BN + 1;   // row stride of the output stage (odd: a
-                              // warp reading one column of 32 rows hits
-                              // 32 different banks)
-static_assert((TB / 4) * (BN / 4) == THREADS, "thread tiling");
-static_assert(THREADS % BN == 0, "chunk copy tiling");
 
-// Start the asynchronous copy of G's columns [j0, j0 + BN) into dst
-// (D x BN, zero past the last column) as one cp.async group. Each
-// thread copies one column, every (THREADS / BN)-th row, so the loop
-// is a pointer walk.
-__device__ __forceinline__ void stage_chunk(const float* __restrict__ G,
-                                            float* dst, int j0, int D,
-                                            int Wtot) {
-  constexpr int ROWS = THREADS / BN;  // rows copied per pass
-  const int c = threadIdx.x % BN;
-  const int i0 = threadIdx.x / BN;
-  float* d = dst + i0 * BN + c;
-  if (j0 + c < Wtot) {
-    const float* src = G + (size_t)i0 * Wtot + j0 + c;
-    for (int i = i0; i < D; i += ROWS, d += ROWS * BN, src += ROWS * Wtot)
-      __pipeline_memcpy_async(d, src, sizeof(float));
-  } else {
-    for (int i = i0; i < D; i += ROWS, d += ROWS * BN) *d = 0.f;
-  }
-  __pipeline_commit();
+// K1's plan. The state pass: ST_ROWS scenarios per block, so a warp
+// takes ST_GPW column groups of 4 (at most ST_WARPS warps), two [w | s]
+// tiles (step t's and step t + 1's) and G's state columns in chunks of
+// ST_GC (all of them at once when they fit one chunk).
+constexpr int ST_ROWS = 16;
+constexpr int ST_GPW = 32 / ST_ROWS;
+constexpr int ST_LDS = ST_ROWS + 1;  // row stride of a transposed tile
+constexpr int ST_WARPS = 8;
+constexpr int ST_GC = 4 * ST_GPW * ST_WARPS;
+static_assert(32 % ST_ROWS == 0 && ST_LDS % 2 == 1, "lanes and banks");
+// The product: PR_BM rows (b, t) x PR_SLOTS slots of PR_NC columns per
+// block, PR_TM rows per thread; slots lie PR_LDC floats apart in the
+// packed operator and in shared memory; a ring of PR_STAGES slices of
+// PR_BK rows of D (A's rows at a stride of PR_LDA floats).
+constexpr int PR_BM = 128;
+constexpr int PR_SLOTS = 8;
+constexpr int PR_NC = 17;
+constexpr int PR_LDC = 20;
+constexpr int PR_BN = PR_SLOTS * PR_LDC;
+constexpr int PR_TM = 8;
+constexpr int PR_BK = 24;
+constexpr int PR_LDA = PR_BK + 4;
+constexpr int PR_STAGES = 3;
+constexpr int PR_THREADS = 128;
+// A stage: A's rows, the operator's slice and the pass's bias.
+constexpr int PR_STAGE_FLOATS = PR_BM * PR_LDA + (PR_BK + 1) * PR_BN;
+static_assert((PR_THREADS / 32) * (32 / PR_SLOTS) * PR_TM == PR_BM,
+              "warps x row groups x rows per thread");
+static_assert(PR_LDC % 4 == 0 && PR_LDC >= PR_NC, "slot stride");
+static_assert(PR_BK % 8 == 0 && PR_LDA % 8 == 4,
+              "16-byte copies; 4 consecutive rows in 4 bank groups");
+
+// A slot's work in one pass (int4 {kind, a, n, flags}): kind 1 stores
+// columns [a, a + n) of [U | Y] (n <= 16, within U or within Y, a - 0 or
+// a - Ku a multiple of 16); kind 2 adds the squares of n Z columns of
+// solve a to its cost (flags & 1: the solve's first chunk, so the cost
+// starts from 0; flags & 2: column n is its q column, which completes
+// the cost, and C is stored); kind 0 is empty.
+enum SlotKind { SLOT_EMPTY = 0, SLOT_STORE = 1, SLOT_COST = 2 };
+
+__host__ __device__ constexpr int state_groups(int S) { return (S + 3) / 4; }
+__host__ __device__ constexpr int state_threads(int S) {
+  return 32 * ((state_groups(S) + ST_GPW - 1) / ST_GPW < ST_WARPS
+                   ? (state_groups(S) + ST_GPW - 1) / ST_GPW
+                   : ST_WARPS);
+}
+// Row stride of the product's rows [w | s | 0]: D rounded up to PR_BK.
+__host__ __device__ constexpr int row_stride(int D) {
+  return (D + PR_BK - 1) / PR_BK * PR_BK;
+}
+size_t state_smem_bytes(int S, int nw) {
+  return sizeof(float) * (size_t)(nw + S) *
+         (2 * ST_LDS + (4 * state_groups(S) < ST_GC ? 4 * state_groups(S)
+                                                   : ST_GC));
+}
+constexpr size_t product_smem_bytes() {
+  return sizeof(float) * PR_STAGES * PR_STAGE_FLOATS;
 }
 
-__global__ void __launch_bounds__(THREADS)
-fused_rollout_kernel(const float* __restrict__ G,     // (D, Wtot)
-                     const float* __restrict__ bias,  // (Wtot,)
-                     const float* __restrict__ s0,    // (B, S)
-                     const float* __restrict__ W,     // (B, n_outer, nw)
-                     float* __restrict__ U,           // (B, n_outer, Ku)
-                     float* __restrict__ Y,           // (B, n_outer, Kp)
-                     float* __restrict__ C,           // (B, n_outer, K)
-                     float* __restrict__ s_fin,       // (B, S)
-                     int B, int S, int nw, int Ku, int Kp, int K,
-                     int rank, int n_outer, int w_off) {
+// Start the copy of scenario rows row0 .. row0 + ST_ROWS - 1 of `src`
+// (width floats each, `stride` apart) into rows [0, width) of the
+// transposed tile dst (zero past B), 4 bytes a copy: a warp takes one
+// scenario's consecutive columns, so the reads coalesce and the writes
+// (row stride ST_LDS) hit 32 banks.
+__device__ __forceinline__ void stage_state_rows(const float* __restrict__ src,
+                                                 size_t stride, int width,
+                                                 float* dst, int row0,
+                                                 int B) {
+  const int lane = threadIdx.x % 32;
+  for (int rr = threadIdx.x / 32; rr < ST_ROWS; rr += blockDim.x / 32) {
+    const float* s = src + (size_t)(row0 + rr) * stride;
+    for (int i = lane; i < width; i += 32) {
+      if (row0 + rr < B)
+        __pipeline_memcpy_async(dst + i * ST_LDS + rr, s + i, sizeof(float));
+      else
+        dst[i * ST_LDS + rr] = 0.f;
+    }
+  }
+}
+
+// Start the copy of G's state columns [j0, j0 + width) (from the packed
+// Gs, ldgs floats a row) into gsm (D rows of `width` floats), 16 bytes a
+// copy.
+__device__ __forceinline__ void stage_state_columns(
+    const float* __restrict__ Gs, int ldgs, int D, int j0, int width,
+    float* gsm) {
+  for (int i = threadIdx.x / 32; i < D; i += blockDim.x / 32)
+    for (int c = threadIdx.x % 32; c < width / 4; c += 32)
+      __pipeline_memcpy_async(gsm + i * width + 4 * c,
+                              Gs + (size_t)i * ldgs + j0 + 4 * c, 16);
+}
+
+__global__ void __launch_bounds__(32 * ST_WARPS)
+fused_rollout_state_kernel(const float* __restrict__ Gs,  // (D, ldgs)
+                           const float* __restrict__ bs,  // (ldgs,)
+                           const float* __restrict__ s0,  // (B, S)
+                           const float* __restrict__ W,   // (B, n, nw)
+                           float* __restrict__ A,      // (B, n, row_stride)
+                           float* __restrict__ s_fin,  // (B, S)
+                           int B, int S, int nw, int n_outer, int w_off) {
+  extern __shared__ float4 smem4[];
+  const int D = nw + S, lda = row_stride(D);
+  const int ldgs = 4 * state_groups(S);
+  const int gc = ldgs < ST_GC ? ldgs : ST_GC;  // columns per chunk of G
+  const int n_chunks = (ldgs + gc - 1) / gc;
+  float* tiles = reinterpret_cast<float*>(smem4);  // 2 x (D, ST_LDS)
+  const int tile_floats = D * ST_LDS;
+  float* gsm = tiles + 2 * tile_floats;            // (D, gc)
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n_warps = blockDim.x / 32;
+  const int r = lane % ST_ROWS;                  // this thread's scenario
+  const int gl = warp * ST_GPW + lane / ST_ROWS;  // and group in a chunk
+  const int row0 = blockIdx.x * ST_ROWS;
+  const int b = row0 + r;
+  const size_t wstride = (size_t)n_outer * nw;
+
+  stage_state_rows(W + (size_t)w_off * nw, wstride, nw, tiles, row0, B);
+  stage_state_rows(s0, S, S, tiles + nw * ST_LDS, row0, B);
+  if (n_chunks == 1) stage_state_columns(Gs, ldgs, D, 0, gc, gsm);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  for (int t = 0; t < n_outer; ++t) {
+    const float* cur = tiles + (t & 1) * tile_floats;
+    float* nxt = tiles + ((t + 1) & 1) * tile_floats;  // read in step t - 1
+    // Step t + 1's noise is in flight while step t runs.
+    if (t + 1 < n_outer)
+      stage_state_rows(W + (size_t)((t + 1 + w_off) % n_outer) * nw,
+                       wstride, nw, nxt, row0, B);
+    __pipeline_commit();
+    // Row (b, t) of the product, [w | s_t | 0], a warp per row.
+    for (int rr = warp; rr < ST_ROWS && row0 + rr < B; rr += n_warps) {
+      float* a = A + ((size_t)(row0 + rr) * n_outer + t) * lda;
+      for (int k = lane; k < lda; k += 32)
+        a[k] = k < D ? cur[k * ST_LDS + rr] : 0.f;
+    }
+    // s_{t+1} = [w | s_t] @ G[:, :S] + bias[:S] into the next tile, one
+    // chunk of G's state columns at a time.
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      if (n_chunks > 1) {
+        __syncthreads();  // the previous chunk's reads are done
+        stage_state_columns(Gs, ldgs, D, ch * gc, gc, gsm);
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+        __syncthreads();
+      }
+      const int g = ch * (gc / 4) + gl;  // this thread's column group
+      if (gl < gc / 4 && g < state_groups(S)) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        const float* gp = gsm + 4 * gl;
+#pragma unroll 8
+        for (int i = 0; i < D; ++i) {
+          const float a = cur[i * ST_LDS + r];
+          const float4 gv = *reinterpret_cast<const float4*>(gp + i * gc);
+          acc[0] = fmaf(a, gv.x, acc[0]);
+          acc[1] = fmaf(a, gv.y, acc[1]);
+          acc[2] = fmaf(a, gv.z, acc[2]);
+          acc[3] = fmaf(a, gv.w, acc[3]);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = 4 * g + c;
+          if (j >= S) break;
+          const float v = __fadd_rn(acc[c], __ldg(bs + j));
+          nxt[(nw + j) * ST_LDS + r] = v;
+          if (t + 1 == n_outer && b < B) s_fin[(size_t)b * S + j] = v;
+        }
+      }
+    }
+    __pipeline_wait_prior(0);  // this thread's noise copies are in
+    __syncthreads();  // everyone's, and s_{t+1}; step t's tile is free
+  }
+}
+
+__global__ void __launch_bounds__(PR_THREADS, 2)
+fused_rollout_product_kernel(
+    const float* __restrict__ Gp,   // (n_tiles, n_pass, D_pad, PR_BN)
+    const float* __restrict__ bp,   // (n_tiles, n_pass, PR_BN), aligned
+    const int4* __restrict__ slots,  // (n_tiles, n_pass, PR_SLOTS)
+    const float* __restrict__ A,    // (R, lda): rows [w | s_t | 0]
+    float* __restrict__ U,          // (R, Ku)
+    float* __restrict__ Y,          // (R, Kp)
+    float* __restrict__ C,          // (R, K)
+    int R, int D, int Ku, int Kp, int K, int n_pass) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int D = nw + S;
-  const int offY = S + Ku;
-  const int offZ = offY + Kp;
-  const int offQ = offZ + K * rank;
-  const int Wtot = offQ + K;
-  const int n_chunks = (Wtot + BN - 1) / BN;
+  const int lda = row_stride(D);
+  const int n_k = lda / PR_BK;
+  const int total = n_k * n_pass;
+  const int tile = blockIdx.y;
+  const int row0 = blockIdx.x * PR_BM;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int slot = lane % PR_SLOTS;
+  // This thread's rows: m0 + 4 r (r < PR_TM), so a warp's 4 row groups
+  // read 4 consecutive rows of A, which lie in 4 different bank groups.
+  const int m0 = warp * 32 + lane / PR_SLOTS;
+  // U and Y take 16-byte stores where rows keep them aligned.
+  const bool vec_u = Ku % 4 == 0 && reinterpret_cast<size_t>(U) % 16 == 0;
+  const bool vec_y = Kp % 4 == 0 && reinterpret_cast<size_t>(Y) % 16 == 0;
 
-  float* swT = smem;                   // (D, LDS): sw transposed
-  float* Gbuf[2] = {swT + D * LDS,     // (D, BN) chunk, double-buffered
-                    swT + D * LDS + D * BN};
-  float* stage = Gbuf[1] + D * BN;     // (TB, LDO) chunk outputs
-  float* snext = stage + TB * LDO;     // (TB, S)
-  float* cacc = snext + TB * S;        // (K, TB) running costs
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * TB;
-  const int cg = tid % (BN / 4);  // column group: columns 4cg .. 4cg+3
-  const int rg = tid / (BN / 4);  // row group: rows 4rg .. 4rg+3
-
-  stage_chunk(G, Gbuf[0], 0, D, Wtot);
-  // Initial carry; rows past B are zero.
-  for (int idx = tid; idx < TB * S; idx += THREADS) {
-    const int r = idx / S, j = idx % S;
-    const int b = row0 + r;
-    swT[(nw + j) * LDS + r] = b < B ? s0[(size_t)b * S + j] : 0.f;
-  }
-  int g = 0;  // chunks consumed so far; chunk g sits in Gbuf[g & 1]
-  for (int t = 0; t < n_outer; ++t) {
-    const int tw = (t + w_off) % n_outer;
-    for (int idx = tid; idx < TB * nw; idx += THREADS) {
-      const int r = idx / nw, i = idx % nw;
-      const int b = row0 + r;
-      swT[i * LDS + r] =
-          b < B ? W[((size_t)b * n_outer + tw) * nw + i] : 0.f;
+  const float4* gsrc = reinterpret_cast<const float4*>(
+      Gp + (size_t)tile * n_pass * lda * PR_BN);
+  int pm = 0;  // ring slices staged: pass pm / n_k, depth slice pm % n_k
+  auto stage = [&]() {
+    if (pm < total) {
+      float* As = smem + (pm % PR_STAGES) * PR_STAGE_FLOATS;
+      float* Gsm = As + PR_BM * PR_LDA;
+      const int k0 = (pm % n_k) * PR_BK;
+      // A: each row's PR_BK floats as 16-byte copies (zero past R).
+      for (int c = threadIdx.x; c < PR_BM * PR_BK / 4; c += PR_THREADS) {
+        const int m = c / (PR_BK / 4), h = c % (PR_BK / 4);
+        float* d = As + m * PR_LDA + 4 * h;
+        if (row0 + m < R)
+          __pipeline_memcpy_async(d, A + (size_t)(row0 + m) * lda + k0 + 4 * h,
+                                  16);
+        else
+          *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      const float4* src = gsrc + (size_t)pm * (PR_BK * PR_BN / 4);
+      for (int v = threadIdx.x; v < PR_BK * PR_BN / 4; v += PR_THREADS)
+        __pipeline_memcpy_async(Gsm + 4 * v, src + v, 16);
+      // A pass's last slice brings its bias, read by the epilogue.
+      if (pm % n_k == n_k - 1) {
+        const float4* bsrc = reinterpret_cast<const float4*>(
+            bp + ((size_t)tile * n_pass + pm / n_k) * PR_BN);
+        for (int v = threadIdx.x; v < PR_BN / 4; v += PR_THREADS)
+          __pipeline_memcpy_async(Gsm + PR_BK * PR_BN + 4 * v, bsrc + v,
+                                  16);
+      }
     }
-    for (int idx = tid; idx < TB * K; idx += THREADS) cacc[idx] = 0.f;
+    ++pm;
+    __pipeline_commit();
+  };
+  for (int s = 0; s < PR_STAGES - 1; ++s) stage();
 
-    for (int ch = 0; ch < n_chunks; ++ch, ++g) {
-      const int j0 = ch * BN;
-      // Prefetch the next chunk (the first one again at the end of a
-      // step: G is the same for every step), then wait for this one.
-      // Its buffer was last read before the previous chunk's barrier.
-      if (t < n_outer - 1 || ch < n_chunks - 1) {
-        stage_chunk(G, Gbuf[(g + 1) & 1], ((ch + 1) % n_chunks) * BN, D,
-                    Wtot);
-        __pipeline_wait_prior(1);
-      } else {
-        __pipeline_wait_prior(0);
-      }
-      __syncthreads();  // chunk g, the noise tile and the carry are in
-
-      const float* Gs = Gbuf[g & 1];
-      float acc[4][4];
+  float part[PR_TM];  // this slot's running cost per row
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < PR_TM; ++r) part[r] = 0.f;
+  int m = 0;  // ring slices consumed
+  for (int p = 0; p < n_pass; ++p) {
+    float acc[PR_TM][PR_NC];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-#pragma unroll 4
-      for (int i = 0; i < D; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(
-            &swT[i * LDS + 4 * rg]);
-        const float4 gv4 = *reinterpret_cast<const float4*>(
-            &Gs[i * BN + 4 * cg]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float gv[4] = {gv4.x, gv4.y, gv4.z, gv4.w};
+    for (int r = 0; r < PR_TM; ++r)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+      for (int c = 0; c < PR_NC; ++c) acc[r][c] = 0.f;
+    for (int kt = 0; kt < n_k; ++kt, ++m) {
+      __pipeline_wait_prior(PR_STAGES - 2);  // this thread's copies of
+      __syncthreads();  // slice m are in, and everyone's; slice m - 1 is
+                        // done, so its slot takes slice m + STAGES - 1
+      stage();
+      const float* As = smem + (m % PR_STAGES) * PR_STAGE_FLOATS;
+      const float* Gsm = As + PR_BM * PR_LDA + slot * PR_LDC;
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[r][c] = fmaf(av[r], gv[c], acc[r][c]);
-      }
+      for (int h = 0; h < PR_BK / 4; ++h) {
+        float4 av[PR_TM];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < PR_TM; ++r)
+          av[r] = *reinterpret_cast<const float4*>(
+              As + (m0 + 4 * r) * PR_LDA + 4 * h);
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          stage[(4 * rg + r) * LDO + 4 * cg + c] = acc[r][c];
-      __syncthreads();  // stage complete
-
-      // State, u and y columns.
-      const int jend = min(j0 + BN, offZ);
-      for (int idx = tid; j0 < offZ && idx < TB * BN; idx += THREADS) {
-        const int r = idx / BN, c = idx % BN;
-        const int j = j0 + c;
-        if (j >= jend) continue;
-        const float v = stage[r * LDO + c] + bias[j];
-        const int b = row0 + r;
-        if (j < S) {
-          snext[r * S + j] = v;
-        } else if (b < B) {
-          if (j < offY)
-            U[((size_t)b * n_outer + t) * Ku + (j - S)] = v;
-          else
-            Y[((size_t)b * n_outer + t) * Kp + (j - offY)] = v;
+        for (int e = 0; e < 4; ++e) {
+          float a[PR_TM];
+#pragma unroll
+          for (int r = 0; r < PR_TM; ++r)
+            a[r] = e == 0 ? av[r].x : e == 1 ? av[r].y
+                 : e == 2 ? av[r].z : av[r].w;
+          const float* g = Gsm + (4 * h + e) * PR_BN;
+#pragma unroll
+          for (int c4 = 0; c4 < PR_NC / 4; ++c4) {
+            const float4 gv = *reinterpret_cast<const float4*>(g + 4 * c4);
+            const float gg[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+              for (int r = 0; r < PR_TM; ++r)
+                acc[r][4 * c4 + q] = fmaf(a[r], gg[q], acc[r][4 * c4 + q]);
+          }
+#pragma unroll
+          for (int c = PR_NC / 4 * 4; c < PR_NC; ++c) {
+            const float gc = g[c];
+#pragma unroll
+            for (int r = 0; r < PR_TM; ++r)
+              acc[r][c] = fmaf(a[r], gc, acc[r][c]);
+          }
         }
       }
-      // Cost columns: one thread per (row, solve), a warp per solve,
-      // adds this chunk's squares in column order; the q-part, which
-      // comes after every Z column, completes the cost.
-      if (j0 + BN > offZ) {
-        for (int idx = tid; idx < TB * K; idx += THREADS) {
-          const int k = idx / TB, r = idx % TB;
-          const int zs = max(offZ + k * rank, j0);
-          const int ze = min(offZ + (k + 1) * rank, j0 + BN);
-          const int jq = offQ + k;
-          const bool has_q = jq >= j0 && jq < j0 + BN;
-          if (zs >= ze && !has_q) continue;
-          const float* row = stage + r * LDO;  // column j0 + c at row[c]
-          float a = cacc[idx];
-          for (int j = zs; j < ze; ++j) {
-            const float z = row[j - j0] + bias[j];
-            a = fmaf(z, z, a);
+    }
+
+    // Epilogue from the registers; the bias is in the pass's last slice,
+    // whose ring slot is next written after the next barrier.
+    const size_t tp = (size_t)tile * n_pass + p;
+    const int4 d = __ldg(slots + tp * PR_SLOTS + slot);
+    const float* bias = smem + ((m - 1) % PR_STAGES) * PR_STAGE_FLOATS +
+                        PR_BM * PR_LDA + PR_BK * PR_BN + slot * PR_LDC;
+    if (d.x == SLOT_STORE) {
+      const bool in_u = d.y < Ku;
+      float* out = in_u ? U + d.y : Y + (d.y - Ku);
+      const int ld = in_u ? Ku : Kp;
+      const bool vec = in_u ? vec_u : vec_y;
+      float bc[16];
+#pragma unroll
+      for (int c = 0; c < 16; ++c) bc[c] = bias[c];
+#pragma unroll
+      for (int r = 0; r < PR_TM; ++r) {
+        const int row = row0 + m0 + 4 * r;
+        if (row >= R) break;
+        float* o = out + (size_t)row * ld;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (4 * e >= d.z) break;
+          float v[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            v[q] = __fadd_rn(acc[r][4 * e + q], bc[4 * e + q]);
+          if (vec && 4 * e + 4 <= d.z) {
+            *reinterpret_cast<float4*>(o + 4 * e) =
+                make_float4(v[0], v[1], v[2], v[3]);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (4 * e + q < d.z) o[4 * e + q] = v[q];
           }
-          if (has_q) {
-            const int b = row0 + r;
-            a += row[jq - j0] + bias[jq];
-            if (b < B) C[((size_t)b * n_outer + t) * K + k] = a;
-          }
-          cacc[idx] = a;
         }
       }
-      // The next chunk's barrier orders these stage and cacc reads
-      // before the next writes.
+    } else if (d.x == SLOT_COST) {
+      const int qc = (d.w & 2) ? d.z : -1;  // the q column, if here
+      if (d.w & 1)
+#pragma unroll
+        for (int r = 0; r < PR_TM; ++r) part[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < PR_NC; ++c) {
+        if (c > d.z || (c == d.z && qc < 0)) break;
+        const float bc = bias[c];
+#pragma unroll
+        for (int r = 0; r < PR_TM; ++r) {
+          const float z = __fadd_rn(acc[r][c], bc);
+          part[r] = c < d.z ? fmaf(z, z, part[r]) : __fadd_rn(part[r], z);
+        }
+      }
+      if (qc >= 0)
+#pragma unroll
+        for (int r = 0; r < PR_TM; ++r)
+          if (row0 + m0 + 4 * r < R)
+            C[(size_t)(row0 + m0 + 4 * r) * K + d.y] = part[r];
     }
-    __syncthreads();  // every epilogue of this step is done
-
-    // s <- s_next; the final carry goes out after the last block.
-    for (int idx = tid; idx < TB * S; idx += THREADS) {
-      const int r = idx / S, j = idx % S;
-      const float v = snext[idx];
-      swT[(nw + j) * LDS + r] = v;
-      const int b = row0 + r;
-      if (t == n_outer - 1 && b < B) s_fin[(size_t)b * S + j] = v;
-    }
-    // The next step's noise and cost-reset writes touch swT rows < nw
-    // and cacc, whose last readers finished before the barrier above.
   }
 }
 
@@ -539,12 +723,7 @@ fused_rollout_nocost_kernel(const float* __restrict__ G,     // (D, ldg)
   }
 }
 
-// Shared memory of each kernel for a given shape, in bytes.
-size_t smem_bytes(int S, int nw, int K) {
-  const size_t D = (size_t)nw + S;
-  return sizeof(float) * (D * LDS + 2 * D * BN + (size_t)TB * LDO +
-                          (size_t)TB * S + (size_t)TB * K);
-}
+// Shared memory of K3 for a given shape, in bytes.
 size_t nocost_smem_bytes(int S, int nw, int BM) {
   return sizeof(float) * ((size_t)NC_STAGES * NC_BK * NC_LDB +
                           (size_t)BM * nocost_lda(nw + S) + (size_t)BM * S);
@@ -578,14 +757,100 @@ int nocost_launch(const float* G, const float* bias, const float* s0,
 
 extern "C" {
 
-// Dynamic shared memory, in bytes, of a K1 block at this shape, or 0
-// when it does not fit one block.
-int fused_rollout_smem_bytes(int S, int nw, int K) {
-  const size_t b = smem_bytes(S, nw, K);
-  return b <= SMEM_LIMIT ? (int)b : 0;
+// K1's plan at a state of S and nw noise rows, as 7 ints: scenarios per
+// block of the state pass, its threads and shared memory in bytes; rows
+// (b, t) per block of the product, its slots, columns per slot and
+// shared memory. Returns 1 when both fit a block, else 0.
+int fused_rollout_plan(int S, int nw, int* plan) {
+  const size_t st = state_smem_bytes(S, nw);
+  const int v[7] = {ST_ROWS, state_threads(S), (int)st, PR_BM, PR_SLOTS,
+                    PR_NC, (int)product_smem_bytes()};
+  for (int i = 0; i < 7; ++i) plan[i] = v[i];
+  return st <= SMEM_LIMIT ? 1 : 0;
 }
 
-// The same for the no-cost kernel (K3), at the plan it launches.
+// Blocks per SM of K1's state pass (which = 0) or product (which = 1) at
+// this shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor), 0 when the
+// plan does not fit, or minus a CUDA error.
+int fused_rollout_blocks_per_sm(int S, int nw, int which) {
+  const size_t st = state_smem_bytes(S, nw);
+  if (st > SMEM_LIMIT) return 0;
+  const void* kernel = which ? (const void*)fused_rollout_product_kernel
+                             : (const void*)fused_rollout_state_kernel;
+  const size_t bytes = which ? product_smem_bytes() : st;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, which ? PR_THREADS : state_threads(S), bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// Registers and local (spill) bytes per thread of K1's state pass
+// (which = 0) or product (which = 1) (cudaFuncGetAttributes); returns 0
+// or the CUDA error.
+int fused_rollout_kernel_attributes(int which, int* registers,
+                                    int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, which ? (const void*)fused_rollout_product_kernel
+                : (const void*)fused_rollout_state_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
+}
+
+// Launches K1 on `stream`, the state pass and then the product; returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue when the
+// plan does not fit or a packed operand is not 16-byte aligned. Device
+// pointers to contiguous arrays: the packed operator of the state pass
+// Gs (nw + S, 4 ceil(S/4)) and bs (4 ceil(S/4)); of the product Gp
+// (n_tiles, n_pass, D_pad, 160) with D_pad = nw + S rounded up to 24, bp
+// (n_tiles, n_pass, 160) and the slot table (n_tiles, n_pass, 8, 4) of
+// int32; s0 (B, S), W (B, n_outer, nw), the scratch A (B, n_outer,
+// D_pad) of the product's rows [w | s_t | 0];
+// outputs U (B, n_outer, Ku), Y (B, n_outer, Kp), C (B, n_outer, K) and
+// s_fin (B, S). All float32 but the slot table.
+int fused_rollout_launch(const float* Gs, const float* bs, const float* Gp,
+                         const float* bp, const int* slots, const float* s0,
+                         const float* W, float* A, float* U, float* Y,
+                         float* C, float* s_fin, int B, int S, int nw,
+                         int Ku, int Kp, int K, int n_outer, int w_off,
+                         int n_tiles, int n_pass, void* stream) {
+  const size_t st = state_smem_bytes(S, nw);
+  const size_t R = (size_t)B * n_outer;
+  if (st > SMEM_LIMIT || n_tiles < 1 || n_tiles > 65535 || n_pass < 1 ||
+      R > 0x7fffffff ||
+      (reinterpret_cast<size_t>(Gs) | reinterpret_cast<size_t>(Gp) |
+       reinterpret_cast<size_t>(bp) | reinterpret_cast<size_t>(slots) |
+       reinterpret_cast<size_t>(A)) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_rollout_state_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)st);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fused_rollout_product_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)product_smem_bytes());
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  fused_rollout_state_kernel<<<(B + ST_ROWS - 1) / ST_ROWS,
+                               state_threads(S), st, s>>>(
+      Gs, bs, s0, W, A, s_fin, B, S, nw, n_outer, w_off);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((R + PR_BM - 1) / PR_BM), n_tiles);
+  fused_rollout_product_kernel<<<grid, PR_THREADS, product_smem_bytes(),
+                                 s>>>(
+      Gp, bp, reinterpret_cast<const int4*>(slots), A, U, Y, C, (int)R,
+      nw + S, Ku, Kp, K, n_pass);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory, in bytes, of the no-cost kernel (K3) at the
+// plan it launches, or 0 when no plan fits.
 int fused_rollout_nocost_smem_bytes(int S, int nw) {
   const int BM = nocost_tile_rows(S, nw);
   return BM ? (int)nocost_smem_bytes(S, nw, BM) : 0;
@@ -595,26 +860,6 @@ int fused_rollout_nocost_smem_bytes(int S, int nw) {
 // fits one block.
 int fused_rollout_nocost_tile_rows(int S, int nw) {
   return nocost_tile_rows(S, nw);
-}
-
-// Launches the rollout on `stream`; returns cudaGetLastError() (0 on
-// success). Pointers are device pointers to contiguous float32 arrays
-// of the shapes noted at the kernel.
-int fused_rollout_launch(const float* G, const float* bias,
-                         const float* s0, const float* W, float* U,
-                         float* Y, float* C, float* s_fin, int B, int S,
-                         int nw, int Ku, int Kp, int K, int rank,
-                         int n_outer, int w_off, void* stream) {
-  const size_t smem = smem_bytes(S, nw, K);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + TB - 1) / TB);
-  fused_rollout_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      G, bias, s0, W, U, Y, C, s_fin, B, S, nw, Ku, Kp, K, rank, n_outer,
-      w_off);
-  return (int)cudaGetLastError();
 }
 
 // Launches the no-cost rollout (K3) on `stream`; returns

@@ -332,46 +332,196 @@ def _check_kernel_inputs(op: FusedOperator, s0: torch.Tensor,
         raise ValueError(f"w_off={w_off} outside [0, {n_outer})")
 
 
+class RolloutPlan(NamedTuple):
+    """Kernel K1's plan at one shape, as ``csrc/fused_rollout.cu`` makes
+    it (``fused_rollout_plan``): the state pass's scenarios per block,
+    threads and shared memory (two ``[w | s]`` tiles, transposed at a row
+    stride of 17 floats, and G's state columns, up to 64 at a time), and
+    the product's rows ``(b, t)`` per block, slots, columns per slot and
+    shared memory (a ring of 3 slices of 24 rows of ``D``: 128 rows of A
+    at a stride of 28 floats, and 8 slots of 20 floats for each row and
+    for the bias)."""
+
+    state_rows: int
+    state_threads: int
+    state_bytes: int
+    rows: int
+    slots: int
+    slot_columns: int
+    bytes: int
+
+    @property
+    def fits(self) -> bool:
+        return max(self.state_bytes, self.bytes) <= _SMEM_LIMIT
+
+
+#: K1's product: columns per slot, their stride in the packed operator,
+#: slots per column tile, the depth of a ring slice and the ring's
+#: slices (as in the .cu).
+_SLOT_COLUMNS, _SLOT_STRIDE, _SLOTS, _DEPTH, _STAGES = 17, 20, 8, 24, 3
+#: Slot kinds of the slot table: store columns of [U | Y]; add one
+#: solve's squares (and, last, its q-part) to its cost.
+_SLOT_STORE, _SLOT_COST = 1, 2
+
+
+def rollout_plan(S: int, nw: int) -> RolloutPlan:
+    """K1's plan at a state of ``S`` and ``nw`` noise rows (it does not
+    depend on the columns: those are the slot table's)."""
+    groups = -(-S // 4)
+    return RolloutPlan(
+        state_rows=16, state_threads=32 * min(-(-groups // 2), 8),
+        state_bytes=4 * (nw + S) * (2 * 17 + min(4 * groups, 64)),
+        rows=128, slots=_SLOTS, slot_columns=_SLOT_COLUMNS,
+        bytes=4 * _STAGES * (128 * (_DEPTH + 4)
+                             + (_DEPTH + 1) * _SLOTS * _SLOT_STRIDE),
+    )
+
+
+def _cached(op: FusedOperator, key: str, build):
+    """``build()`` once per operator and ``key``, kept on ``op.G`` while
+    G, bias and the operator's sizes stay as they are."""
+    stamp = (tuple(op[2:]), op.bias.data_ptr(), op.G._version,
+             op.bias._version)
+    cache = op.G.__dict__.setdefault("_fused_rollout_cache", {})
+    hit = cache.get(key)
+    if hit is None or hit[0] != stamp:
+        hit = cache[key] = (stamp, build())
+    return hit[1]
+
+
+def k1_slot_table(op: FusedOperator):
+    """K1's slot table and the operator column behind each packed column.
+
+    Every column past the state ones goes to one slot of 17 columns: up
+    to 16 consecutive columns of U or of Y from a multiple of 16 (kind 1,
+    stored as 16-byte pieces), or one solve's Z columns followed by its q
+    column (kind 2), in chunks of 17 when there are more, one chunk per
+    pass, so each solve's cost is summed by one thread. A slot runs
+    ``n_pass = ceil((rank + 1) / 17)`` passes (so U and Y slots store
+    that many pieces); 8 slots make a column tile. Returns ``table
+    (n_tiles, n_pass, 8, 4)`` of int32 ``{kind, a, n, flags}`` (as the
+    .cu reads it) and ``index (n_tiles, n_pass, 160)``, each packed
+    column's operator column or -1."""
+    nc = _SLOT_COLUMNS
+    S, K, rank = op.S, op.K, op.rank
+    n_uy = op.Ku + op.Kp
+    offZ = S + n_uy
+    offQ = offZ + K * rank
+    n_pass = -(-(rank + 1) // nc)
+    stores = [
+        ((_SLOT_STORE, off + j, min(16, width - j), 0),
+         range(S + off + j, S + off + min(j + 16, width)))
+        for off, width in ((0, op.Ku), (op.Ku, op.Kp))
+        for j in range(0, width, 16)
+    ]
+    programs = [stores[i : i + n_pass] for i in range(0, len(stores), n_pass)]
+    for k in range(K):
+        cols = [*range(offZ + k * rank, offZ + (k + 1) * rank), offQ + k]
+        programs.append([
+            ((_SLOT_COST, k, len(cols[c : c + nc]) - (c + nc > rank),
+              (c == 0) | 2 * (c + nc > rank)), cols[c : c + nc])
+            for c in range(0, rank + 1, nc)
+        ])
+    n_tiles = -(-len(programs) // _SLOTS)
+    table = np.zeros((n_tiles, n_pass, _SLOTS, 4), np.int32)
+    index = np.full((n_tiles, n_pass, _SLOTS, _SLOT_STRIDE), -1)
+    for i, program in enumerate(programs):
+        for p, (desc, cols) in enumerate(program):
+            table[i // _SLOTS, p, i % _SLOTS] = desc
+            index[i // _SLOTS, p, i % _SLOTS, : len(cols)] = cols
+    return table, index.reshape(n_tiles, n_pass, _SLOTS * _SLOT_STRIDE)
+
+
+class K1Pack(NamedTuple):
+    """The operator as K1 reads it: the state columns ``Gs (D, 4
+    ceil(S/4))`` and ``bs``, zero-padded; every other column in slot order
+    ``Gp (n_tiles, n_pass, D_pad, 160)`` (``D`` rounded up to 24, zero
+    past the last row and in unused slot columns) and ``bp (n_tiles,
+    n_pass, 160)``; and the slot table, int32 on the operator's
+    device."""
+
+    Gs: torch.Tensor
+    bs: torch.Tensor
+    Gp: torch.Tensor
+    bp: torch.Tensor
+    slots: torch.Tensor
+
+
+def k1_pack(op: FusedOperator) -> K1Pack:
+    """:class:`K1Pack` of ``op``, built once per operator and cached
+    with it."""
+    def build():
+        table, index = k1_slot_table(op)
+        n_tiles, n_pass = table.shape[:2]
+        S, width = op.S, op.G.shape[1]
+        D = op.G.shape[0]
+        G1 = F.pad(op.G, (0, 1))  # column `width` is zero: unused slots
+        b1 = F.pad(op.bias, (0, 1))
+        idx = torch.as_tensor(np.where(index < 0, width, index),
+                              device=op.G.device)
+        Gp = G1[:, idx.reshape(-1)].reshape(D, n_tiles, n_pass, -1)
+        Gp = F.pad(Gp.permute(1, 2, 0, 3), (0, 0, 0, -D % _DEPTH))
+        ldgs = 4 * -(-S // 4)
+        return K1Pack(
+            Gs=F.pad(op.G[:, :S], (0, ldgs - S)).contiguous(),
+            bs=F.pad(op.bias[:S], (0, ldgs - S)).contiguous(),
+            Gp=Gp.contiguous(),
+            bp=b1[idx].contiguous(),
+            slots=torch.as_tensor(table, device=op.G.device),
+        )
+
+    return _cached(op, "k1", build)
+
+
 def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
                   w_off: int = 0):
     """The fused rollout (same contract as
     :func:`fused_rollout_reference`).
 
     CPU tensors run the plain version. An operator without cost columns
-    goes to :func:`fused_rollout_nocost`. Other CUDA tensors launch the
-    kernel ``csrc/fused_rollout.cu`` (float32, contiguous) and add one to
-    ``fused_rollout.launches``; anything the kernel does not take,
-    operators too large for its shared-memory plan included, raises
-    before the launch."""
+    goes to :func:`fused_rollout_nocost`. Other CUDA tensors launch
+    kernel K1 of ``csrc/fused_rollout.cu`` (float32, contiguous): two
+    CUDA kernels on the current stream, the state recursion and then
+    every other column of all ``B x n_outer`` rows as one product, its
+    operator packed by :func:`k1_pack`. Each call that launches them adds
+    one to ``fused_rollout.launches``. Anything K1 does not take,
+    operators beyond :func:`rollout_plan` included, raises before the
+    launch."""
     if s0.device.type == "cpu":
         return fused_rollout_reference(op, s0, W, w_off)
     if op.K == 0:
         return fused_rollout_nocost(op, s0, W, w_off)
     _check_kernel_inputs(op, s0, W, w_off)
+    Bsz, n_outer, nw = W.shape
+    S = op.S
+    plan = rollout_plan(S, nw)
+    if not plan.fits:
+        raise ValueError(
+            f"operator too large for the fused rollout kernel's plan: "
+            f"S={S}, nw={nw}: its state pass needs {plan.state_bytes} "
+            f"bytes of shared memory, more than one block's "
+            f"{_SMEM_LIMIT}; use cost_mode='post'"
+        )
     from direct_data_driven_mpc_tpu_torch.ops import _kernels
 
     lib = _kernels.load("fused_rollout").lib
-    Bsz, n_outer, nw = W.shape
-    S = op.S
-    smem = lib.fused_rollout_smem_bytes(S, nw, op.K)
-    if smem == 0:
-        raise ValueError(
-            f"operator too large for the fused rollout kernel's "
-            f"shared-memory plan: S={S}, nw={nw} needs more than one "
-            f"block's {_SMEM_LIMIT} bytes; use cost_mode='post'"
-        )
+    pack = k1_pack(op)
     kw = dict(dtype=torch.float32, device=s0.device)
+    rows = torch.empty((Bsz, n_outer, -(-(nw + S) // _DEPTH) * _DEPTH),
+                       **kw)
     U = torch.empty((Bsz, n_outer, op.Ku), **kw)
     Y = torch.empty((Bsz, n_outer, op.Kp), **kw)
     C = torch.empty((Bsz, n_outer, op.K), **kw)
     s_fin = torch.empty((Bsz, S), **kw)
+    n_tiles, n_pass = pack.slots.shape[:2]
     with torch.cuda.device(s0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_rollout_launch(
-            op.G.data_ptr(), op.bias.data_ptr(), s0.data_ptr(),
-            W.data_ptr(), U.data_ptr(), Y.data_ptr(), C.data_ptr(),
-            s_fin.data_ptr(), Bsz, S, nw, op.Ku, op.Kp, op.K, op.rank,
-            n_outer, int(w_off), stream,
+            pack.Gs.data_ptr(), pack.bs.data_ptr(), pack.Gp.data_ptr(),
+            pack.bp.data_ptr(), pack.slots.data_ptr(), s0.data_ptr(),
+            W.data_ptr(), rows.data_ptr(), U.data_ptr(), Y.data_ptr(),
+            C.data_ptr(), s_fin.data_ptr(), Bsz, S, nw, op.Ku, op.Kp,
+            op.K, n_outer, int(w_off), n_tiles, n_pass, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -381,7 +531,8 @@ def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
     return U, Y, C, s_fin
 
 
-#: Kernel launches made by :func:`fused_rollout` in this process.
+#: Calls of :func:`fused_rollout` in this process that launched K1 (its
+#: state pass and its product, two CUDA kernels, count as one).
 fused_rollout.launches = 0
 
 
@@ -433,13 +584,13 @@ def fused_rollout_nocost(op: FusedOperator, s0: torch.Tensor,
 
     lib = _kernels.load("fused_rollout").lib
     # The kernel copies G in 16-byte pieces: rows padded to a multiple
-    # of 4 floats, on an aligned base.
+    # of 4 floats, on an aligned base; padded once per operator.
     width = op.G.shape[1]
     ldg = -(-width // 4) * 4
-    G = op.G
-    if ldg != width or G.data_ptr() % 16:
-        G = torch.zeros((G.shape[0], ldg), dtype=G.dtype, device=G.device)
-        G[:, :width] = op.G
+    aligned = ldg == width and op.G.data_ptr() % 16 == 0
+    G = op.G if aligned else _cached(
+        op, "k3", lambda: F.pad(op.G, (0, ldg - width)).contiguous()
+    )
     kw = dict(dtype=torch.float32, device=s0.device)
     U = torch.empty((Bsz, n_outer, op.Ku), **kw)
     Y = torch.empty((Bsz, n_outer, op.Kp), **kw)

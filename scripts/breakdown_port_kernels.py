@@ -1,6 +1,13 @@
-"""Where the time of the port's kernels K4 (``fused_admm``), K5
-(``fused_ladder``) and K3 (``fused_rollout_nocost``) goes, on one NVIDIA
-card, and what K3's float32 add per ring tile does for its accuracy.
+"""Where the time of the port's kernels K1 (``fused_rollout``), K4
+(``fused_admm``), K5 (``fused_ladder``) and K3 (``fused_rollout_nocost``)
+goes, on one NVIDIA card, and what K3's float32 add per ring tile does
+for its accuracy.
+
+K1 is timed as shipped, its two kernels apart (the state pass, the
+product) and with its cost epilogue, its U/Y stores or its FMA loop cut,
+beside one addmm of all its rows; with the device's busy share and time
+by kernel over the amortized rollouts; and at K = 10 and 25 solves per
+block beside 50 (the TPU's tuning constant, measured here, not changed).
 
 K4 and K5 are timed as shipped, at 0 and at twice their iterations (the
 fixed and per-iteration costs), and pinned to one block per SM; K3 with parts
@@ -10,7 +17,8 @@ difference between K4 or K5 and its plain version over batch sizes (30
 closed-loop steps): where cuBLAS sums the plain version's products as
 one FMA chain, the two are bit-equal.
 
-Run from the repository root: ``python3 scripts/breakdown_port_kernels.py``.
+Run from the repository root: ``python3 scripts/breakdown_port_kernels.py
+[k1] [k4] [k5] [k3] [batch]`` (all five parts when none is named).
 It builds patched copies of the kernel sources under
 ``build/breakdown/`` (one nvcc each, all together), swaps each in for
 the shipped library and times it with CUDA events at the main shapes of
@@ -27,6 +35,7 @@ card's name and power limit.
 
 from __future__ import annotations
 
+import re
 import subprocess
 import sys
 import time
@@ -59,6 +68,28 @@ OUT = ROOT / "build" / "breakdown"
 
 #: (library, tag, what is cut, patch) for every variant.
 VARIANTS = [
+    ("fused_rollout", "k1_state_only", "K1's state pass alone (the "
+     "product not launched)",
+     lambda t: t.replace(
+         "  const dim3 grid((unsigned)((R + PR_BM - 1) / PR_BM), n_tiles);",
+         "  return 0;\n"
+         "  const dim3 grid((unsigned)((R + PR_BM - 1) / PR_BM), n_tiles);")),
+    ("fused_rollout", "k1_product_only", "K1's product alone (the state "
+     "pass not launched; its scratch as the previous call left it)",
+     lambda t: t.replace("  fused_rollout_state_kernel<<<",
+                         "  if (false) fused_rollout_state_kernel<<<")),
+    ("fused_rollout", "k1_no_cost", "K1 without its cost epilogue",
+     lambda t: t.replace("} else if (d.x == SLOT_COST) {",
+                         "} else if (false) {")),
+    ("fused_rollout", "k1_no_stores", "K1 without storing U and Y",
+     lambda t: t.replace(
+         "*reinterpret_cast<float4*>(o + 4 * e) =\n"
+         "                make_float4(v[0], v[1], v[2], v[3]);", ";").replace(
+         "if (4 * e + q < d.z) o[4 * e + q] = v[q];", ";")),
+    ("fused_rollout", "k1_no_fma", "K1 without its product's FMA loop "
+     "(the ring, the state pass and the epilogues only)",
+     lambda t: t.replace("for (int h = 0; h < PR_BK / 4; ++h) {",
+                         "for (int h = 0; h < 0; ++h) {")),
     ("fused_rollout", "k3_no_product", "K3 without its product (no mma, "
      "so no fragment loads or splits either)",
      lambda t: t.replace('  asm("mma.sync', '  if (false) asm("mma.sync')),
@@ -194,6 +225,84 @@ def bit_equality_by_batch(dev) -> None:
                   f"u, y, state {diff:.3e}, s, w {diff_sw:.3e}", flush=True)
 
 
+def kernel_times(fn) -> dict:
+    """Device milliseconds per kernel name over ``fn()``
+    (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = (re.findall(r"\w+_kernel\b", e.name) or [e.name])[0]
+            out[name] = out.get(name, 0.0) + e.device_time_total / 1e3
+    return out
+
+
+def k1_breakdown(dev, smi, patched, what) -> None:
+    """K1 at four_tank_robust (B = 4096 x T = 400, K = 50): as shipped,
+    its two kernels apart and with parts cut, beside the one-addmm
+    yardstick; the device's busy share and the time by kernel over the
+    amortized rollouts; then the same rollout at K = 10 and 25 solves per
+    block."""
+    plant, ctrl = cs.build_four_tank_robust()
+    B, T = cs.B_MAIN, cs.T_MAIN
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Ws = draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+                          device=dev)
+    x0s, ups, yps = cs.scenario_batch(plant, ctrl, B, dev)
+    for K in (50, 25, 10):
+        bm = build_linear_engine(ctrl, plant.as_params(),
+                                 solves_per_block=K, device=dev)
+        op = fr._build_fused_operator(bm)
+        s0, W = fr._center_and_pack(bm, x0s, ups, yps, Ws, T // K, K, 0)
+        gflop = 2 * B * (T // K) * op.G.shape[0] * op.G.shape[1] / 1e9
+        run = lambda: fr.fused_rollout(op, s0, W)  # noqa: E731
+        amort = fr.make_amortized_run(bm, T)
+        t_amort, R = cs.time_amortized(amort, (x0s, ups, yps, Ws))
+        print(f"four_tank_robust K={K} (G {tuple(op.G.shape)}, "
+              f"{gflop:.3f} GFLOP, {fr.k1_pack(op).slots.shape[0]} column "
+              f"tiles): K1 {cs.cuda_ms(run, reps=20):.4f} ms per launch, "
+              f"amortized {t_amort:.4f} ms per rollout over R={R} [{smi}]",
+              flush=True)
+        if K != 50:
+            continue
+        rows = [(what[tag], lambda tag=tag: swapped(
+            "fused_rollout", patched[tag], run)) for tag in
+            ("k1_state_only", "k1_product_only", "k1_no_cost",
+             "k1_no_stores", "k1_no_fma")]
+        A = cs.k1_rows(op, s0, W)
+        rows += [("plain version (8 cuBLAS products + copies)",
+                  lambda: fr.fused_rollout_reference(op, s0, W)),
+                 (f"one addmm {tuple(A.shape)} x {tuple(op.G.shape)}",
+                  lambda: torch.addmm(op.bias, A, op.G))]
+        # Short launches are paced by the host (the wrapper's own ~0.06
+        # ms), so each row also gives the device time of its kernels.
+        for label, fn in rows:
+            dev_ms = sum(kernel_times(lambda: [fn() for _ in range(10)])
+                         .values()) / 10
+            print(f"four_tank_robust {label}: "
+                  f"{cs.cuda_ms(fn, reps=20):.4f} ms per call, device "
+                  f"{dev_ms:.4f} ms [{smi}]", flush=True)
+        del A
+        d_ms, w_ms = busy_share(lambda: amort(x0s, ups, yps, Ws, 20))
+        print(f"four_tank_robust device busy {d_ms:.2f} ms of {w_ms:.2f} "
+              f"ms wall over 20 amortized rollouts under the profiler "
+              f"(idle {1 - d_ms / w_ms:.1%}); against the amortized "
+              f"{t_amort:.4f} ms per rollout without it, idle "
+              f"{1 - d_ms / 20 / t_amort:.1%}", flush=True)
+        for name, ms in sorted(kernel_times(
+                lambda: amort(x0s, ups, yps, Ws, 20)).items(),
+                key=lambda kv: -kv[1]):
+            print(f"four_tank_robust 20 amortized rollouts, device time "
+                  f"{name}: {ms:.3f} ms", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: CUDA is not available; nothing run")
@@ -211,185 +320,195 @@ def main() -> int:
         patched = dict(pool.map(build, VARIANTS))
         list(shipped)
     what = {tag: text for _, tag, text, _ in VARIANTS}
+    paths = sys.argv[1:] or ["k1", "k4", "k5", "k3", "batch"]
 
-    # K4 at four_tank_convex: the rollout's own kernel arguments.
-    plant, ctrl, op, kw = cs.admm_config("four_tank_convex")
-    B, T = cs.B_ADMM, cs.T_ADMM
-    gen = torch.Generator(device=dev).manual_seed(0)
-    ins = (*cs.scenario_batch(plant, ctrl, B, dev),
-           draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
-                            device=dev))
-    store = {}
+    if "k1" in paths:
+        k1_breakdown(dev, smi, patched, what)
 
-    def keep4(*args):
-        store["args"] = args
-        return fa.fused_admm(*args)
+    if "k4" in paths:
+        # K4 at four_tank_convex: the rollout's own kernel arguments.
+        plant, ctrl, op, kw = cs.admm_config("four_tank_convex")
+        B, T = cs.B_ADMM, cs.T_ADMM
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ins = (*cs.scenario_batch(plant, ctrl, B, dev),
+               draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+                                device=dev))
+        store = {}
 
-    fa.make_fused_admm_rollout(plant.as_params(), op, 4, 2, 2, T,
-                               device=dev, rollout=keep4, **kw)(*ins)
-    args = list(store["args"])
-    n_iter = args[4]
+        def keep4(*args):
+            store["args"] = args
+            return fa.fused_admm(*args)
 
-    def k4(iters=n_iter):
-        return lambda: fa.fused_admm(*args[:4], iters, *args[5:])
+        fa.make_fused_admm_rollout(plant.as_params(), op, 4, 2, 2, T,
+                                   device=dev, rollout=keep4, **kw)(*ins)
+        args = list(store["args"])
+        n_iter = args[4]
 
-    for label, fn in (
-        ("K4 as shipped", k4()), ("K4, 0 iterations", k4(0)),
-        (f"K4, {2 * n_iter} iterations", k4(2 * n_iter)),
-        (what["k4_one_block_per_sm"], lambda: swapped(
-            "fused_admm", patched["k4_one_block_per_sm"], k4())),
-    ):
-        print(f"four_tank_convex {label}: "
-              f"{cs.cuda_ms(fn, reps=3):.3f} ms per launch [{smi}]",
+        def k4(iters=n_iter):
+            return lambda: fa.fused_admm(*args[:4], iters, *args[5:])
+
+        for label, fn in (
+            ("K4 as shipped", k4()), ("K4, 0 iterations", k4(0)),
+            (f"K4, {2 * n_iter} iterations", k4(2 * n_iter)),
+            (what["k4_one_block_per_sm"], lambda: swapped(
+                "fused_admm", patched["k4_one_block_per_sm"], k4())),
+        ):
+            print(f"four_tank_convex {label}: "
+                  f"{cs.cuda_ms(fn, reps=3):.3f} ms per launch [{smi}]",
+                  flush=True)
+        del store, args, ins
+
+    if "k5" in paths:
+        # K5 at four_tank_ladder: the rollout's own kernel arguments.
+        plant, ctrl, op, kw = cs.admm_config("four_tank_ladder")
+        B, T = cs.B_ADMM, cs.T_ADMM
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ins = (*cs.scenario_batch(plant, ctrl, B, dev),
+               draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+                                device=dev))
+        store = {}
+
+        def keep(*args):
+            store["args"] = args
+            return fl.fused_ladder(*args)
+
+        fl.make_fused_ladder_rollout(plant.as_params(), op, 4, 2, 2, T,
+                                     device=dev, rollout=keep, **kw)(*ins)
+        args = list(store["args"])
+        n_iter = args[4]
+
+        def k5(iters=n_iter):
+            return lambda: fl.fused_ladder(*args[:4], iters, *args[5:])
+
+        rows = [("K5 as shipped", k5()), ("K5, 0 iterations", k5(0)),
+                (f"K5, {2 * n_iter} iterations", k5(2 * n_iter))]
+        top = compute_box_admm_operator_np(
+            ctrl.spec, u_bounds=(-0.85, 0.85), rho=float(op["rhos"][-1])
+        )
+        ops4, dims4 = fa.build_fused_admm_operator(plant.as_params(), top, 4,
+                                                   2, 2, device=dev)
+        rows.append(("K4 at the top rung (no balancer, no re-staging)",
+                     lambda: fa.fused_admm(ops4, dims4, args[2], args[3],
+                                           n_iter)))
+        rows.append((what["k5_one_block_per_sm"], lambda: swapped(
+            "fused_admm", patched["k5_one_block_per_sm"], k5())))
+        for label, fn in rows:
+            print(f"four_tank_ladder {label}: "
+                  f"{cs.cuda_ms(fn, reps=3):.3f} ms per launch [{smi}]",
+                  flush=True)
+        amort = fl.make_amortized_ladder_run(plant.as_params(), op, 4, 2, 2,
+                                             T, device=dev, **kw)
+        d_ms, w_ms = busy_share(lambda: amort(*ins, 2))
+        print(f"four_tank_ladder device busy {d_ms:.1f} ms of {w_ms:.1f} ms "
+              f"wall over 2 amortized rollouts (idle {1 - d_ms / w_ms:.1%})",
               flush=True)
-    del store, args, ins
+        del store, args, ins
 
-    # K5 at four_tank_ladder: the rollout's own kernel arguments.
-    plant, ctrl, op, kw = cs.admm_config("four_tank_ladder")
-    B, T = cs.B_ADMM, cs.T_ADMM
-    gen = torch.Generator(device=dev).manual_seed(0)
-    ins = (*cs.scenario_batch(plant, ctrl, B, dev),
-           draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
-                            device=dev))
-    store = {}
+    if "k3" in paths:
+        # K3 at large_plant.
+        plant, ctrl = cs.build_large_plant()
+        K = 25
+        bm = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K,
+                                 device=dev)
+        op3 = fr._build_fused_operator(bm, include_cost=False)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        Ws = draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+                              device=dev)
+        x0s, ups, yps = cs.scenario_batch(plant, ctrl, B, dev)
+        s0, W = fr._center_and_pack(bm, x0s, ups, yps, Ws, T // K, K, 0)
+        U, Y, _, _ = fr.fused_rollout(op3, s0, W)
+        u_sys, y_sys = U.reshape(B, T, 10), Y.reshape(B, T, 10)
+        post = fr._make_post_cost_fn(bm, 1)
+        sw = torch.cat([W[:, 0], s0], dim=1)
 
-    def keep(*args):
-        store["args"] = args
-        return fl.fused_ladder(*args)
+        def k3(tag=None):
+            run = lambda: fr.fused_rollout(op3, s0, W)  # noqa: E731
+            return run if tag is None else (
+                lambda: swapped("fused_rollout", patched[tag], run))
 
-    fl.make_fused_ladder_rollout(plant.as_params(), op, 4, 2, 2, T,
-                                 device=dev, rollout=keep, **kw)(*ins)
-    args = list(store["args"])
-    n_iter = args[4]
+        # The same costs as one window unfold and a matrix product: window
+        # slot j of channel c times [L | q] row (j, c), theta's layout.
+        n, m, p = ups.shape[1], 10, 10
+        P = bm.cost_P.double().cpu().numpy()
+        evals, V = np.linalg.eigh(0.5 * (P + P.T))
+        keep = evals > 1e-6 * evals.max()  # the post-pass's truncation
+        L = V[:, keep] * np.sqrt(evals[keep])
+        Lq = np.concatenate([L, bm.cost_q.double().cpu().numpy()[:, None]], 1)
+        rank = L.shape[1]
+        Kz = np.concatenate([Lq[: n * m].reshape(n, m, -1),
+                             Lq[n * m:].reshape(n, p, -1)], 1)  # (n, C, r+1)
+        Wmat = torch.as_tensor(Kz.transpose(1, 0, 2).reshape(-1, rank + 1),
+                               dtype=torch.float32, device=dev)  # (C*n, r+1)
+        r_c = float(bm.cost_r)
+        x_full = torch.cat([torch.cat([ups, u_sys], 1),
+                            torch.cat([yps, y_sys], 1)], 2).transpose(1, 2)
 
-    def k5(iters=n_iter):
-        return lambda: fl.fused_ladder(*args[:4], iters, *args[5:])
+        def unfold_post():
+            out = torch.empty((B, T), device=dev)
+            for c0 in range(0, B, 2048):
+                win = x_full[c0:c0 + 2048].unfold(2, n, 1)[:, :, :T]
+                win = win.permute(0, 2, 1, 3).reshape(-1, (m + p) * n)
+                z = win @ Wmat
+                out[c0:c0 + 2048] = ((z[:, :rank] * z[:, :rank]).sum(1)
+                                     + z[:, rank] + r_c).view(-1, T)
+            return out
 
-    rows = [("K5 as shipped", k5()), ("K5, 0 iterations", k5(0)),
-            (f"K5, {2 * n_iter} iterations", k5(2 * n_iter))]
-    top = compute_box_admm_operator_np(
-        ctrl.spec, u_bounds=(-0.85, 0.85), rho=float(op["rhos"][-1])
-    )
-    ops4, dims4 = fa.build_fused_admm_operator(plant.as_params(), top, 4,
-                                               2, 2, device=dev)
-    rows.append(("K4 at the top rung (no balancer, no re-staging)",
-                 lambda: fa.fused_admm(ops4, dims4, args[2], args[3],
-                                       n_iter)))
-    rows.append((what["k5_one_block_per_sm"], lambda: swapped(
-        "fused_admm", patched["k5_one_block_per_sm"], k5())))
-    for label, fn in rows:
-        print(f"four_tank_ladder {label}: "
-              f"{cs.cuda_ms(fn, reps=3):.3f} ms per launch [{smi}]",
+        ref = post(ups, yps, u_sys, y_sys)
+        print(f"large_plant unfold yardstick vs post-pass: max |diff| "
+              f"{float((unfold_post() - ref).abs().max()):.3e}", flush=True)
+        rows = [("K3 as shipped", k3()),
+                ("plain version (16 cuBLAS products + copies)",
+                 lambda: fr.fused_rollout_reference(op3, s0, W)),
+                ("one per-block cuBLAS product (addmm)",
+                 lambda: torch.addmm(op3.bias, sw, op3.G)),
+                ("cost post-pass (F.conv1d, TF32 off)",
+                 lambda: post(ups, yps, u_sys, y_sys)),
+                ("the same costs by window unfold + one SGEMM per 2048 "
+                 "scenarios", unfold_post)]
+        rows += [(what[tag], k3(tag)) for tag in
+                 ("k3_no_product", "k3_no_split", "k3_no_staging",
+                  "k3_no_stores", "k3_tensor_core_sum", "k3_32_rows")]
+        for label, fn in rows:
+            print(f"large_plant {label}: {cs.cuda_ms(fn, reps=3):.3f} ms "
+                  f"[{smi}]", flush=True)
+        # K = 50 solves per block, where the 64-row plan does not fit and
+        # K3 runs its 32-row plan (8 blocks of 50 solves).
+        bm50 = build_linear_engine(ctrl, plant.as_params(),
+                                   solves_per_block=50, device=dev)
+        op50 = fr._build_fused_operator(bm50, include_cost=False)
+        s50, W50 = fr._center_and_pack(bm50, x0s, ups, yps, Ws, T // 50,
+                                       50, 0)
+        print(f"large_plant K=50 plan {fr.nocost_plan(op50.S, op50.nw)}",
               flush=True)
-    amort = fl.make_amortized_ladder_run(plant.as_params(), op, 4, 2, 2,
-                                         T, device=dev, **kw)
-    d_ms, w_ms = busy_share(lambda: amort(*ins, 2))
-    print(f"four_tank_ladder device busy {d_ms:.1f} ms of {w_ms:.1f} ms "
-          f"wall over 2 amortized rollouts (idle {1 - d_ms / w_ms:.1%})",
-          flush=True)
-    del store, args, ins
-
-    # K3 at large_plant.
-    plant, ctrl = cs.build_large_plant()
-    K = 25
-    bm = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K,
-                             device=dev)
-    op3 = fr._build_fused_operator(bm, include_cost=False)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    Ws = draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
-                          device=dev)
-    x0s, ups, yps = cs.scenario_batch(plant, ctrl, B, dev)
-    s0, W = fr._center_and_pack(bm, x0s, ups, yps, Ws, T // K, K, 0)
-    U, Y, _, _ = fr.fused_rollout(op3, s0, W)
-    u_sys, y_sys = U.reshape(B, T, 10), Y.reshape(B, T, 10)
-    post = fr._make_post_cost_fn(bm, 1)
-    sw = torch.cat([W[:, 0], s0], dim=1)
-
-    def k3(tag=None):
-        run = lambda: fr.fused_rollout(op3, s0, W)  # noqa: E731
-        return run if tag is None else (
-            lambda: swapped("fused_rollout", patched[tag], run))
-
-    # The same costs as one window unfold and a matrix product: window
-    # slot j of channel c times [L | q] row (j, c), theta's layout.
-    n, m, p = ups.shape[1], 10, 10
-    P = bm.cost_P.double().cpu().numpy()
-    evals, V = np.linalg.eigh(0.5 * (P + P.T))
-    keep = evals > 1e-6 * evals.max()  # the post-pass's truncation
-    L = V[:, keep] * np.sqrt(evals[keep])
-    Lq = np.concatenate([L, bm.cost_q.double().cpu().numpy()[:, None]], 1)
-    rank = L.shape[1]
-    Kz = np.concatenate([Lq[: n * m].reshape(n, m, -1),
-                         Lq[n * m:].reshape(n, p, -1)], 1)  # (n, C, r+1)
-    Wmat = torch.as_tensor(Kz.transpose(1, 0, 2).reshape(-1, rank + 1),
-                           dtype=torch.float32, device=dev)  # (C*n, r+1)
-    r_c = float(bm.cost_r)
-    x_full = torch.cat([torch.cat([ups, u_sys], 1),
-                        torch.cat([yps, y_sys], 1)], 2).transpose(1, 2)
-
-    def unfold_post():
-        out = torch.empty((B, T), device=dev)
-        for c0 in range(0, B, 2048):
-            win = x_full[c0:c0 + 2048].unfold(2, n, 1)[:, :, :T]
-            win = win.permute(0, 2, 1, 3).reshape(-1, (m + p) * n)
-            z = win @ Wmat
-            out[c0:c0 + 2048] = ((z[:, :rank] * z[:, :rank]).sum(1)
-                                 + z[:, rank] + r_c).view(-1, T)
-        return out
-
-    ref = post(ups, yps, u_sys, y_sys)
-    print(f"large_plant unfold yardstick vs post-pass: max |diff| "
-          f"{float((unfold_post() - ref).abs().max()):.3e}", flush=True)
-    rows = [("K3 as shipped", k3()),
-            ("plain version (16 cuBLAS products + copies)",
-             lambda: fr.fused_rollout_reference(op3, s0, W)),
-            ("one per-block cuBLAS product (addmm)",
-             lambda: torch.addmm(op3.bias, sw, op3.G)),
-            ("cost post-pass (F.conv1d, TF32 off)",
-             lambda: post(ups, yps, u_sys, y_sys)),
-            ("the same costs by window unfold + one SGEMM per 2048 "
-             "scenarios", unfold_post)]
-    rows += [(what[tag], k3(tag)) for tag in
-             ("k3_no_product", "k3_no_split", "k3_no_staging",
-              "k3_no_stores", "k3_tensor_core_sum", "k3_32_rows")]
-    for label, fn in rows:
-        print(f"large_plant {label}: {cs.cuda_ms(fn, reps=3):.3f} ms "
+        for label, fn in (
+            ("K3 at K=50 (32-row plan, as shipped)",
+             lambda: fr.fused_rollout(op50, s50, W50)),
+            ("plain version at K=50 (8 cuBLAS products + copies)",
+             lambda: fr.fused_rollout_reference(op50, s50, W50)),
+        ):
+            print(f"large_plant {label}: {cs.cuda_ms(fn, reps=3):.3f} ms "
+                  f"[{smi}]", flush=True)
+        del bm50, op50, s50, W50
+        # What the float32 add per ring tile buys: the largest |dU| of K3
+        # and of K3 summing in the tensor cores against the plain version.
+        want = fr.fused_rollout_reference(op3, s0, W)[0]
+        for label, fn in (("K3 as shipped", k3()),
+                          (what["k3_tensor_core_sum"],
+                           k3("k3_tensor_core_sum"))):
+            print(f"large_plant {label}: max |dU| against the plain version "
+                  f"{float((fn()[0] - want).abs().max()):.3e}", flush=True)
+        torch.backends.cudnn.benchmark = True
+        print(f"large_plant cost post-pass with cudnn.benchmark: "
+              f"{cs.cuda_ms(lambda: post(ups, yps, u_sys, y_sys), 3):.3f} ms "
               f"[{smi}]", flush=True)
-    # K = 50 solves per block, where the 64-row plan does not fit and K3
-    # runs its 32-row plan (8 blocks of 50 solves).
-    bm50 = build_linear_engine(ctrl, plant.as_params(), solves_per_block=50,
-                               device=dev)
-    op50 = fr._build_fused_operator(bm50, include_cost=False)
-    s50, W50 = fr._center_and_pack(bm50, x0s, ups, yps, Ws, T // 50, 50, 0)
-    print(f"large_plant K=50 plan {fr.nocost_plan(op50.S, op50.nw)}",
-          flush=True)
-    for label, fn in (
-        ("K3 at K=50 (32-row plan, as shipped)",
-         lambda: fr.fused_rollout(op50, s50, W50)),
-        ("plain version at K=50 (8 cuBLAS products + copies)",
-         lambda: fr.fused_rollout_reference(op50, s50, W50)),
-    ):
-        print(f"large_plant {label}: {cs.cuda_ms(fn, reps=3):.3f} ms "
-              f"[{smi}]", flush=True)
-    del bm50, op50, s50, W50
-    # What the float32 add per ring tile buys: the largest |dU| of K3 and
-    # of K3 summing in the tensor cores against the plain version.
-    want = fr.fused_rollout_reference(op3, s0, W)[0]
-    for label, fn in (("K3 as shipped", k3()),
-                      (what["k3_tensor_core_sum"], k3("k3_tensor_core_sum"))):
-        print(f"large_plant {label}: max |dU| against the plain version "
-              f"{float((fn()[0] - want).abs().max()):.3e}", flush=True)
-    torch.backends.cudnn.benchmark = True
-    print(f"large_plant cost post-pass with cudnn.benchmark: "
-          f"{cs.cuda_ms(lambda: post(ups, yps, u_sys, y_sys), 3):.3f} ms "
-          f"[{smi}]", flush=True)
-    torch.backends.cudnn.benchmark = False
-    amort = fr.make_amortized_run(bm, T, cost_mode="post")
-    d_ms, w_ms = busy_share(lambda: amort(x0s, ups, yps, Ws, 2))
-    print(f"large_plant device busy {d_ms:.1f} ms of {w_ms:.1f} ms wall "
-          f"over 2 amortized rollouts (idle {1 - d_ms / w_ms:.1%})",
-          flush=True)
-    bit_equality_by_batch(dev)
+        torch.backends.cudnn.benchmark = False
+        amort = fr.make_amortized_run(bm, T, cost_mode="post")
+        d_ms, w_ms = busy_share(lambda: amort(x0s, ups, yps, Ws, 2))
+        print(f"large_plant device busy {d_ms:.1f} ms of {w_ms:.1f} ms wall "
+              f"over 2 amortized rollouts (idle {1 - d_ms / w_ms:.1%})",
+              flush=True)
+    if "batch" in paths:
+        bit_equality_by_batch(dev)
     return 0
 
 

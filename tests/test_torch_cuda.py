@@ -106,6 +106,10 @@ def _packed(golden, bm, n_steps, batch, device, seed=0):
 )
 def test_kernel_matches_plain_version(cuda, golden, n_steps, K, batch,
                                       w_off):
+    """K1 against its plain version: U, Y and the final carry bit-equal
+    at the main shape, where the kernel and cuBLAS both sum each value
+    as one FMA chain, else within 2e-5 (cuBLAS may take another order at
+    small batches); costs at rtol 1e-3, atol 1e-5."""
     bm = build_linear_engine(_controller(golden), PLANT,
                              solves_per_block=K, device=cuda)
     op = fr._build_fused_operator(bm)
@@ -115,9 +119,75 @@ def test_kernel_matches_plain_version(cuda, golden, n_steps, K, batch,
     torch.cuda.synchronize()
     assert fr.fused_rollout.launches == before + 1
     U, Y, C, s_fin = fr.fused_rollout_reference(op, s0, W, w_off=w_off)
+    atol = 0.0 if batch == 4096 else 2e-5
     for a, b in zip((got[0], got[1], got[3]), (U, Y, s_fin)):
-        torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+        torch.testing.assert_close(a, b, rtol=0, atol=atol)
     torch.testing.assert_close(got[2], C, rtol=1e-3, atol=1e-5)
+
+
+def test_rollout_plan_matches_library(cuda):
+    """``rollout_plan`` mirrors the library's K1 plan (both kernels'
+    threads and shared memory, and whether it fits) over states of 1 to
+    210 and 0 to 1700 noise rows."""
+    import ctypes
+
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("fused_rollout").lib
+    plan = (ctypes.c_int * 7)()
+    for S in (1, 3, 4, 5, 20, 33, 64, 128, 210):
+        for nw in (0, 1, 16, 100, 250, 1000, 1600, 1700):
+            fits = lib.fused_rollout_plan(S, nw, plan)
+            want = fr.rollout_plan(S, nw)
+            assert tuple(plan) == tuple(want), (S, nw)
+            assert bool(fits) == want.fits, (S, nw)
+
+
+def test_k1_kernels_blocks_per_sm(cuda):
+    """At the four-tank shape (S = 20, nw = 100) K1's product runs two
+    blocks per SM with at most 255 registers a thread and nothing
+    spilled; its state pass launches (at least one block per SM), with
+    nothing spilled."""
+    import ctypes
+
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("fused_rollout").lib
+    assert lib.fused_rollout_blocks_per_sm(20, 100, 1) >= 2
+    assert lib.fused_rollout_blocks_per_sm(20, 100, 0) >= 1
+    for which in (0, 1):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        assert lib.fused_rollout_kernel_attributes(
+            which, ctypes.byref(regs), ctypes.byref(local)) == 0
+        assert 0 < regs.value <= 255
+        assert local.value == 0, which
+
+
+@pytest.mark.parametrize("batch,n_steps,w_off", [(256, 50, 1), (37, 75, 2)])
+def test_k1_large_plant_with_cost_columns(cuda, batch, n_steps, w_off):
+    """K1 reaches large_plant's operator with its cost columns (460 rows,
+    rank 200: 12 passes per slot), which the previous plan did not take:
+    U, Y and the final carry within 1e-4 of the plain version (the bar of
+    large_plant, whose float32 paths sit 2e-5 to 3e-5 from float64),
+    costs, each a small difference of terms near 1e3, at rtol 1e-3, atol
+    1e-2."""
+    plant, ctrl, bm, _ = _large_plant_op(cuda)
+    op = fr._build_fused_operator(bm)
+    assert (op.S, op.nw, op.rank) == (210, 250, 200)
+    assert fr.rollout_plan(op.S, op.nw).fits
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    n_outer = math.ceil(n_steps / 25)
+    s0 = 0.5 * (torch.rand((batch, op.S), generator=gen, device=cuda) - 0.5)
+    W = 0.002 * (torch.rand((batch, n_outer, op.nw), generator=gen,
+                            device=cuda) - 0.5)
+    before = fr.fused_rollout.launches
+    got = fr.fused_rollout(op, s0, W, w_off=w_off)
+    torch.cuda.synchronize()
+    assert fr.fused_rollout.launches == before + 1
+    want = fr.fused_rollout_reference(op, s0, W, w_off=w_off)
+    for a, b in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1e-2)
 
 
 def test_kernel_matches_golden(cuda, golden):
@@ -667,11 +737,12 @@ def test_nocost_kernel_ragged_tile(cuda, golden, plant_name, w_off):
 
 
 def test_nocost_and_k1_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    """K1 raises before the launch on an operator too large for its
-    shared-memory plan (large_plant with cost columns: 460 rows); K3
-    refuses an operator with cost columns, bad inputs and an operator
-    beyond both of its plans (1000 noise rows: even the 32-scenario plan
-    needs 233,728 bytes, more than a block's 232,448)."""
+    """K1 raises before the launch on an operator too large for its plan
+    (large_plant's state with cost columns and 1600 noise rows: the state
+    pass needs 709,520 bytes); K3 refuses an operator with cost
+    columns, bad inputs and an operator beyond both of its plans (1000
+    noise rows: even the 32-scenario plan needs 233,728 bytes, more than
+    a block's 232,448)."""
     plant, ctrl, bm, op = _large_plant_op(cuda)
     full = fr._build_fused_operator(bm)
     B, n_outer = 8, 2
@@ -680,9 +751,14 @@ def test_nocost_and_k1_wrappers_reject_what_the_kernels_do_not_take(cuda):
     nw = 1000
     wide = op._replace(G=torch.zeros(nw + op.S, op.G.shape[1], device=cuda),
                        nw=nw)
+    nw_k1 = 1600
+    wide_k1 = full._replace(
+        G=torch.zeros(nw_k1 + op.S, full.G.shape[1], device=cuda), nw=nw_k1)
+    assert fr.rollout_plan(op.S, nw_k1).state_bytes == 709520
     before = (fr.fused_rollout.launches, fr.fused_rollout_nocost.launches)
-    with pytest.raises(ValueError, match="S=210, nw=250"):
-        fr.fused_rollout(full, s0, W)
+    with pytest.raises(ValueError, match="S=210, nw=1600"):
+        fr.fused_rollout(wide_k1, s0, torch.zeros(B, n_outer, nw_k1,
+                                                  device=cuda))
     with pytest.raises(ValueError, match="without cost columns"):
         fr.fused_rollout_nocost(full, s0, W)
     with pytest.raises(ValueError, match="float32"):

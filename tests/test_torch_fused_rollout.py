@@ -251,3 +251,167 @@ def test_tracking_maps_rejected(setup):
     bm = _carry(_jax_map(jplant, jctrl, 4))._replace(n_r=4)
     with pytest.raises(NotImplementedError, match="tracking"):
         fr.make_fused_batched_rollout(bm, 16)
+
+
+def _old_k1_smem_bytes(S, nw, K):
+    """Shared memory of the previous K1 block (one 32-scenario block per
+    SM): the transposed [w | s] tile, two G chunks of 128 columns, the
+    output stage, s_next and the running costs."""
+    D = nw + S
+    return 4 * (D * 36 + 2 * D * 128 + 32 * 129 + 32 * S + 32 * K)
+
+
+@pytest.mark.parametrize("S,nw,plan", [
+    # four_tank_robust's main shape
+    (20, 100, (16, 96, 25920, 128, 8, 17, 91008, True)),
+    # the smallest state, no noise rows
+    (1, 0, (16, 32, 152, 128, 8, 17, 91008, True)),
+    # large_plant with cost columns (K = 25), which the old plan refused
+    (210, 250, (16, 256, 180320, 128, 8, 17, 91008, True)),
+    # the widest noise that still fits at S = 210, and one row more
+    (210, 382, (16, 256, 232064, 128, 8, 17, 91008, True)),
+    (210, 383, (16, 256, 232456, 128, 8, 17, 91008, False)),
+])
+def test_rollout_plan_pins_main_shape_and_edges(S, nw, plan):
+    """``rollout_plan`` (the library's plan, mirrored): the state pass's
+    scenarios, threads and bytes, then the product's rows, slots,
+    columns per slot and bytes, and whether the plan fits."""
+    got = fr.rollout_plan(S, nw)
+    assert (*got, got.fits) == plan
+
+
+def test_k1_plan_keeps_the_old_reach():
+    """Every (S, nw, K) that the previous K1 plan took (one block within
+    232,448 bytes) has a plan."""
+    taken = 0
+    for S in range(1, 200, 3):
+        for nw in range(0, 200, 3):
+            for K in (1, 8, 50, 100):
+                if _old_k1_smem_bytes(S, nw, K) <= 232448:
+                    taken += 1
+                    assert fr.rollout_plan(S, nw).fits, (S, nw, K)
+    assert taken > 1000
+
+
+def _slot_columns(op, table):
+    """The packed column of every U, Y, Z and q column, read from the slot
+    table as the kernel reads it: kind 1 stores ``n`` columns of ``[U |
+    Y]`` from ``a``; kind 2 takes ``n`` more Z columns of solve ``a``
+    (restarting at flag 1) and, at flag 2, its q column next."""
+    n_tiles, n_pass = table.shape[:2]
+    uy = np.full(op.Ku + op.Kp, -1)
+    z = np.full((op.K, op.rank), -1)
+    q = np.full(op.K, -1)
+    seen = np.zeros(op.K, int)
+    for t in range(n_tiles):
+        for p in range(n_pass):
+            for sl in range(8):
+                kind, a, n, flags = table[t, p, sl]
+                base = ((t * n_pass + p) * 8 + sl) * 20
+                if kind == 1:
+                    assert (uy[a : a + n] < 0).all() and 0 < n <= 16
+                    assert a % 16 == 0 or (a - op.Ku) % 16 == 0
+                    uy[a : a + n] = base + np.arange(n)
+                elif kind == 2:
+                    if flags & 1:
+                        seen[a] = 0
+                    z[a, seen[a] : seen[a] + n] = base + np.arange(n)
+                    seen[a] += n
+                    if flags & 2:
+                        q[a] = base + n
+                else:
+                    assert kind == 0
+    assert (uy >= 0).all() and (z >= 0).all() and (q >= 0).all()
+    return uy, z, q
+
+
+def _packed_rollout(op, s0, W, w_off):
+    """K1's plan in plain arithmetic: the recursion through the packed
+    state columns, then one product of all B x n_outer rows [w | s_t]
+    with the packed operator, whose columns go back to U, Y and the costs
+    through the slot table."""
+    pack = fr.k1_pack(op)
+    Bsz, n_outer, nw = W.shape
+    S, D = op.S, nw + op.S
+    states, s = [], s0
+    for t in range(n_outer):
+        states.append(s)
+        s = torch.cat([W[:, (t + w_off) % n_outer], s], 1) \
+            @ pack.Gs[:, :S] + pack.bs[:S]
+    rows = torch.cat([W[:, (torch.arange(n_outer) + w_off) % n_outer],
+                      torch.stack(states, 1)], 2).reshape(-1, D)
+    G = pack.Gp[:, :, :D].permute(2, 0, 1, 3).reshape(D, -1)
+    out = rows @ G + pack.bp.reshape(-1)
+    uy, z, q = _slot_columns(op, pack.slots.numpy())
+    zz = out[:, z.reshape(-1)].reshape(len(out), op.K, op.rank)
+    return (out[:, uy[: op.Ku]].reshape(Bsz, n_outer, op.Ku),
+            out[:, uy[op.Ku :]].reshape(Bsz, n_outer, op.Kp),
+            ((zz * zz).sum(-1) + out[:, q]).reshape(Bsz, n_outer, op.K), s)
+
+
+def test_k1_packed_operator_reproduces_plain_version(setup):
+    """K1's packed operator and slot table, through plain arithmetic,
+    give U, Y, C and the final carry of ``fused_rollout_reference`` bit
+    for bit (the four-tank controller, K = 8, B = 16, T = 37 with its
+    zero-padded last block, w_off = 2): 2 column tiles of 8 slots, one
+    pass."""
+    jplant, jctrl, _, rng = setup
+    n_steps, K = 37, 8
+    bm = _carry(_jax_map(jplant, jctrl, K))
+    op = fr._build_fused_operator(bm)
+    n_outer = -(-n_steps // K)
+    s0, W = fr._center_and_pack(
+        bm, *_t(_inputs(jplant, jctrl, rng, n_steps)), n_outer, K,
+        n_outer * K - n_steps,
+    )
+    assert fr.k1_pack(op).slots.shape == (2, 1, 8, 4)
+    got = _packed_rollout(op, s0, W, 2)
+    want = fr.fused_rollout_reference(op, s0, W, w_off=2)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("S,nw,Ku,Kp,K,rank,n_pass", [
+    (21, 13, 7, 9, 3, 40, 3),   # three passes of 17 per solve
+    (5, 6, 3, 40, 2, 33, 2),    # 34 columns per solve: a lone q chunk
+    (9, 4, 17, 17, 4, 0, 1),    # rank 0: the cost is its q-part
+])
+def test_k1_slot_table_covers_every_column_once(S, nw, Ku, Kp, K, rank,
+                                                n_pass):
+    """Every U, Y, Z and q column of an operator lands in exactly one
+    packed column (one slot per solve, ``ceil((rank + 1) / 17)``
+    passes), and the packed operator, through plain arithmetic, gives
+    the plain version's results bit for bit."""
+    g = torch.Generator().manual_seed(S)
+    width = S + Ku + Kp + K * rank + K
+    G = torch.randn((nw + S, width), generator=g, dtype=torch.float64)
+    G[:, :S] *= 0.5 / (nw + S) ** 0.5
+    op = fr.FusedOperator(G, torch.randn(width, generator=g,
+                                         dtype=torch.float64),
+                          S, nw, Ku, Kp, K, rank)
+    table, index = fr.k1_slot_table(op)
+    assert table.shape[1] == n_pass
+    used = np.sort(index[index >= 0])
+    np.testing.assert_array_equal(used, np.arange(S, width))
+    s0 = torch.randn((5, S), generator=g, dtype=torch.float64)
+    W = torch.randn((5, 3, nw), generator=g, dtype=torch.float64)
+    got = _packed_rollout(op, s0, W, 1)
+    want = fr.fused_rollout_reference(op, s0, W, w_off=1)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_operator_packs_are_cached_until_the_operator_changes(setup):
+    """K1's pack (and K3's padded G, through the same cache) is built
+    once per operator, and again after G is changed in place."""
+    jplant, jctrl, _, _ = setup
+    op = fr._build_fused_operator(_carry(_jax_map(jplant, jctrl, 8)))
+    pack = fr.k1_pack(op)
+    assert fr.k1_pack(op) is pack
+    calls = []
+    build = lambda: calls.append(1) or len(calls)  # noqa: E731
+    assert fr._cached(op, "k3", build) == fr._cached(op, "k3", build) == 1
+    op.G.mul_(1.0)
+    assert fr._cached(op, "k3", build) == 2
+    assert fr.k1_pack(op) is not pack
+    torch.testing.assert_close(fr.k1_pack(op).Gp, pack.Gp, rtol=0, atol=0)
