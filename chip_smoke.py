@@ -93,6 +93,38 @@ its no-cost kernel, whose products run on the tensor cores as 3xTF32):
     on its own, and the per-block cuBLAS product, whose 16 calls are
     K3's library yardstick.
 
+And ``bench.py``'s ``tracking`` (``four_tank_tracking``: the main
+path's controller and batch, B = 4096 x T = 400, with a setpoint channel
+of 4 lanes, K = 50, and the 4-phase retarget schedule: the baked
+setpoints, then 0.85 x them, in alternation every 2 outer blocks)
+through K1, run right after phase 7: once the post-pass of phase 19 has
+run a cuDNN convolution, ``torch.profiler`` sees no device activity in
+this process (measured on the H100), and phases 23 and 26 read it:
+
+22. host build: the tracking operator and block map, with their set-up
+    seconds; K1's plan and slot table at this shape (rank 20: two
+    passes);
+23. main path: ``make_fused_batched_rollout(bm_t, T)(..., setpoints)``
+    on the card, with launch counts; K1 vs its plain version (U, Y and
+    s_fin bit-equal where cuBLAS sums as one FMA chain, else atol 2e-5
+    with the reason printed; costs rtol 1e-3, atol 1e-5), vs the classic
+    engine (K = 100, atol 2e-5) and vs the generic loop with a
+    ``TrackingMap`` and the schedule per solve (64 scenarios, u atol
+    1e-4);
+24. float64 truth: K1's max |du| against the plain version in float64
+    (64 scenarios) below 1e-4, and ``bench.py``'s retarget probe: y(T)
+    within 0.05 of 0.85 x y_s;
+25. edges: the constant schedule r_bar against the plain map of phase 4
+    (U, Y, s_fin bit-equal in K1; in the plain version bit-equal where
+    cuBLAS keeps one FMA chain), a per-scenario schedule, a ragged batch,
+    T = 37 at K = 8, the amortized rotation against ``torch.roll`` of
+    noise and setpoint lanes together, and the classic engine's in-scan
+    noise at full width (bounded, finite, equal to the explicit-noise run
+    fed the same draws);
+26. timing: K1, its plain version and the classic engine, in turns, the
+    one-addmm yardstick, and the device's idle share over the amortized
+    rollouts (``torch.profiler``).
+
 Any failed check raises. Run from the repository root:
 ``python3 chip_smoke.py``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the kernels'
@@ -296,6 +328,30 @@ def time_amortized(run, args, seconds=1.0, min_reps=8):
     per = timed(2)  # warm-up, and a first estimate
     R = max(min_reps, min(4000, math.ceil(seconds * 1e3 / per)))
     return timed(R), R
+
+
+def busy_share(fn) -> tuple:
+    """``(device ms, wall ms, device ms by kernel name)`` of ``fn()``
+    under ``torch.profiler``: the device's own activities (one stream,
+    so they do not overlap) against the host's wall clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = (re.findall(r"\w+_kernel\b", e.name) or [e.name])[0]
+            by_name[name] = by_name.get(name, 0.0) + e.device_time_total / 1e3
+    if not by_name:
+        raise AssertionError("torch.profiler saw no device activity")
+    return sum(by_name.values()), wall, by_name
 
 
 def admm_config(name: str):
@@ -1104,6 +1160,343 @@ def k1_report(op, s0, W) -> int:
     return len(names)
 
 
+def equal_or_close(name, got, want, why) -> float:
+    """Max |got - want|: 0 where the two are bit-equal, else within
+    ``ATOL``, with ``why`` printed."""
+    err = max_abs(got, want)
+    if err:
+        check_close(name, got, want, ATOL)
+        log(f"  {name}: not bit-equal, max |diff| {err:.3e} within atol "
+            f"{ATOL}: {why}")
+    return err
+
+
+def tracking_phases(dev, smi, main) -> dict:
+    """Phases 22-26: ``four_tank_tracking`` through kernel K1, with the
+    main path's controller, batch and plain-map rollout in ``main``.
+    Returns K1's record at this configuration for the ``kernels``
+    line."""
+    from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
+        build_tracking_engine,
+        make_linear_batched_rollout,
+    )
+    from direct_data_driven_mpc_tpu_torch.control.loop import (
+        closed_loop_rollout,
+    )
+    from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        draw_block_noise,
+    )
+
+    plant, ctrl = main["plant"], main["ctrl"]
+    x0s, ups, yps, Ws = main["inputs"]
+    B, T = B_MAIN, T_MAIN
+    cublas = ("cuBLAS sums the product in another order than one FMA "
+              "chain at this shape")
+    # 22. Host build: the tracking operator and block map.
+    t0 = time.perf_counter()
+    top = ctrl.tracking_operator()
+    t_op = time.perf_counter() - t0
+    n_r = ctrl.m + ctrl.p
+    K = fr.suggest_solves_per_block(plant.get_system_order(), ctrl.n,
+                                    ctrl.m, ctrl.p, n_steps=T, n_r=n_r)
+    t0 = time.perf_counter()
+    bm_t = build_tracking_engine(ctrl, plant.as_params(),
+                                 solves_per_block=K, device=dev)
+    t_map = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = fr._build_fused_operator(bm_t)
+    pack = fr.k1_pack(op)
+    t_fused = time.perf_counter() - t0
+    n_tiles, n_pass = pack.slots.shape[:2]
+    D = op.G.shape[0]
+    log(f"tracking host build: four_tank_tracking, tracking operator "
+        f"U_r {top['U_r'].shape} (feasible {top['feasible']}) in "
+        f"{t_op:.3f} s; block map K={K}, n_r={bm_t.n_r}, r_bar "
+        f"{bm_t.r_bar.tolist()} in {t_map:.2f} s; fused operator G "
+        f"{tuple(op.G.shape)} (S={op.S}, nw={op.nw}, rank {op.rank}) and "
+        f"K1's pack in {t_fused:.2f} s")
+    if (K, op.S, op.nw, op.rank, op.G.shape[1]) != (50, 20, 104, 20, 1270):
+        raise AssertionError(f"four_tank_tracking shape K={K}, S={op.S}, "
+                             f"nw={op.nw}, rank {op.rank}, G "
+                             f"{tuple(op.G.shape)}")
+    if (n_tiles, n_pass, pack.Gp.shape[2]) != (8, 2, 144):
+        raise AssertionError(f"K1 slot table {n_tiles} tiles x {n_pass} "
+                             f"passes, D padded to {pack.Gp.shape[2]}")
+    log(f"K1 slot table at four_tank_tracking: n_tiles {n_tiles}, n_pass "
+        f"{n_pass} (each solve's {op.rank} Z columns and q in two slots), "
+        f"D = {D} padded to {pack.Gp.shape[2]}")
+
+    # 23. The main path, through the kernel.
+    n_outer = T // K
+    r0 = torch.as_tensor(np.concatenate([ctrl.u_s.ravel(),
+                                         ctrl.y_s.ravel()]),
+                         dtype=torch.float32, device=dev)
+    low = torch.tensor([(i // 2) % 2 == 1 for i in range(n_outer)],
+                       device=dev)
+    sched = torch.where(low[:, None], 0.85 * r0, r0)  # bench.py:724-731
+    run = fr.make_fused_batched_rollout(bm_t, T)
+    fr.fused_rollout.launches = fr.fused_rollout_nocost.launches = 0
+    res = run(x0s, ups, yps, Ws, sched)
+    torch.cuda.synchronize()
+    main_launches = fr.fused_rollout.launches
+    if main_launches < 1 or fr.fused_rollout_nocost.launches:
+        raise AssertionError(f"tracking main path: {main_launches} K1 and "
+                             f"{fr.fused_rollout_nocost.launches} K3 "
+                             "launches")
+    if res.u_sys.shape != (B, T, 2) or res.costs.shape != (B, T):
+        raise AssertionError(f"tracking shapes {tuple(res.u_sys.shape)} "
+                             f"{tuple(res.costs.shape)}")
+    if not bool(res.converged.all()):
+        raise AssertionError("non-finite costs on the tracking path")
+    log(f"tracking main path: B={B} T={T} K={K}, schedule "
+        f"{[round(float(v), 4) for v in sched[:, 2]]} (y_s[0] per outer "
+        f"block), fused_rollout launches {main_launches}")
+    s0, W = fr._center_and_pack(bm_t, x0s, ups, yps, Ws, n_outer, K, 0,
+                                setpoints=sched)
+    got = fr.fused_rollout(op, s0, W)
+    want = fr.fused_rollout_reference(op, s0, W)
+    k1_report(op, s0, W)
+    err = {name: equal_or_close(f"tracking K1 vs plain {name}", g, w,
+                                cublas)
+           for name, g, w in zip(("U", "Y", "s_fin"), got[:2] + got[3:],
+                                 want[:2] + want[3:])}
+    err_c = check_close("tracking K1 vs plain C", got[2], want[2],
+                        COST_ATOL, COST_RTOL)
+    kernel_err = max(err.values())
+    log(f"tracking K1 vs plain (B={B}, T={T}): max |dU| {err['U']:.3e}, "
+        f"|dY| {err['Y']:.3e}, |ds_fin| {err['s_fin']:.3e}; max |dC| "
+        f"{err_c:.3e} (rtol {COST_RTOL}, atol {COST_ATOL})")
+    bm_t100 = build_tracking_engine(ctrl, plant.as_params(),
+                                    solves_per_block=100, device=dev)
+    sched100 = sched[::2]  # one row per 100 steps: the same schedule
+    classic_fn = make_linear_batched_rollout(bm_t100, T, setpoints=sched100)
+    classic = classic_fn(x0s, ups, yps, Ws)
+    for field in ("u_sys", "y_sys", "x_final", "u_past", "y_past"):
+        e = check_close(f"tracking K1 vs classic {field}",
+                        getattr(res, field), getattr(classic, field), ATOL)
+        log(f"tracking K1 vs classic engine (K=100) {field}: max |diff| "
+            f"{e:.3e}")
+    e = check_close("tracking K1 vs classic costs", res.costs,
+                    classic.costs, COST_ATOL, COST_RTOL)
+    log(f"tracking K1 vs classic engine costs: max |diff| {e:.3e}")
+    n_gen = 64
+    gen = closed_loop_rollout(
+        plant.as_params(), ctrl.tracking_map(device=dev), x0s[:n_gen],
+        ups[:n_gen], yps[:n_gen], Ws[:n_gen], T,
+        setpoints=sched.repeat_interleave(K, dim=0),
+    )
+    e_u = check_close("tracking K1 vs generic loop u", res.u_sys[:n_gen],
+                      gen.u_sys, NORTH_STAR)
+    e_y = max_abs(res.y_sys[:n_gen], gen.y_sys)
+    log(f"tracking K1 vs generic loop (TrackingMap, schedule per solve, "
+        f"{n_gen} scenarios): max |du| {e_u:.3e} (atol {NORTH_STAR}), "
+        f"|dy| {e_y:.3e}")
+
+    # 24. Float64 truth (64 scenarios) and the retarget probe.
+    bm_t64 = build_tracking_engine(ctrl, plant.as_params(),
+                                   solves_per_block=K, device=dev,
+                                   dtype=torch.float64)
+    s0_64, W_64 = fr._center_and_pack(
+        bm_t64, *(a[:64].double() for a in (x0s, ups, yps, Ws)), n_outer,
+        K, 0, setpoints=sched.double(),
+    )
+    U64 = fr.fused_rollout_reference(fr._build_fused_operator(bm_t64),
+                                     s0_64, W_64)[0]
+    du = max_abs(res.u_sys[:64], U64.reshape(64, T, 2))
+    if not du < NORTH_STAR:
+        raise AssertionError(f"tracking max |du| vs float64 {du:.3e}")
+    y_end = res.y_sys[:, -1]
+    target = 0.85 * r0[2:]
+    miss = float((y_end - target).abs().max())
+    if not miss < 0.05:  # bench.py:771-777
+        raise AssertionError(f"retarget probe: y(T) {y_end[0].tolist()} "
+                             f"misses {target.tolist()} by {miss:.3e}")
+    log(f"tracking float64 truth (64 scenarios): K1 max |du| {du:.3e} (< "
+        f"{NORTH_STAR}); retarget probe: y(T) {y_end[0].tolist()} vs "
+        f"target {target.tolist()}, max miss over {B} scenarios "
+        f"{miss:.3e} (< 0.05)")
+
+    # 25. Edges.
+    s0_r, W_r = fr._center_and_pack(bm_t, x0s, ups, yps, Ws, n_outer, K, 0,
+                                    setpoints=r0)
+    got_r = fr.fused_rollout(op, s0_r, W_r)
+    want_r = fr.fused_rollout_reference(op, s0_r, W_r)
+    plain_k1, plain_ref = main["k1"], main["plain"]
+    for name, i in (("U", 0), ("Y", 1), ("s_fin", 3)):
+        if not torch.equal(got_r[i], plain_k1[i]):
+            raise AssertionError(f"dr = 0: K1 {name} differs from the "
+                                 "plain map's")
+        equal_or_close(f"dr = 0 plain version {name} vs the plain map's",
+                       want_r[i], plain_ref[i], cublas)
+    e_c = check_close("dr = 0 costs", got_r[2], plain_k1[2], COST_ATOL,
+                      COST_RTOL)
+    log(f"edge: constant schedule r_bar: K1's U, Y and s_fin bit-equal to "
+        f"the plain four_tank_robust map's (phase 4); costs max |diff| "
+        f"{e_c:.3e} (the wider factor's rounding)")
+
+    scales = torch.linspace(1.0, 0.85, B, device=dev)
+    per_scen = scales[:, None, None] * sched[None]
+    s0_s, W_s = fr._center_and_pack(bm_t, x0s, ups, yps, Ws, n_outer, K, 0,
+                                    setpoints=per_scen)
+    got_s = fr.fused_rollout(op, s0_s, W_s)
+    want_s = fr.fused_rollout_reference(op, s0_s, W_s)
+    for name, i in (("U", 0), ("Y", 1), ("s_fin", 3)):
+        equal_or_close(f"per-scenario schedule {name}", got_s[i], want_s[i],
+                       cublas)
+        if not torch.equal(got_s[i][0], got[i][0]):
+            raise AssertionError(f"per-scenario schedule {name}: scenario "
+                                 "0 (scale 1) differs from the shared run")
+    check_close("per-scenario schedule C", got_s[2], want_s[2], COST_ATOL,
+                COST_RTOL)
+    log(f"edge: per-scenario schedule ({B}, {n_outer}, {n_r}), scales 1 .. "
+        "0.85: K1 matches the plain version; scenario 0 equals the shared "
+        "run's")
+
+    Br = 4000
+    got_b = fr.fused_rollout(op, s0[:Br].contiguous(), W[:Br].contiguous())
+    want_b = fr.fused_rollout_reference(op, s0[:Br], W[:Br])
+    for name, g, w in zip(("U", "Y", "s_fin"), got_b[:2] + got_b[3:],
+                          want_b[:2] + want_b[3:]):
+        check_close(f"tracking ragged B={Br} {name}", g, w, ATOL)
+    check_close(f"tracking ragged B={Br} C", got_b[2], want_b[2],
+                COST_ATOL, COST_RTOL)
+    for name, g, full in zip(("U", "Y", "C", "s_fin"), got_b, got):
+        if not torch.equal(g, full[:Br]):
+            raise AssertionError(f"tracking ragged B={Br} {name} differs "
+                                 "from the same rows of the full batch")
+    log(f"edge: tracking ragged batch B={Br} matches the plain version and "
+        "the full batch's rows")
+
+    T_odd, K_odd = 37, 8
+    bm_t8 = build_tracking_engine(ctrl, plant.as_params(),
+                                  solves_per_block=K_odd, device=dev)
+    n_outer8 = math.ceil(T_odd / K_odd)
+    sched8 = sched[:n_outer8]
+    ins_odd = (x0s, ups, yps, Ws[:, :T_odd].contiguous())
+    before = fr.fused_rollout.launches
+    odd = fr.make_fused_batched_rollout(bm_t8, T_odd)(*ins_odd, sched8)
+    if fr.fused_rollout.launches != before + 1:
+        raise AssertionError("tracking T=37 run did not go through K1")
+    s0_8, W_8 = fr._center_and_pack(bm_t8, *ins_odd, n_outer8, K_odd,
+                                    n_outer8 * K_odd - T_odd, sched8)
+    U8 = fr.fused_rollout_reference(fr._build_fused_operator(bm_t8), s0_8,
+                                    W_8)[0]
+    check_close("tracking T=37 K=8 u", odd.u_sys,
+                U8.reshape(B, -1, 2)[:, :T_odd], ATOL)
+    classic8 = make_linear_batched_rollout(bm_t8, T_odd, setpoints=sched8)(
+        *ins_odd)
+    check_close("tracking T=37 K=8 y vs classic", odd.y_sys,
+                classic8.y_sys, ATOL)
+    log(f"edge: tracking T={T_odd}, K={K_odd} (ragged last block) matches "
+        "the plain version and the classic engine")
+
+    for w_off in (1, 3, n_outer - 1):
+        rot = fr.fused_rollout(op, s0, W, w_off=w_off)
+        rolled = fr.fused_rollout(
+            op, s0, torch.roll(W, -w_off, dims=1).contiguous()
+        )
+        for g, w in zip(rot, rolled):
+            if not torch.equal(g, w):
+                raise AssertionError(f"tracking w_off={w_off} rotation "
+                                     "differs from torch.roll")
+    log("edge: w_off rotation of noise and setpoint lanes together is "
+        "bit-equal to torch.roll")
+
+    eps = plant.get_eps_max()
+    rng_run = make_linear_batched_rollout(bm_t100, T, use_rng_noise=True,
+                                          eps_max=eps, setpoints=sched100)
+    got_n = rng_run(x0s, ups, yps,
+                    torch.Generator(device=dev).manual_seed(3))
+    g3 = torch.Generator(device=dev).manual_seed(3)
+    draws = torch.stack([draw_block_noise(g3, B, 100 * ctrl.p, eps, dev)
+                         for _ in range(T // 100)], dim=1)
+    w_max = float(draws.abs().max())
+    if not (0.99 * eps < w_max <= eps):
+        raise AssertionError(f"in-scan noise max |w| {w_max} vs eps {eps}")
+    want_n = classic_fn(x0s, ups, yps, draws.reshape(B, T, ctrl.p))
+    for field in ("u_sys", "y_sys", "costs", "x_final"):
+        g, w = getattr(got_n, field), getattr(want_n, field)
+        if not (bool(torch.isfinite(g).all()) and torch.equal(g, w)):
+            raise AssertionError(f"in-scan noise {field} differs from the "
+                                 "explicit-noise run on the same draws")
+    log(f"edge: classic engine in-scan noise (B={B}, T={T}, K=100, "
+        f"tracking): max |w| {w_max:.6f} <= eps_max {eps}, mean "
+        f"{float(draws.mean()):.2e}; u, y, costs, x_final bit-equal to the "
+        "explicit-noise run on the same draws")
+
+    # 26. Timing at the main shape, in turns.
+    solves = B * T
+    args = (x0s, ups, yps, Ws)
+    runs = {
+        "kernel": fr.make_amortized_run(bm_t, T, setpoints=sched),
+        "plain": fr.make_amortized_run(
+            bm_t, T, setpoints=sched, rollout=fr.fused_rollout_reference),
+    }
+
+    def classic_run(x0s, ups, yps, Ws, R):
+        checksum = torch.zeros((), device=dev)
+        for _ in range(R):
+            r = classic_fn(x0s, ups, yps, Ws)
+            checksum = checksum + r.costs[:, -1].sum() + r.x_final.sum() \
+                + r.u_sys.sum() + r.y_sys.sum()
+        return checksum, torch.isfinite(checksum)
+
+    runs["classic"] = classic_run
+    ms = {k: [] for k in runs}
+    for name in ("kernel", "plain", "classic", "classic", "plain",
+                 "kernel"):
+        before = fr.fused_rollout.launches
+        t, R = time_amortized(runs[name], args)
+        launched = fr.fused_rollout.launches - before
+        expected = R + 2 if name == "kernel" else 0
+        if launched != expected:
+            raise AssertionError(f"tracking {name}: {launched} launches, "
+                                 f"expected {expected}")
+        ms[name].append(t)
+        log(f"tracking timing {name}: {t:.4f} ms/rollout over R={R} -> "
+            f"{solves / (t * 1e-3):,.0f} solves/s [{smi}]")
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    log(f"tracking solves/s (mean of 2 turns, four_tank_tracking B={B} x "
+        f"T={T}, {smi}): "
+        + ", ".join(f"{k} {solves / (v * 1e-3):,.0f}"
+                    for k, v in mean.items()))
+    R_p = 20
+    dev_ms, wall_ms, by_name = busy_share(
+        lambda: runs["kernel"](*args, R_p))
+    log(f"tracking device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms wall over "
+        f"{R_p} amortized rollouts under the profiler (idle "
+        f"{1 - dev_ms / wall_ms:.1%}); against {mean['kernel']:.4f} ms per "
+        f"rollout without it, idle {1 - dev_ms / R_p / mean['kernel']:.1%}; "
+        "device ms per rollout: "
+        + ", ".join(f"{k} {v / R_p:.4f}"
+                    for k, v in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1])))
+    rows = k1_rows(op, s0, W)
+    t_lib = cuda_ms(lambda: torch.addmm(op.bias, rows, op.G), reps=20)
+    del rows
+    flops = 2.0 * B * n_outer * D * op.G.shape[1]
+    nbytes = tensor_bytes(s0, W, op.G, op.bias, *got)
+    rec = bound(flops, nbytes)
+    log(f"tracking K1 yardstick: one addmm ({B * n_outer}, {D}) x "
+        f"{tuple(op.G.shape)}: {t_lib:.4f} ms; bound {rec['bound_ms']:.4f}"
+        f" ms ({rec['bound_by']}: {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB) [{smi}]")
+    return {
+        "name": "fused_rollout (four_tank_tracking)",
+        "route": "cuda",
+        "source": "direct_data_driven_mpc_tpu_torch/ops/csrc/"
+                  "fused_rollout.cu",
+        "replaces": "direct_data_driven_mpc_tpu/ops/pallas_rollout.py:490",
+        "launches": main_launches,
+        "max_abs_err": kernel_err,
+        "ms": mean["kernel"],
+        "plain_ms": mean["plain"],
+        **rec,
+        "library_ms": t_lib,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
@@ -1348,10 +1741,14 @@ def main() -> int:
         "library_ms": t_lib,
     }
 
+    k1t = tracking_phases(dev, smi, dict(
+        plant=plant, ctrl=ctrl, inputs=(x0s, ups, yps, Ws), k1=got,
+        plain=want,
+    ))
     k4 = admm_phases(dev, smi)
     k5 = ladder_phases(dev, smi)
     k3 = large_plant_phases(dev, smi)
-    print(json.dumps({"kernels": [k1, k4, k5, k3]}))
+    print(json.dumps({"kernels": [k1, k4, k5, k3, k1t]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count(),

@@ -8,8 +8,13 @@ the exact affine solution operator (slack ``NONE``; the per-step solve
 is a numpy matvec) or the pre-factorised ADMM operator (``CONVEX``; the
 per-step solve is a warm-started host ADMM, ``qp.admm.admm_solve_np``).
 The condensed engine (``control.linear_engine``) takes the affine
-operator from :meth:`DirectDataDrivenMPCController.solution_operator`;
-the fused ADMM engine (``ops.fused_admm``) takes
+operator from :meth:`DirectDataDrivenMPCController.solution_operator`
+and, to track a setpoint schedule, the setpoint-parametric one from
+:meth:`~DirectDataDrivenMPCController.tracking_operator`; the generic
+loop (``control.loop``) takes them on a device as
+:meth:`~DirectDataDrivenMPCController.solution_map` and
+:meth:`~DirectDataDrivenMPCController.tracking_map`; the fused ADMM
+engine (``ops.fused_admm``) takes
 ``qp.admm.compute_admm_operator_np(controller.spec)``.
 
 Not ported yet: the NON_CONVEX slack variant (ROADMAP.md queue 1, item
@@ -23,6 +28,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from direct_data_driven_mpc_tpu_torch.ops.host import (
     evaluate_persistent_excitation_np,
@@ -34,7 +40,12 @@ from direct_data_driven_mpc_tpu_torch.qp.admm import (
 )
 from direct_data_driven_mpc_tpu_torch.qp.assembly import build_qp_spec
 from direct_data_driven_mpc_tpu_torch.qp.solution_map import (
+    SolutionMap,
+    TrackingMap,
+    compute_solution_map,
     compute_solution_operator_np,
+    compute_tracking_map,
+    compute_tracking_operator_np,
 )
 from direct_data_driven_mpc_tpu_torch.qp.spec import (
     DataDrivenMPCType,
@@ -264,13 +275,50 @@ class DirectDataDrivenMPCController:
         ``control.linear_engine.build_affine_block_map``. Keys:
         ``z_base, Z, u_base, U_gain, cost_P, cost_q, cost_r``. A CONVEX
         slack controller has none and raises."""
+        self._no_affine_operator(
+            "use qp.admm.compute_admm_operator_np(spec) with "
+            "ops.fused_admm."
+        )
+        return self._op
+
+    def _no_affine_operator(self, what: str) -> None:
         if self._use_admm:
             raise ValueError(
                 "CONVEX slack controllers do not condense to an affine "
-                "operator; use qp.admm.compute_admm_operator_np(spec) "
-                "with ops.fused_admm."
+                f"operator; {what}"
             )
-        return self._op
+
+    def solution_map(self, device=None, dtype=torch.float32
+                     ) -> SolutionMap:
+        """The affine operator on ``device`` (None: the CUDA card) in
+        ``dtype``, for ``control.loop`` (slack NONE)."""
+        self._no_affine_operator(
+            "use qp.admm.compute_admm_operator_np(spec) with "
+            "ops.fused_admm."
+        )
+        return compute_solution_map(self._spec, device=device, dtype=dtype)
+
+    def tracking_operator(self) -> dict:
+        """The float64 setpoint-parametric operator: the entry for
+        ``control.linear_engine.build_tracking_engine`` (``tracking_op=``
+        of ``build_affine_block_map``). Keys ``U_theta, U_r, cost_P, u_s,
+        y_s, ...`` (``qp.solution_map.compute_tracking_operator_np``).
+        A CONVEX slack controller raises."""
+        self._no_affine_operator(
+            "tracking schedules need a slack-NONE controller."
+        )
+        return compute_tracking_operator_np(self._spec)
+
+    def tracking_map(self, device=None, dtype=torch.float32
+                     ) -> TrackingMap:
+        """The setpoint-parametric operator ``u*(theta, [u_s; y_s])`` on
+        ``device`` (None: the CUDA card) in ``dtype``: a per-solve
+        setpoint schedule through ``control.loop.closed_loop_rollout``
+        retargets the controller with no rebuild."""
+        self._no_affine_operator(
+            "tracking schedules need a slack-NONE controller."
+        )
+        return compute_tracking_map(self._spec, device=device, dtype=dtype)
 
     # --- per-step solve ------------------------------------------------
     def _theta(self) -> np.ndarray:
@@ -380,3 +428,22 @@ class DirectDataDrivenMPCController:
             )
         self.u_past = np.asarray(u_past, dtype=np.float64)
         self.y_past = np.asarray(y_past, dtype=np.float64)
+
+    def set_input_output_setpoints(
+        self, u_s: np.ndarray, y_s: np.ndarray
+    ) -> None:
+        """Retarget: swap the setpoints and rebuild the QP and its
+        operator (one KKT factorisation; the past window is kept)."""
+        if u_s.shape != self.u_s.shape:
+            raise ValueError(
+                f"Incorrect dimensions. u_s must have shape "
+                f"{self.u_s.shape}, got {u_s.shape}"
+            )
+        if y_s.shape != self.y_s.shape:
+            raise ValueError(
+                f"Incorrect dimensions. y_s must have shape "
+                f"{self.y_s.shape}, got {y_s.shape}"
+            )
+        self.u_s = np.asarray(u_s, dtype=np.float64)
+        self.y_s = np.asarray(y_s, dtype=np.float64)
+        self.initialize_data_driven_mpc()

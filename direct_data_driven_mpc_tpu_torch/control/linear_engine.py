@@ -16,11 +16,17 @@ with the batch as the leading dimension of every product; it is the
 plain reference that the fused engine (``ops.fused_rollout``) is held
 against.
 
+A tracking map (``tracking_op=``, :func:`build_tracking_engine`) has a
+setpoint channel: the block's setpoint delta ``dr = [u_s; y_s] - r_bar``
+rides ``n_r = m + p`` input lanes after the block's noise, and the
+per-solve cost is the joint quadratic in ``[theta; dr]``. The engines
+then take a setpoint schedule: constant ``(n_r,)``, per outer block
+``(n_outer, n_r)`` or per scenario and block ``(B, n_outer, n_r)``.
+
 Counterpart of ``direct_data_driven_mpc_tpu/control/linear_engine.py``
 (``AffineBlockMap``, ``build_affine_block_map``, ``build_linear_engine``,
-``linear_closed_loop_rollout`` on the explicit-noise path,
-``make_linear_batched_rollout``). The setpoint-tracking channel
-(``tracking_op``) is not ported yet.
+``build_tracking_engine``, ``linear_closed_loop_rollout`` with explicit
+noise or noise drawn block by block, ``make_linear_batched_rollout``).
 """
 
 from __future__ import annotations
@@ -32,9 +38,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from direct_data_driven_mpc_tpu_torch.control.loop import ClosedLoopResult
+from direct_data_driven_mpc_tpu_torch.control.loop import (
+    ClosedLoopResult,
+    setpoint_schedule,
+)
 from direct_data_driven_mpc_tpu_torch.device import resolve_device
 from direct_data_driven_mpc_tpu_torch.ops.lti import LTIParams
+from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+    draw_block_noise,
+)
 
 
 class AffineBlockMap(NamedTuple):
@@ -46,9 +58,11 @@ class AffineBlockMap(NamedTuple):
         y_block = s @ OyS_T + oy_c + w @ OyW_T   (K * nb * p outputs)
         s_stack = s @ OsS_T + os_c + w @ OsW_T   (K * S: the state at
                                                   each solve time)
-    with ``w`` the flattened noise of the whole block (K * nb * p).
-    The cost of one solve at state ``s`` is, with ``theta = s[ns:]``,
-    ``theta P theta + q . theta + r``.
+    with ``w`` the flattened noise of the whole block (K * nb * p), and
+    for a tracking map the block's setpoint delta after it (n_r more
+    lanes). The cost of one solve at state ``s`` is, with ``xi =
+    theta = s[ns:]`` (``xi = [theta; dr]`` for a tracking map),
+    ``xi P xi + q . xi + r``.
     """
 
     M_T: torch.Tensor
@@ -63,15 +77,16 @@ class AffineBlockMap(NamedTuple):
     OsS_T: torch.Tensor
     os_c: torch.Tensor
     OsW_T: torch.Tensor
-    cost_P: torch.Tensor  # (n_theta, n_theta)
-    cost_q: torch.Tensor  # (n_theta,)
+    cost_P: torch.Tensor  # (n_theta [+ n_r], n_theta [+ n_r])
+    cost_q: torch.Tensor  # (n_theta [+ n_r],)
     cost_r: torch.Tensor  # ()
     s_star: torch.Tensor  # (S,) center point (zeros when uncentered)
-    #: Setpoint-channel width; 0 for a plain map. Tracking maps (n_r > 0)
-    #: come only from the JAX package through block_map_from_numpy, and
-    #: the engines here reject them.
+    #: Setpoint-channel width; 0 for a plain map. When > 0 the last
+    #: ``n_r`` rows of every ``*W_T`` operator act on the block's setpoint
+    #: delta ``dr = [u_s; y_s] - r_bar`` and the cost is joint in
+    #: ``[theta; dr]`` (``tracking_op=`` of build_affine_block_map).
     n_r: int = 0
-    r_bar: Optional[torch.Tensor] = None
+    r_bar: Optional[torch.Tensor] = None  # (m+p,) center setpoints
 
 
 def block_map_from_numpy(arrays: dict, device, dtype=torch.float32
@@ -106,6 +121,7 @@ def build_affine_block_map(
     center: bool = True,
     device=None,
     dtype=torch.float32,
+    tracking_op: Optional[dict] = None,
 ) -> AffineBlockMap:
     """Compose ``solves_per_block`` solve blocks into one affine map
     (host, float64) and cast it onto ``device`` in ``dtype``.
@@ -121,6 +137,12 @@ def build_affine_block_map(
         center: roll the deviation from the closed-loop fixed point.
         device: where the map lives; None means the CUDA card (raises
             without one), ``"cpu"`` runs the plain versions.
+        tracking_op: the float64 dict of ``compute_tracking_operator_np``
+            for a setpoint channel: ``n_r = m + p`` input lanes after the
+            block noise carry ``dr = [u_s; y_s] - r_bar`` (``r_bar`` the
+            spec's baked setpoints) through ``U_r``, and the cost becomes
+            joint in ``[theta; dr]``. At ``dr = 0`` the map is the plain
+            one (both checked here in float64).
     """
     device = resolve_device(device)
     A = np.asarray(plant.A, dtype=np.float64)
@@ -133,10 +155,11 @@ def build_affine_block_map(
     nb = n_mpc_step
     K = solves_per_block
     nw = K * nb * p
-    # Homogeneous coordinates [s; 1; w_block].
-    Dfull = S + 1 + nw
+    n_r = (m + p) if tracking_op is not None else 0
+    # Homogeneous coordinates [s; 1; w_block; dr].
+    Dfull = S + 1 + nw + n_r
 
-    # Each tracked quantity is a matrix acting on [s; 1; w].
+    # Each tracked quantity is a matrix acting on [s; 1; w; dr].
     X = np.zeros((ns, Dfull))
     X[:, :ns] = np.eye(ns)
     TH = np.zeros((n_theta, Dfull))
@@ -151,6 +174,22 @@ def build_affine_block_map(
         )
     U_gain = solution_op["U_gain"][: nb * m]  # (nb*m, n_theta)
     u_base = solution_op["u_base"][: nb * m]
+    if tracking_op is not None:
+        U_r_all = np.asarray(tracking_op["U_r"], np.float64)
+        U_r = U_r_all[: nb * m]
+        r_bar = np.concatenate([
+            np.asarray(tracking_op["u_s"], np.float64).ravel(),
+            np.asarray(tracking_op["y_s"], np.float64).ravel(),
+        ])
+        # The tracking operator has no constant term: at r_bar it must
+        # give the baked affine solve.
+        if not np.allclose((U_r_all @ r_bar)[: nb * m], u_base, atol=1e-9):
+            raise AssertionError(
+                "tracking operator is inconsistent with the baked "
+                "solution operator at the spec's own setpoints"
+            )
+        DR = np.zeros((n_r, Dfull))
+        DR[:, S + 1 + nw :] = np.eye(n_r)
 
     out_u = np.zeros((K * nb * m, Dfull))
     out_y = np.zeros((K * nb * p, Dfull))
@@ -159,6 +198,8 @@ def build_affine_block_map(
         # State at this solve time (pre-solve), for the per-solve cost.
         out_s[k * S : (k + 1) * S] = np.concatenate([X, TH], axis=0)
         USEQ = U_gain @ TH + np.outer(u_base, ONE)
+        if tracking_op is not None:
+            USEQ = USEQ + U_r @ DR
         for j in range(nb):
             t = k * nb + j
             Uj = USEQ[j * m : (j + 1) * m]  # (m, Dfull)
@@ -221,6 +262,32 @@ def build_affine_block_map(
     else:
         s_star = np.zeros(S)
 
+    if tracking_op is not None:
+        # Joint cost in zeta = [theta; dr]: with xi = [theta; r_bar + dr]
+        # and cost(xi) = xi' P xi, cost(zeta) = zeta' P zeta + (2 P e) .
+        # zeta + e' P e, e = [0; r_bar], which at dr = 0 is the baked
+        # theta-space cost.
+        P_j = np.asarray(tracking_op["cost_P"], np.float64)
+        e = np.concatenate([np.zeros(n_theta), r_bar])
+        cost_P, cost_q = P_j, 2.0 * (P_j @ e)
+        cost_r = np.float64(e @ P_j @ e)
+        if not (
+            np.allclose(P_j[:n_theta, :n_theta], solution_op["cost_P"],
+                        atol=1e-9)
+            and np.allclose(cost_q[:n_theta], solution_op["cost_q"],
+                            atol=1e-9)
+            and abs(cost_r - float(solution_op["cost_r"])) < 1e-7
+        ):
+            raise AssertionError(
+                "joint tracking cost does not reduce to the baked "
+                "theta-space cost at dr = 0"
+            )
+    else:
+        r_bar = None
+        cost_P = solution_op["cost_P"]
+        cost_q = solution_op["cost_q"]
+        cost_r = solution_op["cost_r"]
+
     def cast(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -237,10 +304,12 @@ def build_affine_block_map(
         OsS_T=cast(OsS.T),
         os_c=cast(os_c),
         OsW_T=cast(OsW.T),
-        cost_P=cast(solution_op["cost_P"]),
-        cost_q=cast(solution_op["cost_q"]),
-        cost_r=cast(solution_op["cost_r"]),
+        cost_P=cast(cost_P),
+        cost_q=cast(cost_q),
+        cost_r=cast(cost_r),
         s_star=cast(s_star),
+        n_r=n_r,
+        r_bar=None if r_bar is None else cast(r_bar),
     )
 
 
@@ -273,6 +342,38 @@ def build_linear_engine(
     )
 
 
+def build_tracking_engine(
+    controller,
+    plant: LTIParams,
+    n_mpc_step: Optional[int] = None,
+    solves_per_block: int = 1,
+    center: bool = True,
+    device=None,
+    dtype=torch.float32,
+) -> AffineBlockMap:
+    """Block map with a setpoint channel (``n_r = m + p``) straight from
+    a slack-NONE controller: the engines then take a setpoint schedule,
+    one ``[u_s; y_s]`` per outer block of ``solves_per_block *
+    n_mpc_step`` plant steps (for a per-solve schedule, use
+    ``control.loop.closed_loop_rollout`` with ``controller.tracking_map()``).
+    """
+    if n_mpc_step is None:
+        n_mpc_step = controller.n_mpc_step
+    return build_affine_block_map(
+        plant,
+        controller.solution_operator(),
+        n=controller.n,
+        m=controller.m,
+        p=controller.p,
+        n_mpc_step=n_mpc_step,
+        solves_per_block=solves_per_block,
+        center=center,
+        device=device,
+        dtype=dtype,
+        tracking_op=controller.tracking_operator(),
+    )
+
+
 def _block_meta(block_map: AffineBlockMap, p: int):
     """``(S, K, nb)``: state width, solves per block and plant steps per
     solve, read off the operator shapes."""
@@ -282,25 +383,65 @@ def _block_meta(block_map: AffineBlockMap, p: int):
     return S, K, nb
 
 
+def _setpoint_deltas(block_map: AffineBlockMap, setpoints, n_outer: int,
+                     Bsz: int, where: str) -> Optional[torch.Tensor]:
+    """Check a setpoint schedule against the map's setpoint channel and
+    return the deltas ``dr = r - r_bar`` as ``(B or 1, n_outer, n_r)``
+    on the map's device in its dtype; None for a plain map, which takes
+    no schedule. A tracking map needs one: ``(n_r,)`` constant,
+    ``(n_outer, n_r)`` per outer block or ``(B, n_outer, n_r)`` per
+    scenario and block of absolute setpoints ``[u_s; y_s]``."""
+    n_r = block_map.n_r
+    if n_r == 0:
+        if setpoints is not None:
+            raise ValueError(
+                f"{where}: `setpoints` schedules require a tracking "
+                "block map (build with tracking_op=... / "
+                "build_tracking_engine)."
+            )
+        return None
+    if setpoints is None:
+        raise ValueError(
+            f"{where}: tracking block map (n_r > 0) requires a "
+            f"`setpoints` schedule: ({n_r},) constant, ({n_outer}, {n_r}) "
+            f"per outer block or ({Bsz}, {n_outer}, {n_r}) per scenario."
+        )
+    R = setpoint_schedule(
+        setpoints, n_outer, n_r, Bsz, block_map.M_T.dtype,
+        block_map.M_T.device,
+        f"{where}: setpoints must have shape ({n_r},), ({n_outer}, {n_r}) "
+        f"or ({Bsz}, {n_outer}, {n_r})",
+    )
+    return R - block_map.r_bar
+
+
 def linear_batched_rollout(
     block_map: AffineBlockMap,
     x0s: torch.Tensor,  # (B, ns)
     u_pasts: torch.Tensor,  # (B, n, m)
     y_pasts: torch.Tensor,  # (B, n, p)
-    Ws: torch.Tensor,  # (B, n_steps, p)
+    Ws: Optional[torch.Tensor],  # (B, n_steps, p)
     n_steps: int,
     n_mpc_step: int = 1,
+    setpoints=None,
+    generator: Optional[torch.Generator] = None,
+    eps_max: float = 0.0,
 ) -> ClosedLoopResult:
-    """Batched rollout of the condensed recursion with explicit noise.
+    """Batched rollout of the condensed recursion.
 
     Each block is a handful of ``(B, S + K nb p)``-wide products
     covering K solves; outputs are trimmed to ``n_steps`` (and the
     per-solve costs to ``ceil(n_steps / n_mpc_step)``).
+
+    Noise: ``Ws`` explicitly, or (``Ws=None``) ``eps_max * U[-1, 1]``
+    drawn block by block from ``generator`` inside the loop
+    (:func:`~direct_data_driven_mpc_tpu_torch.parallel.batch.draw_block_noise`,
+    one ``(B, K nb p)`` draw per outer block, padded steps included), so
+    the ``(B, n_steps, p)`` noise is never built. ``setpoints``: the
+    schedule of a tracking map (see :func:`_setpoint_deltas`); its deltas
+    ride the last ``n_r`` lanes of each block's ``w`` and each solve's
+    cost is the joint ``[theta; dr]`` quadratic.
     """
-    if block_map.n_r:
-        raise NotImplementedError(
-            "tracking block maps (n_r > 0) are not ported yet"
-        )
     torch.backends.cuda.matmul.allow_tf32 = False
     bm = block_map
     dtype, device = bm.M_T.dtype, bm.M_T.device
@@ -316,12 +457,21 @@ def linear_batched_rollout(
     steps_per_outer = K * nb
     n_solves = math.ceil(n_steps / nb)
     n_outer = math.ceil(n_steps / steps_per_outer)
+    DR = _setpoint_deltas(bm, setpoints, n_outer, Bsz,
+                          "linear_batched_rollout")
+    if DR is not None:
+        DR = DR.expand(Bsz, n_outer, bm.n_r)
 
-    W = torch.zeros(
-        (Bsz, n_outer * steps_per_outer, p), dtype=dtype, device=device
-    )
-    W[:, :n_steps] = Ws.to(dtype)
-    W = W.view(Bsz, n_outer, steps_per_outer * p)
+    if Ws is None:
+        if generator is None:
+            raise ValueError("Provide either Ws or a generator.")
+    else:
+        W = torch.zeros(
+            (Bsz, n_outer * steps_per_outer, p), dtype=dtype,
+            device=device,
+        )
+        W[:, :n_steps] = Ws.to(dtype)
+        W = W.view(Bsz, n_outer, steps_per_outer * p)
     s = torch.cat(
         [x0s.reshape(Bsz, -1), u_pasts.reshape(Bsz, -1),
          y_pasts.reshape(Bsz, -1)], dim=1,
@@ -331,13 +481,22 @@ def linear_batched_rollout(
     Y = torch.empty((Bsz, n_outer, K * nb * p), dtype=dtype, device=device)
     Cst = torch.empty((Bsz, n_outer, K), dtype=dtype, device=device)
     for t in range(n_outer):
-        w = W[:, t]
-        st = s @ bm.OsS_T + bm.os_c + w @ bm.OsW_T
-        theta = st.view(Bsz, K, S)[:, :, ns:]
+        if Ws is None:
+            w = draw_block_noise(generator, Bsz, steps_per_outer * p,
+                                 eps_max, device, dtype)
+        else:
+            w = W[:, t]
+        st = s @ bm.OsS_T + bm.os_c
+        if DR is None:
+            st = st + w @ bm.OsW_T
+            xi = st.view(Bsz, K, S)[:, :, ns:]
+        else:
+            w = torch.cat([w, DR[:, t]], dim=1)
+            st = st + w @ bm.OsW_T
+            xi = torch.cat([st.view(Bsz, K, S)[:, :, ns:],
+                            DR[:, t, None].expand(Bsz, K, bm.n_r)], dim=2)
         Cst[:, t] = (
-            ((theta @ bm.cost_P) * theta).sum(-1)
-            + theta @ bm.cost_q
-            + bm.cost_r
+            ((xi @ bm.cost_P) * xi).sum(-1) + xi @ bm.cost_q + bm.cost_r
         )
         U[:, t] = s @ bm.OuS_T + bm.ou_c + w @ bm.OuW_T
         Y[:, t] = s @ bm.OyS_T + bm.oy_c + w @ bm.OyW_T
@@ -359,14 +518,28 @@ def make_linear_batched_rollout(
     block_map: AffineBlockMap,
     n_steps: int,
     n_mpc_step: int = 1,
+    use_rng_noise: bool = False,
+    eps_max: float = 0.0,
+    setpoints=None,
 ):
-    """``run(x0s, u_pasts, y_pasts, Ws) -> ClosedLoopResult`` over the
-    condensed recursion (see :func:`linear_batched_rollout`)."""
+    """``run(x0s, u_pasts, y_pasts, noise) -> ClosedLoopResult`` over the
+    condensed recursion (see :func:`linear_batched_rollout`). ``noise``
+    is the explicit ``(B, n_steps, p)`` noise or, with
+    ``use_rng_noise=True``, a ``torch.Generator`` on the map's device
+    from which each block's ``eps_max``-bounded noise is drawn.
+    ``setpoints``: a tracking map's schedule, ``(n_r,)``, ``(n_outer,
+    n_r)`` or per scenario ``(B, n_outer, n_r)``."""
 
-    def run(x0s, u_pasts, y_pasts, Ws):
+    def run(x0s, u_pasts, y_pasts, noise):
+        kw = dict(n_steps=n_steps, n_mpc_step=n_mpc_step,
+                  setpoints=setpoints)
+        if use_rng_noise:
+            return linear_batched_rollout(
+                block_map, x0s, u_pasts, y_pasts, None, generator=noise,
+                eps_max=eps_max, **kw,
+            )
         return linear_batched_rollout(
-            block_map, x0s, u_pasts, y_pasts, Ws,
-            n_steps=n_steps, n_mpc_step=n_mpc_step,
+            block_map, x0s, u_pasts, y_pasts, noise, **kw,
         )
 
     return run

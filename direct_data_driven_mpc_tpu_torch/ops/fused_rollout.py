@@ -30,8 +30,14 @@ Counterpart of ``direct_data_driven_mpc_tpu/ops/pallas_rollout.py``
 ``_make_xla_rollout_from_fused``, ``make_fused_batched_rollout``,
 ``pallas_batched_rollout``, ``make_amortized_pallas_run``). Differences
 from the TPU layout: no 128-lane column padding, no segment-sum matrix,
-and noise and outputs are batch-major ``(B, n_outer, width)``. Tracking
-maps are not ported.
+and noise and outputs are batch-major ``(B, n_outer, width)``.
+
+A tracking map (``block_map.n_r > 0``) takes a setpoint schedule: its
+deltas ``dr = r - r_bar`` are ``n_r`` more input rows after each block's
+noise (``_center_and_pack``), and each solve's cost coordinates are
+``xi_k = [theta_k; dr]``, factored through the joint cost quadratic, so
+the kernel runs it unchanged. ``cost_mode="post"`` takes no tracking
+map, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,7 +52,10 @@ import torch.nn.functional as F
 from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
     AffineBlockMap,
 )
-from direct_data_driven_mpc_tpu_torch.control.loop import ClosedLoopResult
+from direct_data_driven_mpc_tpu_torch.control.loop import (
+    ClosedLoopResult,
+    setpoint_schedule,
+)
 
 #: Accepted for API parity with the JAX package. On the TPU "high" ran
 #: the cost columns as three bf16 passes; here both values run the
@@ -87,15 +96,16 @@ def build_theta_operator(block_map: AffineBlockMap, ns: int):
 
 def suggest_solves_per_block(
     ns: int, n: int, m: int, p: int, n_mpc_step: int = 1,
-    n_steps: int | None = None,
+    n_steps: int | None = None, n_r: int = 0,
 ) -> int:
     """Solves per block of the TPU kernel's tuning: the largest K whose
-    operand ``[w | s]`` fits one 128-lane contraction (``K*nb*p + S <=
-    128``), preferring a K that divides the rollout into whole outer
-    blocks. The CUDA kernel is correct for any K; its own choice is
-    still to be measured on the H100."""
+    operand ``[w | s]`` fits one 128-lane contraction (``K*nb*p + n_r +
+    S <= 128``; ``n_r = m + p`` setpoint lanes for a tracking map),
+    preferring a K that divides the rollout into whole outer blocks. The
+    CUDA kernel is correct for any K; its own choice is still to be
+    measured on the H100."""
     S = ns + n * (m + p)
-    K = max((128 - S) // (n_mpc_step * p), 1)
+    K = max((128 - S - n_r) // (n_mpc_step * p), 1)
     if n_steps:
         spb = n_mpc_step * p  # noise lanes per solve
         for cand in range(K, 0, -1):
@@ -113,7 +123,8 @@ class FusedOperator(NamedTuple):
     ``G`` is ``(nw + S, S + Ku + Kp + K*rank + K)`` with rows ``[w; s]``
     and column groups ``[s_next | u | y | Z | q-part]``; ``bias`` has
     one entry per column (``r`` is folded into the q-part). Without
-    cost columns (``cost_mode="post"``) ``K = rank = 0``."""
+    cost columns (``cost_mode="post"``) ``K = rank = 0``. For a tracking
+    map ``nw`` counts the ``n_r`` setpoint rows after the noise."""
 
     G: torch.Tensor
     bias: torch.Tensor
@@ -132,11 +143,8 @@ def _build_fused_operator(block_map: AffineBlockMap,
     to the block map's device and dtype. ``include_cost=False`` keeps
     the column groups ``[s_next | u | y]`` only; ``cost_rank_rtol > 0``
     drops the cost factor's eigenvalues below that fraction of the
-    largest."""
-    if block_map.n_r:
-        raise NotImplementedError(
-            "tracking block maps (n_r > 0) are not ported yet"
-        )
+    largest. A tracking map's cost coordinates per solve are ``xi_k =
+    [theta_k; dr]``, dr being the last ``n_r`` rows of ``[w; s]``."""
 
     def f64(t):
         return t.detach().cpu().numpy().astype(np.float64)
@@ -146,11 +154,27 @@ def _build_fused_operator(block_map: AffineBlockMap,
     S = M_T.shape[0]
     nw = N_T.shape[0]
     P = f64(block_map.cost_P)
-    n_theta = P.shape[0]
+    n_r = block_map.n_r
+    n_theta = P.shape[0] - n_r
     ns = S - n_theta
     OtS_T, otc, OtW_T, K = build_theta_operator(block_map, ns)
     Ku = block_map.ou_c.shape[0]
     Kp = block_map.oy_c.shape[0]
+
+    # Cost coordinates per solve: xi_k = theta_k, or [theta_k; dr] for
+    # a tracking map (identity on the last n_r rows of the W channel).
+    nxi = n_theta + n_r
+    if n_r:
+        def expand(Ot):  # (rows, K*n_theta) -> (rows, K*nxi)
+            Oxi = np.zeros((Ot.shape[0], K, nxi))
+            Oxi[:, :, :n_theta] = Ot.reshape(-1, K, n_theta)
+            return Oxi.reshape(-1, K * nxi)
+
+        OtS_T, OtW_T = expand(OtS_T), expand(OtW_T)
+        OtW_T.reshape(nw, K, nxi)[nw - n_r :, :, n_theta:] = np.eye(
+            n_r
+        )[:, None, :]
+        otc = expand(otc[None])[0]
 
     # Factor the PSD cost quadratic form P = L L^T (tiny negative
     # eigenvalues from rounding are clipped to zero).
@@ -163,9 +187,9 @@ def _build_fused_operator(block_map: AffineBlockMap,
     q = f64(block_map.cost_q)
     r = float(f64(block_map.cost_r))
 
-    def blockwise_L(Ot):  # (rows, K*n_theta) -> (rows, K*rank)
+    def blockwise_L(Ot):  # (rows, K*nxi) -> (rows, K*rank)
         rows = Ot.shape[0]
-        return (Ot.reshape(rows, K, n_theta) @ L).reshape(rows, K * rank)
+        return (Ot.reshape(rows, K, nxi) @ L).reshape(rows, K * rank)
 
     # Row order [w-rows; s-rows] matches sw = [w | s].
     cols = [
@@ -178,13 +202,13 @@ def _build_fused_operator(block_map: AffineBlockMap,
         cols += [
             np.concatenate([blockwise_L(OtW_T), blockwise_L(OtS_T)]),
             np.concatenate(
-                [OtW_T.reshape(nw, K, n_theta) @ q,
-                 OtS_T.reshape(S, K, n_theta) @ q]
+                [OtW_T.reshape(nw, K, nxi) @ q,
+                 OtS_T.reshape(S, K, nxi) @ q]
             ),
         ]
         biases += [
-            (otc.reshape(K, n_theta) @ L).reshape(K * rank),
-            otc.reshape(K, n_theta) @ q + r,
+            (otc.reshape(K, nxi) @ L).reshape(K * rank),
+            otc.reshape(K, nxi) @ q + r,
         ]
     else:
         K = rank = 0
@@ -615,13 +639,25 @@ fused_rollout_nocost.launches = 0
 
 
 def _center_and_pack(block_map, x0s, u_pasts, y_pasts, Ws, n_outer,
-                     steps_per_outer, pad):
+                     steps_per_outer, pad, setpoints=None):
     """Centered initial state ``(B, S)`` and the noise zero-padded to
     whole outer blocks, batch-major ``(B, n_outer, nw)``, both in the
-    block map's dtype on its device."""
-    if block_map.n_r:
-        raise NotImplementedError(
-            "tracking block maps (n_r > 0) are not ported yet"
+    block map's dtype on its device.
+
+    A tracking map (``block_map.n_r > 0``) needs ``setpoints``, absolute
+    ``[u_s; y_s]``: ``(n_r,)`` constant, ``(n_outer, n_r)`` per block or
+    ``(B, n_outer, n_r)`` per scenario and block; the deltas ``dr = r -
+    r_bar`` follow each block's noise, so ``nw`` counts them."""
+    n_r = block_map.n_r
+    if n_r == 0 and setpoints is not None:
+        raise ValueError(
+            "`setpoints` requires a tracking block map (build with "
+            "tracking_op=... / build_tracking_engine)."
+        )
+    if n_r and setpoints is None:
+        raise ValueError(
+            "tracking block map (n_r > 0) requires a `setpoints` "
+            "schedule: (n_r,), (n_outer, n_r) or (B, n_outer, n_r)."
         )
     dtype = block_map.M_T.dtype
     Bsz = x0s.shape[0]
@@ -636,10 +672,16 @@ def _center_and_pack(block_map, x0s, u_pasts, y_pasts, Ws, n_outer,
             [W, torch.zeros((Bsz, pad, p), dtype=dtype, device=W.device)],
             dim=1,
         )
-    return (
-        s0.contiguous(),
-        W.reshape(Bsz, n_outer, steps_per_outer * p).contiguous(),
-    )
+    W = W.reshape(Bsz, n_outer, steps_per_outer * p)
+    if n_r:
+        R = setpoint_schedule(
+            setpoints, n_outer, n_r, Bsz, dtype, W.device,
+            f"setpoints must broadcast to (n_outer={n_outer}, B={Bsz}, "
+            f"n_r={n_r})",
+        )
+        W = torch.cat([W, (R - block_map.r_bar).expand(Bsz, n_outer, n_r)],
+                      dim=2)
+    return s0.contiguous(), W.contiguous()
 
 
 def _shape(block_map: AffineBlockMap, n_steps: int, n_mpc_step: int):
@@ -684,23 +726,27 @@ def make_fused_batched_rollout(
     its cost factor truncated at rtol 1e-6); then ``converged`` is
     ``isfinite(costs)``, as in the JAX package. ``cost_rank_rtol > 0``
     truncates the in-kernel cost factor the same way (at 1e-6 the two
-    modes compute the same costs)."""
+    modes compute the same costs).
+
+    A tracking map (``build_tracking_engine``) is called as ``run(x0s,
+    u_pasts, y_pasts, Ws, setpoints)`` with a schedule of absolute
+    setpoints, one per outer block (see :func:`_center_and_pack`)."""
     _check_cost_precision(cost_precision)
     S, steps_per_outer, n_outer, pad = _shape(
         block_map, n_steps, n_mpc_step
     )
     n_solves = math.ceil(n_steps / n_mpc_step)
-    n_theta = block_map.cost_P.shape[0]
+    n_theta = block_map.cost_P.shape[0] - block_map.n_r
     ns = S - n_theta
     op, post_cost = _cost_mode_parts(block_map, n_mpc_step, cost_mode,
                                      cost_rank_rtol)
 
-    def run(x0s, u_pasts, y_pasts, Ws):
+    def run(x0s, u_pasts, y_pasts, Ws, setpoints=None):
         Bsz, n, m = u_pasts.shape
         p = y_pasts.shape[2]
         s0, W = _center_and_pack(
             block_map, x0s, u_pasts, y_pasts, Ws, n_outer,
-            steps_per_outer, pad,
+            steps_per_outer, pad, setpoints=setpoints,
         )
         U, Y, C, s_fin = rollout(op, s0, W)
         s_fin = s_fin + block_map.s_star
@@ -733,13 +779,15 @@ def pallas_batched_rollout(
     n_mpc_step: int = 1,
     cost_precision: str = "high",
     cost_mode: str = "inkernel",
+    setpoints=None,
 ) -> ClosedLoopResult:
     """One-call form of :func:`make_fused_batched_rollout` (the name
-    of the JAX package's entry point)."""
+    of the JAX package's entry point); ``setpoints`` is a tracking map's
+    schedule."""
     return make_fused_batched_rollout(
         block_map, n_steps, n_mpc_step=n_mpc_step,
         cost_precision=cost_precision, cost_mode=cost_mode,
-    )(x0s, u_pasts, y_pasts, Ws)
+    )(x0s, u_pasts, y_pasts, Ws, setpoints=setpoints)
 
 
 def make_amortized_run(
@@ -750,13 +798,17 @@ def make_amortized_run(
     cost_mode: str = "inkernel",
     cost_rank_rtol: float = 0.0,
     rollout=fused_rollout,
+    setpoints=None,
 ):
     """Throughput harness: ``run(x0s, u_pasts, y_pasts, Ws, R) ->
     (checksum, ok)`` runs ``R`` back-to-back rollouts.
 
     Repetition ``i`` rotates the noise by ``(-i) mod n_outer`` outer
     blocks through the rollout's ``w_off`` index (no copy), so it equals
-    a rollout on the noise rolled by ``i`` blocks. Every repetition's
+    a rollout on the noise rolled by ``i`` blocks; a tracking map's
+    schedule (``setpoints``, fixed across repetitions) rides the same
+    rows, so it rotates with the noise, as in the JAX package. Every
+    repetition's
     U, Y, costs (the last block's in the kernel; all of them from the
     ``cost_mode="post"`` pass, which is part of the timed work) and
     final carry fold into a float32 checksum carried on the device, so
@@ -773,7 +825,7 @@ def make_amortized_run(
     def run(x0s, u_pasts, y_pasts, Ws, R):
         s0, W = _center_and_pack(
             block_map, x0s, u_pasts, y_pasts, Ws, n_outer,
-            steps_per_outer, pad,
+            steps_per_outer, pad, setpoints=setpoints,
         )
         Bsz, _, m = u_pasts.shape
         p = y_pasts.shape[2]

@@ -1,7 +1,8 @@
 """Monte-Carlo measurement noise for scenario batches.
 
 Counterpart of ``direct_data_driven_mpc_tpu/parallel/batch.py::
-draw_noise_batch``. The draw comes from an explicit ``torch.Generator``
+draw_noise_batch`` and of the classic engine's in-scan draw
+(:func:`draw_block_noise`). The draw comes from an explicit ``torch.Generator``
 on the device, not from JAX's threefry, so the two packages give
 different numbers for the same seed: parity tests feed both the same
 numpy noise instead.
@@ -24,6 +25,22 @@ def draw_noise_batch(
     """Bounded uniform measurement noise ``eps_max * U[-1, 1]`` of shape
     ``(B, T, p)`` on ``device``; ``generator`` must live on the same
     device."""
-    W = torch.empty((B, T, p), device=device, dtype=dtype)
-    W.uniform_(-1.0, 1.0, generator=generator)
-    return W.mul_(eps_max)
+    return draw_block_noise(generator, B, T * p, eps_max, device,
+                            dtype).view(B, T, p)
+
+
+def draw_block_noise(
+    generator: torch.Generator,
+    B: int,
+    width: int,
+    eps_max: float,
+    device,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """One outer block's noise, ``eps_max * U[-1, 1]`` of shape ``(B,
+    width)``: the classic engine draws it inside its block loop, so
+    ``n_outer`` calls on a generator seeded alike give the same noise
+    for an explicit-noise run."""
+    w = torch.empty((B, width), device=device, dtype=dtype)
+    w.uniform_(-1.0, 1.0, generator=generator)
+    return w.mul_(eps_max)

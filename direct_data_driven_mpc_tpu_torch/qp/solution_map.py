@@ -11,22 +11,67 @@ the constant and the ``theta`` columns gives the affine map
 ``u*(theta) = u_base + U_gain theta`` and the optimal cost as an
 explicit quadratic in ``theta``.
 
-Counterpart of ``direct_data_driven_mpc_tpu/qp/solution_map.py``
-(``kkt_multi_solve``, ``compute_solution_operator_np``,
-``kkt_residuals``). Everything here is numpy float64; the device
-engines receive the operator through the condensed block map.
+The QP is also linear in the setpoints ``r = [u_s; y_s]`` (its g-vector
+and terminal rows), so one KKT multi-solve over ``[theta; r]`` gives the
+setpoint-parametric operator ``u*(theta, r) = U_theta theta + U_r r``
+with the joint cost ``xi' P xi``, ``xi = [theta; r]``
+(:func:`compute_tracking_operator_np`): a controller retargets without
+a rebuild.
+
+Counterpart of ``direct_data_driven_mpc_tpu/qp/solution_map.py``. The
+operators are derived in numpy float64 on the host;
+:class:`SolutionMap` and :class:`TrackingMap` carry them as tensors on
+one device for the generic closed loop (``control.loop``), whose solve
+functions here take a batch of windows ``(B, n_theta)`` as well as one
+``(n_theta,)``.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from typing import NamedTuple
 
+import numpy as np
+import torch
+
+from direct_data_driven_mpc_tpu_torch.device import resolve_device
 from direct_data_driven_mpc_tpu_torch.qp.spec import QPSpec
 
 #: Keys of the operator dict that the condensed engine reads.
 SOLUTION_OPERATOR_KEYS = (
     "z_base", "Z", "u_base", "U_gain", "cost_P", "cost_q", "cost_r",
 )
+
+
+class SolutionMap(NamedTuple):
+    """The affine solution operator as tensors on one device.
+
+    ``z*(theta) = z_base + Z theta``; ``u*(theta) = u_base + U_gain
+    theta`` (the ``ubar[0, L-1]`` segment); ``cost(theta) = theta' P
+    theta + q . theta + r``.
+    """
+
+    z_base: torch.Tensor  # (nz,)
+    Z: torch.Tensor  # (nz, n_theta)
+    u_base: torch.Tensor  # (L*m,)
+    U_gain: torch.Tensor  # (L*m, n_theta)
+    cost_P: torch.Tensor  # (n_theta, n_theta)
+    cost_q: torch.Tensor  # (n_theta,)
+    cost_r: torch.Tensor  # ()
+
+
+class TrackingMap(NamedTuple):
+    """The setpoint-parametric operator as tensors on one device.
+
+    The optimum is jointly linear in ``(theta, r)``, ``r = [u_s; y_s]``,
+    with no constant term (g and b_const vanish at ``r = 0``)::
+
+        u*(theta, r)  = U_theta theta + U_r r
+        cost(theta, r) = xi' cost_P xi,   xi = [theta; r]
+    """
+
+    U_theta: torch.Tensor  # (L*m, n_theta)
+    U_r: torch.Tensor  # (L*m, m+p)
+    cost_P: torch.Tensor  # (n_theta+m+p, n_theta+m+p)
 
 
 def kkt_multi_solve(K: np.ndarray, RHS: np.ndarray) -> np.ndarray:
@@ -115,6 +160,20 @@ def solution_operator_from_numpy(arrays: dict) -> dict:
     return op
 
 
+def tracking_map_from_numpy(arrays, device, dtype=torch.float32
+                            ) -> TrackingMap:
+    """A :class:`TrackingMap` from arrays built elsewhere (a dict, or the
+    JAX package's ``TrackingMap`` as numpy), cast onto ``device`` in
+    ``dtype``. Raises ``KeyError`` naming a missing field."""
+    if not isinstance(arrays, dict):
+        arrays = arrays._asdict()
+    missing = [k for k in TrackingMap._fields if k not in arrays]
+    if missing:
+        raise KeyError(f"tracking map lacks fields {missing}")
+    return TrackingMap(**_to_device(arrays, TrackingMap._fields, device,
+                                    dtype))
+
+
 def setpoint_channels_np(spec: QPSpec):
     """Host float64 derivation of the QP's setpoint channels: ``g(r) =
     Gamma r``, ``b_const(r) = S_r r``, ``r0(r) = r' R0 r`` for ``r =
@@ -168,6 +227,135 @@ def setpoint_channels_np(spec: QPSpec):
             "the assembled spec.r0"
         )
     return Gamma, S_r, R0, r_bar
+
+
+def compute_tracking_operator_np(spec: QPSpec) -> dict:
+    """Host float64 setpoint-parametric operator (setpoint channels from
+    :func:`setpoint_channels_np`): one KKT multi-solve over ``xi =
+    [theta; r]``.
+
+    Keys: ``U_theta, U_r, cost_P`` (joint in ``xi``), the full ``Z``,
+    the certificate ``feasible, primal_residual_gain``, and the spec's
+    baked setpoints ``u_s, y_s``, on which the tracking block map
+    centers its setpoint channel.
+    """
+    d = spec.dims
+    m, p = d.m, d.p
+    nz, nc, nt = spec.nz, spec.nc, d.n_theta
+    Gamma, S_r, R0, _ = setpoint_channels_np(spec)
+
+    K = np.zeros((nz + nc, nz + nc))
+    K[:nz, :nz] = spec.H
+    K[:nz, nz:] = spec.A.T
+    K[nz:, :nz] = spec.A
+    RHS = np.zeros((nz + nc, nt + m + p))
+    RHS[:nz, nt:] = -Gamma
+    RHS[nz:, :nt] = spec.S
+    RHS[nz:, nt:] = S_r
+    Z = kkt_multi_solve(K, RHS)[:nz]
+
+    res_gain = float(
+        np.abs(spec.A @ Z - np.concatenate([spec.S, S_r], axis=1)).max(
+            initial=0.0
+        )
+    )
+
+    # cost(xi) = 0.5 xi' Z'HZ xi + r' Gamma' Z xi + r' R0 r.
+    cost_P = 0.5 * Z.T @ (spec.H @ Z)
+    C = Gamma.T @ Z  # (m+p, nt+m+p)
+    cost_P[nt:, :] += 0.5 * C
+    cost_P[:, nt:] += 0.5 * C.T
+    cost_P[nt:, nt:] += R0
+    cost_P = 0.5 * (cost_P + cost_P.T)
+
+    u_sl = spec.u_pred_slice
+    return {
+        "U_theta": Z[u_sl, :nt],
+        "U_r": Z[u_sl, nt:],
+        "cost_P": cost_P,
+        "Z": Z,
+        "feasible": res_gain < 1e-7,
+        "primal_residual_gain": res_gain,
+        "u_s": np.asarray(spec.u_s, np.float64),
+        "y_s": np.asarray(spec.y_s, np.float64),
+    }
+
+
+def _check_dtype_supported(dtype) -> None:
+    """The operators go to the device in float32 or float64 only, and
+    in the type asked for: a float64 request stays float64, and a
+    narrower type, which would silently degrade the parity-bound paths,
+    raises."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(
+            f"operators are held in torch.float32 or torch.float64; got "
+            f"{dtype}"
+        )
+
+
+def _to_device(op: dict, fields, device, dtype) -> dict:
+    _check_dtype_supported(dtype)
+    device = resolve_device(device)
+    return {
+        k: torch.as_tensor(np.array(op[k]), dtype=dtype, device=device)
+        for k in fields
+    }
+
+
+def compute_solution_map(spec: QPSpec, device=None,
+                         dtype=torch.float32) -> SolutionMap:
+    """The affine operator of ``spec`` (host float64) as a
+    :class:`SolutionMap` on ``device`` (None: the CUDA card) in
+    ``dtype``."""
+    return SolutionMap(**_to_device(compute_solution_operator_np(spec),
+                                    SolutionMap._fields, device, dtype))
+
+
+def compute_tracking_map(spec: QPSpec, device=None,
+                         dtype=torch.float32) -> TrackingMap:
+    """The setpoint-parametric operator of ``spec`` (host float64) as a
+    :class:`TrackingMap` on ``device`` (None: the CUDA card) in
+    ``dtype``."""
+    return TrackingMap(**_to_device(compute_tracking_operator_np(spec),
+                                    TrackingMap._fields, device, dtype))
+
+
+def solve_full(sol_map: SolutionMap, theta: torch.Tensor) -> torch.Tensor:
+    """Full optimal decision vector ``z*(theta)``: ``(nz,)`` or, for a
+    batch of windows ``(B, n_theta)``, ``(B, nz)``."""
+    return sol_map.z_base + theta @ sol_map.Z.T
+
+
+def solve_u(sol_map: SolutionMap, theta: torch.Tensor) -> torch.Tensor:
+    """Optimal input sequence ``ubar*[0, L-1]`` flattened, ``(L*m,)``
+    (``(B, L*m)`` for a batch of windows)."""
+    return sol_map.u_base + theta @ sol_map.U_gain.T
+
+
+def optimal_cost(sol_map: SolutionMap, theta: torch.Tensor
+                 ) -> torch.Tensor:
+    """Optimal objective value at ``theta`` (a scalar, or ``(B,)``)."""
+    return (
+        ((theta @ sol_map.cost_P) * theta).sum(-1)
+        + theta @ sol_map.cost_q
+        + sol_map.cost_r
+    )
+
+
+def solve_u_tracking(tm: TrackingMap, theta: torch.Tensor,
+                     r: torch.Tensor) -> torch.Tensor:
+    """Optimal input sequence at past window ``theta`` and setpoints ``r
+    = [u_s; y_s]``, flattened ``(L*m,)`` (``(B, L*m)`` for a batch of
+    windows; ``r`` is ``(m+p,)`` or ``(B, m+p)``)."""
+    return theta @ tm.U_theta.T + r @ tm.U_r.T
+
+
+def tracking_cost(tm: TrackingMap, theta: torch.Tensor,
+                  r: torch.Tensor) -> torch.Tensor:
+    """Optimal objective value at ``(theta, r)`` (a scalar, or
+    ``(B,)``)."""
+    xi = torch.cat([theta, r.expand(*theta.shape[:-1], r.shape[-1])], -1)
+    return ((xi @ tm.cost_P) * xi).sum(-1)
 
 
 def kkt_residuals(spec: QPSpec, z: np.ndarray, theta: np.ndarray) -> dict:

@@ -22,6 +22,7 @@ from direct_data_driven_mpc_tpu_torch.control.controller import (  # noqa: E402
 )
 from direct_data_driven_mpc_tpu_torch.control.linear_engine import (  # noqa: E402
     build_linear_engine,
+    build_tracking_engine,
 )
 from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa  # noqa: E402
 from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr  # noqa: E402
@@ -79,7 +80,7 @@ def _controller(golden, n_mpc_step=1):
     )
 
 
-def _packed(golden, bm, n_steps, batch, device, seed=0):
+def _packed(golden, bm, n_steps, batch, device, seed=0, setpoints=None):
     p = 2
     rng = np.random.default_rng(seed)
     x0s = torch.as_tensor(np.tile(golden["x0"], (batch, 1)),
@@ -97,7 +98,7 @@ def _packed(golden, bm, n_steps, batch, device, seed=0):
     K = bm.os_c.shape[0] // bm.M_T.shape[0]
     n_outer = math.ceil(n_steps / K)
     return fr._center_and_pack(bm, x0s, ups, yps, Ws, n_outer, K,
-                               n_outer * K - n_steps)
+                               n_outer * K - n_steps, setpoints)
 
 
 @pytest.mark.parametrize(
@@ -123,6 +124,62 @@ def test_kernel_matches_plain_version(cuda, golden, n_steps, K, batch,
     for a, b in zip((got[0], got[1], got[3]), (U, Y, s_fin)):
         torch.testing.assert_close(a, b, rtol=0, atol=atol)
     torch.testing.assert_close(got[2], C, rtol=1e-3, atol=1e-5)
+
+
+def _tracking_schedule(n_outer, device):
+    """bench.py's retarget schedule: the baked setpoints, then 0.85 x
+    them, in alternation every 2 outer blocks."""
+    r0 = torch.tensor([1.0, 1.0, 0.65, 0.77], device=device)
+    low = torch.tensor([(i // 2) % 2 == 1 for i in range(n_outer)],
+                       device=device)
+    return torch.where(low[:, None], 0.85 * r0, r0)
+
+
+@pytest.mark.parametrize(
+    "n_steps,K,batch,w_off", [(37, 8, 40, 2), (400, 50, 4096, 3)],
+)
+def test_k1_tracking_matches_plain_version(cuda, golden, n_steps, K, batch,
+                                           w_off):
+    """K1 on a tracking operator (four_tank_tracking at K = 50: rank 20,
+    two slot passes, 104 W rows) with the retarget schedule against its
+    plain version: U, Y and the final carry within 2e-5, costs at rtol
+    1e-3, atol 1e-5."""
+    bm = build_tracking_engine(_controller(golden), PLANT,
+                               solves_per_block=K, device=cuda)
+    op = fr._build_fused_operator(bm)
+    assert (op.rank, op.nw) == (20, 2 * K + 4)
+    assert fr.k1_pack(op).slots.shape[1] == 2
+    sched = _tracking_schedule(math.ceil(n_steps / K), cuda)
+    s0, W = _packed(golden, bm, n_steps, batch, cuda, setpoints=sched)
+    before = fr.fused_rollout.launches
+    got = fr.fused_rollout(op, s0, W, w_off=w_off)
+    torch.cuda.synchronize()
+    assert fr.fused_rollout.launches == before + 1
+    U, Y, C, s_fin = fr.fused_rollout_reference(op, s0, W, w_off=w_off)
+    for a, b in zip((got[0], got[1], got[3]), (U, Y, s_fin)):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+    torch.testing.assert_close(got[2], C, rtol=1e-3, atol=1e-5)
+
+
+def test_k1_tracking_at_r_bar_equals_the_plain_map(cuda, golden):
+    """With the constant schedule r_bar the dr lanes are zero, and K1's
+    U, Y and final carry on the tracking operator are bit-equal to K1's
+    on the plain map (each value one FMA chain, with exact zero terms
+    added); costs to float32 rounding of the wider factor."""
+    n_steps, K, batch = 400, 50, 4096
+    ctrl = _controller(golden)
+    bm = build_linear_engine(ctrl, PLANT, solves_per_block=K, device=cuda)
+    bm_t = build_tracking_engine(ctrl, PLANT, solves_per_block=K,
+                                 device=cuda)
+    plain = fr.fused_rollout(fr._build_fused_operator(bm),
+                             *_packed(golden, bm, n_steps, batch, cuda))
+    tracked = fr.fused_rollout(
+        fr._build_fused_operator(bm_t),
+        *_packed(golden, bm_t, n_steps, batch, cuda, setpoints=bm_t.r_bar),
+    )
+    for i in (0, 1, 3):
+        assert torch.equal(tracked[i], plain[i]), i
+    torch.testing.assert_close(tracked[2], plain[2], rtol=1e-3, atol=1e-5)
 
 
 def test_rollout_plan_matches_library(cuda):

@@ -247,10 +247,36 @@ def test_cpu_tensors_take_plain_version(setup):
 
 
 def test_tracking_maps_rejected(setup):
-    jplant, jctrl, _, _ = setup
-    bm = _carry(_jax_map(jplant, jctrl, 4))._replace(n_r=4)
-    with pytest.raises(NotImplementedError, match="tracking"):
-        fr.make_fused_batched_rollout(bm, 16)
+    """A tracking map runs with a setpoint schedule (the plain version,
+    against the JAX XLA twin) and is rejected without one, with one of
+    the wrong shape, and with ``cost_mode="post"``."""
+    from direct_data_driven_mpc_tpu.control.linear_engine import (
+        build_tracking_engine as jax_build_tracking_engine,
+    )
+
+    jplant, jctrl, _, rng = setup
+    n_steps, K = 16, 4
+    jbm = jax_build_tracking_engine(jctrl, jplant.as_params(),
+                                    solves_per_block=K, dtype=jnp.float32)
+    bm = _carry(jbm)
+    assert bm.n_r == 4
+    inputs = _inputs(jplant, jctrl, rng, n_steps)
+    r = np.array([0.9, 0.9, 0.6, 0.7])
+    res = fr.make_fused_batched_rollout(bm, n_steps)(
+        *_t(inputs), torch.as_tensor(r, dtype=torch.float32))
+    ref = jpr.pallas_batched_rollout(
+        jbm, *_j(inputs), n_steps=n_steps, backend="xla",
+        setpoints=jnp.asarray(r, jnp.float32),
+    )
+    np.testing.assert_allclose(res.u_sys.numpy(), np.asarray(ref.u_sys),
+                               rtol=0, atol=2e-5)
+    run = fr.make_fused_batched_rollout(bm, n_steps)
+    with pytest.raises(ValueError, match="requires a `setpoints`"):
+        run(*_t(inputs))
+    with pytest.raises(ValueError, match="must broadcast"):
+        run(*_t(inputs), torch.zeros(5))
+    with pytest.raises(NotImplementedError, match="post"):
+        fr.make_fused_batched_rollout(bm, n_steps, cost_mode="post")
 
 
 def _old_k1_smem_bytes(S, nw, K):
@@ -354,27 +380,43 @@ def test_k1_packed_operator_reproduces_plain_version(setup):
     give U, Y, C and the final carry of ``fused_rollout_reference`` bit
     for bit (the four-tank controller, K = 8, B = 16, T = 37 with its
     zero-padded last block, w_off = 2): 2 column tiles of 8 slots, one
-    pass."""
+    pass; and its tracking map with a per-block schedule (rank 20: each
+    solve's 21 cost columns over two passes)."""
+    from direct_data_driven_mpc_tpu.control.linear_engine import (
+        build_tracking_engine as jax_build_tracking_engine,
+    )
+
     jplant, jctrl, _, rng = setup
     n_steps, K = 37, 8
-    bm = _carry(_jax_map(jplant, jctrl, K))
-    op = fr._build_fused_operator(bm)
     n_outer = -(-n_steps // K)
-    s0, W = fr._center_and_pack(
-        bm, *_t(_inputs(jplant, jctrl, rng, n_steps)), n_outer, K,
-        n_outer * K - n_steps,
+    inputs = _t(_inputs(jplant, jctrl, rng, n_steps))
+    r0 = np.array([1.0, 1.0, 0.65, 0.77])
+    sched = torch.as_tensor(
+        np.stack([(0.85 if i % 2 else 1.0) * r0 for i in range(n_outer)]),
+        dtype=torch.float32,
     )
-    assert fr.k1_pack(op).slots.shape == (2, 1, 8, 4)
-    got = _packed_rollout(op, s0, W, 2)
-    want = fr.fused_rollout_reference(op, s0, W, w_off=2)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    cases = (
+        (_carry(_jax_map(jplant, jctrl, K)), None, (2, 1, 8, 4)),
+        (_carry(jax_build_tracking_engine(
+            jctrl, jplant.as_params(), solves_per_block=K,
+            dtype=jnp.float32)), sched, (2, 2, 8, 4)),
+    )
+    for bm, setpoints, slots in cases:
+        op = fr._build_fused_operator(bm)
+        s0, W = fr._center_and_pack(bm, *inputs, n_outer, K,
+                                    n_outer * K - n_steps, setpoints)
+        assert fr.k1_pack(op).slots.shape == slots
+        got = _packed_rollout(op, s0, W, 2)
+        want = fr.fused_rollout_reference(op, s0, W, w_off=2)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("S,nw,Ku,Kp,K,rank,n_pass", [
     (21, 13, 7, 9, 3, 40, 3),   # three passes of 17 per solve
     (5, 6, 3, 40, 2, 33, 2),    # 34 columns per solve: a lone q chunk
     (9, 4, 17, 17, 4, 0, 1),    # rank 0: the cost is its q-part
+    (20, 104, 100, 100, 50, 20, 2),  # four_tank_tracking: 21 per solve
 ])
 def test_k1_slot_table_covers_every_column_once(S, nw, Ku, Kp, K, rank,
                                                 n_pass):

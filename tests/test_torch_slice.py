@@ -175,6 +175,25 @@ def test_port_never_imports_jax():
             assert bool(torch.isfinite(res.costs).all())
         assert fr.fused_rollout.launches == 0
         assert fr.fused_rollout_nocost.launches == 0
+        from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
+            build_tracking_engine,
+        )
+        from direct_data_driven_mpc_tpu_torch.control.loop import (
+            closed_loop_rollout,
+        )
+
+        bm_t = build_tracking_engine(ctrl, plant.as_params(),
+                                     solves_per_block=4, device="cpu")
+        sched = torch.tensor([1.0, 1.0, 0.65, 0.77])
+        res = fr.make_fused_batched_rollout(bm_t, 20)(
+            *scenario_batch(plant, ctrl, 2, "cpu"), Ws, sched
+        )
+        gen = closed_loop_rollout(
+            plant.as_params(), ctrl.tracking_map(device="cpu"),
+            *scenario_batch(plant, ctrl, 2, "cpu"), Ws, 20,
+            setpoints=sched,
+        )
+        assert float((res.u_sys - gen.u_sys).abs().max()) < 2e-5
         assert random_stable_lti(0, 3, 2, 2).A.shape == (3, 3)
         for name in ("four_tank_convex", "four_tank_box"):
             plant, ctrl, op, kw = admm_config(name)
