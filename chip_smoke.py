@@ -125,6 +125,40 @@ this process (measured on the H100), and phases 23 and 26 read it:
     one-addmm yardstick, and the device's idle share over the amortized
     rollouts (``torch.profiler``).
 
+Then ``bench.py``'s three generic configurations (its
+``run_convex_config``: the four-tank controller of seed 0, N = 400,
+L = 30, B = 4096 x T = 400, the main path's noise) through the generic
+loop's iterative solvers and ``parallel.batch.make_batched_rollout``,
+plain PyTorch with no kernel of their own, run right after phase 26
+(phase 30 reads ``torch.profiler``):
+
+27. ``four_tank_convex_generic``: CONVEX slack, c = 1, 16 ADMM
+    iterations per solve; the converged lanes; against K4 from the same
+    zero state at 16 iterations and tolerance 1e-6 (u and y within
+    1e-4); against its float64 run on 64 scenarios (max |du| < 1e-4);
+    a segmented run (two halves through ``solver_state0``) bit-equal to
+    the uninterrupted one;
+28. ``four_tank_box_generic``: slack NONE, |u| <= 0.85, rho = 1, up to
+    60 iterations (early exit per scenario): |u| checked; against K4's
+    box variant from zero at 60 iterations (u and y within 1e-4); the
+    adaptive ladder (rho None, cap 120) on 1024 scenarios against its
+    float64 run (1e-4), with a histogram of the final rungs;
+29. ``four_tank_nonconvex``: NON_CONVEX slack (opted in), c = 0.05,
+    4 bound updates x 16 ADMM iterations per solve: the converged lanes
+    and the largest violation of the Eq. 6d constraint; against its
+    float64 run on 64 scenarios (max |du| < 1e-4);
+30. timing: each of the three in turns, ms per rollout and solves/s by
+    CUDA events, then the device kernels one rollout launches
+    (``torch.profiler`` over ten segments chained through
+    ``solver_state0``, each bit-equal to the full run) and the device's
+    idle share. None of the converged fractions is asserted.
+
+The script sets ``torch.set_float32_matmul_precision("high")`` first,
+as a user's process might: the port scopes IEEE float32 to its
+parity-bound paths (``ops/precision.py``), the library yardsticks are
+timed inside the same guard, and at the end the caller's setting must
+read back.
+
 Any failed check raises. Run from the repository root:
 ``python3 chip_smoke.py``. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it the kernels'
@@ -204,10 +238,12 @@ def log(msg: str) -> None:
 
 
 def build_four_tank_robust(N: int = 400, L: int = 30, seed: int = 0,
-                           slack: str = "NONE"):
+                           slack: str = "NONE", c: float = 1.0,
+                           allow_nonconvex_slack: bool = False):
     """The four-tank Robust controller as ``bench.py`` builds it:
     uniform input data, bounded measurement noise, slack NONE (or
-    CONVEX, as its fused ADMM configurations build it)."""
+    CONVEX, as its fused ADMM configurations build it, or NON_CONVEX at
+    c = 0.05, opted in, as ``four_tank_nonconvex`` builds it)."""
     from direct_data_driven_mpc_tpu_torch.control.controller import (
         DirectDataDrivenMPCController,
     )
@@ -229,9 +265,10 @@ def build_four_tank_robust(N: int = 400, L: int = 30, seed: int = 0,
         Q=3.0 * np.eye(p * L), R=1e-4 * np.eye(m * L),
         u_s=np.array([[1.0], [1.0]]), y_s=np.array([[0.65], [0.77]]),
         eps_max=eps, lamb_alpha=0.1 / max(eps, 1e-12),
-        lamb_sigma=1000.0, c=1.0,
+        lamb_sigma=1000.0, c=c,
         slack_var_constraint_type=SlackVarConstraintTypes[slack],
         controller_type=DataDrivenMPCType.ROBUST, n_mpc_step=1,
+        allow_nonconvex_slack=allow_nonconvex_slack,
     )
     return plant, ctrl
 
@@ -870,16 +907,20 @@ def ladder_phases(dev, smi) -> dict:
 
 def cuda_ms(fn, reps: int) -> float:
     """Milliseconds per call of ``fn()`` by CUDA events, after one
-    warm-up call."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
+    warm-up call; its products run in IEEE float32 (the library
+    yardsticks are float32 numbers, whatever the caller allows)."""
+    from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
+
+    with ieee_float32():
         fn()
-    end.record()
-    torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
@@ -1103,12 +1144,15 @@ def large_plant_phases(dev, smi) -> dict:
 
 def k1_rows(op, s0, W):
     """The ``(B n_outer, D)`` rows ``[w_t | s_t]`` of K1's product, by
-    the plain recursion of the state columns."""
+    the plain recursion of the state columns (in IEEE float32)."""
+    from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
+
     S, n_outer = op.S, W.shape[1]
     states = [s0]
-    for t in range(n_outer - 1):
-        states.append(torch.addmm(op.bias[:S], torch.cat(
-            [W[:, t], states[-1]], dim=1), op.G[:, :S]))
+    with ieee_float32():
+        for t in range(n_outer - 1):
+            states.append(torch.addmm(op.bias[:S], torch.cat(
+                [W[:, t], states[-1]], dim=1), op.G[:, :S]))
     return torch.cat([W, torch.stack(states, 1)], 2).reshape(
         -1, op.G.shape[0])
 
@@ -1497,12 +1541,269 @@ def tracking_phases(dev, smi, main) -> dict:
     }
 
 
+def generic_phases(dev, smi, main, B=B_MAIN, T=T_MAIN) -> dict:
+    """Phases 27-29: ``bench.py``'s generic configurations (its
+    ``run_convex_config``: seed 0, N = 400, L = 30) through the generic
+    loop's iterative solvers and the batch layer, each checked against
+    K4 or its float64 run. Returns each configuration's rollout and its
+    float32 result, for phase 30."""
+    from direct_data_driven_mpc_tpu_torch.control.loop import make_solve_fn
+    from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        batched_closed_loop,
+        make_batched_rollout,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp.admm import (
+        compute_admm_operator_np,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp.box import (
+        compute_box_admm_operator_np,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp.nonconvex import (
+        nonconvex_admm_solve,
+    )
+
+    B64, B_LAD = min(B, 64), min(B, 1024)
+    out = {}
+
+    def frac(mask):
+        return float(mask.float().mean())
+
+    def against_k4(tag, plant, ctrl, op, iters, res, ins):
+        """K4 from the same zero state, its iterations summed to the
+        loop's, at the loop's tolerance: u and y within 1e-4."""
+        run = fa.make_fused_admm_rollout(
+            plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, T, device=dev,
+            iters=(iters,), cold_iters=0, tol=1e-6,
+        )
+        k4 = run(*ins)
+        e_u = check_close(f"{tag} vs K4 u", res.u_sys, k4.u_sys, NORTH_STAR)
+        e_y = check_close(f"{tag} vs K4 y", res.y_sys, k4.y_sys, NORTH_STAR)
+        log(f"{tag} vs K4 ({iters} iterations from zero, tol 1e-6): max "
+            f"|du| {e_u:.3e}, |dy| {e_y:.3e} (atol {NORTH_STAR}); "
+            f"converged: loop {frac(res.converged):.6f}, K4 "
+            f"{frac(k4.converged):.6f}")
+
+    def against_f64(tag, plant, solver64, iters, res, ins, n):
+        r64 = batched_closed_loop(
+            plant.as_params(), solver64, *(a[:n].double() for a in ins),
+            n_steps=T, admm_iters=iters,
+        )
+        du = max_abs(res.u_sys[:n], r64.u_sys)
+        if not du < NORTH_STAR:
+            raise AssertionError(f"{tag}: max |du| vs float64 {du:.3e} >= "
+                                 f"{NORTH_STAR}")
+        log(f"{tag} float64 truth ({n} scenarios): max |du| {du:.3e} (< "
+            f"{NORTH_STAR}); converged: float32 "
+            f"{frac(res.converged[:n]):.6f}, float64 "
+            f"{frac(r64.converged):.6f}")
+        return r64
+
+    def first_run(tag, run, ins):
+        t0 = time.perf_counter()
+        res = run(*ins)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        if res.u_sys.shape != (B, T, 2) or not bool(
+            torch.isfinite(res.u_sys).all() & torch.isfinite(res.costs).all()
+        ):
+            raise AssertionError(f"{tag}: shape {tuple(res.u_sys.shape)} "
+                                 "or non-finite values")
+        log(f"{tag}: B={B} T={T}, first rollout {secs:.2f} s, converged "
+            f"lanes {frac(res.converged):.6f} [{smi}]")
+        return res
+
+    # 27. four_tank_convex_generic: CONVEX slack, c = 1, 16 iterations.
+    plant, ctrl = build_four_tank_robust(slack="CONVEX")
+    ins = (*scenario_batch(plant, ctrl, B, dev), main["inputs"][3])
+    solver = ctrl.admm_solver(device=dev)
+    run = make_batched_rollout(plant.as_params(), solver, T, admm_iters=16)
+    tag = "four_tank_convex_generic"
+    res = first_run(tag, run, ins)
+    against_k4(tag, plant, ctrl, compute_admm_operator_np(ctrl.spec), 16,
+               res, ins)
+    against_f64(tag, plant, ctrl.admm_solver(device=dev,
+                                             dtype=torch.float64),
+                16, res, ins, B64)
+    h = T // 2
+    first = batched_closed_loop(plant.as_params(), solver, *ins[:3],
+                                ins[3][:, :h], n_steps=h, admm_iters=16)
+    second = batched_closed_loop(
+        plant.as_params(), solver, first.x_final, first.u_past,
+        first.y_past, ins[3][:, h:], n_steps=T - h, admm_iters=16,
+        solver_state0=first.solver_state,
+    )
+    for name in ("u_sys", "y_sys", "costs", "converged"):
+        if not torch.equal(torch.cat([getattr(first, name),
+                                      getattr(second, name)], 1),
+                           getattr(res, name)):
+            raise AssertionError(f"{tag} segmented {name} differs from the "
+                                 "uninterrupted run")
+    log(f"{tag} segmented ({h} + {T - h} steps through solver_state0): u, "
+        "y, costs and converged lanes bit-equal to the uninterrupted run")
+    out[tag] = dict(run=run, ins=ins, res=res, plant=plant.as_params(),
+                    solver=solver, iters=16)
+
+    # 28. four_tank_box_generic: slack NONE, |u| <= 0.85, rho = 1, cap 60.
+    plant, ctrl = main["plant"], main["ctrl"]
+    ins = main["inputs"]
+    solver = ctrl.box_admm_solver(u_bounds=(-0.85, 0.85), rho=1.0,
+                                  device=dev)
+    run = make_batched_rollout(plant.as_params(), solver, T, admm_iters=60)
+    tag = "four_tank_box_generic"
+    res = first_run(tag, run, ins)
+    u_max = float(res.u_sys.abs().max())
+    if u_max > 0.85 + 1e-6:
+        raise AssertionError(f"{tag}: box violated, max |u| {u_max}")
+    log(f"{tag}: box respected, max |u| {u_max:.6f} <= 0.85")
+    against_k4(tag, plant, ctrl, compute_box_admm_operator_np(
+        ctrl.spec, u_bounds=(-0.85, 0.85), rho=1.0), 60, res, ins)
+    out[tag] = dict(run=run, ins=ins, res=res, plant=plant.as_params(),
+                    solver=solver, iters=60)
+    # The adaptive ladder (rho None, cap 120) on B_LAD scenarios.
+    lad_ins = tuple(a[:B_LAD] for a in ins)
+    lad = batched_closed_loop(
+        plant.as_params(), ctrl.box_admm_solver(u_bounds=(-0.85, 0.85),
+                                                device=dev),
+        *lad_ins, n_steps=T, admm_iters=120,
+    )
+    lad64 = against_f64(
+        f"{tag} ladder (cap 120, B={B_LAD})", plant,
+        ctrl.box_admm_solver(u_bounds=(-0.85, 0.85), device=dev,
+                             dtype=torch.float64),
+        120, lad, lad_ins, B_LAD,
+    )
+    R = 7
+    log(f"{tag} ladder: final rungs float32 "
+        f"{torch.bincount(lad.solver_state.rho_idx.long(), minlength=R).tolist()}"
+        f", float64 "
+        f"{torch.bincount(lad64.solver_state.rho_idx.long(), minlength=R).tolist()}"
+        f" (rungs 0-{R - 1}); converged {frac(lad.converged):.6f}, from "
+        f"solve 10 on {frac(lad.converged[:, 10:]):.6f}")
+
+    # 29. four_tank_nonconvex: c = 0.05, 4 outer x 16 inner iterations.
+    plant, ctrl = build_four_tank_robust(slack="NON_CONVEX", c=0.05,
+                                         allow_nonconvex_slack=True)
+    ins = (*scenario_batch(plant, ctrl, B, dev), main["inputs"][3])
+    solver = ctrl.nonconvex_admm_solver(device=dev)
+    tag = "four_tank_nonconvex"
+    worst = {}
+
+    def solve(theta, state):
+        # make_solve_fn's NON_CONVEX solve, keeping the largest
+        # violation of the Eq. 6d constraint and the bound range.
+        u, cost, st, stats = nonconvex_admm_solve(
+            solver, theta, outer_iters=4, inner_iters=16, state=state,
+            tol=1e-6,
+        )
+        for k, v in (("viol", stats.constraint_violation.max()),
+                     ("bound_max", stats.bound.max()),
+                     ("bound_min", -stats.bound.min())):
+            worst[k] = v if k not in worst else torch.maximum(worst[k], v)
+        return u.reshape(theta.shape[0], -1, ctrl.m), cost, st, \
+            stats.converged
+
+    state0 = make_solve_fn(solver, ctrl.m, admm_iters=16)[1]
+    res = first_run(tag, make_batched_rollout(
+        plant.as_params(), (solve, state0), T), ins)
+    log(f"{tag}: largest violation of |sigma_pred| <= c eps_max (1 + "
+        f"|alpha|_1) {float(worst['viol']):.3e}; bounds in "
+        f"[{-float(worst['bound_min']):.6e}, "
+        f"{float(worst['bound_max']):.6e}] (c eps_max "
+        f"{float(solver.c_eps):.1e})")
+    against_f64(tag, plant, ctrl.nonconvex_admm_solver(
+        device=dev, dtype=torch.float64), 16, res, ins, B64)
+    run = make_batched_rollout(plant.as_params(), solver, T, admm_iters=16)
+    out[tag] = dict(run=run, ins=ins, res=res, plant=plant.as_params(),
+                    solver=solver, iters=16)
+    return out
+
+
+def generic_timing(dev, smi, runs) -> None:
+    """Phase 30: each generic configuration's rollout, in turns, by CUDA
+    events (its phase's run was the warm-up): ms per rollout and
+    solves/s; then the device kernels one rollout launches, counted by
+    ``torch.profiler`` over ten segments chained through
+    ``solver_state0``, and the device's busy share under it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        batched_closed_loop,
+    )
+
+    ms = {k: [] for k in runs}
+    names = list(runs)
+    for name in names + names[::-1]:
+        run, ins, ref = (runs[name][k] for k in ("run", "ins", "res"))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        res = run(*ins)
+        end.record()
+        torch.cuda.synchronize()
+        if not torch.equal(res.u_sys, ref.u_sys):
+            raise AssertionError(f"{name}: timed rollout differs from its "
+                                 "checked run")
+        ms[name].append(start.elapsed_time(end))
+        B, T = res.costs.shape
+        log(f"generic timing {name}: {ms[name][-1]:.2f} ms per rollout -> "
+            f"{B * T / ms[name][-1] * 1e3:,.0f} solves/s [{smi}]")
+    for name in names:
+        plant, solver, iters, ins, ref = (
+            runs[name][k] for k in ("plant", "solver", "iters", "ins", "res")
+        )
+        B, T = ref.costs.shape
+        mean = sum(ms[name]) / len(ms[name])
+        kernels = copies = 0
+        dev_ms = wall = 0.0
+        state, x, up, yp = None, *ins[:3]
+        seg = T // 10
+        for t0 in range(0, T, seg):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                w0 = time.perf_counter()
+                part = batched_closed_loop(
+                    plant, solver, x, up, yp, ins[3][:, t0 : t0 + seg],
+                    n_steps=seg, admm_iters=iters, solver_state0=state,
+                )
+                torch.cuda.synchronize()
+                wall += (time.perf_counter() - w0) * 1e3
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    if e.name.startswith(("Memcpy", "Memset")):
+                        copies += 1
+                    else:
+                        kernels += 1
+                    dev_ms += e.device_time_total / 1e3
+            if not torch.equal(part.u_sys, ref.u_sys[:, t0 : t0 + seg]):
+                raise AssertionError(f"{name}: profiled segment at step "
+                                     f"{t0} differs from the full run")
+            state, x, up, yp = (part.solver_state, part.x_final,
+                                part.u_past, part.y_past)
+        if kernels < T:
+            raise AssertionError(f"{name}: torch.profiler saw {kernels} "
+                                 "device kernels")
+        log(f"generic {name} (B={B} x T={T}, {smi}): {mean:.2f} ms per "
+            f"rollout (mean of 2 turns) -> {B * T / mean * 1e3:,.0f} "
+            f"solves/s; {kernels} device kernels and {copies} copies per "
+            f"rollout ({kernels / T:.1f} per closed-loop step), device busy "
+            f"{dev_ms:.1f} of {wall:.1f} ms under the profiler (idle "
+            f"{1 - dev_ms / wall:.1%}), against {mean:.2f} ms without it "
+            f"(idle {1 - dev_ms / mean:.1%})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
     dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # TF32 allowed outside the port, as a user's process might set it:
+    # the port's parity-bound paths scope IEEE float32 themselves, so
+    # every bit-equality below holds under it.
+    torch.set_float32_matmul_precision("high")
 
     from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
         build_linear_engine,
@@ -1745,9 +2046,18 @@ def main() -> int:
         plant=plant, ctrl=ctrl, inputs=(x0s, ups, yps, Ws), k1=got,
         plain=want,
     ))
+    generic_timing(dev, smi, generic_phases(dev, smi, dict(
+        plant=plant, ctrl=ctrl, inputs=(x0s, ups, yps, Ws),
+    )))
     k4 = admm_phases(dev, smi)
     k5 = ladder_phases(dev, smi)
     k3 = large_plant_phases(dev, smi)
+    if (torch.get_float32_matmul_precision() != "high"
+            or torch.backends.cuda.matmul.fp32_precision != "tf32"):
+        raise AssertionError("the caller's float32 matmul precision did not "
+                             "survive the port's scoped guard")
+    log("precision: the caller's torch.set_float32_matmul_precision("
+        "'high') reads back after every phase")
     print(json.dumps({"kernels": [k1, k4, k5, k3, k1t]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

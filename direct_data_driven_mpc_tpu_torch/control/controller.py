@@ -1,12 +1,16 @@
-"""Direct data-driven MPC controller (Nominal / Robust, slack ``NONE``
-or ``CONVEX``).
+"""Direct data-driven MPC controller (Nominal / Robust, slack ``NONE``,
+``CONVEX`` or, opted in, ``NON_CONVEX``).
 
 Counterpart of ``direct_data_driven_mpc_tpu/control/controller.py``
 with the same constructor, validation rules and method names.
 Construction assembles the static QP once (float64) and derives either
 the exact affine solution operator (slack ``NONE``; the per-step solve
-is a numpy matvec) or the pre-factorised ADMM operator (``CONVEX``; the
-per-step solve is a warm-started host ADMM, ``qp.admm.admm_solve_np``).
+is a numpy matvec), the pre-factorised ADMM operator (``CONVEX``; the
+per-step solve is a warm-started host ADMM, ``qp.admm.admm_solve_np``)
+or, with ``allow_nonconvex_slack=True``, the convex-concave operator of
+the paper's Eq. 6d (``NON_CONVEX``; the per-step solve is
+``qp.nonconvex.nonconvex_admm_solve_np``; without the flag the
+reference's ``NotImplementedError`` is raised).
 The condensed engine (``control.linear_engine``) takes the affine
 operator from :meth:`DirectDataDrivenMPCController.solution_operator`
 and, to track a setpoint schedule, the setpoint-parametric one from
@@ -15,12 +19,14 @@ loop (``control.loop``) takes them on a device as
 :meth:`~DirectDataDrivenMPCController.solution_map` and
 :meth:`~DirectDataDrivenMPCController.tracking_map`; the fused ADMM
 engine (``ops.fused_admm``) takes
-``qp.admm.compute_admm_operator_np(controller.spec)``.
+``qp.admm.compute_admm_operator_np(controller.spec)``; the generic loop
+takes the iterative operators on a device as
+:meth:`~DirectDataDrivenMPCController.admm_solver`,
+:meth:`~DirectDataDrivenMPCController.box_admm_solver` and
+:meth:`~DirectDataDrivenMPCController.nonconvex_admm_solver`.
 
-Not ported yet: the NON_CONVEX slack variant (ROADMAP.md queue 1, item
-"The remaining solvers and utilities", ``qp/nonconvex.py``). The C
-runtime under ``native/`` is not bound, so every per-step solve runs in
-numpy, which :attr:`solve_path` records.
+The C runtime under ``native/`` is not bound, so every per-step solve
+runs in numpy, which :attr:`solve_path` records.
 """
 
 from __future__ import annotations
@@ -35,10 +41,22 @@ from direct_data_driven_mpc_tpu_torch.ops.host import (
     hankel_matrix_np,
 )
 from direct_data_driven_mpc_tpu_torch.qp.admm import (
+    ADMMSolver,
     admm_solve_np,
     compute_admm_operator_np,
+    compute_admm_solver,
 )
 from direct_data_driven_mpc_tpu_torch.qp.assembly import build_qp_spec
+from direct_data_driven_mpc_tpu_torch.qp.box import (
+    BoxADMMSolver,
+    compute_box_admm_solver,
+)
+from direct_data_driven_mpc_tpu_torch.qp.nonconvex import (
+    NonConvexADMMSolver,
+    compute_nonconvex_admm_solver,
+    compute_nonconvex_operator_np,
+    nonconvex_admm_solve_np,
+)
 from direct_data_driven_mpc_tpu_torch.qp.solution_map import (
     SolutionMap,
     TrackingMap,
@@ -52,14 +70,6 @@ from direct_data_driven_mpc_tpu_torch.qp.spec import (
     QPDims,
     SlackVarConstraintTypes,
 )
-
-_UNPORTED_SLACK = {
-    SlackVarConstraintTypes.NON_CONVEX: (
-        "ROADMAP.md queue 1, 'The remaining solvers and utilities' "
-        "(qp/nonconvex.py)"
-    ),
-}
-
 
 class DirectDataDrivenMPCController:
     """Nominal / Robust direct data-driven MPC controller.
@@ -96,6 +106,7 @@ class DirectDataDrivenMPCController:
         n_mpc_step: int = 1,
         use_terminal_constraint: bool = True,
         admm_iters: int = 200,
+        allow_nonconvex_slack: bool = False,
     ):
         self.controller_type = controller_type
         if controller_type not in (
@@ -141,13 +152,6 @@ class DirectDataDrivenMPCController:
                     "lamb_sigma, c) must be provided for a 'ROBUST' "
                     "controller."
                 )
-            if slack_var_constraint_type in _UNPORTED_SLACK:
-                raise NotImplementedError(
-                    f"{slack_var_constraint_type.name} slack is not "
-                    "ported to the PyTorch package yet; see "
-                    f"{_UNPORTED_SLACK[slack_var_constraint_type]}. "
-                    "Use SlackVarConstraintTypes.NONE or CONVEX."
-                )
 
         if not 1 <= n_mpc_step <= L:
             raise ValueError(
@@ -155,8 +159,12 @@ class DirectDataDrivenMPCController:
             )
         self.n_mpc_step = n_mpc_step
         self.use_terminal_constraint = use_terminal_constraint
-        #: Iteration cap of the per-step ADMM solve (CONVEX slack).
+        #: Iteration cap of the per-step ADMM solve (CONVEX slack; the
+        #: inner iterations of each NON_CONVEX bound update).
         self.admm_iters = admm_iters
+        #: Opt-in to the NON_CONVEX (Eq. 6d) solver; without it that
+        #: slack raises, as the reference does.
+        self.allow_nonconvex_slack = allow_nonconvex_slack
         self._admm_state = None
         self._status = "unsolved"
         self._cost_value: Optional[float] = None
@@ -225,8 +233,9 @@ class DirectDataDrivenMPCController:
     # --- construction --------------------------------------------------
     def initialize_data_driven_mpc(self) -> None:
         """Build the Hankels, assemble the static QP, derive the affine
-        solution operator (or, for CONVEX slack, the ADMM operator) and
-        validate it with an initial solve."""
+        solution operator (or, for CONVEX slack, the ADMM operator; for
+        NON_CONVEX, the convex-concave one) and validate it with an
+        initial solve."""
         self.HLn_ud = hankel_matrix_np(self.u_d, self.L + self.n)
         self.HLn_yd = hankel_matrix_np(self.y_d, self.L + self.n)
 
@@ -246,12 +255,19 @@ class DirectDataDrivenMPCController:
             c=self.c,
             slack_var_constraint_type=self.slack_var_constraint_type,
             use_terminal_constraint=self.use_terminal_constraint,
+            allow_nonconvex_slack=self.allow_nonconvex_slack,
         )
         self._use_admm = (
             self._spec.slack_var_constraint_type
             == SlackVarConstraintTypes.CONVEX
         )
-        if self._use_admm:
+        self._use_nonconvex = (
+            self._spec.slack_var_constraint_type
+            == SlackVarConstraintTypes.NON_CONVEX
+        )
+        if self._use_nonconvex:
+            self._op = compute_nonconvex_operator_np(self._spec)
+        elif self._use_admm:
             self._op = compute_admm_operator_np(self._spec)
         else:
             self._op = compute_solution_operator_np(self._spec)
@@ -274,7 +290,7 @@ class DirectDataDrivenMPCController:
         """The float64 affine solution operator: the entry for
         ``control.linear_engine.build_affine_block_map``. Keys:
         ``z_base, Z, u_base, U_gain, cost_P, cost_q, cost_r``. A CONVEX
-        slack controller has none and raises."""
+        or NON_CONVEX slack controller has none and raises."""
         self._no_affine_operator(
             "use qp.admm.compute_admm_operator_np(spec) with "
             "ops.fused_admm."
@@ -282,10 +298,10 @@ class DirectDataDrivenMPCController:
         return self._op
 
     def _no_affine_operator(self, what: str) -> None:
-        if self._use_admm:
+        if self._use_admm or self._use_nonconvex:
             raise ValueError(
-                "CONVEX slack controllers do not condense to an affine "
-                f"operator; {what}"
+                "CONVEX/NON_CONVEX slack controllers do not condense to "
+                f"an affine operator; {what}"
             )
 
     def solution_map(self, device=None, dtype=torch.float32
@@ -320,6 +336,52 @@ class DirectDataDrivenMPCController:
         )
         return compute_tracking_map(self._spec, device=device, dtype=dtype)
 
+    def admm_solver(self, device=None, dtype=torch.float32) -> ADMMSolver:
+        """The ADMM operator on ``device`` (None: the CUDA card) in
+        ``dtype``, for ``control.loop`` (CONVEX slack)."""
+        if not self._use_admm:
+            raise ValueError(
+                "admm_solver() is the CONVEX-slack operator; slack-NONE "
+                "controllers use solution_map(), NON_CONVEX ones "
+                "nonconvex_admm_solver()."
+            )
+        return compute_admm_solver(self._spec, device=device, dtype=dtype)
+
+    def box_admm_solver(self, u_bounds=None, y_bounds=None, rho=None,
+                        alpha: float = 1.6, device=None,
+                        dtype=torch.float32) -> BoxADMMSolver:
+        """The general-box ADMM operator (``qp.box``) on ``device``
+        (None: the CUDA card) in ``dtype``: actuator saturation ``u_min
+        <= u <= u_max`` and output corridors ``y_min <= y <= y_max``
+        over the free prediction steps, beyond the reference (its only
+        inequality is the CONVEX slack box, which is kept when present).
+        Bounds are ``(lo, hi)`` pairs of scalars or per-channel arrays,
+        None meaning unbounded; ``rho`` None builds the penalty ladder.
+        """
+        if self._use_nonconvex:
+            raise ValueError(
+                "box constraints with the NON_CONVEX slack variant are "
+                "not supported (its bound is state-dependent)."
+            )
+        return compute_box_admm_solver(
+            self._spec, u_bounds=u_bounds, y_bounds=y_bounds, rho=rho,
+            alpha=alpha, device=device, dtype=dtype,
+        )
+
+    def nonconvex_admm_solver(self, device=None, dtype=torch.float32
+                              ) -> NonConvexADMMSolver:
+        """The convex-concave operator of the NON_CONVEX slack variant
+        (the paper's Eq. 6d, ``qp.nonconvex``) on ``device`` (None: the
+        CUDA card) in ``dtype``; only for a controller built with
+        ``allow_nonconvex_slack=True``."""
+        if not self._use_nonconvex:
+            raise ValueError(
+                "nonconvex_admm_solver() requires a NON_CONVEX slack "
+                "controller (allow_nonconvex_slack=True)."
+            )
+        return compute_nonconvex_admm_solver(self._spec, device=device,
+                                             dtype=dtype)
+
     # --- per-step solve ------------------------------------------------
     def _theta(self) -> np.ndarray:
         return np.concatenate(
@@ -334,13 +396,20 @@ class DirectDataDrivenMPCController:
 
     def solve_mpc_problem(self) -> str:
         """Solve at the current past window. Status ``optimal``;
-        for CONVEX slack ``optimal_inaccurate`` when the ADMM run hit
-        ``admm_iters`` before its residuals reached 1e-8; ``infeasible``
-        for a non-finite input."""
+        ``optimal_inaccurate`` when the CONVEX ADMM run hit
+        ``admm_iters`` before its residuals reached 1e-8, or the
+        NON_CONVEX fixed point did not converge; ``infeasible`` for a
+        non-finite input."""
         theta = self._theta()
         op = self._op
         converged = True
-        if self._use_admm:
+        if self._use_nonconvex:
+            u, cost, self._admm_state, stats = nonconvex_admm_solve_np(
+                op, theta, inner_iters=self.admm_iters,
+                state=self._admm_state,
+            )
+            converged = stats[-1]
+        elif self._use_admm:
             u, cost, self._admm_state, stats = admm_solve_np(
                 op, theta, num_iters=self.admm_iters,
                 state=self._admm_state,

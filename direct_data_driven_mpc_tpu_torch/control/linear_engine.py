@@ -44,6 +44,7 @@ from direct_data_driven_mpc_tpu_torch.control.loop import (
 )
 from direct_data_driven_mpc_tpu_torch.device import resolve_device
 from direct_data_driven_mpc_tpu_torch.ops.lti import LTIParams
+from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
 from direct_data_driven_mpc_tpu_torch.parallel.batch import (
     draw_block_noise,
 )
@@ -415,6 +416,7 @@ def _setpoint_deltas(block_map: AffineBlockMap, setpoints, n_outer: int,
     return R - block_map.r_bar
 
 
+@ieee_float32()
 def linear_batched_rollout(
     block_map: AffineBlockMap,
     x0s: torch.Tensor,  # (B, ns)
@@ -442,7 +444,6 @@ def linear_batched_rollout(
     ride the last ``n_r`` lanes of each block's ``w`` and each solve's
     cost is the joint ``[theta; dr]`` quadratic.
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
     bm = block_map
     dtype, device = bm.M_T.dtype, bm.M_T.device
     Bsz, n, m = u_pasts.shape

@@ -53,6 +53,7 @@ import torch
 
 from direct_data_driven_mpc_tpu_torch.control.loop import ClosedLoopResult
 from direct_data_driven_mpc_tpu_torch.device import resolve_device
+from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
 from direct_data_driven_mpc_tpu_torch.qp.admm import ADMMState
 
 _OP_KEYS = ("v_c", "V_theta", "V_s", "u_c", "U_theta", "U_s", "cost_P",
@@ -348,6 +349,7 @@ def compute_setpoint_adds(ops: FusedADMMOperator, dims: FusedADMMDims,
     return torch.as_tensor(adds, dtype=ops.Vop.dtype, device=ops.Vop.device)
 
 
+@ieee_float32()
 def fused_admm_reference(ops: FusedADMMOperator, dims: FusedADMMDims,
                          carry: ADMMCarry, W: torch.Tensor, n_iter: int,
                          adds: Optional[torch.Tensor] = None):
@@ -366,7 +368,6 @@ def fused_admm_reference(ops: FusedADMMOperator, dims: FusedADMMDims,
     on the width of the cost features: a tracked run at ``dr = 0``
     reproduces the untracked one bit for bit.
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
     Bsz, n_blocks, _ = W.shape
     S, nbox, Mw = dims.S, dims.nbox, dims.Mw
     nbm, nbp = dims.nb * dims.m, dims.nb * dims.p
@@ -634,8 +635,8 @@ def make_fused_admm_rollout(
     Gz = ops.Gpre[:, Mw + nbox :].contiguous()
     alpha, beta = dims.alpha, 1.0 - dims.alpha
 
+    @ieee_float32()
     def run(x0s, u_pasts, y_pasts, Ws, solver_state0=None):
-        torch.backends.cuda.matmul.allow_tf32 = False
         Bsz = x0s.shape[0]
         s0 = torch.cat(
             [x0s.reshape(Bsz, -1), u_pasts.reshape(Bsz, -1),
@@ -702,6 +703,7 @@ def make_amortized_admm_run(plant, admm_op: dict, n: int, m: int, p: int,
         plant, admm_op, n, m, p, n_steps, **kwargs
     )
 
+    @ieee_float32()
     def run(x0s, u_pasts, y_pasts, Ws, R):
         checksum = torch.zeros((), dtype=torch.float32, device=x0s.device)
         ok = torch.ones((), dtype=torch.bool, device=x0s.device)

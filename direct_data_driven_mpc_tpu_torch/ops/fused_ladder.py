@@ -72,6 +72,7 @@ from direct_data_driven_mpc_tpu_torch.ops.fused_admm import (
     _op_floats,
     build_fused_admm_operator,
 )
+from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
 from direct_data_driven_mpc_tpu_torch.qp.box import BoxADMMState
 
 #: The balancer's ratio (``qp/box.py``'s, and ``bench.py``'s ladder).
@@ -198,6 +199,7 @@ def _per_rung(fn, row_rung: torch.Tensor, present):
     return out
 
 
+@ieee_float32()
 def fused_ladder_reference(ops: FusedLadderOperator, dims: FusedADMMDims,
                            carry: ADMMCarry, W: torch.Tensor, n_iter: int,
                            rung0: torch.Tensor, rung_group: int):
@@ -211,7 +213,6 @@ def fused_ladder_reference(ops: FusedLadderOperator, dims: FusedADMMDims,
     fused_admm_reference` does, the post-balance rung of every solve
     ``RUNG (B, n_blocks)`` (int32) and the final ``s``, ``sa``, ``wa``.
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
     Bsz, n_blocks, _ = W.shape
     S, nbox, Mw = dims.S, dims.nbox, dims.Mw
     nbm, nbp = dims.nb * dims.m, dims.nb * dims.p
@@ -518,8 +519,8 @@ def make_fused_ladder_rollout(
     bc, bz = ops.bpre[:, : Mw + nbox], ops.bpre[:, Mw + nbox :]
     alpha, beta = dims.alpha, 1.0 - dims.alpha
 
+    @ieee_float32()
     def run(x0s, u_pasts, y_pasts, Ws, solver_state0=None):
-        torch.backends.cuda.matmul.allow_tf32 = False
         Bsz = x0s.shape[0]
         rung_g = _group_rungs(solver_state0, Bsz, G, R, init_rung,
                               rung_first)
@@ -589,6 +590,7 @@ def make_amortized_ladder_run(plant, ladder_op: dict, n: int, m: int,
         plant, ladder_op, n, m, p, n_steps, **kwargs
     )
 
+    @ieee_float32()
     def run(x0s, u_pasts, y_pasts, Ws, R):
         checksum = torch.zeros((), dtype=torch.float32, device=x0s.device)
         ok = torch.ones((), dtype=torch.bool, device=x0s.device)

@@ -56,6 +56,7 @@ from direct_data_driven_mpc_tpu_torch.control.loop import (
     ClosedLoopResult,
     setpoint_schedule,
 )
+from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
 
 #: Accepted for API parity with the JAX package. On the TPU "high" ran
 #: the cost columns as three bf16 passes; here both values run the
@@ -266,8 +267,8 @@ def _make_post_cost_fn(block_map: AffineBlockMap, n_mpc_step: int,
     nb = n_mpc_step
     weights = {}
 
+    @ieee_float32()
     def cost_fn(u_past, y_past, u_sys, y_sys):
-        torch.backends.cudnn.allow_tf32 = False
         Bsz, n, m = u_past.shape
         p = y_past.shape[2]
         if (n, m, p) not in weights:
@@ -299,6 +300,7 @@ def _make_post_cost_fn(block_map: AffineBlockMap, n_mpc_step: int,
     return cost_fn
 
 
+@ieee_float32()
 def fused_rollout_reference(op: FusedOperator, s0: torch.Tensor,
                             W: torch.Tensor, w_off: int = 0):
     """Plain PyTorch version of the kernel, in the dtype of ``op``.
@@ -308,7 +310,6 @@ def fused_rollout_reference(op: FusedOperator, s0: torch.Tensor,
     mod n_outer``. Returns ``U (B, n_outer, Ku)``, ``Y (B, n_outer,
     Kp)``, ``C (B, n_outer, K)`` and the final carry ``s_fin (B, S)``.
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
     Bsz, n_outer, _ = W.shape
     S, Ku, Kp, K, rank = op.S, op.Ku, op.Kp, op.K, op.rank
     offY = S + Ku
@@ -741,6 +742,7 @@ def make_fused_batched_rollout(
     op, post_cost = _cost_mode_parts(block_map, n_mpc_step, cost_mode,
                                      cost_rank_rtol)
 
+    @ieee_float32()
     def run(x0s, u_pasts, y_pasts, Ws, setpoints=None):
         Bsz, n, m = u_pasts.shape
         p = y_pasts.shape[2]
@@ -822,6 +824,7 @@ def make_amortized_run(
     op, post_cost = _cost_mode_parts(block_map, n_mpc_step, cost_mode,
                                      cost_rank_rtol)
 
+    @ieee_float32()
     def run(x0s, u_pasts, y_pasts, Ws, R):
         s0, W = _center_and_pack(
             block_map, x0s, u_pasts, y_pasts, Ws, n_outer,

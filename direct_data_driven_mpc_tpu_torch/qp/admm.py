@@ -19,11 +19,13 @@ at construction for the constant, ``theta`` and ``s - w`` columns, and
 each iteration is one ``(nbox, nbox)`` matvec in the projected space
 ``v = E z`` plus a clip.
 
-Counterpart of ``direct_data_driven_mpc_tpu/qp/admm.py``
-(``ADMMState``, ``ADMMStats``, ``compute_admm_operator_np`` with the
-setpoint maps, ``admm_solve_np``). The device solver (``ADMMSolver``,
-``admm_solve``) and the NON_CONVEX alpha maps are not ported yet; the
-batched closed loop runs through ``ops.fused_admm``.
+Counterpart of ``direct_data_driven_mpc_tpu/qp/admm.py``: the host
+operator (``compute_admm_operator_np``, with the NON_CONVEX alpha maps
+and the setpoint maps) and its float64 solve (``admm_solve_np``), and
+the device solver (``ADMMSolver``, ``compute_admm_solver``,
+``admm_solve``) on a batch of windows, the scenario axis leading, for
+the generic closed loop (``control.loop``). The fused closed loop runs
+through ``ops.fused_admm``.
 """
 
 from __future__ import annotations
@@ -31,32 +33,69 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import numpy as np
+import torch
 
+from direct_data_driven_mpc_tpu_torch.device import resolve_device
+from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
 from direct_data_driven_mpc_tpu_torch.qp.solution_map import (
+    _to_device,
     kkt_multi_solve,
+    matvec,
     setpoint_channels_np,
+    vecdot,
 )
 from direct_data_driven_mpc_tpu_torch.qp.spec import QPSpec
 
 
+class ADMMSolver(NamedTuple):
+    """The ADMM operator as tensors on one device.
+
+    Reduced-space iteration map (``v = E z``, ``t = s - w``)::
+
+        v    = v_c + V_theta theta + V_s t
+        u    = u_c + U_theta theta + U_s t
+        cost = [theta; t]^T cost_P [theta; t] + cost_q . [theta; t] + r
+
+    Stacked per scenario (``parallel.batch.stack_solution_maps``), every
+    field gains a leading scenario axis.
+    """
+
+    v_c: torch.Tensor  # (nbox,)
+    V_theta: torch.Tensor  # (nbox, n_theta)
+    V_s: torch.Tensor  # (nbox, nbox)
+    u_c: torch.Tensor  # (L*m,)
+    U_theta: torch.Tensor  # (L*m, n_theta)
+    U_s: torch.Tensor  # (L*m, nbox)
+    cost_P: torch.Tensor  # (n_theta + nbox, n_theta + nbox)
+    cost_q: torch.Tensor  # (n_theta + nbox,)
+    cost_r: torch.Tensor  # ()
+    bound: torch.Tensor  # () box half-width c * eps_max
+    rho: torch.Tensor  # () penalty
+    alpha: torch.Tensor  # () over-relaxation, in (0, 2)
+
+
 class ADMMState(NamedTuple):
     """Warm-start state: numpy ``(nbox,)`` vectors on the host path,
-    ``(B, nbox)`` tensors from the batched engine."""
+    ``(B, nbox)`` tensors on the device."""
 
     s: Any  # box-projected copy of the bounded rows
     w: Any  # scaled dual
 
 
 class ADMMStats(NamedTuple):
-    primal_residual: float  # ||Ez - s||_inf at exit
-    dual_residual: float  # rho * ||s - s_prev||_inf at exit
-    converged: bool  # both residuals at or below the tolerance
+    """Exit residuals: floats on the host path, ``(B,)`` tensors (one
+    per scenario) on the device."""
+
+    primal_residual: Any  # ||Ez - s||_inf at the last iteration
+    dual_residual: Any  # rho * ||s - s_prev||_inf at the last iteration
+    converged: Any  # both residuals at or below the tolerance
 
 
 def compute_admm_operator_np(
     spec: QPSpec,
     rho: float | None = None,
     alpha: float = 1.6,
+    return_alpha_maps: bool = False,
     return_setpoint_maps: bool = False,
 ) -> dict:
     """Host float64 pre-factorization of the ADMM z-step.
@@ -66,6 +105,10 @@ def compute_admm_operator_np(
         v    = v_c + V_theta theta + V_s t
         u    = u_c + U_theta theta + U_s t
         cost = [theta; t]^T cost_P [theta; t] + cost_q . [theta; t] + r
+
+    With ``return_alpha_maps=True`` the dict also carries the affine
+    maps of the z-step's alpha block (``a_c``, ``A_theta``, ``A_s``),
+    whose 1-norm the NON_CONVEX bound update needs (``qp.nonconvex``).
 
     With ``return_setpoint_maps=True`` the dict also carries the
     setpoint-delta channels (``dr = r - r_bar``, ``r = [u_s; y_s]``):
@@ -120,6 +163,15 @@ def compute_admm_operator_np(
     cost_q = Z_full.T @ (H @ z_c + g)
     cost_r = 0.5 * z_c @ H @ z_c + g @ z_c + spec.r0
 
+    out_alpha = {}
+    if return_alpha_maps:
+        a_sl = spec.alpha_slice
+        out_alpha = {
+            "a_c": z_c[a_sl],
+            "A_theta": Z_theta[a_sl],
+            "A_s": Z_s[a_sl],
+        }
+
     out_setpoint = {}
     if return_setpoint_maps:
         Gamma, S_r, R0, r_bar = setpoint_channels_np(spec)
@@ -164,6 +216,7 @@ def compute_admm_operator_np(
         }
 
     return {
+        **out_alpha,
         **out_setpoint,
         "v_c": E @ z_c,
         "V_theta": E @ Z_theta,
@@ -216,3 +269,88 @@ def admm_solve_np(
     cost = float(tt @ op["cost_P"] @ tt + op["cost_q"] @ tt + op["cost_r"])
     converged = bool(r_prim <= tol and r_dual <= tol)
     return u, cost, ADMMState(s, w), ADMMStats(r_prim, r_dual, converged)
+
+
+def compute_admm_solver(spec: QPSpec, rho: float | None = None,
+                        alpha: float = 1.6, device=None,
+                        dtype=torch.float32) -> ADMMSolver:
+    """The ADMM operator of ``spec`` (host float64) as an
+    :class:`ADMMSolver` on ``device`` (None: the CUDA card) in
+    ``dtype``; without a card it raises before the host build."""
+    device = resolve_device(device)
+    op = compute_admm_operator_np(spec, rho=rho, alpha=alpha)
+    return ADMMSolver(**_to_device(op, ADMMSolver._fields, device, dtype))
+
+
+def per_row(a: torch.Tensor) -> torch.Tensor:
+    """A scalar operand as is, or one value per scenario ``(B,)`` as a
+    column ``(B, 1)`` that broadcasts over a row of ``(B, nbox)``."""
+    return a[:, None] if a.ndim == 1 else a
+
+
+def admm_iterations(vc, V_s, s, w, lo, hi, alpha, rho, n: int):
+    """``n`` over-relaxed ADMM iterations on a batch ``(B, nbox)``:
+    ``v = vc + V_s (s - w)``, ``v_hat = alpha v + (1 - alpha) s``, ``s =
+    clip(v_hat + w, lo, hi)``, ``w += v_hat - s``. ``V_s`` is shared
+    ``(nbox, nbox)`` or per scenario ``(B, nbox, nbox)``; ``lo``, ``hi``
+    and ``alpha`` broadcast over ``(B, nbox)``, ``rho`` over ``(B,)``.
+    Returns ``s``, ``w`` and the last iteration's residuals ``(B,)``
+    (zeros when ``n == 0``), which are all a caller reads, so no other
+    iteration computes them."""
+    r_prim = torch.zeros(s.shape[0], dtype=s.dtype, device=s.device)
+    r_dual = r_prim
+    beta = 1.0 - alpha
+    V_sT = V_s.mT
+    for k in range(n):
+        if V_s.ndim == 2:
+            v = torch.addmm(vc, s - w, V_sT)
+        else:
+            v = vc + matvec(V_s, s - w)
+        v_hat = alpha * v + beta * s
+        s_new = torch.clamp(v_hat + w, lo, hi)
+        w = w + v_hat - s_new
+        if k == n - 1:
+            r_prim = (v - s_new).abs().amax(-1)
+            r_dual = rho * (s_new - s).abs().amax(-1)
+        s = s_new
+    return s, w, r_prim, r_dual
+
+
+def admm_extract(solver: ADMMSolver, theta, t):
+    """``u (B, L*m)`` and ``cost (B,)`` at ``t = s - w``."""
+    u = solver.u_c + matvec(solver.U_theta, theta) + matvec(solver.U_s, t)
+    tt = torch.cat([theta, t], -1)
+    cost = (
+        (matvec(solver.cost_P, tt) * tt).sum(-1)
+        + vecdot(solver.cost_q, tt)
+        + solver.cost_r
+    )
+    return u, cost
+
+
+@ieee_float32()
+def admm_solve(solver: ADMMSolver, theta: torch.Tensor,
+               num_iters: int = 100, state: ADMMState | None = None,
+               tol: float = 1e-8):
+    """``num_iters`` ADMM iterations (no early exit) for a batch of past
+    windows ``theta (B, n_theta)``, warm-started from ``state`` (zeros
+    by default).
+
+    Returns ``(u (B, L*m), cost (B,), ADMMState, ADMMStats)``: each
+    scenario's residuals at the last iteration, and ``converged`` where
+    both are at or below ``tol``.
+    """
+    if state is None:
+        nbox = solver.v_c.shape[-1]
+        zeros = torch.zeros((theta.shape[0], nbox), dtype=theta.dtype,
+                            device=theta.device)
+        state = ADMMState(zeros, zeros)
+    bound = per_row(solver.bound)
+    s, w, r_prim, r_dual = admm_iterations(
+        solver.v_c + matvec(solver.V_theta, theta), solver.V_s, state.s,
+        state.w, -bound, bound, per_row(solver.alpha), solver.rho,
+        num_iters,
+    )
+    u, cost = admm_extract(solver, theta, s - w)
+    stats = ADMMStats(r_prim, r_dual, (r_prim <= tol) & (r_dual <= tol))
+    return u, cost, ADMMState(s, w), stats

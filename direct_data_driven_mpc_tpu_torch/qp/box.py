@@ -15,10 +15,17 @@ is pre-factorised for a geometric ladder of penalties; a fixed ``rho``
 gives a single rung, which is what the fused engine
 (``ops.fused_admm``) takes.
 
+The device solver (:func:`box_admm_solve`) balances the residuals
+between rungs every ``chunk`` iterations, each scenario on its own rung:
+if the primal residual dominates it steps up (rescaling the scaled dual
+``w`` by rho_old / rho_new, which keeps the unscaled multiplier), if the
+dual dominates it steps down. The rung rides in the warm-start state.
+Each scenario exits on its own once both residuals are at the
+tolerance, as a ``while_loop`` under ``vmap`` does in the JAX package.
+
 Counterpart of ``direct_data_driven_mpc_tpu/qp/box.py``
-(``BoxADMMState``, ``_channel_bounds``, ``_box_rows_and_bounds``,
-``compute_box_admm_operator_np``). The device solver with the ladder's
-residual balancing (``box_admm_solve``) is not ported yet.
+(``BoxADMMSolver``, ``BoxADMMState``, ``compute_box_admm_operator_np``,
+``compute_box_admm_solver``, ``box_initial_state``, ``box_admm_solve``).
 """
 
 from __future__ import annotations
@@ -26,18 +33,60 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
-from direct_data_driven_mpc_tpu_torch.qp.solution_map import kkt_multi_solve
+from direct_data_driven_mpc_tpu_torch.device import resolve_device
+from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
+from direct_data_driven_mpc_tpu_torch.qp.admm import (
+    ADMMStats,
+    admm_iterations,
+)
+from direct_data_driven_mpc_tpu_torch.qp.solution_map import (
+    _to_device,
+    kkt_multi_solve,
+    matvec,
+    vecdot,
+)
 from direct_data_driven_mpc_tpu_torch.qp.spec import (
     QPSpec,
     SlackVarConstraintTypes,
 )
 
 
+class BoxADMMSolver(NamedTuple):
+    """The general-box ADMM operator as tensors on one device, every
+    per-rung field stacked over the ``R`` rungs of the ladder (R = 1 for
+    a fixed ``rho``). At rung ``i``, with ``t = s - w``::
+
+        v    = v_c[i] + V_theta[i] theta + V_s[i] t
+        u    = u_c[i] + U_theta[i] theta + U_s[i] t
+        cost = [theta; t]^T cost_P[i] [theta; t] + cost_q[i] . [theta; t]
+               + cost_r[i]
+    """
+
+    v_c: torch.Tensor  # (R, nbox)
+    V_theta: torch.Tensor  # (R, nbox, n_theta)
+    V_s: torch.Tensor  # (R, nbox, nbox)
+    u_c: torch.Tensor  # (R, L*m)
+    U_theta: torch.Tensor  # (R, L*m, n_theta)
+    U_s: torch.Tensor  # (R, L*m, nbox)
+    cost_P: torch.Tensor  # (R, n_theta + nbox, n_theta + nbox)
+    cost_q: torch.Tensor  # (R, n_theta + nbox)
+    cost_r: torch.Tensor  # (R,)
+    lo: torch.Tensor  # (nbox,) lower bounds
+    hi: torch.Tensor  # (nbox,) upper bounds
+    u_lo: torch.Tensor  # (L*m,) input bounds in u coordinates, +-inf
+    u_hi: torch.Tensor  # (L*m,) where unboxed: the extracted u is
+    # clipped to them, so a capped, unconverged solve still respects
+    # the actuator box
+    rhos: torch.Tensor  # (R,) the penalty ladder
+    alpha: torch.Tensor  # () over-relaxation, in (0, 2)
+
+
 class BoxADMMState(NamedTuple):
-    s: Any  # (nbox,) box-projected copy of the bounded rows
-    w: Any  # (nbox,) scaled dual
-    rho_idx: Any  # current ladder rung (warm-started)
+    s: Any  # (nbox,) or (B, nbox): box-projected copy of the bounded rows
+    w: Any  # (nbox,) or (B, nbox): scaled dual
+    rho_idx: Any  # current ladder rung, () or (B,) int32 (warm-started)
 
 
 def _channel_bounds(bounds, width: int, L: int, name: str):
@@ -215,3 +264,132 @@ def compute_box_admm_operator_np(
         "alpha": np.float64(alpha),
         "box_rows": rows,  # host-side diagnostic (not a solver field)
     }
+
+
+def compute_box_admm_solver(
+    spec: QPSpec,
+    u_bounds: Optional[Tuple] = None,
+    y_bounds: Optional[Tuple] = None,
+    include_slack_box: bool = True,
+    rho: Optional[float] = None,
+    n_ladder: int = 7,
+    ladder_step: float = 10.0,
+    alpha: float = 1.6,
+    device=None,
+    dtype=torch.float32,
+) -> BoxADMMSolver:
+    """The general-box operator (host float64, see
+    :func:`compute_box_admm_operator_np`) as a :class:`BoxADMMSolver` on
+    ``device`` (None: the CUDA card) in ``dtype``; without a card it
+    raises before the host build."""
+    device = resolve_device(device)
+    op = compute_box_admm_operator_np(
+        spec, u_bounds=u_bounds, y_bounds=y_bounds,
+        include_slack_box=include_slack_box, rho=rho, n_ladder=n_ladder,
+        ladder_step=ladder_step, alpha=alpha,
+    )
+    return BoxADMMSolver(
+        **_to_device(op, BoxADMMSolver._fields, device, dtype)
+    )
+
+
+def box_initial_state(solver: BoxADMMSolver, B: int) -> BoxADMMState:
+    """Cold start of ``B`` scenarios: zeros, every scenario on the
+    middle rung ``R // 2`` (the balancer reaches any rung within about
+    R / 2 chunks)."""
+    kw = dict(dtype=solver.v_c.dtype, device=solver.v_c.device)
+    zeros = torch.zeros((B, solver.v_c.shape[1]), **kw)
+    R = solver.rhos.shape[0]
+    return BoxADMMState(
+        s=zeros, w=zeros,
+        rho_idx=torch.full((B,), R // 2, dtype=torch.int32,
+                           device=solver.v_c.device),
+    )
+
+
+@ieee_float32()
+def box_admm_solve(
+    solver: BoxADMMSolver,
+    theta: torch.Tensor,
+    num_iters: int = 100,
+    state: Optional[BoxADMMState] = None,
+    tol: float = 1e-8,
+    chunk: int = 10,
+    balance_ratio: float = 10.0,
+):
+    """Up to ``num_iters`` over-relaxed ADMM iterations for a batch of
+    past windows ``theta (B, n_theta)``, in chunks of ``chunk``, with the
+    penalty rung balanced after each chunk.
+
+    Per scenario, as the JAX package's ``while_loop`` under ``vmap``:
+    whole chunks run until the scenario's iteration count reaches
+    ``num_iters`` or both of its residuals are at or below ``tol`` (they
+    start at infinity, so at least one chunk runs). A scenario that has
+    exited keeps its ``s``, ``w``, rung and residuals while the others go
+    on. Each scenario's operator is the one of its own rung (a gathered,
+    batched product); with a single rung (fixed ``rho``) the operator is
+    shared and no balancing runs. Balancing is relative (OSQP-style):
+    the primal residual over the largest of ``|s|`` and ``|w|``, the
+    dual over ``rho |w|``, each floored at 1e-12.
+
+    Returns ``(u (B, L*m), cost (B,), BoxADMMState, ADMMStats)``: u is
+    clipped to the input box and u and the cost are taken at each
+    scenario's final rung.
+    """
+    Bsz = theta.shape[0]
+    R = solver.rhos.shape[0]
+    if state is None:
+        state = box_initial_state(solver, Bsz)
+    s, w = state.s, state.w
+    idx = state.rho_idx.to(torch.int32).expand(Bsz)
+    dtype, device = s.dtype, s.device
+    ladder = R > 1
+    if not ladder:
+        vc = solver.v_c[0] + matvec(solver.V_theta[0], theta)
+        V_s, rho = solver.V_s[0], solver.rhos[0]
+    it = torch.zeros(Bsz, dtype=torch.int64, device=device)
+    r_prim = torch.full((Bsz,), float("inf"), dtype=dtype, device=device)
+    r_dual = r_prim
+    while True:
+        active = (it < num_iters) & ((r_prim > tol) | (r_dual > tol))
+        if not bool(active.any()):
+            break
+        if ladder:
+            i = idx.long()
+            vc = solver.v_c[i] + matvec(solver.V_theta[i], theta)
+            V_s, rho = solver.V_s[i], solver.rhos[i]
+        s1, w1, rp, rd = admm_iterations(
+            vc, V_s, s, w, solver.lo, solver.hi, solver.alpha, rho, chunk
+        )
+        idx1 = idx
+        if ladder:
+            rp_rel = rp / torch.maximum(
+                s1.abs().amax(-1), w1.abs().amax(-1)
+            ).clamp(min=1e-12)
+            rd_rel = rd / (rho * w1.abs().amax(-1)).clamp(min=1e-12)
+            up = (rp_rel > balance_ratio * rd_rel) & (idx < R - 1)
+            down = (rd_rel > balance_ratio * rp_rel) & (idx > 0)
+            idx1 = idx + up.to(torch.int32) - down.to(torch.int32)
+            w1 = w1 * (solver.rhos[i] / solver.rhos[idx1.long()])[:, None]
+        row = active[:, None]
+        s = torch.where(row, s1, s)
+        w = torch.where(row, w1, w)
+        idx = torch.where(active, idx1, idx)
+        it = torch.where(active, it + chunk, it)
+        r_prim = torch.where(active, rp, r_prim)
+        r_dual = torch.where(active, rd, r_dual)
+
+    t = s - w
+    i = idx.long() if ladder else 0
+    u = solver.u_c[i] + matvec(solver.U_theta[i], theta) + matvec(
+        solver.U_s[i], t
+    )
+    u = torch.clamp(u, solver.u_lo, solver.u_hi)
+    tt = torch.cat([theta, t], -1)
+    cost = (
+        (matvec(solver.cost_P[i], tt) * tt).sum(-1)
+        + vecdot(solver.cost_q[i], tt)
+        + solver.cost_r[i]
+    )
+    stats = ADMMStats(r_prim, r_dual, (r_prim <= tol) & (r_dual <= tol))
+    return u, cost, BoxADMMState(s=s, w=w, rho_idx=idx), stats

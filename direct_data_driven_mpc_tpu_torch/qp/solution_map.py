@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from direct_data_driven_mpc_tpu_torch.device import resolve_device
+from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
 from direct_data_driven_mpc_tpu_torch.qp.spec import QPSpec
 
 #: Keys of the operator dict that the condensed engine reads.
@@ -320,28 +321,49 @@ def compute_tracking_map(spec: QPSpec, device=None,
                                     TrackingMap._fields, device, dtype))
 
 
+def matvec(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``M x`` for each row of ``x``: ``M (j, k)`` shared by every row
+    of ``x (..., k)``, or ``M (B, j, k)``, one per scenario of ``x (B,
+    k)`` (operators stacked by ``parallel.batch.stack_solution_maps``)."""
+    if M.ndim == 2:
+        return x @ M.T
+    return torch.matmul(M, x.unsqueeze(-1)).squeeze(-1)
+
+
+def vecdot(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``q . x`` for each row of ``x``: ``q (k,)`` shared, or ``(B, k)``
+    one per scenario."""
+    if q.ndim == 1:
+        return x @ q
+    return (q * x).sum(-1)
+
+
+@ieee_float32()
 def solve_full(sol_map: SolutionMap, theta: torch.Tensor) -> torch.Tensor:
     """Full optimal decision vector ``z*(theta)``: ``(nz,)`` or, for a
     batch of windows ``(B, n_theta)``, ``(B, nz)``."""
-    return sol_map.z_base + theta @ sol_map.Z.T
+    return sol_map.z_base + matvec(sol_map.Z, theta)
 
 
+@ieee_float32()
 def solve_u(sol_map: SolutionMap, theta: torch.Tensor) -> torch.Tensor:
     """Optimal input sequence ``ubar*[0, L-1]`` flattened, ``(L*m,)``
     (``(B, L*m)`` for a batch of windows)."""
-    return sol_map.u_base + theta @ sol_map.U_gain.T
+    return sol_map.u_base + matvec(sol_map.U_gain, theta)
 
 
+@ieee_float32()
 def optimal_cost(sol_map: SolutionMap, theta: torch.Tensor
                  ) -> torch.Tensor:
     """Optimal objective value at ``theta`` (a scalar, or ``(B,)``)."""
     return (
-        ((theta @ sol_map.cost_P) * theta).sum(-1)
-        + theta @ sol_map.cost_q
+        (matvec(sol_map.cost_P.mT, theta) * theta).sum(-1)
+        + vecdot(sol_map.cost_q, theta)
         + sol_map.cost_r
     )
 
 
+@ieee_float32()
 def solve_u_tracking(tm: TrackingMap, theta: torch.Tensor,
                      r: torch.Tensor) -> torch.Tensor:
     """Optimal input sequence at past window ``theta`` and setpoints ``r
@@ -350,6 +372,7 @@ def solve_u_tracking(tm: TrackingMap, theta: torch.Tensor,
     return theta @ tm.U_theta.T + r @ tm.U_r.T
 
 
+@ieee_float32()
 def tracking_cost(tm: TrackingMap, theta: torch.Tensor,
                   r: torch.Tensor) -> torch.Tensor:
     """Optimal objective value at ``(theta, r)`` (a scalar, or

@@ -1,7 +1,8 @@
 """PyTorch port, the CUDA kernels on a card: ``fused_rollout`` (K1),
 ``fused_rollout_nocost`` (K3), ``fused_admm`` (K4) and ``fused_ladder``
 (K5) against their plain PyTorch versions and against the
-framework-free goldens.
+framework-free goldens; and the generic loop's iterative solvers on the
+card, with TF32 allowed by the caller, against the same loop on the CPU.
 
 These tests need an NVIDIA card and skip without one. This file
 imports no JAX, so on a machine without it run them with
@@ -59,7 +60,6 @@ PLANT = LTIParams(
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -827,3 +827,45 @@ def test_nocost_and_k1_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                                       device=cuda))
     assert (fr.fused_rollout.launches,
             fr.fused_rollout_nocost.launches) == before
+
+
+@pytest.mark.parametrize("rho", [1.0, None], ids=["fixed", "ladder"])
+def test_generic_loop_box_on_the_card_ignores_the_callers_tf32(cuda, rho):
+    """With ``torch.set_float32_matmul_precision("high")`` set by the
+    caller, the generic loop's box ADMM (fixed rho and the ladder) runs
+    its products in IEEE float32 on the card: it agrees with the same
+    loop on the CPU to float32 rounding, its rung lanes equal, and the
+    caller's setting reads back afterwards."""
+    from direct_data_driven_mpc_tpu_torch.control.loop import (
+        closed_loop_rollout,
+    )
+
+    golden = np.load(BOX_GOLDEN)
+    ctrl = _controller(golden)
+    B, T = 64, 40
+    gen = np.random.default_rng(0)
+    ins = [np.tile(golden["x0"][None], (B, 1)),
+           np.tile(golden["BOX_u_past0"][None], (B, 1, 1)),
+           np.tile(golden["BOX_y_past0"][None], (B, 1, 1)),
+           0.002 * gen.uniform(-1, 1, (B, T, 2))]
+    runs = {}
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        for dev in ("cpu", cuda):
+            solver = ctrl.box_admm_solver(u_bounds=(-0.85, 0.85), rho=rho,
+                                          device=dev)
+            runs[str(dev)] = closed_loop_rollout(
+                PLANT, solver, *(torch.as_tensor(a, dtype=torch.float32,
+                                                 device=dev) for a in ins),
+                n_steps=T, admm_iters=60 if rho else 120,
+            )
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    cpu, card = runs["cpu"], runs["cuda"]
+    torch.testing.assert_close(card.u_sys.cpu(), cpu.u_sys, rtol=0,
+                               atol=2e-5)
+    assert torch.equal(card.solver_state.rho_idx.cpu(),
+                       cpu.solver_state.rho_idx)
+    assert float(card.u_sys.abs().max()) <= 0.85 + 1e-6

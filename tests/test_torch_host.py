@@ -251,13 +251,26 @@ def test_non_pe_input_raises(setup):
 
 @pytest.mark.parametrize("slack", [SlackVarConstraintTypes.NON_CONVEX])
 def test_unported_slack_raises(setup, slack):
+    """NON_CONVEX without ``allow_nonconvex_slack=True`` raises the
+    reference's ``NotImplementedError``, as the JAX controller does (the
+    reference has no solver for it; the opt-in is held against the JAX
+    package in tests/test_torch_nonconvex.py)."""
+    from direct_data_driven_mpc_tpu.qp.spec import (
+        DataDrivenMPCType as JaxType,
+        SlackVarConstraintTypes as JaxSlack,
+    )
+
     _, jctrl, _, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    kw = controller_kwargs(jctrl.u_d, jctrl.y_d)
+    with pytest.raises(NotImplementedError) as jax_err:
+        JaxController(**kw, slack_var_constraint_type=JaxSlack[slack.name],
+                      controller_type=JaxType.ROBUST)
+    with pytest.raises(NotImplementedError, match="Non-Convex") as err:
         DirectDataDrivenMPCController(
-            **controller_kwargs(jctrl.u_d, jctrl.y_d),
-            slack_var_constraint_type=slack,
+            **kw, slack_var_constraint_type=slack,
             controller_type=DataDrivenMPCType.ROBUST,
         )
+    assert str(err.value) == str(jax_err.value)
 
 
 def test_validation_rules_match_jax(setup):

@@ -681,16 +681,29 @@ def test_schedules_are_validated(setup):
 
 
 def test_generic_loop_rejects_iterative_solvers(setup, convex_ctrl):
-    """The ADMM and box operators (and so every iterative solver) raise
-    in the generic loop, naming the ROADMAP item that ports them."""
+    """The generic loop rejects the host operator dicts of ``qp.admm``
+    and ``qp.box`` (and any unknown type) with ``TypeError``, and runs
+    their device solvers (ADMM, box ADMM, and the NON_CONVEX one in
+    tests/test_torch_nonconvex.py), each with its cold state."""
     _, _, ctrl, *_ = setup
     for op in (compute_admm_operator_np(convex_ctrl.spec),
                compute_box_admm_operator_np(ctrl.spec,
-                                            u_bounds=(-0.85, 0.85))):
-        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+                                            u_bounds=(-0.85, 0.85),
+                                            rho=1.0)):
+        with pytest.raises(TypeError, match="solver type"):
             make_solve_fn(op, 2)
     with pytest.raises(TypeError, match="solver type"):
         make_solve_fn(object(), 2)
+    theta = torch.zeros((3, 16))
+    for solver in (convex_ctrl.admm_solver(device="cpu"),
+                   ctrl.box_admm_solver(u_bounds=(-0.85, 0.85), rho=1.0,
+                                        device="cpu")):
+        solve, state0 = make_solve_fn(solver, 2, admm_iters=4)
+        u_seq, cost, state, ok = solve(
+            theta, type(state0)(*(x.expand(3, *x.shape[1:])
+                                  for x in state0)))
+        assert u_seq.shape == (3, 30, 2) and cost.shape == ok.shape == (3,)
+        assert state.s.shape == (3, solver.v_c.shape[-1])
 
 
 def test_suggest_solves_per_block_with_setpoint_lanes_matches_jax():
