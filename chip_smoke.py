@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
 Drives the port's four main paths through their hand-written CUDA
-kernels and checks them. First the Monte-Carlo batch of the paper's
-four-tank Robust controller (B = 4096 scenarios x T = 400 closed-loop
-steps, N = 400, L = 30, slack NONE) through
+kernels and checks them, and the sweep and tuning path around them.
+First the Monte-Carlo batch of the paper's four-tank Robust controller
+(B = 4096 scenarios x T = 400 closed-loop steps, N = 400, L = 30, slack
+NONE) through
 ``direct_data_driven_mpc_tpu_torch/ops/csrc/fused_rollout.cu``:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -153,6 +154,44 @@ plain PyTorch with no kernel of their own, run right after phase 26
     ``solver_state0``, each bit-equal to the full run) and the device's
     idle share. None of the converged fractions is asserted.
 
+Then the sweep and tuning path (plain PyTorch and numpy, no kernel of
+its own), right after phase 30, so that phase 35 reads
+``torch.profiler`` before phase 19's convolution:
+
+31. the host layer: the four-tank controller through
+    ``create_data_driven_mpc_controller`` from ``four_tank_params``
+    (spec and host operator bit-equal to ``build_four_tank_robust``'s);
+    ``closed_loop_spectrum`` of the K = 50 block map (stable) and of the
+    terminal-free (UCON) controller (unstable), with each radius;
+    ``simulate_data_driven_mpc_control_loop`` for 50 steps against the
+    generic loop in float64 on the card, on the same noise (1e-8 on u);
+32. the heterogeneous sweep at ``four_tank_robust``'s scale: B = 4096
+    data realisations (N = 400, L = 30, seed s for realisation s)
+    simulated and arranged into Hankels in numpy;
+    ``build_batched_solution_operators`` on the card (timed, every
+    feasible lane true; 16 realisations against the host's
+    ``build_solution_operators_fallback`` within 1e-9 of each field's
+    largest magnitude); ``stacked_solution_map`` and
+    ``heterogeneous_closed_loop`` at B = 4096 x T = 400 (timed; 64
+    scenarios each alone within 2e-5 on u and y, and in float64 within
+    1e-4 on u); ``rollout_metrics``;
+33. segmented runs with checkpoints: the CONVEX ADMM of
+    ``four_tank_convex_generic`` (16 iterations, B = 4096) in 4 segments
+    of 100 steps, resumed after segment 2 into a zero template, and one
+    ``batched_closed_loop`` over the segments' noise, all bit-equal,
+    solver state included; again with the box ADMM's ladder (integer
+    rung lanes) on 1024 scenarios; the checkpoint's size and its save
+    and load times;
+34. differentiable tuning of the paper's controller (nz 571, nc 168) in
+    float64 on the card: ``differentiable_solution_map`` against the
+    host operator (1e-9), the gradient at the example's 100x inflated
+    alpha ridge against central differences (rtol 1e-4), 25 Adam steps
+    at lr 0.4 (B = 64, T = 80) that lower the loss; ms per value and
+    grad;
+35. profiling: one heterogeneous segment (B = 4096, T = 40) under
+    ``utils.profiling.trace``; the Chrome trace must hold CUDA kernel
+    events.
+
 The script sets ``torch.set_float32_matmul_precision("high")`` first,
 as a user's process might: the port scopes IEEE float32 to its
 parity-bound paths (``ops/precision.py``), the library yardsticks are
@@ -174,9 +213,11 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -248,12 +289,8 @@ def build_four_tank_robust(N: int = 400, L: int = 30, seed: int = 0,
         DirectDataDrivenMPCController,
     )
     from direct_data_driven_mpc_tpu_torch.models.lti_model import LTIModel
-    from direct_data_driven_mpc_tpu_torch.qp.spec import (
-        DataDrivenMPCType,
-        SlackVarConstraintTypes,
-    )
 
-    n, m, p = 4, 2, 2
+    m, p = 2, 2
     rng = np.random.default_rng(seed)
     plant = LTIModel(**FOUR_TANK)
     eps = plant.get_eps_max()
@@ -261,16 +298,31 @@ def build_four_tank_robust(N: int = 400, L: int = 30, seed: int = 0,
     w_d = eps * rng.uniform(-1, 1, (N, p))
     y_d = plant.simulate(u_d, w_d, N)
     ctrl = DirectDataDrivenMPCController(
-        n=n, m=m, p=p, u_d=u_d, y_d=y_d, L=L,
-        Q=3.0 * np.eye(p * L), R=1e-4 * np.eye(m * L),
-        u_s=np.array([[1.0], [1.0]]), y_s=np.array([[0.65], [0.77]]),
-        eps_max=eps, lamb_alpha=0.1 / max(eps, 1e-12),
-        lamb_sigma=1000.0, c=c,
-        slack_var_constraint_type=SlackVarConstraintTypes[slack],
-        controller_type=DataDrivenMPCType.ROBUST, n_mpc_step=1,
+        m=m, p=p, u_d=u_d, y_d=y_d,
+        **four_tank_params(eps, L, slack, c),
         allow_nonconvex_slack=allow_nonconvex_slack,
     )
     return plant, ctrl
+
+
+def four_tank_params(eps: float, L: int = 30, slack: str = "NONE",
+                     c: float = 1.0) -> dict:
+    """The four-tank Robust controller's parameter dict (the keys of
+    ``utils.config.get_data_driven_mpc_controller_params``, as
+    ``control.creation.create_data_driven_mpc_controller`` takes them)
+    with ``bench.py``'s values: n = 4, one input applied per solve."""
+    from direct_data_driven_mpc_tpu_torch.qp.spec import (
+        DataDrivenMPCType,
+        SlackVarConstraintTypes,
+    )
+
+    return dict(
+        n=4, L=L, Q=3.0 * np.eye(2 * L), R=1e-4 * np.eye(2 * L),
+        u_s=np.array([[1.0], [1.0]]), y_s=np.array([[0.65], [0.77]]),
+        eps_max=eps, lamb_alpha=0.1 / max(eps, 1e-12), lamb_sigma=1000.0,
+        c=c, slack_var_constraint_type=SlackVarConstraintTypes[slack],
+        controller_type=DataDrivenMPCType.ROBUST, n_mpc_step=1,
+    )
 
 
 def build_large_plant(N: int = 600, L: int = 30, seed: int = 0):
@@ -1796,6 +1848,454 @@ def generic_timing(dev, smi, runs) -> None:
             f"(idle {1 - dev_ms / mean:.1%})")
 
 
+def timer_ms(timer) -> str:
+    """A ``utils.profiling.Timer``'s samples as best / p50 in ms."""
+    s = timer.summary()
+    return f"best {s['best_s'] * 1e3:.2f} ms, p50 {s['p50_s'] * 1e3:.2f} ms"
+
+
+def host_layer_phase(dev, smi, main, n_steps=50) -> None:
+    """Phase 31: the host layer. The controller through
+    ``create_data_driven_mpc_controller`` from ``four_tank_params``, bit-
+    equal to ``build_four_tank_robust``'s; the stability certificate of
+    the K = 50 block map and of the terminal-free (UCON) controller; the
+    host closed loop against the generic loop in float64 on the card."""
+    from direct_data_driven_mpc_tpu_torch.control.creation import (
+        create_data_driven_mpc_controller,
+    )
+    from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
+        build_linear_engine,
+        closed_loop_spectrum,
+    )
+    from direct_data_driven_mpc_tpu_torch.control.loop import (
+        closed_loop_rollout,
+    )
+    from direct_data_driven_mpc_tpu_torch.control.operation import (
+        simulate_data_driven_mpc_control_loop,
+    )
+    from direct_data_driven_mpc_tpu_torch.models.lti_model import LTIModel
+
+    plant, ctrl = main["plant"], main["ctrl"]
+    params = four_tank_params(plant.get_eps_max())
+    made = create_data_driven_mpc_controller(params, ctrl.u_d, ctrl.y_d)
+    for name in ("H", "A", "b_const", "S", "g", "r0"):
+        if not np.array_equal(getattr(made.spec, name),
+                              getattr(ctrl.spec, name)):
+            raise AssertionError(f"created controller: spec {name} differs")
+    want = ctrl.solution_operator()
+    for key, value in made.solution_operator().items():
+        if not np.array_equal(value, want[key]):
+            raise AssertionError(f"created controller: operator {key} "
+                                 "differs")
+    log(f"host layer: create_data_driven_mpc_controller (nz={made.spec.nz}, "
+        f"nc={made.spec.nc}): spec and host operator bit-equal to "
+        "build_four_tank_robust's")
+
+    K = main["bm50"].os_c.shape[0] // main["bm50"].M_T.shape[0]
+    tec = closed_loop_spectrum(main["bm50"])
+    ucon_ctrl = create_data_driven_mpc_controller(
+        params, ctrl.u_d, ctrl.y_d, use_terminal_constraint=False
+    )
+    ucon = closed_loop_spectrum(build_linear_engine(
+        ucon_ctrl, plant.as_params(), solves_per_block=K, device=dev,
+        dtype=torch.float64,
+    ))
+    if not tec["stable"] or ucon["stable"]:
+        raise AssertionError(
+            f"spectra: TEC radius {tec['spectral_radius']}, UCON radius "
+            f"{ucon['spectral_radius']}: expected stable and unstable"
+        )
+    log(f"closed_loop_spectrum (K={K} solves per block): TEC stable, "
+        f"radius {tec['spectral_radius']:.6f} (per solve "
+        f"{tec['spectral_radius'] ** (1 / K):.6f}); UCON unstable, radius "
+        f"{ucon['spectral_radius']:.6f} (per solve "
+        f"{ucon['spectral_radius'] ** (1 / K):.6f})")
+
+    model = LTIModel(**FOUR_TANK)
+    model.set_state(plant.get_state().copy())
+    x0 = model.get_state().copy()
+    up0, yp0 = made.u_past.reshape(1, 4, 2), made.y_past.reshape(1, 4, 2)
+    w = main["inputs"][3][0, :n_steps].double().cpu().numpy()
+    t0 = time.perf_counter()
+    u_h, y_h = simulate_data_driven_mpc_control_loop(
+        model, made, n_steps, np_random=None, verbose=0, w_sys=w
+    )
+    host_s = time.perf_counter() - t0
+    res = closed_loop_rollout(
+        plant.as_params(), ctrl.solution_map(device=dev,
+                                             dtype=torch.float64),
+        *(torch.as_tensor(a, dtype=torch.float64, device=dev)
+          for a in (x0[None], up0, yp0, w[None])),
+        n_steps=n_steps,
+    )
+    e_u = check_close("host loop vs generic loop u", res.u_sys[0].cpu(),
+                      torch.from_numpy(u_h), 1e-8)
+    e_y = check_close("host loop vs generic loop y", res.y_sys[0].cpu(),
+                      torch.from_numpy(y_h), 1e-8)
+    log(f"simulate_data_driven_mpc_control_loop ({n_steps} steps, host "
+        f"numpy solves, {host_s:.3f} s) vs the generic loop in float64 on "
+        f"{dev.type}: max |du| {e_u:.3e}, |dy| {e_y:.3e} (atol 1e-8) "
+        f"[{smi}]")
+
+
+def realisation_data(B, N=400, n=4, L=30):
+    """``B`` data realisations of the four-tank plant with the input and
+    noise distributions of ``build_four_tank_robust`` (seed ``s`` for
+    realisation ``s``), simulated together in numpy from rest, arranged
+    into Hankels of depth L + n. Returns ``(Hu (B, (L+n)m, N-L-n+1), Hy,
+    x_final (B, 4), u_past (B, n, 2), y_past (B, n, 2))``, float64."""
+    from direct_data_driven_mpc_tpu_torch.ops.host import hankel_matrix_np
+
+    A, Bm, C, D = (FOUR_TANK[k] for k in "ABCD")
+    eps = FOUR_TANK["eps_max"]
+    U = np.empty((B, N, 2))
+    Wd = np.empty((B, N, 2))
+    for s in range(B):
+        rng = np.random.default_rng(s)
+        U[s] = rng.uniform(-1, 1, (N, 2))
+        Wd[s] = eps * rng.uniform(-1, 1, (N, 2))
+    x = np.zeros((B, 4))
+    Y = np.empty((B, N, 2))
+    for k in range(N):
+        Y[:, k] = x @ C.T + U[:, k] @ D.T + Wd[:, k]
+        x = x @ A.T + U[:, k] @ Bm.T
+    starts = np.arange(L + n)[:, None] + np.arange(N - L - n + 1)[None, :]
+
+    def hankels(X):
+        return X[:, starts].transpose(0, 1, 3, 2).reshape(
+            B, (L + n) * 2, -1)
+
+    Hu, Hy = hankels(U), hankels(Y)
+    for s in (0, B - 1):
+        if not (np.array_equal(Hu[s], hankel_matrix_np(U[s], L + n))
+                and np.array_equal(Hy[s], hankel_matrix_np(Y[s], L + n))):
+            raise AssertionError("batched Hankels differ from "
+                                 "hankel_matrix_np")
+    return Hu, Hy, x, U[:, -n:], Y[:, -n:]
+
+
+def sweep_phase(dev, smi, main, B=B_MAIN, T=T_MAIN, n_alone=64,
+                n_fallback=16) -> dict:
+    """Phase 32: the heterogeneous Monte-Carlo sweep at ``bench.py``'s
+    ``four_tank_robust`` scale, one data realisation per scenario:
+    ``build_batched_solution_operators`` on the card (feasible lanes,
+    against the host fallback), ``stacked_solution_map`` and
+    ``heterogeneous_closed_loop`` (against each map alone, and against
+    float64). Returns the stacked map and the inputs, for phase 35."""
+    from direct_data_driven_mpc_tpu_torch.control.loop import (
+        closed_loop_rollout,
+    )
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        heterogeneous_closed_loop,
+        stack_plants,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp.batch_build import (
+        build_batched_solution_operators,
+        build_solution_operators_fallback,
+        stacked_solution_map,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp.solution_map import SolutionMap
+    from direct_data_driven_mpc_tpu_torch.utils.profiling import (
+        Timer,
+        rollout_metrics,
+    )
+
+    plant, ctrl = main["plant"], main["ctrl"]
+    t0 = time.perf_counter()
+    Hu, Hy, xs, ups, yps = realisation_data(B)
+    log(f"sweep: {B} data realisations (N=400, L=30) simulated and arranged "
+        f"into Hankels {Hu.shape} in numpy, {time.perf_counter() - t0:.2f} s")
+    kw = dict(dims=ctrl.spec.dims, Q=ctrl.Q, R=ctrl.R, u_s=ctrl.u_s,
+              y_s=ctrl.y_s, eps_max=ctrl.eps_max,
+              lamb_alpha=ctrl.lamb_alpha, lamb_sigma=ctrl.lamb_sigma)
+    Hu_d = torch.as_tensor(Hu, device=dev)
+    Hy_d = torch.as_tensor(Hy, device=dev)
+    timer = Timer()
+    ops = timer.timeit(lambda: build_batched_solution_operators(
+        Hu_d, Hy_d, device=dev, **kw))
+    del Hu_d, Hy_d
+    if not bool(ops["feasible"].all()):
+        raise AssertionError(f"batched build: "
+                             f"{int((~ops['feasible']).sum())} infeasible "
+                             "lanes")
+    build_s = timer.best
+    log(f"build_batched_solution_operators (B={B}, nz={ctrl.spec.nz}, float64 "
+        f"on {dev.type}): {timer_ms(timer)} over {len(timer.samples)} runs; "
+        f"every feasible lane true [{smi}]")
+
+    t0 = time.perf_counter()
+    serial = build_solution_operators_fallback(
+        Hu[:n_fallback], Hy[:n_fallback], c=ctrl.c, **kw)
+    serial_s = (time.perf_counter() - t0) / n_fallback
+    worst = 0.0
+    for key in ("z_base", "Z", "u_base", "U_gain", "cost_P", "cost_q",
+                "cost_r"):
+        want = torch.as_tensor(serial[key])
+        scale = max(1.0, float(want.abs().max()))
+        e = check_close(f"batched vs fallback {key}",
+                        ops[key][:n_fallback].cpu(), want, 1e-9 * scale)
+        worst = max(worst, e / scale)
+    own = ctrl.solution_operator()
+    scale = max(1.0, float(np.abs(own["U_gain"]).max()))
+    e0 = check_close("batched realisation 0 vs the main controller U_gain",
+                     ops["U_gain"][0].cpu(), torch.as_tensor(own["U_gain"]),
+                     1e-9 * scale)
+    log(f"batched vs build_solution_operators_fallback ({n_fallback} "
+        f"realisations, host): max |diff| / field max {worst:.3e} (< 1e-9); "
+        f"realisation 0 vs the main controller's U_gain {e0:.3e}; the "
+        f"serial build takes {serial_s:.3f} s per realisation on the host, "
+        f"the batched {build_s / B * 1e3:.4f} ms per realisation [{smi}]")
+    del Hu, Hy
+
+    sol = stacked_solution_map(ops, torch.float32, dev)
+    plants = stack_plants([plant.as_params()] * B)
+    ins = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+           for a in (xs, ups, yps)] + [main["inputs"][3][:B, :T]]
+    timer = Timer()
+    res = timer.timeit(lambda: heterogeneous_closed_loop(
+        plants, sol, *ins, n_steps=T), iters=2)
+    if res.u_sys.shape != (B, T, 2) or not bool(
+        torch.isfinite(res.u_sys).all() & res.converged.all()
+    ):
+        raise AssertionError("heterogeneous sweep: wrong shape or "
+                             "non-finite values")
+    log(f"heterogeneous_closed_loop (B={B} x T={T}, one operator per "
+        f"realisation, float32): {timer_ms(timer)} per rollout -> "
+        f"{B * T / timer.best:,.0f} solves/s [{smi}]")
+
+    e_u = e_y = 0.0
+    for b in range(n_alone):
+        one = closed_loop_rollout(
+            plant.as_params(), SolutionMap(*(f[b] for f in sol)),
+            *(a[b:b + 1] for a in ins), n_steps=T,
+        )
+        e_u = max(e_u, check_close(f"scenario {b} alone u", one.u_sys[0],
+                                   res.u_sys[b], ATOL))
+        e_y = max(e_y, check_close(f"scenario {b} alone y", one.y_sys[0],
+                                   res.y_sys[b], ATOL))
+    sol64 = stacked_solution_map({k: ops[k][:n_alone] for k in ops},
+                                 torch.float64, dev)
+    res64 = heterogeneous_closed_loop(
+        stack_plants([plant.as_params()] * n_alone), sol64,
+        *(a[:n_alone].double() for a in ins), n_steps=T,
+    )
+    du = max_abs(res.u_sys[:n_alone], res64.u_sys)
+    if not du < NORTH_STAR:
+        raise AssertionError(f"sweep: max |du| vs float64 {du:.3e}")
+    log(f"sweep: {n_alone} scenarios each alone with its own map: max |du| "
+        f"{e_u:.3e}, |dy| {e_y:.3e} (atol {ATOL}); against float64 max |du| "
+        f"{du:.3e} (< {NORTH_STAR})")
+    metrics = rollout_metrics(res, ctrl.u_s, ctrl.y_s)
+    log(f"sweep rollout_metrics: {json.dumps(metrics)}")
+    del ops, sol64, res64
+    return dict(plants=plants, sol=sol, ins=ins)
+
+
+def segmented_phase(dev, smi, main, B=B_MAIN, B_lad=1024, seg=100,
+                    n_seg=4) -> None:
+    """Phase 33: segmented runs with checkpoints. The CONVEX ADMM of
+    ``four_tank_convex_generic`` (16 iterations) on ``B`` scenarios, then
+    the box ADMM's ladder (integer rung lanes) on ``B_lad``: ``n_seg``
+    segments with a checkpoint after each; a resume from the checkpoint
+    after segment ``n_seg // 2`` into a zero template; one
+    ``batched_closed_loop`` over the segments' concatenated noise."""
+    from direct_data_driven_mpc_tpu_torch.control.segmented import (
+        SegmentState,
+        resume_from_checkpoint,
+        run_segmented,
+        segment_noise,
+    )
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        batched_closed_loop,
+    )
+    from direct_data_driven_mpc_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from direct_data_driven_mpc_tpu_torch.utils.profiling import Timer
+
+    fields = ("u_sys", "y_sys", "costs", "converged")
+    cvx_plant, cvx = build_four_tank_robust(slack="CONVEX")
+    cases = (
+        ("CONVEX ADMM (c = 1, 16 iterations)", cvx_plant,
+         cvx.admm_solver(device=dev), 16, B, cvx),
+        ("box ADMM ladder (|u| <= 0.85, cap 120)", main["plant"],
+         main["ctrl"].box_admm_solver(u_bounds=(-0.85, 0.85), device=dev),
+         120, B_lad, main["ctrl"]),
+    )
+    half = n_seg // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, plant, solver, iters, Bc, ctrl in cases:
+            x0s, ups, yps = scenario_batch(plant, ctrl, Bc, dev)
+            P = plant.as_params()
+            kw = dict(eps_max=plant.get_eps_max(), segment_steps=seg,
+                      admm_iters=iters)
+
+            def start():
+                return SegmentState(x=x0s, u_past=ups, y_past=yps,
+                                    segment=0, seed=33)
+
+            full_path = os.path.join(tmp, "full.npz")
+            t0 = time.perf_counter()
+            end, full = run_segmented(P, solver, start(), n_segments=n_seg,
+                                      checkpoint_path=full_path, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            full_s = time.perf_counter() - t0
+            part_path = os.path.join(tmp, "part.npz")
+            _, first = run_segmented(P, solver, start(), n_segments=half,
+                                     checkpoint_path=part_path, **kw)
+            zero = SegmentState(
+                x=torch.zeros_like(x0s), u_past=torch.zeros_like(ups),
+                y_past=torch.zeros_like(yps), segment=0, seed=0,
+                solver_state=type(end.solver_state)(
+                    *(torch.zeros_like(t) for t in end.solver_state)),
+            )
+            resumed = resume_from_checkpoint(part_path, zero)
+            end2, second = run_segmented(P, solver, resumed,
+                                         n_segments=n_seg - half, **kw)
+            once = batched_closed_loop(
+                P, solver, x0s, ups, yps,
+                torch.cat([segment_noise(33, i, Bc, seg, 2, kw["eps_max"],
+                                         dev) for i in range(n_seg)], 1),
+                n_steps=n_seg * seg, admm_iters=iters,
+            )
+            for name in fields:
+                joined = torch.cat([getattr(first, name),
+                                    getattr(second, name)], 1)
+                if not (torch.equal(joined, getattr(full, name))
+                        and torch.equal(getattr(once, name),
+                                        getattr(full, name))):
+                    raise AssertionError(f"{tag}: {name} differs between "
+                                         "the runs")
+            for a, b, c in zip((end2.x, end2.u_past, end2.y_past,
+                                *end2.solver_state),
+                               (end.x, end.u_past, end.y_past,
+                                *end.solver_state),
+                               (once.x_final, once.u_past, once.y_past,
+                                *once.solver_state)):
+                if not (a.dtype == b.dtype and torch.equal(a, b)
+                        and torch.equal(b, c)):
+                    raise AssertionError(f"{tag}: final state differs "
+                                         "between the runs")
+            if end2.segment != n_seg:
+                raise AssertionError(f"{tag}: resumed at segment "
+                                     f"{resumed.segment}, ended at "
+                                     f"{end2.segment}")
+            save_t, load_t = Timer(), Timer()
+            for _ in range(3):
+                with save_t.measure():
+                    save_checkpoint(full_path, end,
+                                    metadata={"segment": end.segment})
+                with load_t.measure():
+                    load_checkpoint(full_path, zero)
+            lanes = ", ".join(str(t.dtype) for t in end.solver_state)
+            log(f"segmented {tag}, B={Bc}: {n_seg} x {seg} steps "
+                f"({full_s:.2f} s with a checkpoint after each), {half} + "
+                f"resume into a zero template + {n_seg - half}, and one "
+                f"batched_closed_loop over the {n_seg} segments' noise: every "
+                f"field, the final state and the solver state ({lanes}) "
+                f"bit-equal; checkpoint {os.path.getsize(full_path):,} "
+                f"bytes, save {save_t.best * 1e3:.2f} ms, load "
+                f"{load_t.best * 1e3:.2f} ms [{smi}]")
+
+
+def tuning_phase(dev, smi, main, B=64, T=80, steps=25, lr=0.4) -> None:
+    """Phase 34: differentiable tuning of the paper's controller in
+    float64 on the card, from the example's 100x inflated alpha ridge:
+    the differentiable map against the host operator, the gradient
+    against central differences, ``steps`` Adam steps."""
+    from direct_data_driven_mpc_tpu_torch.control.tuning import (
+        differentiable_solution_map,
+        make_closed_loop_objective,
+        tune_regularization,
+    )
+    from direct_data_driven_mpc_tpu_torch.utils.profiling import Timer
+
+    plant, ctrl = main["plant"], main["ctrl"]
+    a_yaml, s_yaml = ctrl.lamb_alpha * ctrl.eps_max, ctrl.lamb_sigma
+    sol = differentiable_solution_map(ctrl.spec, a_yaml, s_yaml, device=dev)
+    host = ctrl.solution_operator()
+    worst = 0.0
+    for key, value in sol._asdict().items():
+        want = torch.as_tensor(host[key])
+        scale = max(1.0, float(want.abs().max()))
+        worst = max(worst, check_close(f"differentiable map {key}",
+                                       value.cpu(), want, 1e-9 * scale)
+                    / scale)
+    log(f"differentiable_solution_map (nz={ctrl.spec.nz}, nc={ctrl.spec.nc}, "
+        f"float64 on {dev.type}) at the controller's weights vs the host "
+        f"operator: max |diff| / max(1, field max) {worst:.3e} (< 1e-9)")
+
+    rng = np.random.default_rng(34)
+    eps = plant.get_eps_max()
+    x0s, ups, yps = scenario_batch(plant, ctrl, B, dev, torch.float64)
+    Ws = rng.uniform(-eps, eps, (B, T, 2))
+    loss = make_closed_loop_objective(ctrl.spec, plant.as_params(), x0s, ups,
+                                      yps, Ws, n_steps=T, device=dev)
+    a0 = 100.0 * a_yaml
+    log0 = torch.log(torch.tensor([a0, s_yaml], dtype=torch.float64))
+
+    def value_and_grad():
+        params = log0.clone().requires_grad_()
+        value = loss(params)
+        value.backward()
+        return value.detach(), params.grad
+
+    timer = Timer()
+    _, g = timer.timeit(value_and_grad, iters=3)
+    h = 1e-5
+    with torch.no_grad():
+        for i in range(2):
+            e = torch.zeros(2, dtype=torch.float64)
+            e[i] = h
+            fd = float(loss(log0 + e) - loss(log0 - e)) / (2 * h)
+            if not abs(float(g[i]) - fd) < 1e-6 + 1e-4 * abs(fd):
+                raise AssertionError(f"gradient {i}: autograd {float(g[i])} "
+                                     f"vs central difference {fd}")
+            log(f"tuning gradient d loss / d log {('alpha', 'sigma')[i]}_reg "
+                f"{float(g[i]):.6e} vs central difference {fd:.6e} (rtol "
+                "1e-4)")
+    out = tune_regularization(loss, a0, s_yaml, steps=steps,
+                              learning_rate=lr)
+    hist = out["loss_history"]
+    if not out["final_loss"] < out["initial_loss"]:
+        raise AssertionError(f"tuning did not lower the loss: {hist}")
+    log(f"tune_regularization (B={B}, T={T}, {steps} Adam steps at lr {lr}, "
+        f"float64 on {dev.type}): value and grad {timer_ms(timer)}; loss "
+        f"{hist[0]:.6e} -> {hist[-1]:.6e} (best {out['final_loss']:.6e}); "
+        f"alpha_reg {a0:.4e} -> {out['alpha_reg']:.4e}, sigma_reg "
+        f"{out['sigma_reg']:.4e} [{smi}]")
+
+
+def profiling_phase(dev, smi, sweep, T=40) -> None:
+    """Phase 35: one heterogeneous segment (the sweep's batch, ``T``
+    steps) under ``utils.profiling.trace``: the Chrome trace file exists
+    and holds device kernel events (host operator events on the CPU)."""
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        heterogeneous_closed_loop,
+    )
+    from direct_data_driven_mpc_tpu_torch.utils.profiling import trace
+
+    ins = sweep["ins"]
+    category = "kernel" if dev.type == "cuda" else "cpu_op"
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as path:
+            heterogeneous_closed_loop(sweep["plants"], sweep["sol"],
+                                      *ins[:3], ins[3][:, :T], n_steps=T)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path)
+    count = sum(e.get("cat") == category for e in events)
+    if count == 0:
+        raise AssertionError(f"profiling: the trace holds no {category} "
+                             "events")
+    B = ins[0].shape[0]
+    log(f"profiling: utils.profiling.trace of one heterogeneous segment "
+        f"(B={B} x T={T}) wrote a {size:,}-byte Chrome trace with {count} "
+        f"{category} events ({count / T:.1f} per step) [{smi}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
@@ -2046,9 +2546,17 @@ def main() -> int:
         plant=plant, ctrl=ctrl, inputs=(x0s, ups, yps, Ws), k1=got,
         plain=want,
     ))
-    generic_timing(dev, smi, generic_phases(dev, smi, dict(
-        plant=plant, ctrl=ctrl, inputs=(x0s, ups, yps, Ws),
-    )))
+    main_run = dict(plant=plant, ctrl=ctrl, inputs=(x0s, ups, yps, Ws),
+                    bm50=bm50)
+    generic_timing(dev, smi, generic_phases(dev, smi, main_run))
+    # 31-35, before phase 19's convolution (phase 35 reads
+    # torch.profiler).
+    host_layer_phase(dev, smi, main_run)
+    sweep = sweep_phase(dev, smi, main_run)
+    segmented_phase(dev, smi, main_run)
+    tuning_phase(dev, smi, main_run)
+    profiling_phase(dev, smi, sweep)
+    del sweep
     k4 = admm_phases(dev, smi)
     k5 = ladder_phases(dev, smi)
     k3 = large_plant_phases(dev, smi)

@@ -25,8 +25,9 @@ then take a setpoint schedule: constant ``(n_r,)``, per outer block
 
 Counterpart of ``direct_data_driven_mpc_tpu/control/linear_engine.py``
 (``AffineBlockMap``, ``build_affine_block_map``, ``build_linear_engine``,
-``build_tracking_engine``, ``linear_closed_loop_rollout`` with explicit
-noise or noise drawn block by block, ``make_linear_batched_rollout``).
+``build_tracking_engine``, ``closed_loop_spectrum``,
+``linear_closed_loop_rollout`` with explicit noise or noise drawn block
+by block, ``make_linear_batched_rollout``).
 """
 
 from __future__ import annotations
@@ -373,6 +374,28 @@ def build_tracking_engine(
         dtype=dtype,
         tracking_op=controller.tracking_operator(),
     )
+
+
+def closed_loop_spectrum(block_map: AffineBlockMap) -> dict:
+    """Eigen-analysis of the condensed closed-loop transition matrix.
+
+    The controller and plant condense to ``s' = M s + c + N w``, so the
+    loop is asymptotically stable (per solve block) exactly when the
+    spectral radius of ``M`` is below 1: a certificate at construction
+    time, where the reference can only watch a run diverge (its UCON
+    scheme).
+
+    Returns ``{"spectral_radius", "stable", "eigenvalues"}``, the
+    eigenvalues of ``M_T`` in float64, read back to the host (numpy).
+    """
+    M = block_map.M_T.detach().to("cpu", torch.float64).numpy().T
+    eigs = np.linalg.eigvals(M)
+    radius = float(np.abs(eigs).max())
+    return {
+        "spectral_radius": radius,
+        "stable": bool(radius < 1.0),
+        "eigenvalues": eigs,
+    }
 
 
 def _block_meta(block_map: AffineBlockMap, p: int):

@@ -2,11 +2,15 @@
 
 The state ``x`` is a float64 numpy vector (single-scenario use); batched
 simulation on the device goes through the condensed engine with the
-matrices from :meth:`LTIModel.as_params`. Counterpart of
-``direct_data_driven_mpc_tpu/models/lti_model.py::LTIModel``.
+matrices from :meth:`LTIModel.as_params`. :class:`LTISystemModel` loads
+the plant from a YAML file. Counterpart of
+``direct_data_driven_mpc_tpu/models/lti_model.py`` (``LTIModel``,
+``LTISystemModel``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -19,6 +23,9 @@ from direct_data_driven_mpc_tpu_torch.ops.host import (
     toeplitz_input_output_matrix_np,
 )
 from direct_data_driven_mpc_tpu_torch.ops.lti import LTIParams
+from direct_data_driven_mpc_tpu_torch.utils.config import (
+    load_yaml_config_params,
+)
 
 
 class LTIModel:
@@ -49,9 +56,13 @@ class LTIModel:
             self.A, self.B, self.C, self.D, self.n
         )
 
-    def as_params(self) -> LTIParams:
-        """The plant matrices (float64 numpy) as :class:`LTIParams`."""
-        return LTIParams(A=self.A, B=self.B, C=self.C, D=self.D)
+    def as_params(self, dtype=None) -> LTIParams:
+        """The plant matrices as :class:`LTIParams`: float64 numpy, or
+        cast to the numpy ``dtype`` given."""
+        cast = (lambda a: np.asarray(a, dtype=dtype)) if dtype else np.asarray
+        return LTIParams(
+            A=cast(self.A), B=cast(self.B), C=cast(self.C), D=cast(self.D)
+        )
 
     def simulate_step(self, u: np.ndarray, w: np.ndarray) -> np.ndarray:
         """One step; updates ``self.x`` and returns ``y`` of shape (p,)."""
@@ -119,3 +130,54 @@ class LTIModel:
 
     def set_eps_max(self, eps_max: float) -> None:
         self.eps_max = float(eps_max)
+
+
+class LTISystemModel(LTIModel):
+    """LTI plant loaded from a YAML config file (the reference's schema,
+    with its shape validation)."""
+
+    def __init__(
+        self,
+        config_file: str,
+        model_key_value: Optional[str] = None,
+        verbose: int = 0,
+    ):
+        self.verbose = verbose
+        params = load_yaml_config_params(
+            config_file=config_file, key=model_key_value
+        )
+        if verbose > 1:
+            print(
+                f"    Model parameters loaded from {config_file} with key "
+                f"'{model_key_value}'"
+            )
+        if any(k not in params for k in ("A", "B", "C", "D")):
+            raise ValueError(
+                "Missing required matrices (A, B, C, or D) in the config "
+                "file."
+            )
+        A = np.array(params["A"], dtype=float)
+        B = np.array(params["B"], dtype=float)
+        C = np.array(params["C"], dtype=float)
+        D = np.array(params["D"], dtype=float)
+        eps_max = params.get("eps_max", 0)
+
+        if A.shape[0] != A.shape[1]:
+            raise ValueError("Matrix A must be square.")
+        if B.shape[0] != A.shape[0]:
+            raise ValueError("Matrix B's row count must match A's.")
+        if C.shape[1] != A.shape[1]:
+            raise ValueError("Matrix C's column count must match A's.")
+        if D.shape[0] != C.shape[0]:
+            raise ValueError("Matrix D's row count must match C's.")
+
+        super().__init__(A=A, B=B, C=C, D=D, eps_max=eps_max)
+
+        if verbose == 1:
+            print("System model initialized with loaded parameters")
+        if verbose > 1:
+            print("System model initialized with:")
+            print(
+                f"    A: {A.shape}, B: {B.shape}, C: {C.shape}, D: "
+                f"{D.shape}, eps_max: {eps_max}"
+            )

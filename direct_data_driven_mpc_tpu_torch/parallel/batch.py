@@ -6,8 +6,10 @@ JAX package ``vmap``s a one-scenario loop; the port's generic loop
 (``control.loop``) is batched already, the scenario axis leading, so
 :func:`batched_closed_loop` and :func:`make_batched_rollout` call it as
 they are. With plants and operators stacked per scenario
-(:func:`stack_plants`, :func:`stack_solution_maps`), each product of
-:func:`heterogeneous_closed_loop` is batched, one matrix per scenario.
+(:func:`stack_plants`, :func:`stack_solution_maps`, or
+``qp.batch_build.stacked_solution_map`` for one operator per data
+realisation), each product of :func:`heterogeneous_closed_loop` is
+batched, one matrix per scenario.
 
 The noise comes from an explicit ``torch.Generator`` on the device, not
 from JAX's threefry, so the two packages give different numbers for the
@@ -146,9 +148,11 @@ def heterogeneous_closed_loop(
     noise, the data realisation (so the solution operator) and the plant.
     ``plants`` (:func:`stack_plants`) and ``solvers``
     (:func:`stack_solution_maps`) carry a leading scenario axis, and
-    each of their products is batched, one matrix per scenario. The JAX
-    package builds such operators with ``qp/batch_build.py``; here they
-    are built one by one and stacked."""
+    each of their products is batched, one matrix per scenario. One
+    operator per data realisation comes from
+    ``qp.batch_build.build_batched_solution_operators`` (one batched
+    factorisation on the device) and ``stacked_solution_map``, or from
+    maps built one by one and stacked."""
     if not isinstance(solvers, (SolutionMap, ADMMSolver)):
         raise TypeError(
             "heterogeneous_closed_loop takes stacked SolutionMaps or "

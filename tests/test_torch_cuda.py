@@ -869,3 +869,75 @@ def test_generic_loop_box_on_the_card_ignores_the_callers_tf32(cuda, rho):
     assert torch.equal(card.solver_state.rho_idx.cpu(),
                        cpu.solver_state.rho_idx)
     assert float(card.u_sys.abs().max()) <= 0.85 + 1e-6
+
+
+def _realisation_hankels(golden, B, N=400, L=30, n=4):
+    """B data realisations of the four-tank plant (seed s for realisation
+    s, the golden controller's input and noise distributions) arranged
+    into Hankels of depth L + n in numpy."""
+    from direct_data_driven_mpc_tpu_torch.ops.host import (
+        hankel_matrix_np,
+        lti_rollout_np,
+    )
+
+    Hu, Hy = [], []
+    for s in range(B):
+        rng = np.random.default_rng(s)
+        u_d = rng.uniform(-1, 1, (N, 2))
+        w_d = 0.002 * rng.uniform(-1, 1, (N, 2))
+        _, y_d = lti_rollout_np(*PLANT, np.zeros(4), u_d, w_d)
+        Hu.append(hankel_matrix_np(u_d, L + n))
+        Hy.append(hankel_matrix_np(y_d, L + n))
+    return np.stack(Hu), np.stack(Hy)
+
+
+def test_batched_operators_on_the_card_match_the_cpu(cuda, golden):
+    """``build_batched_solution_operators`` at the paper's size (nz 571)
+    on the card against its ``device="cpu"`` run: every field within
+    1e-9 relative to the field's largest magnitude, every lane feasible."""
+    from direct_data_driven_mpc_tpu_torch.qp.batch_build import (
+        build_batched_solution_operators,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp.spec import QPDims
+
+    ctrl = _controller(golden)
+    Hu, Hy = _realisation_hankels(golden, B=24)
+    kw = dict(dims=QPDims(n=4, m=2, p=2, L=30, N=400), Q=ctrl.Q, R=ctrl.R,
+              u_s=ctrl.u_s, y_s=ctrl.y_s, eps_max=0.002,
+              lamb_alpha=0.1 / 0.002, lamb_sigma=1000.0, chunk=16)
+    card = build_batched_solution_operators(Hu, Hy, device=cuda, **kw)
+    cpu = build_batched_solution_operators(Hu, Hy, device="cpu", **kw)
+    assert bool(card["feasible"].all()) and bool(cpu["feasible"].all())
+    for key, want in cpu.items():
+        got = card[key].cpu()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if key != "feasible":
+            scale = max(1.0, float(want.abs().max()))
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-9 * scale)
+
+
+def test_tuning_gradient_on_the_card_matches_the_cpu(cuda, golden):
+    """The closed-loop objective's value and autograd gradient in float64
+    on the card against the CPU's, rtol 1e-8."""
+    from direct_data_driven_mpc_tpu_torch.control.tuning import (
+        make_closed_loop_objective,
+    )
+
+    ctrl = _controller(golden)
+    B, T = 4, 20
+    rng = np.random.default_rng(2)
+    ins = (np.tile(golden["x0"][None], (B, 1)),
+           np.tile(golden["TEC_u_past0"][None], (B, 1, 1)),
+           np.tile(golden["TEC_y_past0"][None], (B, 1, 1)),
+           0.002 * rng.uniform(-1, 1, (B, T, 2)))
+    log0 = np.log([100.0 * 0.1, 1000.0])
+    out = []
+    for dev in ("cpu", cuda):
+        loss = make_closed_loop_objective(ctrl.spec, PLANT, *ins, n_steps=T,
+                                          device=dev)
+        params = torch.tensor(log0, requires_grad=True)
+        value = loss(params)
+        value.backward()
+        out.append((value.detach().cpu(), params.grad))
+    for want, got in zip(*out):
+        torch.testing.assert_close(got, want, rtol=1e-8, atol=0)

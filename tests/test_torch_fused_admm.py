@@ -36,6 +36,7 @@ from tests.test_fused_admm import (  # noqa: E402
     GOLDEN,
     _golden_controller,
 )
+from tests.test_torch_iterative import one_blas_thread  # noqa: E402,F401
 
 EXACT = 1e-12
 PLANT = LTIParams(*(np.asarray(FOUR_TANK[k]) for k in "ABCD"))

@@ -49,6 +49,7 @@ from direct_data_driven_mpc_tpu_torch.qp.spec import (  # noqa: E402
 )
 
 from tests.test_torch_host import controller_kwargs, port_setup  # noqa: E402
+from tests.test_torch_iterative import one_blas_thread  # noqa: E402,F401
 
 K, B, T = 8, 4, 48
 N_OUTER = T // K
