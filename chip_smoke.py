@@ -192,6 +192,46 @@ its own), right after phase 30, so that phase 35 reads
     ``utils.profiling.trace``; the Chrome trace must hold CUDA kernel
     events.
 
+Then one controller for one plant, with nothing batched (no kernel of
+its own: the C runtime on the host, plain PyTorch on the card), right
+after phase 35, so that phase 38 reads ``torch.profiler`` before phase
+19's convolution:
+
+36. the interactive per-step solve: the C extension and the runtime's
+    demo built from this checkout (compiler, its version, seconds);
+    ``four_tank_robust``'s controller (nz 571, nc 168, slack NONE) and
+    ``four_tank_convex``'s (CONVEX, c = 1, nbox 60), each with
+    ``solve_path`` "native" and "numpy" (read back); a 40-step host
+    closed loop native against numpy (NONE atol 1e-12, CONVEX 1e-7:
+    both exit at 1e-8 on their own residuals); p50 and p99 microseconds
+    of ``update_and_solve_data_driven_mpc`` per path and slack, beside
+    the host's CPU: live, each of 200 solves in a closed loop whose
+    window moves every step (the per-step cost a deployment pays), and
+    re-solving one window 200 times (``bench.py``'s real-time metric;
+    for CONVEX a re-solve from the warm start it converged to);
+37. export and the C runtime: ``export_controller`` of both controllers
+    with the plant embedded, the demo binary for T = 400 on seed-0
+    noise against the port's Python loop on the same noise (NONE atol
+    1e-10, CONVEX 1e-7, the last cost within 1e-6); a bad header and a
+    truncated blob refused;
+38. the time-parallel rollout: ``time_parallel_rollout`` on the card,
+    one scenario of ``four_tank_robust`` with the main path's noise,
+    T = 400, block maps at K = 1 (400 outer blocks) and K = 50 (8), in
+    float32 and float64, plain and with ``four_tank_tracking``'s
+    schedule: float64 against the sequential
+    ``linear_closed_loop_rollout`` in float64 (u, y, final state 1e-9;
+    costs rtol 1e-7), float32 max |du| < 1e-4 against float64; ms per
+    trajectory by CUDA events after a warm-up, in turns with the
+    sequential engine at B = 1, and the device kernels per call of
+    each (``torch.profiler``, three calls, one for the sequential engine
+    at K = 1, after a discarded warm-up call, in each of two sessions);
+39. the device ops on the paper's data on the card: ``hankel_matrix``
+    bit-equal to the host's, ``matrix_rank`` and
+    ``evaluate_persistent_excitation`` equal to the host's, the
+    initial-state observer's round trip (1e-8), the equilibrium pair
+    (1e-10) and ``lti_rollout`` against ``LTIModel.simulate`` (1e-10),
+    in float64; given numpy and no device, the ops run on the card.
+
 The script sets ``torch.set_float32_matmul_precision("high")`` first,
 as a user's process might: the port scopes IEEE float32 to its
 parity-bound paths (``ops/precision.py``), the library yardsticks are
@@ -214,6 +254,7 @@ import ctypes
 import json
 import math
 import os
+import platform
 import re
 import subprocess
 import sys
@@ -280,11 +321,13 @@ def log(msg: str) -> None:
 
 def build_four_tank_robust(N: int = 400, L: int = 30, seed: int = 0,
                            slack: str = "NONE", c: float = 1.0,
-                           allow_nonconvex_slack: bool = False):
+                           allow_nonconvex_slack: bool = False,
+                           solve_path=None):
     """The four-tank Robust controller as ``bench.py`` builds it:
     uniform input data, bounded measurement noise, slack NONE (or
     CONVEX, as its fused ADMM configurations build it, or NON_CONVEX at
-    c = 0.05, opted in, as ``four_tank_nonconvex`` builds it)."""
+    c = 0.05, opted in, as ``four_tank_nonconvex`` builds it); its
+    per-step solve on ``solve_path`` (None: the controller's default)."""
     from direct_data_driven_mpc_tpu_torch.control.controller import (
         DirectDataDrivenMPCController,
     )
@@ -300,7 +343,7 @@ def build_four_tank_robust(N: int = 400, L: int = 30, seed: int = 0,
     ctrl = DirectDataDrivenMPCController(
         m=m, p=p, u_d=u_d, y_d=y_d,
         **four_tank_params(eps, L, slack, c),
-        allow_nonconvex_slack=allow_nonconvex_slack,
+        allow_nonconvex_slack=allow_nonconvex_slack, solve_path=solve_path,
     )
     return plant, ctrl
 
@@ -1933,7 +1976,8 @@ def host_layer_phase(dev, smi, main, n_steps=50) -> None:
     e_y = check_close("host loop vs generic loop y", res.y_sys[0].cpu(),
                       torch.from_numpy(y_h), 1e-8)
     log(f"simulate_data_driven_mpc_control_loop ({n_steps} steps, host "
-        f"numpy solves, {host_s:.3f} s) vs the generic loop in float64 on "
+        f"{made.solve_path} solves, {host_s:.3f} s) vs the generic loop in "
+        f"float64 on "
         f"{dev.type}: max |du| {e_u:.3e}, |dy| {e_y:.3e} (atol 1e-8) "
         f"[{smi}]")
 
@@ -2296,6 +2340,396 @@ def profiling_phase(dev, smi, sweep, T=40) -> None:
         f"{category} events ({count / T:.1f} per step) [{smi}]")
 
 
+def host_cpu() -> str:
+    """The host's CPU, for host-side latencies: the model name (where
+    the kernel reports one), vendor, family and model, the vector ISA
+    that PyTorch found and the number of CPUs."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    return (f"{info.get('model name', platform.processor() or 'unknown')}, "
+            f"{info.get('vendor_id', platform.machine())} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')}, "
+            f"{torch.backends.cpu.get_cpu_capability()}, "
+            f"{os.cpu_count()} CPUs")
+
+
+def native_phase(smi, host, n_steps=40, n_lat=200) -> None:
+    """Phase 36: the interactive per-step solve in the C extension
+    against numpy: builds, ``solve_path``, a host closed loop and the
+    per-call latency."""
+    from direct_data_driven_mpc_tpu_torch import native
+    from direct_data_driven_mpc_tpu_torch.control.operation import (
+        simulate_data_driven_mpc_control_loop,
+    )
+
+    t0 = time.perf_counter()
+    ext = native.load()
+    t_ext = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    demo = native.build_runtime_demo()
+    t_demo = time.perf_counter() - t0
+    version = subprocess.run([ext.compiler, "--version"],
+                             capture_output=True, text=True,
+                             check=True).stdout.splitlines()[0]
+    log(f"native build: {ext.compiler} ({version}); {ext.path.name} "
+        f"compiled in {ext.build_seconds:.2f} s ({t_ext:.2f} s with the "
+        f"load), {os.path.basename(demo)} in {t_demo:.2f} s [host {host}; "
+        f"card {smi}]")
+
+    atol = {"NONE": 1e-12, "CONVEX": 1e-7}
+    for slack in ("NONE", "CONVEX"):
+        runs, lat = {}, {}
+        for path in ("native", "numpy"):
+            plant, ctrl = build_four_tank_robust(slack=slack,
+                                                 solve_path=path)
+            if ctrl.solve_path != path:
+                raise AssertionError(f"{slack}: solve_path reads "
+                                     f"{ctrl.solve_path!r}, asked {path!r}")
+            if slack == "NONE":
+                dims = f"nz {ctrl.spec.nz}, nc {ctrl.spec.nc}"
+                if (ctrl.spec.nz, ctrl.spec.nc) != (571, 168):
+                    raise AssertionError(f"four_tank_robust: {dims}")
+            else:
+                dims = f"nbox {ctrl._op['v_c'].shape[0]}"
+                if ctrl._op["v_c"].shape[0] != 60:
+                    raise AssertionError(f"four_tank_convex: {dims}")
+            w = plant.get_eps_max() * np.random.default_rng(0).uniform(
+                -1, 1, (n_steps + n_lat, ctrl.p))
+            runs[path] = simulate_data_driven_mpc_control_loop(
+                plant, ctrl, n_steps, None, verbose=0, w_sys=w[:n_steps])
+            if ctrl.get_problem_solve_status() != "optimal":
+                raise AssertionError(f"{slack} {path}: status "
+                                     f"{ctrl.get_problem_solve_status()}")
+            lat[path] = (live_solve_times(plant, ctrl, w[n_steps:]),
+                         resolve_times(ctrl, n_lat))
+        e_u = check_close(f"{slack} native vs numpy u",
+                          torch.from_numpy(runs["native"][0]),
+                          torch.from_numpy(runs["numpy"][0]), atol[slack])
+        e_y = check_close(f"{slack} native vs numpy y",
+                          torch.from_numpy(runs["native"][1]),
+                          torch.from_numpy(runs["numpy"][1]), atol[slack])
+        log(f"native interactive {slack} ({dims}): {n_steps}-step host "
+            f"loop native vs numpy max |du| {e_u:.3e}, |dy| {e_y:.3e} "
+            f"(atol {atol[slack]}); update_and_solve_data_driven_mpc, "
+            f"p50 / p99 us of {n_lat} calls, live (the window moving) "
+            f"then re-solving one window: "
+            + "; ".join(f"{path} {p50(live)} / {p99(live)}, "
+                        f"{p50(again)} / {p99(again)}"
+                        for path, (live, again) in lat.items())
+            + f" [host {host}; card {smi}]")
+
+
+def live_solve_times(plant, ctrl, w) -> np.ndarray:
+    """Seconds of each ``update_and_solve_data_driven_mpc`` in a host
+    closed loop over the noise ``w`` (one solve per step, as in
+    ``control.operation``'s loop at ``n_mpc_step`` 1): the window moves
+    every step, so each CONVEX solve starts from the last step's
+    iterate, not from its own solution."""
+    times = np.empty(len(w))
+    for k in range(len(w)):
+        t0 = time.perf_counter()
+        ctrl.update_and_solve_data_driven_mpc()
+        times[k] = time.perf_counter() - t0
+        u = ctrl.get_optimal_control_input_at_step(n_step=0)
+        y = plant.simulate_step(u=u, w=w[k])
+        ctrl.store_input_output_measurement(
+            u_current=u.reshape(-1, 1), y_current=y.reshape(-1, 1))
+    return times
+
+
+def resolve_times(ctrl, n: int) -> np.ndarray:
+    """Seconds of each of ``n`` ``update_and_solve_data_driven_mpc``
+    calls on one window (``bench.py:1199-1208``)."""
+    times = np.empty(n)
+    for k in range(n):
+        t0 = time.perf_counter()
+        ctrl.update_and_solve_data_driven_mpc()
+        times[k] = time.perf_counter() - t0
+    return times
+
+
+def p50(seconds) -> str:
+    return f"{np.percentile(seconds, 50) * 1e6:.2f}"
+
+
+def p99(seconds) -> str:
+    return f"{np.percentile(seconds, 99) * 1e6:.2f}"
+
+
+def export_phase(smi, T=400) -> None:
+    """Phase 37: both controllers exported with the plant embedded, run
+    for ``T`` steps by the C demo against the port's Python loop."""
+    from direct_data_driven_mpc_tpu_torch import native
+    from direct_data_driven_mpc_tpu_torch.control.operation import (
+        simulate_data_driven_mpc_control_loop,
+    )
+    from direct_data_driven_mpc_tpu_torch.utils.export import (
+        export_controller,
+    )
+
+    demo = native.build_runtime_demo()
+    atol = {"NONE": 1e-10, "CONVEX": 1e-7}
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(blob, noise, steps, out):
+            return subprocess.run([demo, blob, noise, str(steps), out],
+                                  capture_output=True, text=True,
+                                  timeout=120)
+
+        noise = os.path.join(tmp, "noise.f64")
+        out = os.path.join(tmp, "out.f64")
+        for slack in ("NONE", "CONVEX"):
+            plant, ctrl = build_four_tank_robust(slack=slack)
+            x0 = plant.get_state().copy()
+            blob = os.path.join(tmp, f"{slack}.blob")
+            export_controller(ctrl, blob, plant=plant, x0=x0)
+            w = plant.get_eps_max() * np.random.default_rng(0).uniform(
+                -1, 1, (T, ctrl.p))
+            np.ascontiguousarray(w, dtype="<f8").tofile(noise)
+            t0 = time.perf_counter()
+            proc = run(blob, noise, T, out)
+            t_demo = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"C demo {slack} exited with "
+                                     f"{proc.returncode}: {proc.stderr}")
+            raw = np.fromfile(out, dtype="<f8")
+            m, p = ctrl.m, ctrl.p
+            if raw.size != T * (m + p + 1):
+                raise AssertionError(f"C demo {slack}: {raw.size} values")
+            u_c = raw[: T * m].reshape(T, m)
+            y_c = raw[T * m : T * (m + p)].reshape(T, p)
+            costs_c = raw[T * (m + p) :]
+            plant.set_state(x0)
+            t0 = time.perf_counter()
+            u_py, y_py = simulate_data_driven_mpc_control_loop(
+                plant, ctrl, T, None, verbose=0, w_sys=w)
+            t_py = time.perf_counter() - t0
+            e_u = check_close(f"C runtime {slack} u", torch.from_numpy(u_c),
+                              torch.from_numpy(u_py), atol[slack])
+            e_y = check_close(f"C runtime {slack} y", torch.from_numpy(y_c),
+                              torch.from_numpy(y_py), atol[slack])
+            e_c = abs(costs_c[-1] - ctrl.get_optimal_cost_value())
+            if not np.isfinite(costs_c).all() or e_c > 1e-6:
+                raise AssertionError(f"C runtime {slack}: last cost off by "
+                                     f"{e_c:.3e}")
+            log(f"export + C runtime {slack}: blob "
+                f"{os.path.getsize(blob):,} bytes; the demo ran T={T} "
+                f"steps, exit status {proc.returncode}, in {t_demo:.3f} s "
+                f"(process start included; the Python loop "
+                f"{t_py:.3f} s); against the Python loop max |du| "
+                f"{e_u:.3e}, |dy| {e_y:.3e} (atol {atol[slack]}), last "
+                f"cost {e_c:.3e} (1e-6) [{smi}]")
+        data = open(blob, "rb").read()
+        bad = os.path.join(tmp, "bad.blob")
+        with open(bad, "wb") as f:
+            f.write(b"NOTDDMPC" + data[8:])
+        trunc = os.path.join(tmp, "trunc.blob")
+        with open(trunc, "wb") as f:
+            f.write(data[: len(data) // 2])
+        codes = []
+        for name, path, why in (("bad header", bad, "bad header"),
+                                ("truncated blob", trunc, "truncated")):
+            proc = run(path, noise, 2, out)
+            if proc.returncode == 0 or why not in proc.stderr:
+                raise AssertionError(f"C demo accepted a {name}: "
+                                     f"{proc.returncode} {proc.stderr}")
+            codes.append(proc.returncode)
+        log(f"export + C runtime: a bad header and a truncated blob refused "
+            f"(exit statuses {codes[0]}, {codes[1]})")
+
+
+def device_kernels(fn, calls: int = 3) -> tuple:
+    """``(kernels, copies)`` per call of ``fn()``: the device activities
+    of ``calls`` calls under ``torch.profiler``, after one discarded
+    warm-up call in the same session (the profiler's own ``warmup``
+    step): sessions opened right at a single call counted different
+    numbers of kernels for one fixed call from run to run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls,
+                                   repeat=1)) as prof:
+        for _ in range(1 + calls):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+    if not names:
+        raise AssertionError("torch.profiler saw no device activity")
+    return (len(names) - copies) / calls, copies / calls
+
+
+def kernel_counts(fn, calls: int) -> str:
+    """Kernels and copies per call from two profiler sessions of
+    ``calls`` calls each (one pair when they agree), and the seconds the
+    two sessions took."""
+    t0 = time.perf_counter()
+    counts = [device_kernels(fn, calls) for _ in range(2)]
+    shown = counts[:1] if counts[0] == counts[1] else counts
+    return (" / ".join(f"{k:g} device kernels and {c:g} copies"
+                       for k, c in shown)
+            + f" per call (counted in {time.perf_counter() - t0:.1f} s)")
+
+
+def time_parallel_phase(dev, smi, main, T=T_MAIN, Ks=(1, 50)) -> None:
+    """Phase 38: ``time_parallel_rollout`` of one scenario on the card
+    against the sequential engine, plain and with a setpoint schedule,
+    at K = 1 and 50 in float32 and float64; on the card, timed in
+    turns."""
+    from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
+        build_linear_engine,
+        build_tracking_engine,
+        linear_closed_loop_rollout,
+        time_parallel_rollout,
+    )
+
+    plant, ctrl = main["plant"], main["ctrl"]
+    x0s, ups, yps, Ws = main["inputs"]
+    one = (x0s[0].double(), ups[0].double(), yps[0].double(),
+           Ws[0, :T].double())
+    r0 = np.concatenate([ctrl.u_s.ravel(), ctrl.y_s.ravel()])
+    for K in Ks:
+        n_outer = math.ceil(T / K)
+        # bench.py:724-731: r0, then 0.85 r0, alternating every 100 steps.
+        sched = np.stack([0.85 * r0 if (j * K // 100) % 2 else r0
+                          for j in range(n_outer)])
+        for kind, build, sp in (("plain", build_linear_engine, None),
+                                ("tracking", build_tracking_engine, sched)):
+            bms = {dt: build(ctrl, plant.as_params(), solves_per_block=K,
+                             device=dev, dtype=dt)
+                   for dt in (torch.float32, torch.float64)}
+            tag = f"time-parallel K={K} (n_outer {n_outer}) {kind}"
+            tp64 = time_parallel_rollout(bms[torch.float64], *one, T,
+                                         setpoints=sp)
+            seq64 = linear_closed_loop_rollout(bms[torch.float64], *one, T,
+                                               setpoints=sp)
+            errs = [check_close(f"{tag} f64 {name}", getattr(tp64, name),
+                                getattr(seq64, name), 1e-9)
+                    for name in ("u_sys", "y_sys", "x_final")]
+            e_c = check_close(f"{tag} f64 costs", tp64.costs, seq64.costs,
+                              1e-9, rtol=1e-7)
+            tp32 = time_parallel_rollout(bms[torch.float32], *one, T,
+                                         setpoints=sp)
+            e_32 = max_abs(tp32.u_sys, tp64.u_sys)
+            if tp32.u_sys.dtype != torch.float32 or e_32 >= NORTH_STAR:
+                raise AssertionError(f"{tag}: float32 max |du| {e_32:.3e} "
+                                     "against float64")
+            log(f"{tag}: float64 against the sequential engine u, y, "
+                f"x_final max |diff| {max(errs):.3e} (1e-9), costs "
+                f"{e_c:.3e} (rtol 1e-7); float32 max |du| against float64 "
+                f"{e_32:.3e} (< {NORTH_STAR}) [{smi}]")
+            if kind == "tracking" or dev.type != "cuda":
+                continue
+            for dt, bm in bms.items():
+                ins = tuple(a.to(dt) for a in one)
+                calls = {
+                    "time-parallel": lambda bm=bm, ins=ins: (
+                        time_parallel_rollout(bm, *ins, T)),
+                    "sequential": lambda bm=bm, ins=ins: (
+                        linear_closed_loop_rollout(bm, *ins, T)),
+                }
+                reps = {"time-parallel": 50,
+                        "sequential": 5 if n_outer > 100 else 50}
+                ms = {k: [] for k in calls}
+                for name in ("time-parallel", "sequential", "sequential",
+                             "time-parallel"):
+                    ms[name].append(cuda_ms(calls[name], reps[name]))
+                profiled = {"time-parallel": 3,
+                            "sequential": 1 if n_outer > 100 else 3}
+                counts = {k: kernel_counts(fn, profiled[k])
+                          for k, fn in calls.items()}
+                dname = str(dt).replace("torch.", "")
+                log(f"time-parallel timing K={K} {dname}: "
+                    + "; ".join(
+                        f"{k} {min(v):.4f}-{max(v):.4f} ms per trajectory, "
+                        f"{counts[k]}" for k, v in ms.items())
+                    + f" [{smi}]")
+
+
+def device_ops_phase(dev, smi, main) -> None:
+    """Phase 39: the Hankel, rank, persistent-excitation, observer,
+    equilibrium and plant-rollout ops on the card against the host's, on
+    the paper's data in float64."""
+    from direct_data_driven_mpc_tpu_torch import ops
+    from direct_data_driven_mpc_tpu_torch.models.lti_model import LTIModel
+    from direct_data_driven_mpc_tpu_torch.ops.hankel import matrix_rank
+    from direct_data_driven_mpc_tpu_torch.ops.host import (
+        evaluate_persistent_excitation_np,
+        hankel_matrix_np,
+    )
+    from direct_data_driven_mpc_tpu_torch.ops.lti import LTIParams
+
+    ctrl = main["ctrl"]
+    order = ctrl.L + 2 * ctrl.n
+    u_d = torch.as_tensor(ctrl.u_d, device=dev)
+    H = ops.hankel_matrix(u_d, order)
+    if H.device != u_d.device or not np.array_equal(
+            H.cpu().numpy(), hankel_matrix_np(ctrl.u_d, order)):
+        raise AssertionError("hankel_matrix on the card differs from the "
+                             "host's")
+    if dev.type == "cuda":
+        # numpy in, no device: the card, as jnp.asarray's accelerator.
+        H_np = ops.hankel_matrix(ctrl.u_d, order)
+        u_np = ops.calculate_equilibrium_input_from_output(
+            *(FOUR_TANK[k] for k in "ABCD"), ctrl.y_s.ravel())
+        if (H_np.device.type, u_np.device.type) != ("cuda", "cuda") or (
+                not torch.equal(H_np, H)):
+            raise AssertionError("a device op given numpy did not run on "
+                                 f"the card: {H_np.device}, {u_np.device}")
+    rank = int(matrix_rank(H))
+    want = evaluate_persistent_excitation_np(ctrl.u_d, order)
+    got = ops.evaluate_persistent_excitation(u_d, order)
+    if rank != want[0] or got != want or not got[1]:
+        raise AssertionError(f"rank {rank}, PE {got} against the host's "
+                             f"{want}")
+    const = ops.evaluate_persistent_excitation(torch.ones_like(u_d), order)
+    if const[1]:
+        raise AssertionError("constant data passed the PE check")
+
+    A, B, C, D = (torch.as_tensor(FOUR_TANK[k], device=dev) for k in "ABCD")
+    params = LTIParams(A, B, C, D)
+    rng = np.random.default_rng(0)
+    x0 = torch.as_tensor(rng.normal(size=4), device=dev)
+    U = torch.as_tensor(rng.uniform(-1, 1, (4, 2)), device=dev)
+    _, Y = ops.lti_rollout(params, x0, U, torch.zeros_like(U))
+    x_hat = ops.estimate_initial_state(
+        ops.observability_matrix(A, C),
+        ops.toeplitz_input_output_matrix(A, B, C, D, 4), U.reshape(-1),
+        Y.reshape(-1))
+    e_x = check_close("estimate_initial_state", x_hat, x0, 1e-8)
+    y_s = torch.as_tensor(ctrl.y_s.ravel(), device=dev)
+    u_eq = ops.calculate_equilibrium_input_from_output(A, B, C, D, y_s)
+    y_back = ops.calculate_equilibrium_output_from_input(A, B, C, D, u_eq)
+    e_eq = check_close("equilibrium pair", y_back, y_s, 1e-10)
+
+    model = LTIModel(**FOUR_TANK)
+    model.set_state(np.zeros(4))
+    w = FOUR_TANK["eps_max"] * rng.uniform(-1, 1, ctrl.y_d.shape)
+    want_y = model.simulate(ctrl.u_d, w, ctrl.N)
+    x_fin, got_y = ops.lti_rollout(
+        params, torch.zeros(4, dtype=torch.float64, device=dev), u_d,
+        torch.as_tensor(w, device=dev))
+    e_y = check_close("lti_rollout", got_y.cpu(), torch.from_numpy(want_y),
+                      1e-10)
+    check_close("lti_rollout x_final", x_fin.cpu(),
+                torch.from_numpy(model.get_state()), 1e-10)
+    log(f"device ops on {dev.type}: hankel_matrix {tuple(H.shape)} "
+        f"bit-equal to the host's, rank {rank} and PE {got} equal to the "
+        f"host's (constant data: {const}); x0 round trip max |dx| "
+        f"{e_x:.3e} (1e-8); equilibrium pair {e_eq:.3e} (1e-10); "
+        f"lti_rollout over the {ctrl.N} data steps against "
+        f"LTIModel.simulate {e_y:.3e} (1e-10), float64 [{smi}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
@@ -2557,6 +2991,13 @@ def main() -> int:
     tuning_phase(dev, smi, main_run)
     profiling_phase(dev, smi, sweep)
     del sweep
+    # 36-39, before phase 19's convolution (phase 38 reads
+    # torch.profiler).
+    host = host_cpu()
+    native_phase(smi, host)
+    export_phase(smi)
+    time_parallel_phase(dev, smi, main_run)
+    device_ops_phase(dev, smi, main_run)
     k4 = admm_phases(dev, smi)
     k5 = ladder_phases(dev, smi)
     k3 = large_plant_phases(dev, smi)

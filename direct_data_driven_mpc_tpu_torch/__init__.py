@@ -12,13 +12,22 @@ penalty or the adaptive ladder (``ops.fused_admm``,
 build of one operator per data realisation (``qp.batch_build``),
 differentiable tuning of the ridge weights (``control.tuning``),
 segmented runs with checkpoints (``control.segmented``,
-``utils.checkpoint``) and profiling (``utils.profiling``). This package
+``utils.checkpoint``) and profiling (``utils.profiling``); for one
+controller and one plant, the per-step solve in the C extension of
+``native/``, the export of a controller to the C deployment runtime
+(``utils.export``), the time-parallel rollout of one scenario
+(``control.linear_engine.time_parallel_rollout``) and the device
+Hankel, estimation and plant-step ops (``ops``). This package
 imports ``torch`` and numpy and never ``jax``; its entry points run on
 the card unless given ``device="cpu"``. Importing it builds and loads no
 kernel; each kernel library is compiled with ``nvcc`` at its first
 launch.
 """
 
+from direct_data_driven_mpc_tpu_torch.ops.hankel import (
+    evaluate_persistent_excitation,
+    hankel_matrix,
+)
 from direct_data_driven_mpc_tpu_torch.qp.spec import (
     DataDrivenMPCType,
     SlackVarConstraintTypes,
@@ -26,4 +35,23 @@ from direct_data_driven_mpc_tpu_torch.qp.spec import (
 
 __version__ = "0.1.0"
 
-__all__ = ["DataDrivenMPCType", "SlackVarConstraintTypes"]
+__all__ = [
+    "DataDrivenMPCType",
+    "SlackVarConstraintTypes",
+    "DirectDataDrivenMPCController",
+    "hankel_matrix",
+    "evaluate_persistent_excitation",
+]
+
+
+def __getattr__(name):
+    # Imported on first access: importing the package stays light.
+    if name == "DirectDataDrivenMPCController":
+        from direct_data_driven_mpc_tpu_torch.control.controller import (
+            DirectDataDrivenMPCController,
+        )
+
+        return DirectDataDrivenMPCController
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}"
+    )

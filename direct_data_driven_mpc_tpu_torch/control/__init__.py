@@ -19,7 +19,9 @@ _EXPORTS = {
     "build_linear_engine": "linear_engine",
     "build_tracking_engine": "linear_engine",
     "closed_loop_spectrum": "linear_engine",
+    "linear_closed_loop_rollout": "linear_engine",
     "make_linear_batched_rollout": "linear_engine",
+    "time_parallel_rollout": "linear_engine",
     "ClosedLoopResult": "loop",
     "build_closed_loop": "loop",
     "closed_loop_rollout": "loop",

@@ -5,8 +5,8 @@ Counterpart of ``direct_data_driven_mpc_tpu/control/controller.py``
 with the same constructor, validation rules and method names.
 Construction assembles the static QP once (float64) and derives either
 the exact affine solution operator (slack ``NONE``; the per-step solve
-is a numpy matvec), the pre-factorised ADMM operator (``CONVEX``; the
-per-step solve is a warm-started host ADMM, ``qp.admm.admm_solve_np``)
+is one matvec), the pre-factorised ADMM operator (``CONVEX``; the
+per-step solve is a warm-started host ADMM)
 or, with ``allow_nonconvex_slack=True``, the convex-concave operator of
 the paper's Eq. 6d (``NON_CONVEX``; the per-step solve is
 ``qp.nonconvex.nonconvex_admm_solve_np``; without the flag the
@@ -25,8 +25,12 @@ takes the iterative operators on a device as
 :meth:`~DirectDataDrivenMPCController.box_admm_solver` and
 :meth:`~DirectDataDrivenMPCController.nonconvex_admm_solver`.
 
-The C runtime under ``native/`` is not bound, so every per-step solve
-runs in numpy, which :attr:`solve_path` records.
+The per-step solve of slack ``NONE`` and ``CONVEX`` runs by default in
+the C extension of ``native/`` (``solve_path="native"``), as the JAX
+controller's does wherever its extension builds; a failed build raises
+and never falls back. ``solve_path="numpy"`` runs it in numpy on
+request, and ``NON_CONVEX`` always does (it has no C solve).
+:attr:`~DirectDataDrivenMPCController.solve_path` records which ran.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from direct_data_driven_mpc_tpu_torch import native
 from direct_data_driven_mpc_tpu_torch.ops.host import (
     evaluate_persistent_excitation_np,
     hankel_matrix_np,
@@ -80,9 +85,6 @@ class DirectDataDrivenMPCController:
     HLn_ud, HLn_yd, optimal_u``.
     """
 
-    #: Which implementation runs the per-step solve.
-    solve_path = "numpy"
-
     def __init__(
         self,
         n: int,
@@ -107,6 +109,7 @@ class DirectDataDrivenMPCController:
         use_terminal_constraint: bool = True,
         admm_iters: int = 200,
         allow_nonconvex_slack: bool = False,
+        solve_path: Optional[str] = None,
     ):
         self.controller_type = controller_type
         if controller_type not in (
@@ -165,6 +168,23 @@ class DirectDataDrivenMPCController:
         #: Opt-in to the NON_CONVEX (Eq. 6d) solver; without it that
         #: slack raises, as the reference does.
         self.allow_nonconvex_slack = allow_nonconvex_slack
+        nonconvex = (
+            slack_var_constraint_type == SlackVarConstraintTypes.NON_CONVEX
+        )
+        if solve_path is None:
+            solve_path = "numpy" if nonconvex else "native"
+        if solve_path not in ("native", "numpy"):
+            raise ValueError(
+                f"solve_path must be 'native' or 'numpy'; got {solve_path!r}"
+            )
+        if solve_path == "native" and nonconvex:
+            raise ValueError(
+                "The NON_CONVEX slack has no native per-step solve; use "
+                "solve_path='numpy'."
+            )
+        #: Which implementation runs the per-step solve: ``"native"``
+        #: (the C extension of ``native/``) or ``"numpy"``.
+        self.solve_path = solve_path
         self._admm_state = None
         self._status = "unsolved"
         self._cost_value: Optional[float] = None
@@ -279,6 +299,12 @@ class DirectDataDrivenMPCController:
                     f"{self._op['primal_residual_gain']:.2e} gain)."
                 )
         self._admm_state = None
+        self._native = None
+        if self.solve_path == "native":
+            self._native = (
+                native.NativeADMMSolver(self._op) if self._use_admm
+                else native.NativeAffineSolver(self._op)
+            )
         self.update_and_solve_data_driven_mpc()
 
     @property
@@ -409,12 +435,24 @@ class DirectDataDrivenMPCController:
                 state=self._admm_state,
             )
             converged = stats[-1]
+        elif self._use_admm and self._native is not None:
+            # The C loop mutates s and w in place: the warm start.
+            if self._admm_state is None:
+                nbox = self._native.nbox
+                self._admm_state = (np.zeros(nbox), np.zeros(nbox))
+            s, w = self._admm_state
+            u, cost, _, r_prim, r_dual = self._native.solve(
+                theta, s, w, self.admm_iters, 1e-8
+            )
+            converged = r_prim <= 1e-8 and r_dual <= 1e-8
         elif self._use_admm:
             u, cost, self._admm_state, stats = admm_solve_np(
                 op, theta, num_iters=self.admm_iters,
                 state=self._admm_state,
             )
             converged = stats.converged
+        elif self._native is not None:
+            u, cost = self._native.solve(theta)
         else:
             u = op["u_base"] + op["U_gain"] @ theta
             cost = float(

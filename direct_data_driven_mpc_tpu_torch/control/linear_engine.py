@@ -14,7 +14,10 @@ with ``s`` only ``ns + n(m+p)`` numbers (20 for the four-tank plant).
 casts it onto one device. :func:`linear_batched_rollout` rolls it out
 with the batch as the leading dimension of every product; it is the
 plain reference that the fused engine (``ops.fused_rollout``) is held
-against.
+against. :func:`linear_closed_loop_rollout` is its single-scenario form,
+and :func:`time_parallel_rollout` computes one scenario's whole
+trajectory in O(log T) depth: a prefix scan of the per-block affine
+maps.
 
 A tracking map (``tracking_op=``, :func:`build_tracking_engine`) has a
 setpoint channel: the block's setpoint delta ``dr = [u_s; y_s] - r_bar``
@@ -27,7 +30,7 @@ Counterpart of ``direct_data_driven_mpc_tpu/control/linear_engine.py``
 (``AffineBlockMap``, ``build_affine_block_map``, ``build_linear_engine``,
 ``build_tracking_engine``, ``closed_loop_spectrum``,
 ``linear_closed_loop_rollout`` with explicit noise or noise drawn block
-by block, ``make_linear_batched_rollout``).
+by block, ``time_parallel_rollout``, ``make_linear_batched_rollout``).
 """
 
 from __future__ import annotations
@@ -567,3 +570,133 @@ def make_linear_batched_rollout(
         )
 
     return run
+
+
+def _scenario(block_map: AffineBlockMap, x0, u_past, y_past):
+    """One scenario's ``x0``, ``u_past (n, m)`` and ``y_past (n, p)`` as
+    tensors on the map's device in its dtype."""
+    like = dict(dtype=block_map.M_T.dtype, device=block_map.M_T.device)
+    return (torch.as_tensor(x0, **like).reshape(-1),
+            torch.as_tensor(u_past, **like),
+            torch.as_tensor(y_past, **like))
+
+
+def linear_closed_loop_rollout(
+    block_map: AffineBlockMap,
+    x0,
+    u_past,
+    y_past,
+    W=None,
+    n_steps: int = 0,
+    n_mpc_step: int = 1,
+    generator: Optional[torch.Generator] = None,
+    eps_max: float = 0.0,
+    setpoints=None,
+) -> ClosedLoopResult:
+    """One scenario through the condensed recursion: ``x0 (ns,)``,
+    ``u_past (n, m)``, ``y_past (n, p)`` and noise ``W (n_steps, p)``
+    explicitly, or drawn block by block from ``generator`` (bounded by
+    ``eps_max``). :func:`linear_batched_rollout` at B = 1 on the map's
+    device; the result's fields are unbatched: ``u_sys (n_steps, m)``,
+    ``costs (ceil(n_steps / n_mpc_step),)``, ``x_final (ns,)``, ``u_past
+    (n, m)`` and so on. ``setpoints``: a tracking map's schedule,
+    ``(n_r,)`` or ``(n_outer, n_r)``."""
+    x0, u_past, y_past = _scenario(block_map, x0, u_past, y_past)
+    if W is not None:
+        W = torch.as_tensor(W, dtype=x0.dtype, device=x0.device)[None]
+    res = linear_batched_rollout(
+        block_map, x0[None], u_past[None], y_past[None], W, n_steps,
+        n_mpc_step=n_mpc_step, setpoints=setpoints, generator=generator,
+        eps_max=eps_max,
+    )
+    return ClosedLoopResult(*(f[0] for f in res[:7]))
+
+
+@ieee_float32()
+def time_parallel_rollout(
+    block_map: AffineBlockMap,
+    x0,
+    u_past,
+    y_past,
+    W,
+    n_steps: int,
+    n_mpc_step: int = 1,
+    setpoints=None,
+) -> ClosedLoopResult:
+    """One scenario's whole trajectory in O(log T) depth, on the map's
+    device; the same result as :func:`linear_closed_loop_rollout` with
+    explicit noise ``W (n_steps, p)``.
+
+    Each outer block is the affine map ``s -> s @ M_T + b_t`` with ``b_t
+    = c + w_t @ N_T``, and affine maps compose associatively: ``(A1, b1)
+    then (A2, b2)`` is ``(A1 @ A2, b1 @ A2 + b2)``. A Hillis-Steele
+    prefix scan turns the per-block pairs into the map from ``s0`` to
+    the state after every block in ceil(log2 n_outer) rounds of one
+    batched product each; the outputs and per-solve costs then come from
+    the states before each block in a few products. That is O(T S^3)
+    operations against the sequential O(T S^2), for a depth of log T.
+    ``setpoints``: a tracking map's schedule, ``(n_r,)`` or ``(n_outer,
+    n_r)``; its deltas are more input lanes, which the scan does not
+    see.
+    """
+    bm = block_map
+    dtype, device = bm.M_T.dtype, bm.M_T.device
+    x0, u_past, y_past = _scenario(bm, x0, u_past, y_past)
+    n, m = u_past.shape
+    p = y_past.shape[1]
+    S, K, nb = _block_meta(bm, p)
+    if nb != n_mpc_step:
+        raise ValueError(
+            f"block map built for n_mpc_step={nb}, called with "
+            f"{n_mpc_step}"
+        )
+    ns = S - n * (m + p)
+    steps_per_outer = K * nb
+    n_solves = math.ceil(n_steps / nb)
+    n_outer = math.ceil(n_steps / steps_per_outer)
+    DR = _setpoint_deltas(bm, setpoints, n_outer, 1,
+                          "time_parallel_rollout")
+
+    Wp = torch.zeros((n_outer * steps_per_outer, p), dtype=dtype,
+                     device=device)
+    Wp[:n_steps] = torch.as_tensor(W, dtype=dtype, device=device)
+    Wp = Wp.view(n_outer, steps_per_outer * p)
+    if DR is not None:
+        Wp = torch.cat([Wp, DR[0]], dim=1)
+    s0 = torch.cat([x0, u_past.reshape(-1), y_past.reshape(-1)]) - bm.s_star
+
+    # Element t of the scan is the pair (M_T, b_t); after the round of
+    # distance d, pair i maps the state before block i - 2d + 1 (or s0)
+    # to the state after block i.
+    A = bm.M_T.expand(n_outer, S, S).clone()
+    b = bm.c + Wp @ bm.N_T  # (n_outer, S)
+    d = 1
+    while d < n_outer:
+        # Both new halves from the old pairs, before either is written.
+        b_new = torch.baddbmm(b[d:, None], b[:-d, None], A[d:])[:, 0]
+        A_new = A[:-d] @ A[d:]
+        A[d:] = A_new
+        b[d:] = b_new
+        d *= 2
+    s_after = (s0 @ A) + b  # (n_outer, S): the state after each block
+    s_before = torch.cat([s0[None], s_after[:-1]])
+
+    U = s_before @ bm.OuS_T + bm.ou_c + Wp @ bm.OuW_T
+    Y = s_before @ bm.OyS_T + bm.oy_c + Wp @ bm.OyW_T
+    st = s_before @ bm.OsS_T + bm.os_c + Wp @ bm.OsW_T
+    xi = st.reshape(n_outer * K, S)[:n_solves, ns:]
+    if DR is not None:
+        xi = torch.cat(
+            [xi, DR[0].repeat_interleave(K, dim=0)[:n_solves]], dim=1
+        )
+    costs = ((xi @ bm.cost_P) * xi).sum(-1) + xi @ bm.cost_q + bm.cost_r
+    s_fin = s_after[-1] + bm.s_star
+    return ClosedLoopResult(
+        u_sys=U.reshape(-1, m)[:n_steps],
+        y_sys=Y.reshape(-1, p)[:n_steps],
+        costs=costs,
+        converged=torch.isfinite(costs),
+        x_final=s_fin[:ns],
+        u_past=s_fin[ns : ns + n * m].reshape(n, m),
+        y_past=s_fin[ns + n * m :].reshape(n, p),
+    )

@@ -23,3 +23,13 @@ def resolve_device(device=None) -> torch.device:
             "versions on the CPU"
         )
     return torch.device("cuda")
+
+
+def as_device_tensor(x, device=None, dtype=None) -> torch.Tensor:
+    """``x`` as a tensor: a tensor stays on its device unless ``device``
+    names another; anything else goes to ``resolve_device(device)``, so
+    numpy input with no device lands on the card (and raises without
+    one), as ``jnp.asarray`` puts it on the accelerator."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x if dtype is None else x.to(dtype)
+    return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))

@@ -1,5 +1,5 @@
-"""Config loading and parameter derivation, checkpoints, and
-profiling."""
+"""Config loading and parameter derivation, checkpoints, profiling, and
+controller export for the C runtime."""
 
 from direct_data_driven_mpc_tpu_torch.utils.checkpoint import (
     load_checkpoint,
@@ -9,6 +9,7 @@ from direct_data_driven_mpc_tpu_torch.utils.config import (
     get_data_driven_mpc_controller_params,
     load_yaml_config_params,
 )
+from direct_data_driven_mpc_tpu_torch.utils.export import export_controller
 from direct_data_driven_mpc_tpu_torch.utils.profiling import (
     Timer,
     rollout_metrics,
@@ -20,6 +21,7 @@ __all__ = [
     "save_checkpoint",
     "get_data_driven_mpc_controller_params",
     "load_yaml_config_params",
+    "export_controller",
     "Timer",
     "rollout_metrics",
     "trace",

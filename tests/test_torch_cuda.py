@@ -941,3 +941,46 @@ def test_tuning_gradient_on_the_card_matches_the_cpu(cuda, golden):
         out.append((value.detach().cpu(), params.grad))
     for want, got in zip(*out):
         torch.testing.assert_close(got, want, rtol=1e-8, atol=0)
+
+
+@pytest.mark.parametrize("K", [1, 10])
+def test_time_parallel_rollout_on_the_card_matches_the_cpu(cuda, golden, K):
+    """One scenario's prefix scan in float64 where its block map lives,
+    on the card and on the CPU, within 1e-9 (costs rtol 1e-7), and within
+    the float64 budget of the golden inputs."""
+    from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
+        time_parallel_rollout,
+    )
+
+    ctrl = _controller(golden)
+    args = (golden["x0"], golden["TEC_u_past0"], golden["TEC_y_past0"],
+            golden["w_sys"], 120)
+    out = []
+    for dev in ("cpu", cuda):
+        bm = build_linear_engine(ctrl, PLANT, solves_per_block=K,
+                                 device=dev, dtype=torch.float64)
+        res = time_parallel_rollout(bm, *args)
+        assert res.u_sys.device.type == torch.device(dev).type
+        out.append(res)
+    cpu, card = out
+    for name in ("u_sys", "y_sys", "x_final", "u_past", "y_past"):
+        torch.testing.assert_close(getattr(card, name).cpu(),
+                                   getattr(cpu, name), rtol=0, atol=1e-9)
+    torch.testing.assert_close(card.costs.cpu(), cpu.costs, rtol=1e-7,
+                               atol=1e-9)
+    assert np.abs(card.u_sys.cpu().numpy() - golden["TEC_u"]).max() < 1e-9
+
+
+def test_hankel_matrix_on_the_card_matches_the_cpu(cuda, golden):
+    from direct_data_driven_mpc_tpu_torch.ops.hankel import (
+        hankel_matrix,
+        matrix_rank,
+    )
+
+    for dtype in (torch.float32, torch.float64):
+        X = torch.as_tensor(golden["u_d"], dtype=dtype)
+        H = hankel_matrix(X.to(cuda), 38)
+        assert H.device.type == "cuda" and H.dtype == dtype
+        torch.testing.assert_close(H.cpu(), hankel_matrix(X, 38), rtol=0,
+                                   atol=0)
+    assert int(matrix_rank(H)) == int(matrix_rank(H.cpu())) == 76

@@ -47,7 +47,8 @@ def controller_kwargs(u_d, y_d, L=30, n_mpc_step=1, use_terminal=True):
     )
 
 
-def port_setup(n_mpc_step=1, use_terminal=True, slack="NONE"):
+def port_setup(n_mpc_step=1, use_terminal=True, slack="NONE",
+               solve_path=None):
     """JAX reference setup (seeded data) and the port's controller built
     from the identical numpy data: ``(jax_plant, jax_ctrl, port_ctrl,
     rng)``."""
@@ -63,7 +64,7 @@ def port_setup(n_mpc_step=1, use_terminal=True, slack="NONE"):
         **controller_kwargs(jctrl.u_d, jctrl.y_d, n_mpc_step=n_mpc_step,
                             use_terminal=use_terminal),
         slack_var_constraint_type=SlackVarConstraintTypes[slack],
-        controller_type=DataDrivenMPCType.ROBUST,
+        controller_type=DataDrivenMPCType.ROBUST, solve_path=solve_path,
     )
     return jplant, jctrl, ctrl, rng
 
@@ -75,10 +76,11 @@ def setup():
 
 @pytest.fixture(scope="module")
 def convex_setup():
-    """The CONVEX pair, the JAX controller held to its numpy
-    ``admm_solve_np`` path (it takes its C runtime where one loads) and
-    its first solve redone on that path."""
-    jplant, jctrl, ctrl, rng = port_setup(slack="CONVEX")
+    """The CONVEX pair on their numpy ``admm_solve_np`` paths: the port's
+    by name, the JAX controller's (it takes its C runtime where one
+    loads) by dropping its C solver and redoing its first solve."""
+    jplant, jctrl, ctrl, rng = port_setup(slack="CONVEX",
+                                          solve_path="numpy")
     jctrl._native = None
     jctrl._admm_state = None
     jctrl.update_and_solve_data_driven_mpc()
@@ -122,7 +124,7 @@ def test_solution_operator_matches_jax(setup):
 
 def test_controller_first_solve_matches_jax(setup):
     _, jctrl, ctrl, _ = setup
-    assert ctrl.solve_path == "numpy"
+    assert ctrl.solve_path == "native"
     assert ctrl.get_problem_solve_status() == "optimal"
     np.testing.assert_allclose(
         ctrl.optimal_u, jctrl.optimal_u, rtol=0, atol=EXACT

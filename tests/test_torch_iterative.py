@@ -34,6 +34,15 @@ from direct_data_driven_mpc_tpu_torch.control.controller import (  # noqa: E402
 )
 from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa  # noqa: E402
 from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr  # noqa: E402
+from direct_data_driven_mpc_tpu_torch.ops.estimation import (  # noqa: E402
+    estimate_initial_state,
+    observability_matrix,
+    toeplitz_input_output_matrix,
+)
+from direct_data_driven_mpc_tpu_torch.ops.lti import (  # noqa: E402
+    LTIParams,
+    lti_rollout,
+)
 from direct_data_driven_mpc_tpu_torch.ops.precision import (  # noqa: E402
     ieee_float32,
 )
@@ -394,6 +403,7 @@ def _build_guarded_calls(setup):
     bm = le.build_linear_engine(ctrl, plant, solves_per_block=2,
                                 device="cpu")
     op = admm.compute_admm_operator_np(cvx.spec)
+    pl32 = LTIParams(*(np.asarray(a) for a in plant)).to("cpu")
     return {
         "solve_u": lambda: sm.solve_u(smap, th),
         "solve_full": lambda: sm.solve_full(smap, th),
@@ -419,6 +429,14 @@ def _build_guarded_calls(setup):
         "fused_admm_reference": lambda: fa.make_fused_admm_rollout(
             plant, op, 4, 2, 2, 4, device="cpu", iters=(2,), cold_iters=2,
             rollout=fa.fused_admm_reference)(*ins[:3], ins[3][:, :4]),
+        "time_parallel_rollout": lambda: le.time_parallel_rollout(
+            bm, ins[0][0], ins[1][0], ins[2][0], ins[3][0, :7], 7),
+        "lti_rollout": lambda: lti_rollout(
+            pl32, ins[0][0], ins[1][0], ins[2][0]),
+        "estimate_initial_state": lambda: estimate_initial_state(
+            observability_matrix(pl32.A, pl32.C),
+            toeplitz_input_output_matrix(*pl32, 4), ins[1][0].reshape(-1),
+            ins[2][0].reshape(-1)),
     }
 
 
@@ -426,7 +444,8 @@ def _build_guarded_calls(setup):
     "solve_u", "solve_full", "optimal_cost", "solve_u_tracking",
     "tracking_cost", "closed_loop_rollout", "admm_solve", "box_admm_solve",
     "classic engine", "fused_rollout_reference", "post-pass",
-    "fused_admm_reference",
+    "fused_admm_reference", "time_parallel_rollout", "lti_rollout",
+    "estimate_initial_state",
 ])
 def test_precision_is_scoped_to_the_guarded_paths(monkeypatch, setup, path):
     """With the caller's ``torch.set_float32_matmul_precision("high")``

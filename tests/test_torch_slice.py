@@ -218,6 +218,10 @@ def test_port_never_imports_jax():
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
+    # One BLAS thread, as the suite's one-BLAS-thread fixtures give the
+    # host builds: beside the other workers, a pool of threads per
+    # process oversubscribes the cores (3 s alone, 93 s beside them).
+    env["OPENBLAS_NUM_THREADS"] = env["OMP_NUM_THREADS"] = "1"
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=120,
