@@ -232,6 +232,44 @@ after phase 35, so that phase 38 reads ``torch.profiler`` before phase
     (1e-10) and ``lti_rollout`` against ``LTIModel.simulate`` (1e-10),
     in float64; given numpy and no device, the ops run on the card.
 
+Then the multi-device path on ``torch.distributed`` (no kernel of its
+own: K1 and K4 run per shard), right after phase 39, so that phase 42
+reads ``torch.profiler`` before phase 19's convolution:
+
+40. ``bench.py``'s ``sharded`` configuration (l.798-906) on a world of
+    one NCCL rank, ``make_scenario_mesh()``: the four-tank Robust
+    controller at B = 16384 x T = 400 (its noise's first 4096 rows are
+    the main path's, bit for bit) through ``make_sharded_fused_rollout``
+    (K1), plain and with ``four_tank_tracking``'s schedule per scenario
+    (a shared schedule refused), ``four_tank_convex`` at B = 65536 x
+    T = 400 through ``make_sharded_fused_admm_rollout`` (K4, the ADMM
+    state included), and the classic engine (K = 100) with in-scan
+    noise through ``make_sharded_linear_rollout``: each bit-equal to its
+    unsharded run, the metrics equal to the unsharded result's; K1 and
+    K4 sharded and unsharded timed in turns by CUDA events, and the
+    metrics' ``all_reduce``;
+41. two ranks on the one card: gloo, the collectives of CUDA tensors
+    staged through host memory by design; the ranks started by
+    ``torch.multiprocessing`` (``spawn``) on a ``FileStore`` in a
+    temporary directory, each ending its group; the card's compute mode
+    printed first. ``make_mesh_rollout`` with the four-tank
+    ``SolutionMap`` at B = 4096 x T = 400 on (2, 1) and (1, 2) meshes,
+    data-parallel and on (1, 2) model-parallel, and with the ADMM
+    (CONVEX, c = 1, 16 iterations), box-ladder (|u| <= 0.85, cap 120)
+    and NON_CONVEX (c = 0.05, 4 x 16) solvers at B = 4096 with T cut to
+    40: the concatenated shards against this process's run (u, y within
+    2e-5, metrics rtol 1e-5); ``global_scenario_indices`` and the noise
+    of both ranks against one process's draw (bit-equal);
+42. the alpha-sharded PMINRES on the four-tank Robust spec (nz 571, nc
+    168), on the one-rank NCCL mesh and on phase 41's two ranks (1, 2):
+    a float64 solve at tol 1e-10 against the exact operator (atol 1e-6),
+    a float32 solve with one refinement restart against it (1e-4, one
+    rank), ``make_distributed_closed_loop`` at B = 64 in float64 (tol
+    1e-11) against the generic loop with the exact map (u within 1e-7;
+    T cut from 40 to 8 on one rank and to 1 on two); ms and iterations
+    per solve, the device kernels per MINRES iteration
+    (``torch.profiler``); CONVEX slack refused.
+
 The script sets ``torch.set_float32_matmul_precision("high")`` first,
 as a user's process might: the port scopes IEEE float32 to its
 parity-bound paths (``ops/precision.py``), the library yardsticks are
@@ -597,8 +635,7 @@ def admm_phases(dev, smi) -> dict:
         f"thread (cudaFuncGetAttributes)")
 
     def inputs(plant, ctrl, B, T=T_ADMM, seed=0):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        Ws = draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+        Ws = draw_noise_batch(seed, B, T, ctrl.p, plant.get_eps_max(),
                               device=dev)
         return (*scenario_batch(plant, ctrl, B, dev), Ws)
 
@@ -836,8 +873,7 @@ def ladder_phases(dev, smi) -> dict:
         f"thread (cudaFuncGetAttributes)")
 
     def inputs(B, T=T_ADMM, seed=0):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        Ws = draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+        Ws = draw_noise_batch(seed, B, T, ctrl.p, plant.get_eps_max(),
                               device=dev)
         return (*scenario_batch(plant, ctrl, B, dev), Ws)
 
@@ -1062,8 +1098,7 @@ def large_plant_phases(dev, smi) -> dict:
                                  f"Python {fr.nocost_plan(op.S, nw)}")
 
     # 19. The main path, through the kernel.
-    gen = torch.Generator(device=dev).manual_seed(0)
-    Ws = draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+    Ws = draw_noise_batch(0, B, T, ctrl.p, plant.get_eps_max(),
                           device=dev)
     x0s, ups, yps = scenario_batch(plant, ctrl, B, dev)
     run = fr.make_fused_batched_rollout(bm, T, cost_mode="post")
@@ -2730,6 +2765,531 @@ def device_ops_phase(dev, smi, main) -> None:
         f"LTIModel.simulate {e_y:.3e} (1e-10), float64 [{smi}]")
 
 
+B_SHARDED = 16384  # bench.py:798-906's sharded batch
+# Phase 42's closed loop: B = 64 as tests/test_distributed_qp.py, T cut
+# from 40 to 8 on one rank and to 1 on two: each solve of the loop took
+# 2.0-2.5 s on one rank and 11-12 s on two gloo ranks, which stage three
+# collectives per MINRES iteration through host memory.
+B_PMINRES, T_PMINRES, T_PMINRES_TWO = 64, 8, 1
+# Two ranks' metrics against one process's: the float32 costs come from
+# cuBLAS products over 2048 rows against 4096, which round otherwise
+# (single costs 3.3e-4 apart), and move the mean final cost past 1e-6.
+METRICS_RTOL = 1e-5
+
+
+def same_bits(tag, got, want, fields) -> None:
+    """Every named field of two results bit-equal (and the solver
+    states, where both carry one)."""
+    for f in fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {f} differs, max |diff| "
+                                 f"{max_abs(a, b):.3e}")
+    if got.solver_state is not None:
+        for f, a, b in zip(got.solver_state._fields, got.solver_state,
+                           want.solver_state):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{tag}: solver state {f} differs")
+
+
+def on_device(obj, dev):
+    """A solver (a NamedTuple of tensors, nested ones included) on
+    ``dev``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    return type(obj)(*(on_device(x, dev) for x in obj))
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+RESULT = ("u_sys", "y_sys", "costs", "converged", "x_final", "u_past",
+          "y_past")
+
+
+def unsharded_metrics(res) -> tuple:
+    """``mean_final_cost`` and ``frac_converged`` of one whole result,
+    summed as ``parallel.mesh.shard_metrics`` sums a shard."""
+    return (float(res.costs[:, -1].double().sum() / res.costs.shape[0]),
+            float(res.converged.sum(dtype=torch.float64)
+                  / res.converged.numel()))
+
+
+def sharded_phase(dev, smi, main, B=B_SHARDED, B_admm=B_ADMM,
+                  T=T_MAIN):
+    """Phase 40: ``bench.py``'s ``sharded`` configuration (l.798-906) on
+    a world of one rank (NCCL on the card): the sharded K1, K1 with a
+    tracking map, K4 and the classic engine with in-scan noise, each
+    bit-equal to its unsharded run, the metrics equal to those of the
+    unsharded result; K1 and K4 timed in turns against their unsharded
+    runs, and the metrics' all_reduce timed. Returns the mesh."""
+    import torch.distributed as dist
+
+    from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
+        build_tracking_engine,
+        make_linear_batched_rollout,
+    )
+    from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa
+    from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr
+    from direct_data_driven_mpc_tpu_torch.parallel import mesh as pm
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        draw_noise_batch,
+    )
+    from direct_data_driven_mpc_tpu_torch.parallel.collectives import (
+        all_reduce_sum,
+    )
+
+    plant, ctrl, bm50, bm100 = (main[k] for k in ("plant", "ctrl", "bm50",
+                                                  "bm100"))
+    mesh = pm.make_scenario_mesh(device=dev)
+    sizes, _ = pm.mesh_layout(mesh)
+    eps = plant.get_eps_max()
+    K = bm50.os_c.shape[0] // bm50.M_T.shape[0]
+    log(f"mesh: a world of {dist.get_world_size()} on "
+        f"{dist.get_backend()}, (data, model) = ({sizes['data']}, "
+        f"{sizes['model']}); B={B} x T={T}, K={K}")
+    ins = (*scenario_batch(plant, ctrl, B, dev),
+           draw_noise_batch(0, B, T, ctrl.p, eps, dev))
+    if not torch.equal(ins[3][:B_MAIN], main["inputs"][3]):
+        raise AssertionError("the main path's noise is not the first rows "
+                             "of the larger batch's")
+    log(f"noise: the first {B_MAIN} of {B} scenarios' draws are the main "
+        "path's, bit for bit")
+
+    def check_metrics(tag, metrics, res):
+        want = unsharded_metrics(res)
+        got = (float(metrics["mean_final_cost"]),
+               float(metrics["frac_converged"]))
+        if got != want:
+            raise AssertionError(f"{tag} metrics {got} != {want}")
+        return got
+
+    def launched(kernel, run, args):
+        kernel.launches = 0
+        out = run(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            if kernel.launches < 1:
+                raise AssertionError(f"{kernel.__name__} was not launched")
+        return out, kernel.launches
+
+    sharded = pm.make_sharded_fused_rollout(mesh, bm50, T)
+    unsharded = fr.make_fused_batched_rollout(bm50, T)
+    (res, metrics), n_k1 = launched(fr.fused_rollout, sharded, ins)
+    want = unsharded(*ins)
+    same_bits("sharded K1", res, want, RESULT)
+    mean, conv = check_metrics("sharded K1", metrics, want)
+    log(f"sharded K1 (fused_rollout launches {n_k1}): u, y, costs, final "
+        f"state bit-equal to the unsharded rollout; mean_final_cost "
+        f"{mean:.9g}, frac_converged {conv} equal to the unsharded "
+        "result's")
+
+    bm_t = build_tracking_engine(ctrl, plant.as_params(),
+                                 solves_per_block=K, device=dev)
+    n_outer = T // K
+    r0 = torch.as_tensor(np.concatenate([ctrl.u_s.ravel(),
+                                         ctrl.y_s.ravel()]),
+                         dtype=torch.float32, device=dev)
+    low = torch.tensor([(i // 2) % 2 == 1 for i in range(n_outer)],
+                       device=dev)
+    sched = torch.where(low[:, None], 0.85 * r0, r0)  # bench.py:724-731
+    per_scenario = sched.expand(B, *sched.shape).contiguous()
+    sharded_t = pm.make_sharded_fused_rollout(mesh, bm_t, T)
+    (res_t, metrics_t), n_k1t = launched(
+        fr.fused_rollout, sharded_t, (*ins, per_scenario))
+    want_t = fr.make_fused_batched_rollout(bm_t, T)(*ins, per_scenario)
+    same_bits("sharded K1 tracking", res_t, want_t, RESULT)
+    check_metrics("sharded K1 tracking", metrics_t, want_t)
+    try:
+        sharded_t(*ins, sched)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a shared (n_outer, n_r) schedule was taken")
+    log(f"sharded K1 at four_tank_tracking (launches {n_k1t}), schedule "
+        f"per scenario {tuple(per_scenario.shape)}: bit-equal; a shared "
+        "schedule refused (ValueError), as in JAX")
+    del res_t, want_t, per_scenario
+
+    plant_c, ctrl_c, op, kw = admm_config("four_tank_convex")
+    ins_c = (*scenario_batch(plant_c, ctrl_c, B_admm, dev),
+             draw_noise_batch(0, B_admm, T, ctrl_c.p, eps, dev))
+    args_c = (plant_c.as_params(), op, ctrl_c.n, ctrl_c.m, ctrl_c.p, T)
+    sharded_a = pm.make_sharded_fused_admm_rollout(mesh, *args_c,
+                                                   device=dev, **kw)
+    unsharded_a = fa.make_fused_admm_rollout(*args_c, device=dev, **kw)
+    (res_a, metrics_a), n_k4 = launched(fa.fused_admm, sharded_a, ins_c)
+    want_a = unsharded_a(*ins_c)
+    same_bits("sharded K4", res_a, want_a, RESULT)
+    mean_a, conv_a = check_metrics("sharded K4", metrics_a, want_a)
+    log(f"sharded K4 at four_tank_convex (B={B_admm} x T={T}, "
+        f"fused_admm launches {n_k4}): u, y, costs, converged, state and "
+        f"the ADMM state (s, w) bit-equal; mean_final_cost {mean_a:.9g}, "
+        f"frac_converged {conv_a:.6f} equal to the unsharded result's")
+    del res_a, want_a
+
+    def rng_run(run):
+        return run(*ins[:3], torch.Generator(device=dev).manual_seed(3))
+
+    res_l = rng_run(pm.make_sharded_linear_rollout(
+        mesh, bm100, T, use_rng_noise=True, eps_max=eps))
+    want_l = rng_run(make_linear_batched_rollout(
+        bm100, T, use_rng_noise=True, eps_max=eps))
+    same_bits("sharded classic engine", res_l, want_l, RESULT)
+    log(f"sharded classic engine (K=100, in-scan noise, B={B}): bit-equal "
+        "to the unsharded run on a generator seeded alike")
+    del res_l, want_l
+    if dev.type != "cuda":
+        return mesh
+
+    solves = {"K1": B * T, "K4": B_admm * T}
+    runs = {
+        "K1": {"sharded": lambda: sharded(*ins),
+               "unsharded": lambda: unsharded(*ins)},
+        "K4": {"sharded": lambda: sharded_a(*ins_c),
+               "unsharded": lambda: unsharded_a(*ins_c)},
+    }
+    for kernel, reps in (("K1", 20), ("K4", 2)):
+        ms = {"sharded": [], "unsharded": []}
+        for name in ("sharded", "unsharded", "unsharded", "sharded"):
+            ms[name].append(cuda_ms(runs[kernel][name], reps=reps))
+        log(f"timing sharded {kernel}: " + "; ".join(
+            f"{name} " + ", ".join(f"{t:.4f}" for t in v) + " ms -> "
+            f"{solves[kernel] / (sum(v) / len(v) * 1e-3):,.0f} solves/s"
+            for name, v in ms.items()) + f" [{smi}]")
+    t_metrics = cuda_ms(lambda: pm.shard_metrics(res, mesh), reps=200)
+    x = torch.zeros(4, dtype=torch.float64, device=dev)
+    t_ar = cuda_ms(lambda: all_reduce_sum(x, mesh.get_group("data")),
+                   reps=200)
+    log(f"timing metrics: shard_metrics {t_metrics * 1e3:.1f} us per call "
+        f"(its all_reduce of 4 float64 alone {t_ar * 1e3:.1f} us) "
+        f"[{smi}]")
+    return mesh
+
+
+def two_rank_worker(rank, world, tmp, case):
+    """One of phase 41's ranks (``torch.multiprocessing`` calls it in a
+    process of its own): joins the gloo group on a ``FileStore`` in
+    ``tmp``, runs the mesh rollouts and the PMINRES cases on
+    ``case['device']``, writes its results to ``tmp/out_<rank>.pt`` and
+    ends its group."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from direct_data_driven_mpc_tpu_torch.parallel import mesh as pm
+    from direct_data_driven_mpc_tpu_torch.parallel import multihost as mh
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        draw_noise_batch,
+    )
+    from direct_data_driven_mpc_tpu_torch.parallel.collectives import (
+        all_reduce_sum,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp import distributed as qd
+
+    dev = torch.device(case["device"])
+    torch.set_float32_matmul_precision("high")
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), world), rank=rank, world_size=world,
+        timeout=timedelta(seconds=300))
+    try:
+        B, eps = case["B"], case["eps"]
+        out = {}
+        idx = mh.global_scenario_indices(B)
+        out["indices"] = torch.as_tensor(idx)
+        out["noise"] = draw_noise_batch(0, len(idx), case["T"], 2, eps, dev,
+                                        first_index=int(idx[0])).cpu()
+        x = torch.tensor([rank + 1.0], device=dev)
+        out["gloo_sum"] = all_reduce_sum(x, dist.group.WORLD).cpu()
+
+        meshes = {shape: pm.make_scenario_mesh(*shape, device=dev)
+                  for shape in ((2, 1), (1, 2))}
+        for shape, mesh in meshes.items():
+            sl = pm.scenario_slice(B, mesh)
+            n = sl.stop - sl.start
+            x0s, ups, yps = (torch.as_tensor(a, device=dev).expand(
+                n, *a.shape[1:]).contiguous() for a in case["window"])
+            Ws = draw_noise_batch(0, n, case["T"], 2, eps, dev,
+                                  first_index=sl.start)
+            for name, (solver, T, iters, mp) in case["runs"].items():
+                if mp and shape[1] == 1:
+                    continue
+                run = pm.make_mesh_rollout(
+                    mesh, case["plant"], on_device(solver, dev), T,
+                    admm_iters=iters, model_parallel=mp)
+                t0 = time.perf_counter()
+                res, metrics = run(x0s, ups, yps, Ws[:, :T])
+                sync(dev)
+                key = f"{shape}/{name}"
+                out[f"{key}/s"] = torch.tensor(time.perf_counter() - t0)
+                out[f"{key}/u"], out[f"{key}/y"], out[f"{key}/c"] = (
+                    res.u_sys.cpu(), res.y_sys.cpu(), res.costs.cpu())
+                out[f"{key}/metrics"] = torch.stack([
+                    metrics["mean_final_cost"],
+                    metrics["frac_converged"]]).cpu()
+        p = case["pminres"]
+        mesh = meshes[1, 2]
+        for name, kw in p["solves"].items():
+            solve = qd.make_distributed_kkt_solver(p["spec"], mesh,
+                                                   device=dev, **kw)
+            sync(dev)
+            t0 = time.perf_counter()
+            u, res, iters = solve(p["theta"])
+            out[f"pminres/{name}/s"] = torch.tensor(time.perf_counter() - t0)
+            out[f"pminres/{name}/u"] = u.cpu()
+            out[f"pminres/{name}/res"] = res.cpu()
+            out[f"pminres/{name}/iters"] = iters.cpu()
+        run = qd.make_distributed_closed_loop(
+            mesh, case["plant"], p["spec"], p["T"], device=dev, **p["kw"])
+        t0 = time.perf_counter()
+        res = run(*p["inputs"])
+        sync(dev)
+        out["pminres/loop/s"] = torch.tensor(time.perf_counter() - t0)
+        out["pminres/loop/u"] = res.u_sys.cpu()
+        out["pminres/loop/converged"] = res.converged.cpu()
+        torch.save(out, os.path.join(tmp, f"out_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def two_rank_phase(dev, smi, main, mesh, B=B_MAIN, T=T_MAIN, T_iter=40,
+                   T_loop=T_PMINRES_TWO, B_loop=B_PMINRES, timeout=900):
+    """Phase 41: two ranks on the one card (gloo with CUDA tensors, the
+    collectives staged through host memory by design), started by
+    ``torch.multiprocessing`` with ``spawn``: the generic loop of the
+    four-tank ``SolutionMap`` on (2, 1) and (1, 2) meshes, data- and
+    model-parallel, and the ADMM, box-ladder and NON_CONVEX solvers
+    (T cut to ``T_iter``), their concatenated shards against this
+    process's run on its world of one; the global scenario indices and
+    the noise across both ranks. The ranks also run phase 42's PMINRES
+    cases on the (1, 2) mesh; their results are returned for it."""
+    import torch.multiprocessing as mp
+
+    from direct_data_driven_mpc_tpu_torch.parallel import mesh as pm
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        draw_noise_batch,
+    )
+
+    plant, ctrl = main["plant"], main["ctrl"]
+    eps = plant.get_eps_max()
+    if dev.type == "cuda":
+        mode = subprocess.run(
+            ["nvidia-smi", "--query-gpu=compute_mode",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+        log(f"compute mode: {mode} (two processes must share the card)")
+    _, ctrl_c = build_four_tank_robust(slack="CONVEX")
+    _, ctrl_n = build_four_tank_robust(slack="NON_CONVEX", c=0.05,
+                                       allow_nonconvex_slack=True)
+    sol = ctrl.solution_map(device="cpu")
+    runs = {  # name -> (solver on the host, T, admm_iters, model parallel)
+        "exact": (sol, T, 100, False),
+        "exact_model_parallel": (sol, T, 100, True),
+        "admm": (ctrl_c.admm_solver(device="cpu"), T_iter, 16, False),
+        "box_ladder": (ctrl.box_admm_solver(u_bounds=(-0.85, 0.85),
+                                            device="cpu"), T_iter, 120,
+                       False),
+        "nonconvex": (ctrl_n.nonconvex_admm_solver(device="cpu"), T_iter,
+                      16, False),
+    }
+    window = (plant.get_state().reshape(1, -1),
+              ctrl.u_past.reshape(1, ctrl.n, ctrl.m),
+              ctrl.y_past.reshape(1, ctrl.n, ctrl.p))
+    window = tuple(torch.as_tensor(a, dtype=torch.float32) for a in window)
+    case = dict(device=str(dev), B=B, T=T, eps=eps, window=window,
+                plant=plant.as_params(), runs=runs,
+                pminres=pminres_case(main, T_loop, B_loop))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(two_rank_worker, args=(2, tmp, case),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"the two ranks ran past {timeout} s")
+        secs = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(tmp, f"out_{r}.pt"))
+                for r in range(2)]
+    log(f"two ranks (gloo, spawn, FileStore) ran in {secs:.1f} s, start "
+        "and exit included")
+
+    whole = draw_noise_batch(0, B, T, 2, eps, dev).cpu()
+    if not (torch.equal(torch.cat([o["indices"] for o in outs]),
+                        torch.arange(B))
+            and torch.equal(torch.cat([o["noise"] for o in outs]), whole)):
+        raise AssertionError("the ranks' global indices or noise differ "
+                             "from the single process's")
+    if not all(float(o["gloo_sum"]) == 3.0 for o in outs):
+        raise AssertionError("gloo all_reduce of CUDA tensors: "
+                             f"{[float(o['gloo_sum']) for o in outs]}")
+    log(f"global_scenario_indices: the ranks hold scenarios 0-{B // 2 - 1} "
+        f"and {B // 2}-{B - 1}; their noise drawn from their first indices "
+        "is the single process's draw, bit for bit; gloo all_reduce of "
+        f"{dev.type} tensors: 1 + 2 = 3")
+
+    x0s, ups, yps = scenario_batch(plant, ctrl, B, dev)
+    Ws = whole.to(dev)
+    for name, (solver, T_run, iters, mp_) in runs.items():
+        ref, ref_m = pm.make_mesh_rollout(
+            mesh, plant.as_params(), on_device(solver, dev), T_run,
+            admm_iters=iters)(x0s, ups, yps, Ws[:, :T_run])
+        ref_m = torch.stack([ref_m["mean_final_cost"],
+                             ref_m["frac_converged"]]).cpu()
+        for shape in ((2, 1), (1, 2)):
+            key = f"{shape}/{name}"
+            if f"{key}/u" not in outs[0]:
+                continue
+            if shape == (2, 1):
+                got = {f: torch.cat([o[f"{key}/{f}"] for o in outs])
+                       for f in ("u", "y", "c")}
+            else:
+                got = {f: outs[0][f"{key}/{f}"] for f in ("u", "y", "c")}
+                for f in ("u", "y", "c"):
+                    if not torch.equal(outs[1][f"{key}/{f}"], got[f]):
+                        raise AssertionError(f"{key}: the model replicas' "
+                                             f"{f} differ")
+            e_u = check_close(f"{key} u", got["u"].to(dev), ref.u_sys, ATOL)
+            e_y = check_close(f"{key} y", got["y"].to(dev), ref.y_sys, ATOL)
+            e_c = float(((got["c"].to(dev) - ref.costs).abs()
+                         / ref.costs.abs()).max())
+            e_m = max(float(((o[f"{key}/metrics"] - ref_m).abs()
+                             / ref_m.abs()).max()) for o in outs)
+            if not e_m <= METRICS_RTOL:
+                raise AssertionError(
+                    f"{key} metrics {outs[0][key + '/metrics'].tolist()} "
+                    f"against {ref_m.tolist()}")
+            log(f"two ranks {shape} {name} (B={B}, T={T_run}): max |du| "
+                f"{e_u:.3e}, |dy| {e_y:.3e} (atol {ATOL}), costs rel "
+                f"{e_c:.3e} against one process; metrics {ref_m.tolist()} "
+                f"rel {e_m:.3e} (rtol {METRICS_RTOL}) on both ranks; "
+                f"{float(outs[0][key + '/s']):.2f} s")
+    return outs
+
+
+PMINRES_F64 = dict(dtype=torch.float64, tol=1e-10, max_iters=5000)
+PMINRES_F32 = dict(dtype=torch.float32, refine=1, max_iters=4000)
+PMINRES_LOOP = dict(dtype=torch.float64, tol=1e-11, max_iters=5000)
+
+
+def pminres_case(main, T_loop, B=B_PMINRES) -> dict:
+    """Phase 42's problem: the paper's four-tank Robust spec (nz 571, nc
+    168), its initial window, the solver settings and the closed loop's
+    first ``B`` scenarios of the main path's batch for ``T_loop`` steps,
+    in float64 on the host."""
+    plant, ctrl = main["plant"], main["ctrl"]
+    x0s, ups, yps, Ws = main["inputs"]
+    return dict(
+        spec=ctrl.spec,
+        theta=np.concatenate([ctrl.u_past.ravel(), ctrl.y_past.ravel()]),
+        solves={"float64": PMINRES_F64},
+        T=T_loop, kw=PMINRES_LOOP,
+        inputs=tuple(a.double().cpu() for a in (
+            x0s[:B], ups[:B], yps[:B], Ws[:B, :T_loop])),
+    )
+
+
+def pminres_phase(dev, smi, main, mesh, outs, T_loop=T_PMINRES,
+                  B=B_PMINRES) -> None:
+    """Phase 42: the alpha-sharded PMINRES on the four-tank Robust spec,
+    on this process's one-rank mesh (NCCL on the card) and on phase 41's
+    two-rank (1, 2) gloo mesh: single solves in float64 (tol 1e-10)
+    against the exact operator (atol 1e-6), float32 with one refinement
+    restart against float64 (1e-4; one rank), the closed loop at B x T
+    in float64
+    (tol 1e-11) against the generic loop with the exact map (u within
+    1e-7); ms and iterations per solve, device kernels per MINRES
+    iteration; CONVEX slack refused."""
+    from direct_data_driven_mpc_tpu_torch.control.loop import (
+        closed_loop_rollout,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp import distributed as qd
+    from direct_data_driven_mpc_tpu_torch.qp.solution_map import (
+        compute_solution_map,
+        solve_u,
+    )
+
+    plant, ctrl = main["plant"], main["ctrl"]
+    p = pminres_case(main, T_loop, B)
+    spec = p["spec"]
+    if (spec.nz, spec.nc) != (571, 168):
+        raise AssertionError(f"QP dims {spec.nz}, {spec.nc}")
+    exact = compute_solution_map(spec, device=dev, dtype=torch.float64)
+    u_ex = solve_u(exact, torch.as_tensor(p["theta"], device=dev))
+    bars = {"float64": 1e-6, "float32_refine": NORTH_STAR}
+    # The float32 restart solve (~4400 iterations) runs on one rank only:
+    # at two gloo ranks' 4.4-5.8 ms per iteration it would take 20-25 s.
+    for name, kw in dict(p["solves"], float32_refine=PMINRES_F32).items():
+        solve = qd.make_distributed_kkt_solver(spec, mesh, device=dev, **kw)
+        sync(dev)
+        t0 = time.perf_counter()
+        u, res, iters = solve(p["theta"])
+        sync(dev)
+        found = {"one rank": (u.cpu(), res.cpu(), iters.cpu(),
+                              time.perf_counter() - t0)}
+        if name in p["solves"]:
+            found["two ranks (1, 2)"] = tuple(
+                outs[0][f"pminres/{name}/{k}"]
+                for k in ("u", "res", "iters", "s"))
+        for where, (u, res, iters, secs) in found.items():
+            du = max_abs(u.double().to(dev), u_ex)
+            if not du < bars[name]:
+                raise AssertionError(f"PMINRES {name} on {where}: max |du| "
+                                     f"{du:.3e} >= {bars[name]}")
+            log(f"PMINRES {name} on {where}: max |du| {du:.3e} against the "
+                f"exact operator (< {bars[name]}), residual "
+                f"{float(res):.3e}, {int(iters)} iterations, "
+                f"{secs * 1e3:.1f} ms per solve, "
+                f"{secs / int(iters) * 1e3:.3f} ms per iteration [{smi}]")
+    if dev.type == "cuda":
+        counts = []
+        for n_iter in (20, 60):
+            fixed = qd.make_distributed_kkt_solver(
+                spec, mesh, device=dev, dtype=torch.float64, tol=0.0,
+                max_iters=n_iter)
+            counts.append(device_kernels(lambda: fixed(p["theta"]), 1))
+        per = [(b - a) / 40 for a, b in zip(counts[0], counts[1])]
+        log(f"PMINRES on one rank: {per[0]:g} device kernels and {per[1]:g} "
+            "copies per MINRES iteration (a 60-iteration solve less a "
+            "20-iteration one, over 40)")
+
+    run = qd.make_distributed_closed_loop(mesh, plant.as_params(), spec,
+                                          T_loop, device=dev,
+                                          **p["kw"])
+    ins = tuple(a.to(dev) for a in p["inputs"])
+    sync(dev)
+    t0 = time.perf_counter()
+    res = run(*ins)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    ref = closed_loop_rollout(plant.as_params(), exact, *ins,
+                              n_steps=T_loop)
+    for where, (u, conv, s) in {
+        "one rank": (res.u_sys, res.converged, secs),
+        "two ranks (1, 2)": tuple(outs[0][f"pminres/loop/{k}"]
+                                  for k in ("u", "converged", "s")),
+    }.items():
+        T_run = u.shape[1]  # the two-rank run is this run's first steps
+        du = check_close(f"PMINRES closed loop on {where}", u.to(dev),
+                         ref.u_sys[:, :T_run], 1e-7)
+        log(f"PMINRES closed loop on {where} (B={B}, T={T_run}, float64, "
+            f"tol {p['kw']['tol']}): max |du| {du:.3e} against the generic "
+            f"loop with the exact map (atol 1e-7); converged "
+            f"{float(conv.double().mean()):.4f}; {float(s):.2f} s, "
+            f"{float(s) / T_run * 1e3:.1f} ms per solve of {B} scenarios "
+            f"[{smi}]")
+    _, ctrl_c = build_four_tank_robust(slack="CONVEX")
+    try:
+        qd.make_distributed_kkt_solver(ctrl_c.spec, mesh, device=dev)
+    except ValueError as e:
+        log(f"PMINRES refuses CONVEX slack: {e}")
+    else:
+        raise AssertionError("PMINRES took a CONVEX slack spec")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
@@ -2797,8 +3357,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     # 4. The main path, through the kernel.
-    gen = torch.Generator(device=dev).manual_seed(0)
-    Ws = draw_noise_batch(gen, B_MAIN, T_MAIN, ctrl.p,
+    Ws = draw_noise_batch(0, B_MAIN, T_MAIN, ctrl.p,
                           plant.get_eps_max(), device=dev)
     x0s, ups, yps = scenario_batch(plant, ctrl, B_MAIN, dev)
     run_main = fr.make_fused_batched_rollout(bm50, T_MAIN)
@@ -2981,7 +3540,7 @@ def main() -> int:
         plain=want,
     ))
     main_run = dict(plant=plant, ctrl=ctrl, inputs=(x0s, ups, yps, Ws),
-                    bm50=bm50)
+                    bm50=bm50, bm100=bm100)
     generic_timing(dev, smi, generic_phases(dev, smi, main_run))
     # 31-35, before phase 19's convolution (phase 35 reads
     # torch.profiler).
@@ -2998,6 +3557,14 @@ def main() -> int:
     export_phase(smi)
     time_parallel_phase(dev, smi, main_run)
     device_ops_phase(dev, smi, main_run)
+    # 40-42, before phase 19's convolution (phase 42 reads
+    # torch.profiler).
+    t0 = time.perf_counter()
+    mesh = sharded_phase(dev, smi, main_run)
+    pminres_phase(dev, smi, main_run, mesh,
+                  two_rank_phase(dev, smi, main_run, mesh))
+    torch.distributed.destroy_process_group()
+    log(f"phases 40-42: {time.perf_counter() - t0:.1f} s")
     k4 = admm_phases(dev, smi)
     k5 = ladder_phases(dev, smi)
     k3 = large_plant_phases(dev, smi)

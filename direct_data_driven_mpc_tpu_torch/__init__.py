@@ -17,12 +17,18 @@ controller and one plant, the per-step solve in the C extension of
 ``native/``, the export of a controller to the C deployment runtime
 (``utils.export``), the time-parallel rollout of one scenario
 (``control.linear_engine.time_parallel_rollout``) and the device
-Hankel, estimation and plant-step ops (``ops``). This package
+Hankel, estimation and plant-step ops (``ops``); over several processes
+on ``torch.distributed``, one per device, the scenario mesh, its
+sharded engines and the multi-process entry points (``parallel.mesh``,
+``parallel.multihost``) and the alpha-sharded KKT solver
+(``qp.distributed``). This package
 imports ``torch`` and numpy and never ``jax``; its entry points run on
 the card unless given ``device="cpu"``. Importing it builds and loads no
 kernel; each kernel library is compiled with ``nvcc`` at its first
 launch.
 """
+
+import importlib
 
 from direct_data_driven_mpc_tpu_torch.ops.hankel import (
     evaluate_persistent_excitation,
@@ -35,23 +41,28 @@ from direct_data_driven_mpc_tpu_torch.qp.spec import (
 
 __version__ = "0.1.0"
 
+# Imported on first access: importing the package stays light.
+_LAZY = {
+    "DirectDataDrivenMPCController": "control.controller",
+    "initialize_distributed": "parallel.multihost",
+    "make_global_mesh": "parallel.multihost",
+    "make_scenario_mesh": "parallel.mesh",
+    "make_distributed_kkt_solver": "qp.distributed",
+}
+
 __all__ = [
     "DataDrivenMPCType",
     "SlackVarConstraintTypes",
-    "DirectDataDrivenMPCController",
     "hankel_matrix",
     "evaluate_persistent_excitation",
+    *_LAZY,
 ]
 
 
 def __getattr__(name):
-    # Imported on first access: importing the package stays light.
-    if name == "DirectDataDrivenMPCController":
-        from direct_data_driven_mpc_tpu_torch.control.controller import (
-            DirectDataDrivenMPCController,
+    if name not in _LAZY:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}"
         )
-
-        return DirectDataDrivenMPCController
-    raise AttributeError(
-        f"module {__name__!r} has no attribute {name!r}"
-    )
+    module = importlib.import_module(f"{__name__}.{_LAZY[name]}")
+    return getattr(module, name)

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -454,6 +454,7 @@ def linear_batched_rollout(
     setpoints=None,
     generator: Optional[torch.Generator] = None,
     eps_max: float = 0.0,
+    noise_rows: Optional[Tuple[int, int]] = None,
 ) -> ClosedLoopResult:
     """Batched rollout of the condensed recursion.
 
@@ -465,7 +466,11 @@ def linear_batched_rollout(
     drawn block by block from ``generator`` inside the loop
     (:func:`~direct_data_driven_mpc_tpu_torch.parallel.batch.draw_block_noise`,
     one ``(B, K nb p)`` draw per outer block, padded steps included), so
-    the ``(B, n_steps, p)`` noise is never built. ``setpoints``: the
+    the ``(B, n_steps, p)`` noise is never built. ``noise_rows=(B_all,
+    first)``: this batch is rows ``first`` to ``first + B - 1`` of a
+    batch of ``B_all`` (a shard, ``parallel.mesh``); each block draws the
+    whole batch's noise and keeps these rows, so a sharded run draws what
+    the unsharded one does. ``setpoints``: the
     schedule of a tracking map (see :func:`_setpoint_deltas`); its deltas
     ride the last ``n_r`` lanes of each block's ``w`` and each solve's
     cost is the joint ``[theta; dr]`` quadratic.
@@ -509,8 +514,9 @@ def linear_batched_rollout(
     Cst = torch.empty((Bsz, n_outer, K), dtype=dtype, device=device)
     for t in range(n_outer):
         if Ws is None:
-            w = draw_block_noise(generator, Bsz, steps_per_outer * p,
-                                 eps_max, device, dtype)
+            B_all, first = noise_rows or (Bsz, 0)
+            w = draw_block_noise(generator, B_all, steps_per_outer * p,
+                                 eps_max, device, dtype)[first:first + Bsz]
         else:
             w = W[:, t]
         st = s @ bm.OsS_T + bm.os_c

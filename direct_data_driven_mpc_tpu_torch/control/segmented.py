@@ -5,10 +5,11 @@ segments the full rollout state (plant states, measurement windows, the
 iterative solver's warm start, the segment index and the base seed) is a
 :class:`SegmentState` that can be checkpointed
 (``utils.checkpoint``) and resumed deterministically: segment ``i``'s
-noise comes from a ``torch.Generator`` on the state's device seeded by a
+noise is ``parallel.batch.draw_noise_batch`` under a seed that is a
 fixed function of ``(seed, i)`` (:func:`segment_noise`), so however a
 run is split into calls it draws the same noise, and a run resumed from
-a checkpoint continues the uninterrupted one bit for bit. The solver
+a checkpoint continues the uninterrupted one bit for bit; each
+scenario's noise is its own, whatever the batch size. The solver
 state is carried across segments, so no segment cold-starts an
 iterative solver.
 
@@ -57,16 +58,15 @@ class SegmentState:
 def segment_noise(seed: int, segment: int, B: int, segment_steps: int,
                   p: int, eps_max: float, device,
                   dtype=torch.float32) -> torch.Tensor:
-    """Segment ``segment``'s measurement noise ``(B, segment_steps, p)``,
-    drawn by ``parallel.batch.draw_noise_batch`` from a generator on
-    ``device`` seeded by a fixed function of ``(seed, segment)``."""
+    """Segment ``segment``'s measurement noise ``(B, segment_steps, p)``
+    on ``device``: ``parallel.batch.draw_noise_batch`` under a seed that
+    is a fixed function of ``(seed, segment)``, so scenario ``i``'s rows
+    depend on ``(seed, segment, i)`` alone."""
     state = np.random.SeedSequence((seed, segment)).generate_state(
         1, np.uint64
     )
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(state[0]) & (2**63 - 1))
-    return draw_noise_batch(gen, B, segment_steps, p, eps_max, device,
-                            dtype)
+    return draw_noise_batch(int(state[0]), B, segment_steps, p, eps_max,
+                            device, dtype)
 
 
 def run_segmented(

@@ -11,11 +11,15 @@ they are. With plants and operators stacked per scenario
 realisation), each product of :func:`heterogeneous_closed_loop` is
 batched, one matrix per scenario.
 
-The noise comes from an explicit ``torch.Generator`` on the device, not
-from JAX's threefry, so the two packages give different numbers for the
-same seed: parity tests feed both the same numpy noise instead. The
-classic engine draws its noise inside its block loop
-(:func:`draw_block_noise`).
+Scenario ``i``'s measurement noise is a pure function of ``(seed, i)``
+(:func:`draw_noise_batch`), as JAX's ``fold_in(key, i)`` makes it: a
+counter-based hash of ``(seed, global scenario index, element)`` in
+32-bit integer arithmetic, the same bits on the CPU and on the card, so
+growing the batch or splitting it over ranks (``first_index``) never
+changes a scenario's draw. It is not JAX's threefry, so the two packages
+give different numbers for the same seed: parity tests feed both the
+same numpy noise instead. The classic engine draws its noise inside its
+block loop from a ``torch.Generator`` (:func:`draw_block_noise`).
 """
 
 from __future__ import annotations
@@ -29,25 +33,76 @@ from direct_data_driven_mpc_tpu_torch.control.loop import (
     ClosedLoopResult,
     closed_loop_rollout,
 )
+from direct_data_driven_mpc_tpu_torch.device import resolve_device
 from direct_data_driven_mpc_tpu_torch.ops.lti import LTIParams
 from direct_data_driven_mpc_tpu_torch.qp.admm import ADMMSolver
 from direct_data_driven_mpc_tpu_torch.qp.solution_map import SolutionMap
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """``h * c mod 2**32`` for int64 ``h`` in ``[0, 2**32)`` and a
+    constant ``c``, split at 16 bits so no product leaves int64's range
+    (no signed overflow, so the CPU and the card agree)."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finaliser, a bijection of ``[0, 2**32)``."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _scenario_keys(seed: int, index: torch.Tensor, stream: int):
+    """A 32-bit key per global scenario index, hashed with the 64-bit
+    seed and a stream number."""
+    h = _fmix32(torch.full_like(index, (seed & _M32) ^ 0x9E3779B9))
+    h = _fmix32(h ^ ((seed >> 32) & _M32))
+    h = _fmix32(h ^ stream)
+    h = _fmix32(h ^ (index & _M32))
+    return _fmix32(h ^ (index >> 32))
+
+
 def draw_noise_batch(
-    generator: torch.Generator,
+    seed: int,
     B: int,
     T: int,
     p: int,
     eps_max: float,
-    device,
+    device=None,
     dtype=torch.float32,
+    first_index: int = 0,
 ) -> torch.Tensor:
-    """Bounded uniform measurement noise ``eps_max * U[-1, 1]`` of shape
-    ``(B, T, p)`` on ``device``; ``generator`` must live on the same
-    device."""
-    return draw_block_noise(generator, B, T * p, eps_max, device,
-                            dtype).view(B, T, p)
+    """Bounded uniform measurement noise ``eps_max * U[-1, 1)`` of shape
+    ``(B, T, p)`` for the global scenarios ``first_index`` to
+    ``first_index + B - 1``, on ``device`` (None: the card).
+
+    Scenario ``i``'s row depends only on ``(seed, i)`` and element ``(t,
+    j)`` only on ``(seed, i, t p + j)``: a shard's draw (``first_index``
+    its first global scenario) is the same rows of the whole batch's, and
+    a longer draw extends a shorter one. Each element is two rounds of a
+    32-bit hash of the scenario's keys and its element counter, whose top
+    24 bits give ``u`` in ``[-1, 1)`` exactly in float32; the last
+    rounding is the product with ``eps_max``, so the CPU and the card
+    give the same bits."""
+    device = resolve_device(device)
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    index = torch.arange(first_index, first_index + B, dtype=torch.int64,
+                         device=device)
+    k1 = _scenario_keys(seed, index, 1)[:, None]
+    k2 = _scenario_keys(seed, index, 2)[:, None]
+    e = torch.arange(T * p, dtype=torch.int64, device=device)[None, :]
+    h = _fmix32((k1 + _mul32(e, 0x9E3779B9)) & _M32)
+    h = _fmix32(h ^ k2)
+    u = ((h >> 8) - (1 << 23)).to(dtype) * 2.0**-23
+    return (u * eps_max).view(B, T, p)
 
 
 def draw_block_noise(

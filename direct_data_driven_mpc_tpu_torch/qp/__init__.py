@@ -1,6 +1,11 @@
 """Static QP spec, assembly and the affine solution operator (host,
-float64 numpy); the operators on a device, the iterative solvers, and
-the batched build of one operator per data realisation."""
+float64 numpy); the operators on a device, the iterative solvers, the
+batched build of one operator per data realisation, and the
+alpha-sharded KKT solver over a mesh (``qp.distributed``, imported on
+first access: it imports ``control.loop``, which imports this package).
+"""
+
+import importlib
 
 from direct_data_driven_mpc_tpu_torch.qp.admm import (
     ADMMSolver,
@@ -46,4 +51,17 @@ __all__ = [
     "DataDrivenMPCType",
     "QPSpec",
     "SlackVarConstraintTypes",
+    "ShardedKKTOperand",
+    "build_sharded_kkt",
+    "make_distributed_closed_loop",
+    "make_distributed_kkt_solver",
 ]
+
+_DISTRIBUTED = {"ShardedKKTOperand", "build_sharded_kkt",
+                "make_distributed_closed_loop", "make_distributed_kkt_solver"}
+
+
+def __getattr__(name):
+    if name not in _DISTRIBUTED:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.distributed"), name)

@@ -212,9 +212,8 @@ def bit_equality_by_batch(dev) -> None:
         run_k = make(*args, device=dev, **kw)
         run_p = make(*args, device=dev, rollout=plain, **kw)
         for B in (1000, 2043, 4083, 6131, 8179, 16381):
-            gen = torch.Generator(device=dev).manual_seed(0)
             ins = (*cs.scenario_batch(plant, ctrl, B, dev),
-                   draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+                   draw_noise_batch(0, B, T, ctrl.p, plant.get_eps_max(),
                                     device=dev))
             got, want = run_k(*ins), run_p(*ins)
             diff = max(float((getattr(got, f) - getattr(want, f)).abs().max())
@@ -252,8 +251,7 @@ def k1_breakdown(dev, smi, patched, what) -> None:
     block."""
     plant, ctrl = cs.build_four_tank_robust()
     B, T = cs.B_MAIN, cs.T_MAIN
-    gen = torch.Generator(device=dev).manual_seed(0)
-    Ws = draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+    Ws = draw_noise_batch(0, B, T, ctrl.p, plant.get_eps_max(),
                           device=dev)
     x0s, ups, yps = cs.scenario_batch(plant, ctrl, B, dev)
     for K in (50, 25, 10):
@@ -329,9 +327,8 @@ def main() -> int:
         # K4 at four_tank_convex: the rollout's own kernel arguments.
         plant, ctrl, op, kw = cs.admm_config("four_tank_convex")
         B, T = cs.B_ADMM, cs.T_ADMM
-        gen = torch.Generator(device=dev).manual_seed(0)
         ins = (*cs.scenario_batch(plant, ctrl, B, dev),
-               draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+               draw_noise_batch(0, B, T, ctrl.p, plant.get_eps_max(),
                                 device=dev))
         store = {}
 
@@ -362,9 +359,8 @@ def main() -> int:
         # K5 at four_tank_ladder: the rollout's own kernel arguments.
         plant, ctrl, op, kw = cs.admm_config("four_tank_ladder")
         B, T = cs.B_ADMM, cs.T_ADMM
-        gen = torch.Generator(device=dev).manual_seed(0)
         ins = (*cs.scenario_batch(plant, ctrl, B, dev),
-               draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+               draw_noise_batch(0, B, T, ctrl.p, plant.get_eps_max(),
                                 device=dev))
         store = {}
 
@@ -411,8 +407,7 @@ def main() -> int:
         bm = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K,
                                  device=dev)
         op3 = fr._build_fused_operator(bm, include_cost=False)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        Ws = draw_noise_batch(gen, B, T, ctrl.p, plant.get_eps_max(),
+        Ws = draw_noise_batch(0, B, T, ctrl.p, plant.get_eps_max(),
                               device=dev)
         x0s, ups, yps = cs.scenario_batch(plant, ctrl, B, dev)
         s0, W = fr._center_and_pack(bm, x0s, ups, yps, Ws, T // K, K, 0)

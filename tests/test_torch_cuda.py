@@ -984,3 +984,62 @@ def test_hankel_matrix_on_the_card_matches_the_cpu(cuda, golden):
         torch.testing.assert_close(H.cpu(), hankel_matrix(X, 38), rtol=0,
                                    atol=0)
     assert int(matrix_rank(H)) == int(matrix_rank(H.cpu())) == 76
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_noise_draw_on_the_card_equals_the_cpu(cuda, dtype):
+    """Scenario i's noise is the same bits on the card and on the CPU,
+    for a whole batch and for a shard of it."""
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        draw_noise_batch,
+    )
+
+    for first in (0, 1000):
+        card = draw_noise_batch(5, 4096, 50, 2, 0.002, cuda, dtype,
+                                first_index=first)
+        assert card.device.type == "cuda" and card.dtype == dtype
+        assert torch.equal(card.cpu(), draw_noise_batch(
+            5, 4096, 50, 2, 0.002, "cpu", dtype, first_index=first))
+
+
+def test_sharded_k1_and_k4_at_world_size_one_equal_unsharded(cuda, golden):
+    """On a world of one NCCL rank, the sharded fused rollout (K1) and
+    the sharded fused ADMM (K4) launch their kernels and equal the
+    unsharded runs bit for bit; the metrics equal those of the unsharded
+    result."""
+    from direct_data_driven_mpc_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_scenario_mesh()
+    batch, n_steps = 256, 40
+    bm = build_linear_engine(_controller(golden), PLANT,
+                             solves_per_block=8, device=cuda)
+    rng = np.random.default_rng(1)
+    ins = [torch.as_tensor(a, dtype=torch.float32, device=cuda) for a in (
+        np.tile(golden["x0"], (batch, 1)),
+        np.tile(golden["TEC_u_past0"][None], (batch, 1, 1)),
+        np.tile(golden["TEC_y_past0"][None], (batch, 1, 1)),
+        0.002 * rng.uniform(-1, 1, (batch, n_steps, 2)))]
+    before = fr.fused_rollout.launches
+    got, metrics = pm.make_sharded_fused_rollout(mesh, bm, n_steps)(*ins)
+    assert fr.fused_rollout.launches == before + 1
+    want = fr.make_fused_batched_rollout(bm, n_steps)(*ins)
+    for a, b in zip(got, want):
+        if a is not None:
+            assert torch.equal(a, b)
+    assert float(metrics["mean_final_cost"]) == float(
+        want.costs[:, -1].double().sum() / batch)
+    assert float(metrics["frac_converged"]) == 1.0
+
+    g, op, kw = _admm_setup("CONVEX")
+    args = (PLANT, op, 4, 2, 2, n_steps)
+    ins = _admm_inputs(g, "CONVEX", batch, n_steps, cuda)
+    before = fa.fused_admm.launches
+    got, metrics = pm.make_sharded_fused_admm_rollout(
+        mesh, *args, device=cuda, **kw)(*ins)
+    assert fa.fused_admm.launches == before + 1
+    want = fa.make_fused_admm_rollout(*args, device=cuda, **kw)(*ins)
+    for a, b in zip(got[:7] + tuple(got.solver_state),
+                    want[:7] + tuple(want.solver_state)):
+        assert torch.equal(a, b)
+    assert float(metrics["frac_converged"]) == float(
+        want.converged.double().mean())
