@@ -270,6 +270,35 @@ reads ``torch.profiler`` before phase 19's convolution:
     per solve, the device kernels per MINRES iteration
     (``torch.profiler``); CONVEX slack refused.
 
+Then the edges of the system, the example CLIs, the paper reproduction
+and the top-level entry points, at the CLIs' own defaults, their configs
+built here (``example_configs``: the two YAML files' values; whether
+PyYAML and matplotlib are importable is printed, no step needs them; no
+figure is drawn):
+
+43. the example pipelines (``direct_data_driven_mpc_tpu_torch.examples``):
+    the direct example, T = 401 (``--t_sim 400``, seed 0, n = 4 inputs
+    applied per solve), on the host loop and the ``kernel``, ``linear``
+    and ``fused`` engines, K1 launched once at B = 1 and its U, Y and
+    final state against the plain version (bit-equal, or within 2e-5
+    with the reason printed), each device engine within 1e-4 of the host
+    loop in float64, the ``fused`` CONVEX variant against the host's
+    CONVEX loop (1e-4) and the ``--u_min/--u_max`` box at 0.85 (|u|
+    checked); K1's and the plain version's ms per rollout at B = 1 by
+    CUDA events; Monte Carlo at 4096 x 200 (the classic engine, in-loop
+    noise; stable, finite); setpoint tracking at 512 x 400, K = 25 (K1
+    launched once, U, Y and final state against the plain version as
+    above, u within 1e-4 of the generic loop with the schedule per
+    solve); tuning at 8 x 80 with 25 Adam steps (the loss lowered);
+44. the paper reproduction: the three schemes at t_sim 600, seed 4, on
+    the host, y_0 forced to 0.4; the final output errors;
+45. the top-level entry points (``direct_data_driven_mpc_tpu_torch.entry``):
+    ``entry()``'s step on the card against the generic loop's first step
+    (2e-5), and ``dryrun_multichip(2)``, two gloo ranks sharing the card,
+    each check of ``__graft_entry__.py`` passed and K1 and K4 launched in
+    the ranks. Host-clock seconds throughout (the pipelines include
+    their controller builds).
+
 The script sets ``torch.set_float32_matmul_precision("high")`` first,
 as a user's process might: the port scopes IEEE float32 to its
 parity-bound paths (``ops/precision.py``), the library yardsticks are
@@ -403,6 +432,32 @@ def four_tank_params(eps: float, L: int = 30, slack: str = "NONE",
         eps_max=eps, lamb_alpha=0.1 / max(eps, 1e-12), lamb_sigma=1000.0,
         c=c, slack_var_constraint_type=SlackVarConstraintTypes[slack],
         controller_type=DataDrivenMPCType.ROBUST, n_mpc_step=1,
+    )
+
+
+def example_configs():
+    """``(plant, controller dict)``: the example CLIs' defaults,
+    ``examples/config/models/four_tank_system_params.yaml`` and
+    ``examples/config/controllers/data_driven_mpc_example_params.yaml``
+    as ``LTISystemModel`` and ``get_data_driven_mpc_controller_params``
+    load them (Algorithm 2: n inputs applied per solve), built here
+    because the card's machine may lack PyYAML
+    (tests/test_torch_examples.py holds the two equal). A new plant each
+    call: the pipelines move its state."""
+    from direct_data_driven_mpc_tpu_torch.models.lti_model import LTIModel
+    from direct_data_driven_mpc_tpu_torch.qp.spec import (
+        DataDrivenMPCType,
+        SlackVarConstraintTypes,
+    )
+
+    n, L, m, p, eps = 4, 30, 2, 2, 0.002
+    return LTIModel(**FOUR_TANK), dict(
+        u_range=[-1, 1], N=400, n=n, eps_max=eps, L=L,
+        Q=3 * np.eye(p * L), R=0.0001 * np.eye(m * L),
+        lamb_alpha=0.1 / eps, lamb_sigma=1000, c=1.0,
+        slack_var_constraint_type=SlackVarConstraintTypes.NONE,
+        controller_type=DataDrivenMPCType.ROBUST, n_mpc_step=n,
+        u_s=np.array([[1.0], [1.0]]), y_s=np.array([[0.65], [0.77]]),
     )
 
 
@@ -3290,6 +3345,281 @@ def pminres_phase(dev, smi, main, mesh, outs, T_loop=T_PMINRES,
         raise AssertionError("PMINRES took a CONVEX slack spec")
 
 
+def example_args(module, dev, *argv):
+    """A port CLI's parsed flags: ``argv`` on its defaults, headless,
+    silent, on ``dev``."""
+    return module.parse_args([*argv, "--device", str(dev), "--verbose", "0",
+                              "--no_plot"])
+
+
+def example_controller(config, seed):
+    """The controller an example pipeline builds from ``config`` with
+    ``default_rng(seed)``, and its plant: the same draws, so the same
+    controller."""
+    from direct_data_driven_mpc_tpu_torch.control.creation import (
+        create_data_driven_mpc_controller,
+    )
+    from direct_data_driven_mpc_tpu_torch.examples import common
+
+    plant, _ = example_configs()
+    rng = np.random.default_rng(seed)
+    u_d, y_d = common.initial_data(plant, config, rng)
+    return plant, create_data_driven_mpc_controller(config, u_d, y_d)
+
+
+def timed(fn, dev):
+    """``(fn(), seconds)`` on the host clock, the card synchronized."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def k1_at_one_scenario_ms(dev, config, T) -> tuple:
+    """``(K1 ms, plain ms, rows)``: one rollout of the direct example's
+    ``kernel`` engine at B = 1 (seed 0) by CUDA events, K1 against its
+    plain version, and the rows B x n_outer of its product."""
+    from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
+        build_linear_engine,
+    )
+    from direct_data_driven_mpc_tpu_torch.examples import common
+    from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr
+
+    plant, ctrl = example_controller(config, 0)
+    nb, n_steps = ctrl.n_mpc_step, T + 1
+    K = min(50, -(-n_steps // nb))
+    bm = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K,
+                             device=dev)
+    n_outer = math.ceil(n_steps / (K * nb))
+    W = torch.zeros((1, n_steps, ctrl.p), device=dev)
+    s0, Wp = fr._center_and_pack(
+        bm, *common.scenario_windows(plant, ctrl, 1, dev), W, n_outer,
+        K * nb, n_outer * K * nb - n_steps)
+    op = fr._build_fused_operator(bm)
+    before = fr.fused_rollout.launches
+    ms = {name: cuda_ms(lambda: rollout(op, s0, Wp), reps=200)
+          for name, rollout in (("kernel", fr.fused_rollout),
+                                ("plain", fr.fused_rollout_reference))}
+    if fr.fused_rollout.launches - before != 201:
+        raise AssertionError("K1 at B = 1 did not launch once per call")
+    return ms["kernel"], ms["plain"], n_outer
+
+
+def example_phase(dev, smi, T=400, mc=(4096, 200), track=(512, 400, 25),
+                  tune=(8, 80, 25)) -> None:
+    """Phase 43: the example CLIs' pipelines on ``dev`` at their
+    defaults, the configs from :func:`example_configs` (no YAML)."""
+    import importlib.util
+
+    from direct_data_driven_mpc_tpu_torch.control.loop import (
+        closed_loop_rollout,
+    )
+    from direct_data_driven_mpc_tpu_torch.examples import (
+        common,
+        direct_data_driven_mpc_example as direct,
+        monte_carlo_example as mc_ex,
+        regularization_tuning_example as tuning,
+        setpoint_tracking_example as tracking,
+    )
+    from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        draw_noise_batch,
+    )
+
+    cuda = dev.type == "cuda"
+    log("phase 43: PyYAML "
+        + ("importable" if importlib.util.find_spec("yaml") else "absent")
+        + ", matplotlib "
+        + ("importable" if importlib.util.find_spec("matplotlib")
+           else "absent") + " (the configs are built here, no figure)")
+
+    def direct_run(*argv, rollout=fr.fused_rollout):
+        plant, config = example_configs()
+        args = example_args(direct, dev, "--t_sim", str(T), "--seed", "0",
+                            *argv)
+        return timed(lambda: direct.simulate(plant, config, args,
+                                             rollout=rollout), dev)
+
+    # The direct example at T + 1 steps on every engine (seed 0).
+    host, t_host = direct_run("--engine", "host")
+    fr.fused_rollout.launches = 0
+    kern, t_kern = direct_run("--engine", "kernel")
+    k1 = fr.fused_rollout.launches
+    if cuda and k1 != 1:
+        raise AssertionError(f"--engine kernel launched K1 {k1} times")
+    plain, _ = direct_run("--engine", "kernel",
+                          rollout=fr.fused_rollout_reference)
+    errs = [equal_or_close(
+        f"direct kernel vs plain {key}", torch.as_tensor(kern[key]),
+        torch.as_tensor(plain[key]), "cuBLAS sums this one scenario in "
+        "another order") for key in ("u_sys", "y_sys", "x_final", "u_past",
+                                     "y_past")]
+    log(f"direct example T={T + 1}: host {t_host:.3f} s; kernel "
+        f"{t_kern:.3f} s, K1 launched {k1}, B = 1, max |diff| vs plain "
+        f"(U, Y, s_fin) {max(errs):.3e} [{smi}]")
+    runs = {"kernel": (kern, t_kern)}
+    for engine in ("linear", "fused"):
+        runs[engine] = direct_run("--engine", engine)
+    host_c, _ = direct_run("--engine", "host", "--slack_var_const_type",
+                           "Convex")
+    runs["fused CONVEX"] = direct_run("--engine", "fused",
+                                      "--slack_var_const_type", "Convex")
+    for name, (out, secs) in runs.items():
+        want = host_c if "CONVEX" in name else host
+        du = check_close(f"direct {name} vs host float64 u",
+                         torch.as_tensor(out["u_sys"]),
+                         torch.as_tensor(want["u_sys"]), NORTH_STAR)
+        if not out["converged"].all():
+            raise AssertionError(f"direct {name}: not converged")
+        log(f"direct {name}: {secs:.3f} s, max |du| vs host float64 "
+            f"{du:.3e} (< {NORTH_STAR}), all converged [{smi}]")
+    box, secs = direct_run("--engine", "fused", "--u_min", "-0.85",
+                           "--u_max", "0.85")
+    if not np.isfinite(box["u_sys"]).all() or \
+            np.abs(box["u_sys"]).max() > 0.85 + 1e-6:
+        raise AssertionError("direct fused box: |u| above 0.85 or not "
+                             "finite")
+    log(f"direct fused box |u| <= 0.85: {secs:.3f} s, max |u| "
+        f"{np.abs(box['u_sys']).max():.7f}, converged "
+        f"{box['converged'].mean():.4f} [{smi}]")
+    if cuda:
+        ms, plain_ms, rows = k1_at_one_scenario_ms(dev, example_configs()[1],
+                                                   T)
+        log(f"K1 at B = 1 ({rows} product rows): {ms:.4f} ms per rollout, "
+            f"plain version {plain_ms:.4f} ms [{smi}]")
+
+    # Monte Carlo: the classic engine, in-loop noise from a generator.
+    B, T_mc = mc
+    plant, config = example_configs()
+    out, secs = timed(lambda: mc_ex.simulate(plant, config, example_args(
+        mc_ex, dev, "--batch", str(B), "--t_sim", str(T_mc))), dev)
+    if out["y_sys"].shape != (B, T_mc, 2) or not (
+            np.isfinite(out["y_sys"]).all() and out["stable"]):
+        raise AssertionError("Monte Carlo: shape, finiteness or stability")
+    err = np.linalg.norm(out["y_sys"][:, -1] - out["y_s"], axis=-1)
+    log(f"Monte Carlo {B} x {T_mc}: spectral radius "
+        f"{out['spectral_radius']:.4f}, the rollout {out['seconds']:.4f} s "
+        f"(Timer, after a warm-up; {B * T_mc / out['seconds']:,.0f} "
+        f"solves/s), pipeline {secs:.2f} s; final tracking error p50 "
+        f"{np.percentile(err, 50):.4f} [{smi}]")
+
+    # Setpoint tracking: K1 with the staircase, against its plain version
+    # and the generic loop with the schedule per solve.
+    B, T_tr, K = track
+    argv = ("--batch", str(B), "--t_sim", str(T_tr), "--solves_per_block",
+            str(K))
+    fr.fused_rollout.launches = 0
+    plant, config = example_configs()
+    got, secs = timed(lambda: tracking.simulate(
+        plant, config, example_args(tracking, dev, *argv)), dev)
+    k1 = fr.fused_rollout.launches
+    if cuda and k1 != 1:
+        raise AssertionError(f"tracking launched K1 {k1} times")
+    plant, config = example_configs()
+    want = tracking.simulate(plant, config, example_args(tracking, dev,
+                                                         *argv),
+                             rollout=fr.fused_rollout_reference)
+    errs = [equal_or_close(f"tracking K1 vs plain {key}",
+                           torch.as_tensor(got[key]),
+                           torch.as_tensor(want[key]),
+                           "cuBLAS sums this batch in another order")
+            for key in ("u_sys", "y_sys", "x_final")]
+    plant, ctrl = example_controller(dict(config, n_mpc_step=1), 0)
+    x0s, ups, yps = common.scenario_windows(plant, ctrl, B, dev)
+    Ws = draw_noise_batch(0, B, T_tr, 2, plant.get_eps_max(), dev)
+    per_solve = torch.as_tensor(np.repeat(got["sched"], K, axis=0)[:T_tr],
+                                device=dev)
+    gen, t_gen = timed(lambda: closed_loop_rollout(
+        plant.as_params(), ctrl.tracking_map(device=dev), x0s, ups, yps, Ws,
+        T_tr, setpoints=per_solve), dev)
+    du = check_close("tracking K1 vs generic loop u",
+                     torch.as_tensor(got["u_sys"], device=dev), gen.u_sys,
+                     NORTH_STAR)
+    log(f"setpoint tracking {B} x {T_tr}, K={K}: pipeline {secs:.3f} s, "
+        f"K1 launched {k1}; max |diff| vs plain (U, Y, s_fin) "
+        f"{max(errs):.3e}; vs the generic loop ({t_gen:.3f} s) max |du| "
+        f"{du:.3e} (< {NORTH_STAR}); RMSE {got['rmse']:.4f} [{smi}]")
+
+    # Tuning the ridge weights by autograd, float64 on the card.
+    B, T_tu, steps = tune
+    plant, config = example_configs()
+    out, secs = timed(lambda: tuning.simulate(plant, config, example_args(
+        tuning, dev, "--batch", str(B), "--t_sim", str(T_tu), "--steps",
+        str(steps))), dev)
+    if not (np.isfinite(out["loss_history"]).all()
+            and out["final_loss"] < out["initial_loss"]):
+        raise AssertionError(f"tuning did not lower the loss: {out}")
+    log(f"tuning {B} x {T_tu}, {steps} Adam steps: {secs:.2f} s, "
+        f"{secs / steps * 1e3:.1f} ms per step (the controller, operator "
+        f"and three more loss evaluations included), loss "
+        f"{out['initial_loss']:.6e} -> {out['final_loss']:.6e} [{smi}]")
+
+
+def reproduction_phase(dev, smi, t_sim=600) -> None:
+    """Phase 44: the paper reproduction's three schemes at ``t_sim``,
+    seed 4, from :func:`example_configs`; no figure."""
+    from direct_data_driven_mpc_tpu_torch.examples import (
+        robust_data_driven_mpc_reproduction as repro,
+    )
+
+    plant, config = example_configs()
+    args = repro.parse_args(["--t_sim", str(t_sim), "--verbose", "0",
+                             "--no_plot"])
+    (u, y), secs = timed(lambda: repro.simulate(plant, config, args), dev)
+    if [a.shape for a in u + y] != [(t_sim + 1, 2)] * 6 or not all(
+            np.isfinite(a).all() for a in u + y):
+        raise AssertionError("reproduction: shapes or finiteness")
+    if abs(y[0][0] - 0.4).max() > 0.005:
+        raise AssertionError(f"reproduction: y_0 {y[0][0]} not forced to "
+                             "0.4")
+    errs = ", ".join(
+        f"{s.name} {np.abs(a[-1] - config['y_s'].ravel()).max():.5f}"
+        for s, a in zip(repro.SCHEMES, y))
+    log(f"reproduction t_sim={t_sim}, seed 4: {secs:.2f} s on the host "
+        f"(3 x {t_sim + 1 - config['n']} steps); final output errors "
+        f"{errs}")
+
+
+def entry_phase(dev, smi, n_dryrun=2) -> None:
+    """Phase 45: ``entry()``'s step on ``dev`` against the generic loop's
+    first step, then ``dryrun_multichip(n_dryrun)``."""
+    from direct_data_driven_mpc_tpu_torch import entry as port_entry
+    from direct_data_driven_mpc_tpu_torch.control.loop import (
+        closed_loop_rollout,
+    )
+
+    (fn, args), secs = timed(lambda: port_entry.entry(device=dev), dev)
+    out, t_step = timed(lambda: fn(*args), dev)
+    plant, ctrl = port_entry.four_tank_controller()
+    x, u_past, y_past, w = args
+    ref = closed_loop_rollout(
+        plant.as_params(), ctrl.solution_map(device=dev), x[None],
+        u_past[None], y_past[None], w[None, None], n_steps=1)
+    errs = [check_close(f"entry {name}", got, want, ATOL)
+            for name, got, want in (
+                ("x_next", out[0], ref.x_final[0]),
+                ("y", out[1], ref.y_sys[0, 0]),
+                ("u0", out[2], ref.u_sys[0, 0]),
+                ("u_past", out[3], ref.u_past[0]),
+                ("y_past", out[4], ref.y_past[0]))]
+    log(f"entry(): built in {secs:.2f} s, one step {t_step * 1e3:.2f} ms "
+        f"(host clock, first call), max |diff| vs the generic loop's first "
+        f"step {max(errs):.3e} (atol {ATOL}) [{smi}]")
+    res, secs = timed(lambda: port_entry.dryrun_multichip(
+        n_dryrun, device=dev), dev)
+    if dev.type == "cuda" and not (res["k1_launches"] >= 2
+                                   and res["k4_launches"] >= 1):
+        raise AssertionError(f"dryrun ranks did not launch K1 and K4: {res}")
+    log(f"dryrun_multichip({n_dryrun}) OK in {secs:.1f} s (spawn included):"
+        f" mesh {res['mesh']}, B={res['B']}, mean_final_cost "
+        f"{res['mean_final_cost']:.5f}, KKT res {res['res']:.1e} in "
+        f"{res['iters']} iterations, |du| fused {res['du_fused']:.3e}, "
+        f"tracking {res['du_track']:.1e}, KKT {res['du_kkt']:.3e}; rank 0 "
+        f"launched K1 {res['k1_launches']}, K4 {res['k4_launches']} "
+        f"[{smi}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
@@ -3565,6 +3895,12 @@ def main() -> int:
                   two_rank_phase(dev, smi, main_run, mesh))
     torch.distributed.destroy_process_group()
     log(f"phases 40-42: {time.perf_counter() - t0:.1f} s")
+    # 43-45: the example CLIs, the paper reproduction, the entry points.
+    t0 = time.perf_counter()
+    example_phase(dev, smi)
+    reproduction_phase(dev, smi)
+    entry_phase(dev, smi)
+    log(f"phases 43-45: {time.perf_counter() - t0:.1f} s")
     k4 = admm_phases(dev, smi)
     k5 = ladder_phases(dev, smi)
     k3 = large_plant_phases(dev, smi)

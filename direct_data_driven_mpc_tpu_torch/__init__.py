@@ -21,9 +21,12 @@ Hankel, estimation and plant-step ops (``ops``); over several processes
 on ``torch.distributed``, one per device, the scenario mesh, its
 sharded engines and the multi-process entry points (``parallel.mesh``,
 ``parallel.multihost``) and the alpha-sharded KKT solver
-(``qp.distributed``). This package
-imports ``torch`` and numpy and never ``jax``; its entry points run on
-the card unless given ``device="cpu"``. Importing it builds and loads no
+(``qp.distributed``); at the edges, the example CLIs
+(``examples``), the paper reproduction (``reproduction``), the figures
+(``viz``, the one module that imports matplotlib, imported by nothing
+else until a figure is drawn) and the top-level entry points (``entry``).
+This package imports ``torch`` and numpy and never ``jax``; its entry
+points run on the card unless given ``device="cpu"``. Importing it builds and loads no
 kernel; each kernel library is compiled with ``nvcc`` at its first
 launch.
 """

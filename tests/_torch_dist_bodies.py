@@ -211,3 +211,41 @@ def chip_smoke_phases(rank, world, case):
                  if m.split(".")[0] in ("jax", "jaxlib",
                                         "direct_data_driven_mpc_tpu"))
     return {"jax_modules": np.array(jax, dtype=str)}
+
+
+def _numbers(out: dict) -> dict:
+    return {key: np.asarray(value) for key, value in out.items()}
+
+
+def dryrun_rank_case(rank, world, case):
+    """``entry.dryrun_rank`` on this rank of the harness's gloo group."""
+    from direct_data_driven_mpc_tpu_torch.entry import dryrun_rank
+
+    return _numbers(dryrun_rank(world, device="cpu"))
+
+
+def dryrun_multichip_case(rank, world, case):
+    """``entry.dryrun_multichip(case)`` from a process of its own, which
+    spawns ``case`` gloo CPU ranks."""
+    from direct_data_driven_mpc_tpu_torch.entry import dryrun_multichip
+
+    return _numbers(dryrun_multichip(case, device="cpu", timeout=150.0))
+
+
+def chip_smoke_edges(rank, world, case):
+    """``chip_smoke.py``'s phases 43-45 on the CPU at a tiny size, in a
+    process of their own (phase 45 spawns the dry run's ranks); returns
+    the JAX modules this process imported (none)."""
+    import sys
+
+    import chip_smoke as cs
+
+    dev = torch.device("cpu")
+    cs.example_phase(dev, "cpu", T=20, mc=(8, 20), track=(4, 40, 10),
+                     tune=(2, 10, 2))
+    cs.reproduction_phase(dev, "cpu", t_sim=30)
+    cs.entry_phase(dev, "cpu", n_dryrun=2)
+    jax = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib",
+                                        "direct_data_driven_mpc_tpu"))
+    return {"jax_modules": np.array(jax, dtype=str)}

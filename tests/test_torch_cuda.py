@@ -1043,3 +1043,39 @@ def test_sharded_k1_and_k4_at_world_size_one_equal_unsharded(cuda, golden):
         assert torch.equal(a, b)
     assert float(metrics["frac_converged"]) == float(
         want.converged.double().mean())
+
+
+def test_direct_example_kernel_engine_on_the_card(cuda):
+    """The direct example's ``--engine kernel`` on the card: K1 launched
+    once at B = 1, within 1e-4 of the host loop (float64) on the CLI's
+    default configs (chip_smoke.py's ``example_configs``, no YAML)."""
+    from chip_smoke import example_configs
+    from direct_data_driven_mpc_tpu_torch.examples import (
+        direct_data_driven_mpc_example as direct,
+    )
+
+    def run(engine, device):
+        args = direct.parse_args(["--engine", engine, "--t_sim", "100",
+                                  "--seed", "0", "--verbose", "0",
+                                  "--device", device, "--no_plot"])
+        return direct.simulate(*example_configs(), args)
+
+    host = run("host", "cpu")
+    fr.fused_rollout.launches = 0
+    kern = run("kernel", "cuda")
+    assert fr.fused_rollout.launches == 1
+    assert np.abs(kern["u_sys"] - host["u_sys"]).max() < 1e-4
+    assert kern["converged"].all()
+
+
+def test_entry_step_on_the_card_matches_the_cpu(cuda):
+    from direct_data_driven_mpc_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert all(a.device.type == "cuda" for a in args)
+    got = fn(*args)
+    cpu_fn, cpu_args = entry(device="cpu")
+    want = cpu_fn(*cpu_args)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                   atol=2e-5)
