@@ -299,6 +299,34 @@ figure is drawn):
     the ranks. Host-clock seconds throughout (the pipelines include
     their controller builds).
 
+Then every shape the JAX package's engine tests take, after phase 21
+(neither phase reads ``torch.profiler``):
+
+46. the seven random shapes of tests/test_random_dims.py
+    (``RANDOM_DIMS``: m and p of 1 to 3, ns != n, n_mpc_step of 1 to 5,
+    NOMINAL and UCON), each at B = 4096 x T = 400 from its seed: K1 at
+    K = 2 and at ``suggest_solves_per_block``'s K, launched once each
+    through ``make_fused_batched_rollout``, U, Y and the final state
+    against the plain version (bit-equal, or within 2e-5 with the reason
+    printed; costs rtol 1e-3, atol 1e-5); K3 (``cost_mode="post"``) at
+    1e-4, its post-pass costs at rtol 1e-3 / atol 1e-2; K4 on the ROBUST
+    shapes with CONVEX slack and K5 on all seven with the box |u| <=
+    0.85, each launched once, against the plain version as above, their
+    residual lanes within 2e-5 (a converged flag may differ only where
+    the two residuals fall on either side of the tolerance), K5's rung
+    lanes equal; each kernel's max |du| against its float64 plain
+    version (64 scenarios) below 1e-4, beside the plain version's; ms per
+    rollout of each kernel and its plain version by CUDA events, in
+    turns;
+47. ``bench.py``'s ``long_horizon`` (l.1002-1004: N = 800, L = 60, nz
+    1121) through K1 at B = 65536 x T = 400, launched once, U, Y and the
+    final state bit-equal to the plain version, max |du| against float64
+    (64 scenarios) below 1e-4, ms per rollout and solves/s of the
+    amortized run and its plain version in turns; and
+    ``long_horizon_convex`` (l.936-949: CONVEX, nbox 120) through K4 at
+    B = 65536 x T = 400 against its plain version (atol 2e-5), both timed
+    in turns.
+
 The script sets ``torch.set_float32_matmul_precision("high")`` first,
 as a user's process might: the port scopes IEEE float32 to its
 parity-bound paths (``ops/precision.py``), the library yardsticks are
@@ -358,6 +386,10 @@ COST_RTOL, COST_ATOL = 1e-3, 1e-5
 # against the plain version's), move it by a few 1e-3.
 POST_COST_ATOL = 1e-2
 NORTH_STAR = 1e-4  # max |du| against float64
+# bench.py's fused ADMM iterations: four_tank_convex's (K4) and
+# four_tank_ladder's (K5).
+CONVEX_KW = dict(iters=(4, 5, 2), cold_iters=24, tol=1e-5)
+LADDER_KW = dict(iters=(0, 16, 4), cold_iters=80, tol=2e-5)
 # K3 against its plain version: its 3xTF32 products sum in another order
 # than cuBLAS, and large_plant's float32 paths sit 2e-5 to 3e-5 from
 # float64 (tests/test_torch_cuda.py holds K3 at the same bar).
@@ -496,6 +528,74 @@ def build_large_plant(N: int = 600, L: int = 30, seed: int = 0):
     return plant, ctrl
 
 
+#: The seven shapes of tests/test_random_dims.py:38-47, as it lists them:
+#: (seed, ns, n, m, p, L, n_mpc_step, controller type, terminal
+#: constraint); the last two are UCON (no terminal constraint).
+RANDOM_DIMS = (
+    (0, 3, 3, 1, 1, 8, 1, "ROBUST", True),
+    (1, 5, 4, 2, 3, 9, 3, "ROBUST", True),
+    (2, 2, 2, 3, 1, 6, 1, "NOMINAL", True),
+    (3, 6, 5, 1, 2, 11, 5, "ROBUST", True),
+    (4, 4, 3, 2, 2, 7, 2, "NOMINAL", True),
+    (5, 4, 4, 2, 2, 9, 1, "ROBUST", False),
+    (6, 3, 3, 1, 2, 8, 3, "ROBUST", False),
+)
+RANDOM_DIMS_BOX = 0.85  # K5's input box |u| <= 0.85 at every shape
+
+
+def random_dims_data(case):
+    """``(plant, controller keywords, rng)`` of one shape of
+    ``RANDOM_DIMS``, made from its seed as tests/test_random_dims.py
+    makes them: ``random_stable_lti(seed, ns, m, p)`` at spectral radius
+    0.85, uniform input data and noise of 0.002, u_s = 0.3, y_s its
+    equilibrium output. ``rng`` has drawn the data; its next draw is the
+    closed loop's noise."""
+    from direct_data_driven_mpc_tpu_torch.models.random_lti import (
+        random_stable_lti,
+    )
+
+    seed, ns, n, m, p, L, n_mpc_step, _, terminal = case
+    rng = np.random.default_rng(seed)
+    plant = random_stable_lti(seed=seed, ns=ns, m=m, p=p,
+                              spectral_radius=0.85)
+    N = m * (L + 2 * n) + L + 2 * n - 1 + 10
+    u_d = rng.uniform(-1, 1, (N, m))
+    w_d = 0.002 * rng.uniform(-1, 1, (N, p))
+    y_d = plant.simulate(u_d, w_d, N)
+    u_s = 0.3 * np.ones((m, 1))
+    y_s = plant.get_equilibrium_output_from_input(u_s.ravel()).reshape(-1, 1)
+    return plant, dict(
+        n=n, m=m, p=p, u_d=u_d, y_d=y_d, L=L, Q=3.0 * np.eye(p * L),
+        R=1e-4 * np.eye(m * L), u_s=u_s, y_s=y_s, eps_max=0.002,
+        lamb_alpha=50.0, lamb_sigma=1000.0, c=1.0, n_mpc_step=n_mpc_step,
+        use_terminal_constraint=terminal,
+    ), rng
+
+
+def build_random_dims(case, slack: str = "NONE"):
+    """``(plant, controller)`` of one shape of ``RANDOM_DIMS`` in the
+    port, with ``slack`` (CONVEX for K4, on the ROBUST shapes)."""
+    from direct_data_driven_mpc_tpu_torch.control.controller import (
+        DirectDataDrivenMPCController,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp.spec import (
+        DataDrivenMPCType,
+        SlackVarConstraintTypes,
+    )
+
+    plant, kw, _ = random_dims_data(case)
+    return plant, DirectDataDrivenMPCController(
+        **kw, slack_var_constraint_type=SlackVarConstraintTypes[slack],
+        controller_type=DataDrivenMPCType[case[7]],
+    )
+
+
+def random_dims_label(case) -> str:
+    seed, ns, n, m, p, L, nb, ctype, terminal = case
+    return (f"case {seed} (ns={ns} n={n} m={m} p={p} L={L} nb={nb} "
+            f"{ctype} {'TEC' if terminal else 'UCON'})")
+
+
 def scenario_batch(plant, ctrl, B, device, dtype=torch.float32):
     """Every scenario starts from the plant's state after the data run
     and the controller's initial window (as in ``bench.py``)."""
@@ -505,7 +605,7 @@ def scenario_batch(plant, ctrl, B, device, dtype=torch.float32):
         ).expand(B, *shape[1:]).contiguous()
 
     return (
-        tile(plant.get_state(), (1, ctrl.n)),
+        tile(plant.get_state(), (1, -1)),
         tile(ctrl.u_past, (1, ctrl.n, ctrl.m)),
         tile(ctrl.y_past, (1, ctrl.n, ctrl.p)),
     )
@@ -605,14 +705,13 @@ def admm_config(name: str):
         plant, ctrl = build_four_tank_robust()
         u = 3.0 if name.endswith("_u3") else 0.85
         op = compute_box_admm_operator_np(ctrl.spec, u_bounds=(-u, u))
-        return plant, ctrl, op, dict(iters=(0, 16, 4), cold_iters=80,
-                                     tol=2e-5)
+        return plant, ctrl, op, dict(LADDER_KW)
     N, L = {"four_tank_convex_q4": (400, 15),
             "long_horizon_convex": (800, 60)}.get(name, (400, 30))
     plant, ctrl = build_four_tank_robust(N=N, L=L, slack="CONVEX")
     track = name == "four_tank_admm_tracking"
     op = compute_admm_operator_np(ctrl.spec, return_setpoint_maps=track)
-    kw = dict(iters=(4, 5, 2), cold_iters=24, tol=1e-5)
+    kw = dict(CONVEX_KW)
     if track:
         # Four phases around the baked setpoints (scaling an equilibrium
         # pair keeps it an equilibrium).
@@ -3620,6 +3719,393 @@ def entry_phase(dev, smi, n_dryrun=2) -> None:
         f"[{smi}]")
 
 
+def event_turns(fns: dict, reps: dict, count) -> dict:
+    """Mean milliseconds per call of each ``fns[name]()`` by CUDA events,
+    in turns (the names in order, then reversed), each already warm.
+    ``count()`` reads the kernel's launch count: a "kernel" turn must add
+    one launch per call and a "plain" turn none."""
+    ms = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = count()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps[name]):
+            fns[name]()
+        end.record()
+        torch.cuda.synchronize()
+        launched = count() - before
+        if launched != (reps[name] if name == "kernel" else 0):
+            raise AssertionError(f"{name}: {launched} launches in "
+                                 f"{reps[name]} calls")
+        ms[name].append(start.elapsed_time(end) / reps[name])
+    return {name: sum(v) / len(v) for name, v in ms.items()}
+
+
+RESULT_FIELDS = ("u_sys", "y_sys", "x_final", "u_past", "y_past")
+
+
+def result_bits(got, want) -> bool:
+    """Whether u, y, the final windows and any solver state are equal."""
+    fields = [(getattr(got, f), getattr(want, f)) for f in RESULT_FIELDS]
+    if got.solver_state is not None:
+        fields += list(zip(got.solver_state, want.solver_state))
+    return all(torch.equal(a, b) for a, b in fields)
+
+
+def compare_admm_at_rounding(tag, got, want, lanes, tol):
+    """Kernel against plain version where the two may differ by rounding:
+    u, y, the final windows, s and w within ``ATOL``, costs within
+    ``COST_RTOL``/``COST_ATOL``; the primal and dual residual lanes of
+    every solve (``lanes[key][:2]``) within ``ATOL`` too, so a converged
+    flag may differ only where the kernel's and the plain version's
+    residuals fall on either side of ``tol``; K5's rung lanes
+    (``lanes[key][2]``) and final rungs equal. Returns the largest
+    |diff| off the costs, on them and on the residuals, and the number of
+    flags that differ."""
+    errs = [check_close(f"{tag} {f}", getattr(got, f), getattr(want, f),
+                        ATOL) for f in RESULT_FIELDS]
+    errs += [check_close(f"{tag} solver_state.{f}", a, b, ATOL)
+             for f, a, b in zip(("s", "w"), got.solver_state,
+                                want.solver_state)]
+    err_c = check_close(f"{tag} costs", got.costs, want.costs, COST_ATOL,
+                        COST_RTOL)
+    k, p = lanes["kernel"], lanes["plain"]
+    err_r = max(check_close(f"{tag} {n}", a, b, ATOL)
+                for n, a, b in zip(("RP", "RD"), k[:2], p[:2]))
+    flipped = got.converged != want.converged
+    straddle = ((k[0] <= tol) != (p[0] <= tol)) | ((k[1] <= tol)
+                                                   != (p[1] <= tol))
+    if not bool(straddle[flipped].all()):
+        raise AssertionError(f"{tag}: a converged flag differs where no "
+                             "residual straddles the tolerance")
+    if len(k) > 2:
+        if not torch.equal(k[2], p[2]):
+            raise AssertionError(f"{tag}: rung lanes differ")
+        if not torch.equal(got.solver_state.rho_idx,
+                           want.solver_state.rho_idx):
+            raise AssertionError(f"{tag}: final rungs differ")
+    return max(errs), err_c, err_r, int(flipped.sum())
+
+
+#: Why a kernel and its plain version may differ by rounding at B = 4096:
+#: cuBLAS picks its kernel by shape, and below about 8000 rows it may sum
+#: the plain version's products in another order than one FMA chain
+#: (tests/test_torch_cuda.py); the float64 check tells that from a fault.
+ROUNDING = ("cuBLAS sums the plain version's products in another order at "
+            "this shape; the kernel's distance to float64 is printed "
+            "beside the plain version's")
+
+
+def random_dims_phase(dev, smi, B=B_MAIN, T=T_MAIN, n64=64) -> None:
+    """Phase 46: every kernel at the seven shapes of
+    tests/test_random_dims.py, B x T scenarios each."""
+    from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
+        build_linear_engine,
+    )
+    from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+    from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        draw_noise_batch,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp.admm import (
+        compute_admm_operator_np,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp.box import (
+        compute_box_admm_operator_np,
+    )
+
+    def k1_count():
+        return fr.fused_rollout.launches
+
+    def k3_count():
+        return fr.fused_rollout_nocost.launches
+
+    for case in RANDOM_DIMS:
+        t0 = time.perf_counter()
+        seed, ns, n, m, p, L, nb, ctype, _ = case
+        label = random_dims_label(case)
+        plant, ctrl = build_random_dims(case)
+        K = fr.suggest_solves_per_block(ns, n, m, p, n_mpc_step=nb,
+                                        n_steps=T)
+        Ws = draw_noise_batch(seed, B, T, p, plant.get_eps_max(), device=dev)
+        ins = (*scenario_batch(plant, ctrl, B, dev), Ws)
+        sub = tuple(a[:n64].double() for a in ins)
+        rec = {}  # ms per rollout of each kernel and its plain version
+        log(f"{label}: S={ns + n * (m + p)}, main K={K}, B={B} T={T}")
+
+        calls, lanes = {}, {}
+
+        def keep(fn, key):
+            """``fn``, keeping its arguments (to time it alone) and, for K4
+            and K5, its residual lanes (and K5's rung lanes)."""
+            def rollout(*a):
+                out = fn(*a)
+                calls[key] = (fn, a)
+                if len(out) > 4:
+                    lanes[key] = out[3:6] if len(out) == 9 else out[3:5]
+                return out
+            return rollout
+
+        def alone_ms(count, reps):
+            """The kernel's and the plain version's last calls, each
+            alone, in turns: ms per rollout."""
+            return tuple(event_turns(
+                {k: (lambda k=k: calls[k][0](*calls[k][1]))
+                 for k in ("kernel", "plain")},
+                {"kernel": reps, "plain": max(reps // 5, 1)}, count,
+            ).values())
+
+        # K1 at K = 2 and at the main K, then K3 at the main K.
+        for k in (2, K):
+            bm = build_linear_engine(ctrl, plant.as_params(),
+                                     solves_per_block=k, device=dev)
+            op = fr._build_fused_operator(bm)
+            tiles, passes = fr.k1_pack(op).slots.shape[:2]
+            fr.fused_rollout.launches = 0
+            res = fr.make_fused_batched_rollout(
+                bm, T, n_mpc_step=nb, rollout=keep(fr.fused_rollout,
+                                                   "kernel"))(*ins)
+            torch.cuda.synchronize()
+            if fr.fused_rollout.launches != 1:
+                raise AssertionError(f"{label} K1 K={k}: "
+                                     f"{fr.fused_rollout.launches} launches")
+            want = fr.make_fused_batched_rollout(
+                bm, T, n_mpc_step=nb,
+                rollout=keep(fr.fused_rollout_reference, "plain"))(*ins)
+            err = max(equal_or_close(f"{label} K1 K={k} vs plain {f}",
+                                     getattr(res, f), getattr(want, f),
+                                     ROUNDING) for f in RESULT_FIELDS)
+            err_c = check_close(f"{label} K1 K={k} costs", res.costs,
+                                want.costs, COST_ATOL, COST_RTOL)
+            bm64 = build_linear_engine(ctrl, plant.as_params(),
+                                       solves_per_block=k, device=dev,
+                                       dtype=torch.float64)
+            u64 = fr.make_fused_batched_rollout(
+                bm64, T, n_mpc_step=nb, rollout=fr.fused_rollout_reference
+            )(*sub).u_sys
+            du = max_abs(res.u_sys[:n64], u64)
+            du_plain = max_abs(want.u_sys[:n64], u64)
+            if not du < NORTH_STAR:
+                raise AssertionError(f"{label} K1 K={k}: max |du| vs "
+                                     f"float64 {du:.3e}")
+            key = "k1" if k == K else "k1_2"
+            rec[f"{key}_ms"], rec[f"{key}_plain_ms"] = alone_ms(k1_count, 20)
+            log(f"  K1 K={k} (S={op.S}, Ku={op.Ku}, Kp={op.Kp}, rank "
+                f"{op.rank}: {tiles} column tiles x {passes} pass(es)): "
+                f"launches 1; vs plain max |diff| {err:.3e} "
+                f"({'bit-equal' if err == 0 else f'atol {ATOL}'}), costs "
+                f"{err_c:.3e}; max |du| vs float64 ({n64} scenarios) "
+                f"{du:.3e}, the plain version's {du_plain:.3e}")
+
+        fr.fused_rollout.launches = fr.fused_rollout_nocost.launches = 0
+        res = fr.make_fused_batched_rollout(
+            bm, T, n_mpc_step=nb, cost_mode="post",
+            rollout=keep(fr.fused_rollout, "kernel"))(*ins)
+        torch.cuda.synchronize()
+        if (fr.fused_rollout_nocost.launches, fr.fused_rollout.launches) \
+                != (1, 0):
+            raise AssertionError(
+                f"{label} K3: {fr.fused_rollout_nocost.launches} K3 and "
+                f"{fr.fused_rollout.launches} K1 launches")
+        want = fr.make_fused_batched_rollout(
+            bm, T, n_mpc_step=nb, cost_mode="post",
+            rollout=keep(fr.fused_rollout_reference, "plain"))(*ins)
+        err = max(check_close(f"{label} K3 vs plain {f}", getattr(res, f),
+                              getattr(want, f), K3_ATOL)
+                  for f in RESULT_FIELDS)
+        err_c = check_close(f"{label} K3 post-pass costs", res.costs,
+                            want.costs, POST_COST_ATOL, COST_RTOL)
+        du = max_abs(res.u_sys[:n64], u64)
+        if not du < NORTH_STAR:
+            raise AssertionError(f"{label} K3: max |du| vs float64 "
+                                 f"{du:.3e}")
+        rec["k3_ms"], rec["k3_plain_ms"] = alone_ms(k3_count, 20)
+        log(f"  K3 K={K} (3xTF32, {fr.nocost_plan(op.S, op.nw)[0]} "
+            f"scenarios per block): launches 1; vs plain max |diff| "
+            f"{err:.3e} (atol {K3_ATOL}), post-pass costs {err_c:.3e} (rtol "
+            f"{COST_RTOL}, atol {POST_COST_ATOL}); max |du| vs float64 "
+            f"{du:.3e}")
+
+        # K4 on the ROBUST shapes, the controller rebuilt with CONVEX
+        # slack; K5 on every shape, on the box |u| <= RANDOM_DIMS_BOX.
+        engines = []
+        if ctype == "ROBUST":
+            plant_c, ctrl_c = build_random_dims(case, slack="CONVEX")
+            op_c = compute_admm_operator_np(ctrl_c.spec)
+            args = (plant_c.as_params(), op_c, n, m, p, T)
+            kw = dict(CONVEX_KW, n_mpc_step=nb, device=dev)
+            engines.append((
+                "K4", fa.fused_admm, CONVEX_KW["tol"],
+                (*scenario_batch(plant_c, ctrl_c, B, dev), Ws),
+                fa.build_fused_admm_operator(*args[:5], n_mpc_step=nb,
+                                             device=dev)[1],
+                fa.make_fused_admm_rollout(
+                    *args, rollout=keep(fa.fused_admm, "kernel"), **kw),
+                fa.make_fused_admm_rollout(
+                    *args, rollout=keep(fa.fused_admm_reference, "plain"),
+                    **kw),
+                fa.make_fused_admm_rollout(
+                    *args, rollout=fa.fused_admm_reference,
+                    **dict(kw, dtype=torch.float64))))
+        op_b = compute_box_admm_operator_np(
+            ctrl.spec, u_bounds=(-RANDOM_DIMS_BOX, RANDOM_DIMS_BOX))
+        args = (plant.as_params(), op_b, n, m, p, T)
+        kw = dict(LADDER_KW, n_mpc_step=nb, device=dev)
+        run_l = fl.make_fused_ladder_rollout(
+            *args, rollout=keep(fl.fused_ladder, "kernel"), **kw)
+        engines.append((
+            "K5", fl.fused_ladder, LADDER_KW["tol"], ins,
+            fl.build_fused_ladder_operator(*args[:5], n_mpc_step=nb,
+                                           device=dev)[1], run_l,
+            fl.make_fused_ladder_rollout(
+                *args, rollout=keep(fl.fused_ladder_reference, "plain"),
+                **kw),
+            fl.make_fused_ladder_rollout(
+                *args, rollout=fl.fused_ladder_reference,
+                rung_group=run_l.rung_group,
+                **dict(kw, dtype=torch.float64))))
+        for name, wrapper, tol, x, dims, run_k, run_p, run64 in engines:
+            wrapper.launches = 0
+            got = run_k(*x)
+            torch.cuda.synchronize()
+            if wrapper.launches != 1:
+                raise AssertionError(f"{label} {name}: {wrapper.launches} "
+                                     "launches")
+            want = run_p(*x)
+            bits = result_bits(got, want)
+            err, err_c, err_r, flips = compare_admm_at_rounding(
+                f"{label} {name} vs plain", got, want, lanes, tol)
+            u64 = run64(*(a[:n64].double() for a in x)).u_sys
+            du = max_abs(got.u_sys[:n64], u64)
+            du_plain = max_abs(want.u_sys[:n64], u64)
+            if not du < NORTH_STAR:
+                raise AssertionError(f"{label} {name}: max |du| vs float64 "
+                                     f"{du:.3e}")
+            u_max = float(got.u_sys.abs().max())
+            if name == "K5" and u_max > RANDOM_DIMS_BOX + 1e-6:
+                raise AssertionError(f"{label} K5: box violated, {u_max}")
+            key = name.lower()
+            rec[f"{key}_ms"], rec[f"{key}_plain_ms"] = alone_ms(
+                lambda: wrapper.launches, 5)
+            log(f"  {name} (nbox {dims.nbox}"
+                + (f", rung group {run_l.rung_group}" if name == "K5"
+                   else "")
+                + "): launches 1; vs plain "
+                + ("bit-equal" if bits else
+                   f"max |diff| {err:.3e} within atol {ATOL}, residual "
+                   f"lanes {err_r:.3e}, {flips} converged flags on either "
+                   f"side of tol {tol}: {ROUNDING}")
+                + (", rung lanes equal" if name == "K5" else "")
+                + f"; costs {err_c:.3e}; converged "
+                f"{float(got.converged.float().mean()):.4f}; max |u| "
+                f"{u_max:.4f}; max |du| vs float64 {du:.3e}, the plain "
+                f"version's {du_plain:.3e}")
+        log(f"  ms per rollout, each kernel and its plain version alone "
+            f"[{smi}]: "
+            + ", ".join(f"{k} {rec[f'{k}_ms']:.4f} (plain "
+                        f"{rec[f'{k}_plain_ms']:.4f})"
+                        for k in ("k1_2", "k1", "k3", "k4", "k5")
+                        if f"{k}_ms" in rec)
+            + f"; {time.perf_counter() - t0:.1f} s")
+
+
+def long_horizon_phase(dev, smi, B=B_ADMM, T=T_ADMM, n64=64) -> None:
+    """Phase 47: ``bench.py``'s ``long_horizon`` through K1 and
+    ``long_horizon_convex`` through K4, B x T each."""
+    from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
+        build_linear_engine,
+    )
+    from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa
+    from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        draw_noise_batch,
+    )
+
+    t0 = time.perf_counter()
+    plant, ctrl = build_four_tank_robust(N=800, L=60)
+    if ctrl.spec.nz != 1121:
+        raise AssertionError(f"long_horizon nz {ctrl.spec.nz} != 1121")
+    K = fr.suggest_solves_per_block(plant.get_system_order(), ctrl.n,
+                                    ctrl.m, ctrl.p, n_steps=T)
+    bm = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K,
+                             device=dev)
+    op = fr._build_fused_operator(bm)
+    Ws = draw_noise_batch(0, B, T, ctrl.p, plant.get_eps_max(), device=dev)
+    ins = (*scenario_batch(plant, ctrl, B, dev), Ws)
+    log(f"long_horizon: nz={ctrl.spec.nz} nc={ctrl.spec.nc}, K={K}, G "
+        f"{tuple(op.G.shape)}, rank {op.rank}, "
+        f"{fr.k1_pack(op).slots.shape[1]} slot pass(es); built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    fr.fused_rollout.launches = 0
+    res = fr.make_fused_batched_rollout(bm, T)(*ins)
+    torch.cuda.synchronize()
+    launches = fr.fused_rollout.launches
+    if launches != 1:
+        raise AssertionError(f"long_horizon: {launches} K1 launches")
+    want = fr.make_fused_batched_rollout(
+        bm, T, rollout=fr.fused_rollout_reference)(*ins)
+    for f in RESULT_FIELDS:
+        check_close(f"long_horizon K1 vs plain {f}", getattr(res, f),
+                    getattr(want, f), 0.0)
+    err_c = check_close("long_horizon K1 costs", res.costs, want.costs,
+                        COST_ATOL, COST_RTOL)
+    bm64 = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K,
+                               device=dev, dtype=torch.float64)
+    du = max_abs(res.u_sys[:n64], fr.make_fused_batched_rollout(
+        bm64, T, rollout=fr.fused_rollout_reference
+    )(*(a[:n64].double() for a in ins)).u_sys)
+    if not du < NORTH_STAR:
+        raise AssertionError(f"long_horizon max |du| vs float64 {du:.3e}")
+    runs = {"kernel": fr.make_amortized_run(bm, T),
+            "plain": fr.make_amortized_run(
+                bm, T, rollout=fr.fused_rollout_reference)}
+    ms = {name: [] for name in runs}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        ms[name].append(time_amortized(runs[name], ins, seconds=0.5,
+                                       min_reps=2)[0])
+    k1 = {k: sum(v) / len(v) for k, v in ms.items()}
+    solves = B * T
+    log(f"long_horizon K1 (B={B} x T={T}): launches {launches}; U, Y and "
+        f"the final state bit-equal to the plain version, costs "
+        f"{err_c:.3e}; max |du| vs float64 ({n64} scenarios) {du:.3e}; "
+        f"kernel {k1['kernel']:.4f} ms per rollout -> "
+        f"{solves / (k1['kernel'] * 1e-3):,.0f} solves/s, plain "
+        f"{k1['plain']:.4f} ms -> {solves / (k1['plain'] * 1e-3):,.0f} "
+        f"(amortized, means of 2 turns) [{smi}]")
+
+    t1 = time.perf_counter()
+    plant, ctrl, op, kw = admm_config("long_horizon_convex")
+    ins = (*scenario_batch(plant, ctrl, B, dev),
+           draw_noise_batch(0, B, T, ctrl.p, plant.get_eps_max(),
+                            device=dev))
+    args = (plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, T)
+    run_k = fa.make_fused_admm_rollout(*args, device=dev, **kw)
+    run_p = fa.make_fused_admm_rollout(
+        *args, device=dev, rollout=fa.fused_admm_reference, **kw)
+    fa.fused_admm.launches = 0
+    got = run_k(*ins)
+    torch.cuda.synchronize()
+    if fa.fused_admm.launches != 1:
+        raise AssertionError(f"long_horizon_convex: "
+                             f"{fa.fused_admm.launches} K4 launches")
+    err, err_c = compare_admm("long_horizon_convex K4 vs plain", got,
+                              run_p(*ins))
+    k4 = event_turns({"kernel": lambda: run_k(*ins),
+                      "plain": lambda: run_p(*ins)},
+                     {"kernel": 2, "plain": 1}, lambda: fa.fused_admm.launches)
+    log(f"long_horizon_convex K4 (nbox {op['v_c'].shape[0]}, B={B} x "
+        f"T={T}): launches 1; vs plain max |diff| {err:.3e} (atol {ATOL}), "
+        f"costs {err_c:.3e}; converged "
+        f"{float(got.converged.float().mean()):.6f}; kernel "
+        f"{k4['kernel']:.3f} ms per rollout -> "
+        f"{solves / (k4['kernel'] * 1e-3):,.0f} solves/s, plain "
+        f"{k4['plain']:.3f} ms (means of 2 turns) "
+        f"[{smi}]; {time.perf_counter() - t1:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
@@ -3904,6 +4390,12 @@ def main() -> int:
     k4 = admm_phases(dev, smi)
     k5 = ladder_phases(dev, smi)
     k3 = large_plant_phases(dev, smi)
+    # 46-47, after phase 19's convolution: neither reads torch.profiler.
+    t0 = time.perf_counter()
+    random_dims_phase(dev, smi)
+    t1 = time.perf_counter()
+    long_horizon_phase(dev, smi)
+    log(f"phases 46-47: {t1 - t0:.1f} + {time.perf_counter() - t1:.1f} s")
     if (torch.get_float32_matmul_precision() != "high"
             or torch.backends.cuda.matmul.fp32_precision != "tf32"):
         raise AssertionError("the caller's float32 matmul precision did not "

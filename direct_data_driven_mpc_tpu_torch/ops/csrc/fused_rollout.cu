@@ -161,10 +161,18 @@ __host__ __device__ constexpr int state_threads(int S) {
 __host__ __device__ constexpr int row_stride(int D) {
   return (D + PR_BK - 1) / PR_BK * PR_BK;
 }
+// The state pass's two transposed tiles, in floats, rounded up to whole
+// 16-byte pieces: G's state columns after them take 16-byte copies and
+// loads, whatever the parity of D.
+__host__ __device__ constexpr int state_tiles_floats(int D) {
+  return (2 * D * ST_LDS + 3) / 4 * 4;
+}
 size_t state_smem_bytes(int S, int nw) {
-  return sizeof(float) * (size_t)(nw + S) *
-         (2 * ST_LDS + (4 * state_groups(S) < ST_GC ? 4 * state_groups(S)
-                                                   : ST_GC));
+  return sizeof(float) *
+         ((size_t)state_tiles_floats(nw + S) +
+          (size_t)(nw + S) * (4 * state_groups(S) < ST_GC
+                                  ? 4 * state_groups(S)
+                                  : ST_GC));
 }
 constexpr size_t product_smem_bytes() {
   return sizeof(float) * PR_STAGES * PR_STAGE_FLOATS;
@@ -218,7 +226,7 @@ fused_rollout_state_kernel(const float* __restrict__ Gs,  // (D, ldgs)
   const int n_chunks = (ldgs + gc - 1) / gc;
   float* tiles = reinterpret_cast<float*>(smem4);  // 2 x (D, ST_LDS)
   const int tile_floats = D * ST_LDS;
-  float* gsm = tiles + 2 * tile_floats;            // (D, gc)
+  float* gsm = tiles + state_tiles_floats(D);      // (D, gc)
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int n_warps = blockDim.x / 32;
   const int r = lane % ST_ROWS;                  // this thread's scenario

@@ -361,7 +361,8 @@ class RolloutPlan(NamedTuple):
     """Kernel K1's plan at one shape, as ``csrc/fused_rollout.cu`` makes
     it (``fused_rollout_plan``): the state pass's scenarios per block,
     threads and shared memory (two ``[w | s]`` tiles, transposed at a row
-    stride of 17 floats, and G's state columns, up to 64 at a time), and
+    stride of 17 floats and rounded up to whole 16-byte pieces, and G's
+    state columns, up to 64 at a time), and
     the product's rows ``(b, t)`` per block, slots, columns per slot and
     shared memory (a ring of 3 slices of 24 rows of ``D``: 128 rows of A
     at a stride of 28 floats, and 8 slots of 20 floats for each row and
@@ -395,7 +396,8 @@ def rollout_plan(S: int, nw: int) -> RolloutPlan:
     groups = -(-S // 4)
     return RolloutPlan(
         state_rows=16, state_threads=32 * min(-(-groups // 2), 8),
-        state_bytes=4 * (nw + S) * (2 * 17 + min(4 * groups, 64)),
+        state_bytes=4 * (-(-2 * 17 * (nw + S) // 4) * 4
+                         + (nw + S) * min(4 * groups, 64)),
         rows=128, slots=_SLOTS, slot_columns=_SLOT_COLUMNS,
         bytes=4 * _STAGES * (128 * (_DEPTH + 4)
                              + (_DEPTH + 1) * _SLOTS * _SLOT_STRIDE),

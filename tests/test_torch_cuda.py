@@ -1079,3 +1079,158 @@ def test_entry_step_on_the_card_matches_the_cpu(cuda):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
                                    atol=2e-5)
+
+
+def _random_dims_ids():
+    from chip_smoke import RANDOM_DIMS
+
+    return [f"case{c[0]}" for c in RANDOM_DIMS]
+
+
+def _random_dims_case(seed, slack="NONE"):
+    """``(case, plant, controller)`` of one shape of
+    tests/test_random_dims.py, built by the port alone
+    (``chip_smoke.build_random_dims``)."""
+    from chip_smoke import RANDOM_DIMS, build_random_dims
+
+    case = RANDOM_DIMS[seed]
+    return (case, *build_random_dims(case, slack))
+
+
+def _random_dims_inputs(plant, ctrl, batch, n_steps, cuda):
+    """Every scenario from the controller's initial window, each with its
+    own noise (numpy, seed 0)."""
+    n, m, p = ctrl.n, ctrl.m, ctrl.p
+
+    def tile(a, shape):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=cuda).reshape(shape).expand(
+            batch, *shape[1:]).contiguous()
+
+    W = 0.002 * np.random.default_rng(0).uniform(-1, 1, (batch, n_steps, p))
+    return (tile(plant.get_state(), (1, plant.get_system_order())),
+            tile(ctrl.u_past, (1, n, m)), tile(ctrl.y_past, (1, n, p)),
+            torch.as_tensor(W, dtype=torch.float32, device=cuda))
+
+
+def _random_dims_packed(case, plant, ctrl, K, cuda, include_cost=True,
+                        batch=8192 - 13):
+    """K1's (or, without cost columns, K3's) operator and packed inputs
+    at K solves per block: four outer blocks, the last one trimmed."""
+    nb = case[6]
+    bm = build_linear_engine(ctrl, plant.as_params(), solves_per_block=K,
+                             device=cuda)
+    op = fr._build_fused_operator(bm, include_cost=include_cost)
+    n_steps = 3 * K * nb + 1
+    _, steps_per_outer, n_outer, pad = fr._shape(bm, n_steps, nb)
+    ins = _random_dims_inputs(plant, ctrl, batch, n_steps, cuda)
+    return op, fr._center_and_pack(bm, *ins, n_outer, steps_per_outer, pad)
+
+
+def _main_K(case):
+    _, ns, n, m, p, _, nb, _, _ = case
+    return fr.suggest_solves_per_block(ns, n, m, p, n_mpc_step=nb,
+                                       n_steps=400)
+
+
+@pytest.mark.parametrize("K", ["2", "main"])
+@pytest.mark.parametrize("seed", range(7), ids=_random_dims_ids())
+def test_k1_at_random_dims_bit_equal_to_plain_version(cuda, seed, K):
+    """K1 at the seven shapes of tests/test_random_dims.py, at K = 2 and
+    at the main path's K (odd S, Ku or Kp not a multiple of 4, two slot
+    passes at p = 3): U, Y and the final carry bit-equal to the plain
+    version at B = 8179, where cuBLAS sums it as one FMA chain; costs at
+    rtol 1e-3, atol 1e-5."""
+    case, plant, ctrl = _random_dims_case(seed)
+    K = 2 if K == "2" else _main_K(case)
+    op, (s0, W) = _random_dims_packed(case, plant, ctrl, K, cuda)
+    before = fr.fused_rollout.launches
+    got = fr.fused_rollout(op, s0, W, w_off=1)
+    torch.cuda.synchronize()
+    assert fr.fused_rollout.launches == before + 1
+    U, Y, C, s_fin = fr.fused_rollout_reference(op, s0, W, w_off=1)
+    for a, b in zip((got[0], got[1], got[3]), (U, Y, s_fin)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(got[2], C, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", range(7), ids=_random_dims_ids())
+def test_k3_at_random_dims_matches_plain_version(cuda, seed):
+    """K3 (``cost_mode="post"``, 3xTF32) at the seven shapes, at the main
+    path's K: U, Y and the final carry within 1e-4 of the plain
+    version."""
+    case, plant, ctrl = _random_dims_case(seed)
+    op, (s0, W) = _random_dims_packed(case, plant, ctrl, _main_K(case),
+                                      cuda, include_cost=False)
+    before = fr.fused_rollout_nocost.launches
+    got = fr.fused_rollout(op, s0, W, w_off=2)
+    torch.cuda.synchronize()
+    assert fr.fused_rollout_nocost.launches == before + 1
+    want = fr.fused_rollout_reference(op, s0, W, w_off=2)
+    for i in (0, 1, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 3, 5, 6],
+                         ids=["case0", "case1", "case3", "case5", "case6"])
+def test_k4_at_random_dims_bit_equal_to_plain_version(cuda, seed):
+    """K4 on the ROBUST shapes of tests/test_random_dims.py, the
+    controller built with CONVEX slack (nbox 8, 27, 22, 18, 16; m, p of 1
+    to 3; n_mpc_step 1, 3 or 5; UCON): u, y, the final windows, s and w
+    bit-equal to the plain version at B = 8179, costs at rtol 1e-3 /
+    atol 1e-5."""
+    case, plant, ctrl = _random_dims_case(seed, slack="CONVEX")
+    n, m, p, nb = ctrl.n, ctrl.m, ctrl.p, case[6]
+    op = compute_admm_operator_np(ctrl.spec)
+    n_steps, batch = 10 * nb + 1, 8192 - 13
+    ins = _random_dims_inputs(plant, ctrl, batch, n_steps, cuda)
+    kw = dict(iters=(4, 5, 2), cold_iters=24, tol=1e-5, n_mpc_step=nb,
+              device=cuda)
+    args = (plant.as_params(), op, n, m, p, n_steps)
+    before = fa.fused_admm.launches
+    got = fa.make_fused_admm_rollout(*args, **kw)(*ins)
+    torch.cuda.synchronize()
+    assert fa.fused_admm.launches == before + 1
+    want = fa.make_fused_admm_rollout(
+        *args, rollout=fa.fused_admm_reference, **kw)(*ins)
+    _assert_bit_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", range(7), ids=_random_dims_ids())
+def test_k5_at_random_dims_bit_equal_to_plain_version(cuda, seed):
+    """K5 at the seven shapes on the box |u| <= 0.85 (nbox 5 to 18, the
+    default 7-rung ladder, 64-scenario rung groups): the rung lanes, u,
+    y, the final windows, s, w and the final rungs bit-equal to the plain
+    version at B = 8179, costs at rtol 1e-3 / atol 1e-5."""
+    from chip_smoke import RANDOM_DIMS_BOX
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+
+    case, plant, ctrl = _random_dims_case(seed)
+    n, m, p, nb = ctrl.n, ctrl.m, ctrl.p, case[6]
+    op = compute_box_admm_operator_np(
+        ctrl.spec, u_bounds=(-RANDOM_DIMS_BOX, RANDOM_DIMS_BOX))
+    n_steps, batch = 10 * nb + 1, 8192 - 13
+    ins = _random_dims_inputs(plant, ctrl, batch, n_steps, cuda)
+    lanes = {}
+
+    def keep(fn, key):
+        def rollout(*args):
+            out = fn(*args)
+            lanes[key] = out[5]
+            return out
+        return rollout
+
+    kw = dict(iters=(0, 16, 4), cold_iters=80, tol=2e-5, n_mpc_step=nb,
+              device=cuda)
+    args = (plant.as_params(), op, n, m, p, n_steps)
+    run = fl.make_fused_ladder_rollout(
+        *args, rollout=keep(fl.fused_ladder, "k"), **kw)
+    assert run.rung_group == 64
+    before = fl.fused_ladder.launches
+    got = run(*ins)
+    torch.cuda.synchronize()
+    assert fl.fused_ladder.launches == before + 1
+    want = fl.make_fused_ladder_rollout(
+        *args, rollout=keep(fl.fused_ladder_reference, "p"), **kw)(*ins)
+    assert torch.equal(lanes["k"], lanes["p"])
+    _assert_bit_equal(got, want)

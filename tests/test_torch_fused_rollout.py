@@ -290,13 +290,14 @@ def _old_k1_smem_bytes(S, nw, K):
 @pytest.mark.parametrize("S,nw,plan", [
     # four_tank_robust's main shape
     (20, 100, (16, 96, 25920, 128, 8, 17, 91008, True)),
-    # the smallest state, no noise rows
-    (1, 0, (16, 32, 152, 128, 8, 17, 91008, True)),
+    # the smallest state, no noise rows (D odd: the tiles' 34 floats
+    # round up to 36, so G's columns start on a 16-byte boundary)
+    (1, 0, (16, 32, 160, 128, 8, 17, 91008, True)),
     # large_plant with cost columns (K = 25), which the old plan refused
     (210, 250, (16, 256, 180320, 128, 8, 17, 91008, True)),
     # the widest noise that still fits at S = 210, and one row more
     (210, 382, (16, 256, 232064, 128, 8, 17, 91008, True)),
-    (210, 383, (16, 256, 232456, 128, 8, 17, 91008, False)),
+    (210, 383, (16, 256, 232464, 128, 8, 17, 91008, False)),
 ])
 def test_rollout_plan_pins_main_shape_and_edges(S, nw, plan):
     """``rollout_plan`` (the library's plan, mirrored): the state pass's
