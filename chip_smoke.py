@@ -327,6 +327,30 @@ Then every shape the JAX package's engine tests take, after phase 21
     B = 65536 x T = 400 against its plain version (atol 2e-5), both timed
     in turns.
 
+Then the constrained engines at ``large_plant``, where the resident plans
+of K4 and K5 do not fit one block (after phase 47; it reads no
+``torch.profiler``):
+
+48. ``large_plant_convex`` (CONVEX slack, nbox 300, iters (4, 30, 4),
+    cold 200, tol 1e-4) through the wide body K4w and
+    ``large_plant_ladder`` (the box |u| <= 0.85 with the default 7-rung
+    ladder, nbox 200, bench's ladder iterations) through K5w, each at
+    B = 16384 x T = 400: the route (the wide launch count 1, the
+    resident 0), the tile and shared memory checked against
+    ``admm_wide_plan`` / ``ladder_wide_group``, registers and spill
+    bytes; against the plain version (``compare_admm_at_rounding``) u,
+    y, the final windows, s, w and the residual lanes within 2e-5
+    (bit-equal printed as such), costs at rtol 1e-3 / atol 1e-2, a
+    converged flag differing only where a residual straddles tol, K5's
+    rung lanes and final rungs equal; the converged fraction; the
+    kernel's max |du| against float64 (64 scenarios) no more than 2e-5
+    above the plain version's; ms per rollout of the kernel and of the
+    plain version, each alone, in turns, beside ``admm_bound``'s bound.
+    Then, at ``four_tank_convex`` and ``four_tank_ladder`` (B = 65536 x
+    T = 400), the wide body through the library's launcher against the
+    resident one at the same bar (costs at atol 1e-5), both timed in
+    turns: why the resident body keeps the shapes it takes.
+
 The script sets ``torch.set_float32_matmul_precision("high")`` first,
 as a user's process might: the port scopes IEEE float32 to its
 parity-bound paths (``ops/precision.py``), the library yardsticks are
@@ -493,11 +517,12 @@ def example_configs():
     )
 
 
-def build_large_plant(N: int = 600, L: int = 30, seed: int = 0):
+def build_large_plant(N: int = 600, L: int = 30, seed: int = 0,
+                      slack: str = "NONE"):
     """``bench.py``'s ``large_plant``: ``random_stable_lti(seed=0, ns=10,
     m=10, p=10)``, u_s = 0.5, y_s its equilibrium output, uniform input
     data and bounded noise from ``default_rng(seed)``, Robust, slack
-    NONE."""
+    NONE (or ``slack``, a ``SlackVarConstraintTypes`` name)."""
     from direct_data_driven_mpc_tpu_torch.control.controller import (
         DirectDataDrivenMPCController,
     )
@@ -522,7 +547,7 @@ def build_large_plant(N: int = 600, L: int = 30, seed: int = 0):
         n=n, m=m, p=p, u_d=u_d, y_d=y_d, L=L,
         Q=3.0 * np.eye(p * L), R=1e-4 * np.eye(m * L), u_s=u_s, y_s=y_s,
         eps_max=eps, lamb_alpha=0.1 / max(eps, 1e-12), lamb_sigma=1000.0,
-        c=1.0, slack_var_constraint_type=SlackVarConstraintTypes.NONE,
+        c=1.0, slack_var_constraint_type=SlackVarConstraintTypes[slack],
         controller_type=DataDrivenMPCType.ROBUST, n_mpc_step=1,
     )
     return plant, ctrl
@@ -3754,10 +3779,11 @@ def result_bits(got, want) -> bool:
     return all(torch.equal(a, b) for a, b in fields)
 
 
-def compare_admm_at_rounding(tag, got, want, lanes, tol):
+def compare_admm_at_rounding(tag, got, want, lanes, tol,
+                             cost_atol=COST_ATOL):
     """Kernel against plain version where the two may differ by rounding:
     u, y, the final windows, s and w within ``ATOL``, costs within
-    ``COST_RTOL``/``COST_ATOL``; the primal and dual residual lanes of
+    ``COST_RTOL``/``cost_atol``; the primal and dual residual lanes of
     every solve (``lanes[key][:2]``) within ``ATOL`` too, so a converged
     flag may differ only where the kernel's and the plain version's
     residuals fall on either side of ``tol``; K5's rung lanes
@@ -3769,7 +3795,7 @@ def compare_admm_at_rounding(tag, got, want, lanes, tol):
     errs += [check_close(f"{tag} solver_state.{f}", a, b, ATOL)
              for f, a, b in zip(("s", "w"), got.solver_state,
                                 want.solver_state)]
-    err_c = check_close(f"{tag} costs", got.costs, want.costs, COST_ATOL,
+    err_c = check_close(f"{tag} costs", got.costs, want.costs, cost_atol,
                         COST_RTOL)
     k, p = lanes["kernel"], lanes["plain"]
     err_r = max(check_close(f"{tag} {n}", a, b, ATOL)
@@ -4106,6 +4132,296 @@ def long_horizon_phase(dev, smi, B=B_ADMM, T=T_ADMM, n64=64) -> None:
         f"[{smi}]; {time.perf_counter() - t1:.1f} s")
 
 
+def multidevice_phases(dev, smi, main_run) -> None:
+    """Phases 40-42 on the main path's inputs ``main_run``; the process
+    group they open is destroyed at the end."""
+    mesh = sharded_phase(dev, smi, main_run)
+    pminres_phase(dev, smi, main_run, mesh,
+                  two_rank_phase(dev, smi, main_run, mesh))
+    torch.distributed.destroy_process_group()
+
+
+#: Phase 48: the constrained engines at ``large_plant`` (nbox 300 with
+#: CONVEX slack, 200 on the input box), where the resident plans do not
+#: fit and the wide bodies K4w and K5w run.
+B_WIDE, T_WIDE = 16384, 400
+WIDE_CONVEX_KW = dict(iters=(4, 30, 4), cold_iters=200, tol=1e-4)
+WIDE_BOX = 0.85  # large_plant_ladder's input box |u| <= 0.85
+
+
+def wide_launcher(ladder):
+    """A rollout (``fused_admm``'s or ``fused_ladder``'s arguments) that
+    calls the library's wide launcher directly, K4w or K5w, at any shape
+    its plan takes: at resident shapes it holds the two bodies against
+    each other. It counts no launch."""
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+
+    lib = _kernels.load("fused_admm").lib
+
+    def rollout(ops, dims, carry, W, n_iter, *rest):
+        Bsz, n_blocks, nbp = W.shape
+        nbm = dims.nb * dims.m
+        sizes = (dims.S, nbm, nbp, dims.nbox, dims.nxi)
+        kw = dict(dtype=torch.float32, device=W.device)
+        out = [torch.empty((Bsz, n_blocks, nbm), **kw),
+               torch.empty((Bsz, n_blocks, nbp), **kw),
+               *(torch.empty((Bsz, n_blocks), **kw) for _ in range(3))]
+        fin = [torch.empty((Bsz, w), **kw)
+               for w in (dims.S, dims.nbox, dims.nbox)]
+        stream = torch.cuda.current_stream().cuda_stream
+        if ladder:
+            rung0, G = rest
+            if G != lib.fused_wide_tile_rows(*sizes):
+                raise AssertionError(f"rung group {G} is not the wide tile "
+                                     f"{lib.fused_wide_tile_rows(*sizes)}")
+            rung = torch.empty((Bsz, n_blocks), dtype=torch.int32,
+                               device=W.device)
+            err = lib.fused_ladder_wide_launch(
+                ops.Vop.data_ptr(), ops.M1.data_ptr(), ops.M2.data_ptr(),
+                ops.b2.data_ptr(), ops.lo.data_ptr(), ops.hi.data_ptr(),
+                ops.u_lo.data_ptr(), ops.u_hi.data_ptr(),
+                ops.rhos.data_ptr(), rung0.data_ptr(),
+                *(c.data_ptr() for c in carry), W.data_ptr(),
+                *(o.data_ptr() for o in out), rung.data_ptr(),
+                *(f.data_ptr() for f in fin), Bsz, *sizes, n_blocks,
+                int(n_iter), ops.Vop.shape[0], dims.alpha, 1.0 - dims.alpha,
+                fl.BALANCE_RATIO, stream)
+            out.append(rung)
+        else:
+            adds = rest[0] if rest else None
+            err = lib.fused_admm_wide_launch(
+                ops.Vop.data_ptr(), ops.M1.data_ptr(), ops.M2.data_ptr(),
+                ops.b2.data_ptr(), ops.lo.data_ptr(), ops.hi.data_ptr(),
+                ops.u_lo.data_ptr(), ops.u_hi.data_ptr(),
+                *(c.data_ptr() for c in carry), W.data_ptr(),
+                adds.data_ptr() if adds is not None else None,
+                *(o.data_ptr() for o in out), *(f.data_ptr() for f in fin),
+                Bsz, *sizes, n_blocks, int(n_iter), dims.alpha,
+                1.0 - dims.alpha, dims.rho, stream)
+        if err:
+            raise RuntimeError(f"wide launch failed: CUDA error {err}")
+        return (*out, *fin)
+
+    return rollout
+
+
+def _keep(fn, key, calls, lanes, ladder):
+    """``fn`` as a rollout that records its arguments in ``calls[key]``
+    (to time the call alone) and its residual lanes (K5: and rung lanes)
+    in ``lanes[key]``."""
+    def rollout(*a):
+        out = fn(*a)
+        calls[key] = (fn, a)
+        lanes[key] = out[3:6] if ladder else out[3:5]
+        return out
+    return rollout
+
+
+def wide_admm_phase(dev, smi) -> list:
+    """Phase 48: ``large_plant_convex`` through K4w and
+    ``large_plant_ladder`` through K5w, B_WIDE x T_WIDE each, against
+    their plain versions and float64, each kernel and plain version timed
+    alone in turns; then the wide body against the resident one at
+    ``four_tank_convex`` and ``four_tank_ladder`` (B_ADMM x T_ADMM),
+    timed in turns. Returns K4w's and K5w's records for the ``kernels``
+    line."""
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+    from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        draw_noise_batch,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp.admm import (
+        compute_admm_operator_np,
+    )
+    from direct_data_driven_mpc_tpu_torch.qp.box import (
+        compute_box_admm_operator_np,
+    )
+
+    lib = _kernels.load("fused_admm").lib
+    B, T, n64 = B_WIDE, T_WIDE, 64
+    records = []
+    for name in ("large_plant_convex", "large_plant_ladder"):
+        t0 = time.perf_counter()
+        ladder = name.endswith("ladder")
+        kname = f"K{5 if ladder else 4}w"
+        plant, ctrl = build_large_plant(slack="NONE" if ladder else "CONVEX")
+        if ladder:
+            op = compute_box_admm_operator_np(
+                ctrl.spec, u_bounds=(-WIDE_BOX, WIDE_BOX))
+            kw, mod, wrapper = dict(LADDER_KW), fl, fl.fused_ladder
+            ops, dims = fl.build_fused_ladder_operator(
+                plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, device=dev)
+            resident = fl.ladder_tile_rows(dims)
+            tile = fl.ladder_wide_group(dims)
+            prefix = "fused_ladder"
+        else:
+            op = compute_admm_operator_np(ctrl.spec)
+            kw, mod, wrapper = dict(WIDE_CONVEX_KW), fa, fa.fused_admm
+            ops, dims = fa.build_fused_admm_operator(
+                plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, device=dev)
+            resident = fa.admm_plan(dims)[0]
+            tile = fa.admm_wide_plan(dims)[0]
+            prefix = "fused_admm"
+        sizes = (dims.S, dims.nb * dims.m, dims.nb * dims.p, dims.nbox,
+                 dims.nxi)
+        plan = (lib.fused_wide_tile_rows(*sizes),
+                lib.fused_wide_smem_bytes(*sizes))
+        if plan != fa.admm_wide_plan(dims) or plan[0] != tile:
+            raise AssertionError(f"{name} wide plan: library {plan} vs "
+                                 f"Python {fa.admm_wide_plan(dims)}, "
+                                 f"group {tile}")
+        if resident != 0 or tile == 0:
+            raise AssertionError(f"{name}: resident plan {resident}, wide "
+                                 f"{tile}: not a wide shape")
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        err = lib.fused_wide_kernel_attributes(int(ladder),
+                                               ctypes.byref(regs),
+                                               ctypes.byref(local))
+        if err:
+            raise AssertionError(f"{name}: attributes error {err}")
+        n_iter = sum(kw["iters"])
+        log(f"{name}: nz={ctrl.spec.nz} nc={ctrl.spec.nc}, S={dims.S}, "
+            f"nbox={dims.nbox}, nxi={dims.nxi}, Vop "
+            f"{tuple(ops.Vop.shape)}, M1 {tuple(ops.M1.shape)}, M2 "
+            f"{tuple(ops.M2.shape)} ({tensor_bytes(ops.Vop, ops.M1, ops.M2, ops.b2):,} "
+            f"operator bytes); resident plan 0, wide plan {plan[0]} "
+            f"scenarios per block ({'the rung group, ' if ladder else ''}"
+            f"{plan[1]} B of shared memory), {regs.value} registers and "
+            f"{local.value} local (spill) bytes per thread; iters "
+            f"{kw['iters']} + cold {kw['cold_iters']}, tol {kw['tol']}; "
+            f"host build {time.perf_counter() - t0:.1f} s")
+
+        calls, lanes = {}, {}
+        args = (plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, T)
+        make = (fl.make_fused_ladder_rollout if ladder
+                else fa.make_fused_admm_rollout)
+        ins = (*scenario_batch(plant, ctrl, B, dev),
+               draw_noise_batch(0, B, T, ctrl.p, plant.get_eps_max(),
+                                device=dev))
+        run_k = make(*args, device=dev,
+                     rollout=_keep(wrapper, "kernel", calls, lanes, ladder),
+                     **kw)
+        if ladder and run_k.rung_group != tile:
+            raise AssertionError(f"{name}: rung group {run_k.rung_group} "
+                                 f"!= the wide tile {tile}")
+        wrapper.launches = wrapper.wide_launches = 0
+        got = run_k(*ins)
+        torch.cuda.synchronize()
+        launches = wrapper.wide_launches
+        if (launches, wrapper.launches) != (1, 0):
+            raise AssertionError(f"{name}: {launches} wide and "
+                                 f"{wrapper.launches} resident launches")
+        if got.u_sys.shape != (B, T, ctrl.m):
+            raise AssertionError(f"{name}: u shape {tuple(got.u_sys.shape)}")
+        plain = getattr(mod, f"{prefix}_reference")
+        want = make(*args, device=dev,
+                    rollout=_keep(plain, "plain", calls, lanes, ladder),
+                    **kw)(*ins)
+        bits = result_bits(got, want)
+        # large_plant's costs are small differences of terms near 1e3:
+        # their summation order alone moves them by a few 1e-3.
+        err, err_c, err_r, flips = compare_admm_at_rounding(
+            f"{name} {kname} vs plain", got, want, lanes, kw["tol"],
+            cost_atol=POST_COST_ATOL)
+        rungs = ""
+        if ladder:
+            u_max = float(got.u_sys.abs().max())
+            if u_max > WIDE_BOX + 1e-6:
+                raise AssertionError(f"{name}: box violated, {u_max}")
+            rungs = f", rung lanes equal, max |u| {u_max:.4f}"
+        run64 = make(*args, device=dev, rollout=plain,
+                     **dict(kw, dtype=torch.float64),
+                     **({"rung_group": run_k.rung_group} if ladder else {}))
+        u64 = run64(*(a[:n64].double() for a in ins)).u_sys
+        du64 = max_abs(got.u_sys[:n64], u64)
+        du64_plain = max_abs(want.u_sys[:n64], u64)
+        # At tol 1e-4 and 400 closed-loop steps float32 itself sits about
+        # 1e-4 from float64 here: the kernel may add no more than ATOL to
+        # the plain float32 version's distance.
+        if not du64 <= max(du64_plain, NORTH_STAR) + ATOL:
+            raise AssertionError(f"{name}: max |du| vs float64 {du64:.3e}, "
+                                 f"the plain version's {du64_plain:.3e}")
+        ms = event_turns({k: (lambda k=k: calls[k][0](*calls[k][1]))
+                          for k in ("kernel", "plain")},
+                         {"kernel": 1, "plain": 1},
+                         lambda: wrapper.wide_launches)
+        bnd = admm_bound(ops, dims, B, T, n_iter,
+                         extra_out_floats=int(ladder))
+        conv = float(got.converged.float().mean())
+        log(f"  {kname} main path (B={B} x T={T}): wide launches "
+            f"{launches}, resident 0; vs plain "
+            + ("bit-equal on u, y, the final windows and the ADMM state"
+               if bits else f"max |diff| {err:.3e} within atol {ATOL}")
+            + f", residual lanes {err_r:.3e}, costs {err_c:.3e}, {flips} "
+            f"converged flags on either side of tol {kw['tol']}{rungs}; "
+            f"converged {conv:.4f}; max |du| vs float64 ({n64} scenarios) "
+            f"{du64:.3e}, the plain version's {du64_plain:.3e}; kernel "
+            f"{ms['kernel']:.2f} ms per rollout (bound "
+            f"{bnd['bound_ms']:.1f} ms by {bnd['bound_by']}), plain "
+            f"{ms['plain']:.2f} ms (each alone, means of 2 turns) [{smi}]; "
+            f"{time.perf_counter() - t0:.1f} s")
+        records.append({
+            "name": f"{prefix}_wide",
+            "route": "cuda",
+            "source": "direct_data_driven_mpc_tpu_torch/ops/csrc/"
+                      "fused_admm.cu",
+            "replaces": "direct_data_driven_mpc_tpu/ops/pallas_admm.py:"
+                        + ("1271" if ladder else "702"),
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": ms["kernel"],
+            "plain_ms": ms["plain"],
+            **bnd,
+            # No single PyTorch call runs a closed loop of iterative solves.
+            "library_ms": None,
+        })
+        del calls, lanes, got, want, ins
+
+    # Where both bodies take the shape, the resident one runs: the wide
+    # body at the four-tank main shapes, through the library's launcher,
+    # held to the resident body and timed against it in turns.
+    for name in ("four_tank_convex", "four_tank_ladder"):
+        t0 = time.perf_counter()
+        ladder = name == "four_tank_ladder"
+        plant, ctrl, op, kw = admm_config(name)
+        wrapper = fl.fused_ladder if ladder else fa.fused_admm
+        make = (fl.make_fused_ladder_rollout if ladder
+                else fa.make_fused_admm_rollout)
+        args = (plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, T_ADMM)
+        ins = (*scenario_batch(plant, ctrl, B_ADMM, dev),
+               draw_noise_batch(0, B_ADMM, T_ADMM, ctrl.p,
+                                plant.get_eps_max(), device=dev))
+        # "kernel" is the resident body (the wrapper counts its launch),
+        # "plain" the wide one (the launcher counts none).
+        calls, lanes = {}, {}
+        got = make(*args, device=dev,
+                   rollout=_keep(wrapper, "kernel", calls, lanes, ladder),
+                   **kw)(*ins)
+        wide = make(*args, device=dev,
+                    rollout=_keep(wide_launcher(ladder), "plain", calls,
+                                  lanes, ladder), **kw)(*ins)
+        torch.cuda.synchronize()
+        err, err_c, err_r, flips = compare_admm_at_rounding(
+            f"{name} resident vs wide", got, wide, lanes, kw["tol"])
+        ms = event_turns({k: (lambda k=k: calls[k][0](*calls[k][1]))
+                          for k in ("kernel", "plain")},
+                         {"kernel": 1, "plain": 1},
+                         lambda: wrapper.launches + wrapper.wide_launches)
+        log(f"  {name} (B={B_ADMM} x T={T_ADMM}): the wide body through "
+            f"the library's launcher against the resident one: "
+            + ("bit-equal" if result_bits(got, wide)
+               else f"max |diff| {err:.3e} within atol {ATOL}")
+            + f", residual lanes {err_r:.3e}, costs {err_c:.3e}, {flips} "
+            f"converged flags differ; resident {ms['kernel']:.2f} ms per "
+            f"rollout, wide {ms['plain']:.2f} ms "
+            f"({ms['plain'] / ms['kernel']:.2f}x; means of 2 turns) "
+            f"[{smi}]; {time.perf_counter() - t0:.1f} s")
+        del calls, lanes, got, wide, ins
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
@@ -4376,10 +4692,7 @@ def main() -> int:
     # 40-42, before phase 19's convolution (phase 42 reads
     # torch.profiler).
     t0 = time.perf_counter()
-    mesh = sharded_phase(dev, smi, main_run)
-    pminres_phase(dev, smi, main_run, mesh,
-                  two_rank_phase(dev, smi, main_run, mesh))
-    torch.distributed.destroy_process_group()
+    multidevice_phases(dev, smi, main_run)
     log(f"phases 40-42: {time.perf_counter() - t0:.1f} s")
     # 43-45: the example CLIs, the paper reproduction, the entry points.
     t0 = time.perf_counter()
@@ -4396,13 +4709,17 @@ def main() -> int:
     t1 = time.perf_counter()
     long_horizon_phase(dev, smi)
     log(f"phases 46-47: {t1 - t0:.1f} + {time.perf_counter() - t1:.1f} s")
+    # 48, after 47: it reads no torch.profiler.
+    t0 = time.perf_counter()
+    k4w, k5w = wide_admm_phase(dev, smi)
+    log(f"phase 48: {time.perf_counter() - t0:.1f} s")
     if (torch.get_float32_matmul_precision() != "high"
             or torch.backends.cuda.matmul.fp32_precision != "tf32"):
         raise AssertionError("the caller's float32 matmul precision did not "
                              "survive the port's scoped guard")
     log("precision: the caller's torch.set_float32_matmul_precision("
         "'high') reads back after every phase")
-    print(json.dumps({"kernels": [k1, k4, k5, k3, k1t]}))
+    print(json.dumps({"kernels": [k1, k4, k5, k3, k1t, k4w, k5w]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count(),

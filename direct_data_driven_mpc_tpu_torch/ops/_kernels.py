@@ -63,6 +63,17 @@ _SIGNATURES = {
         "fused_ladder_kernel_attributes": (
             [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)], ctypes.c_int
         ),
+        "fused_wide_tile_rows": ([_I] * 5, ctypes.c_int),
+        "fused_wide_smem_bytes": ([_I] * 5, ctypes.c_int),
+        "fused_admm_wide_launch": (
+            [_P] * 24 + [_I] * 8 + [_F] * 3 + [_P], ctypes.c_int
+        ),
+        "fused_ladder_wide_launch": (
+            [_P] * 26 + [_I] * 9 + [_F] * 3 + [_P], ctypes.c_int
+        ),
+        "fused_wide_kernel_attributes": (
+            [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)], ctypes.c_int
+        ),
     },
 }
 

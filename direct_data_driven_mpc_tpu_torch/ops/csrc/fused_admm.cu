@@ -100,6 +100,32 @@
 // version in every rung too. The group, part of the result, is sized by
 // rung_group_bytes, the layout both kernels had before their redesigns.
 //
+// K4w and K5w (fused_admm_wide_kernel, fused_ladder_wide_kernel) are
+// the same rollout for the shapes the resident plans refuse: nbox above
+// 192 (three 64-column register tiles a lane), or one rung's operators
+// too large to sit beside the carry in one block (bench.py's large_plant:
+// Vop 300 x 300, M1 300 x 511, M2 230 x 1031, 1.9 MB, against one block's
+// 227 KB). Their body, admm_rollout_wide, keeps each scenario's state in
+// shared memory instead (s, w, d = s - w with s_next laid over it, the
+// carry [s | u | w], pre, vc, zth; 7.8 KB a scenario at large_plant) and
+// streams the operators from global memory, where every block reads the
+// same bytes, so they come from L2: each product walks its operator in
+// row panels through a double-buffered ring in shared memory, filled by
+// cp.async, and a K5 rung move only moves the pointer. A block of TB
+// scenarios (wide_plan: the largest of 64 .. 4 whose state and a ring of
+// at least four rows of the widest window fit; 16 at large_plant with
+// CONVEX slack, nbox 300, and 32 on its input box, nbox 200) computes
+// each product in windows of 4 x 4 output tiles, two a thread. Every
+// output is still one FMA chain over k from zero in order, the
+// elementwise steps round as in admm_rollout, and the cost is summed by
+// 16 lanes a row in the same order, so the wide body gives the resident
+// body's bits wherever both run. What bounds it: the float32 FMA pipes as
+// before, and now the L2 reads of the operator panels. K4w at large_plant
+// reads Vop (360 KB) 38 times and M1 and M2 (1.5 MB) once per solve of a
+// block, 6.2 TB per rollout of 16384 x 400 scenario-steps; with one panel
+// in flight behind the one in use, the ring does not hide those reads,
+// and the kernel runs at about a sixth of its FMA bound on an H100.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libfused_admm.so fused_admm.cu
 
@@ -107,6 +133,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstdint>
 
 namespace {
 
@@ -853,6 +880,486 @@ int kernel_attributes(int nbox, int* registers, int* local_bytes) {
   return 0;
 }
 
+// ---------------------------------------------------------------------
+// The wide body (K4w, K5w): state in shared memory, operators streamed.
+
+constexpr int WIDE_TILES = 2 * THREADS;  // 4 x 4 tiles of a window
+constexpr int WIDE_MIN_PANEL = 4;  // rows of the widest window a stage holds
+
+// Columns of one window of a product: WIDE_TILES tiles over the block's
+// TB / 4 row groups.
+__host__ __device__ inline int wide_window_cols(int TB) {
+  return 4 * (WIDE_TILES / (TB >> 2));
+}
+
+// Floats of the wide body's state: lo, hi, the u bounds; the carry rows
+// xin (D2), pre (Mw), vc (nbox), zth (nxi) (pre, vc and zth consecutive,
+// as the tracking adds are laid), s and w (nbox each), d = s - w with
+// s_next laid over it (max(nbox, S)); the row maxima rp, rd, |s|, |w|.
+size_t wide_state_floats(const Shape& d) {
+  const int rows =
+      d.D2 + d.Mw + d.nxi + 3 * d.nbox + std::max(d.nbox, d.S);
+  return 2 * (size_t)d.ldv + 2 * (size_t)d.ldu + (size_t)rows * d.LDS +
+         4 * (size_t)d.TB;
+}
+
+// The widest window of the three products (padded to four floats).
+int wide_widest(const Shape& d) {
+  const int ww = wide_window_cols(d.TB);
+  return std::max(ceil4(std::min(d.nbox, ww)),
+                  std::max(ceil4(std::min(d.W1, ww)),
+                           ceil4(std::min(d.W2, ww))));
+}
+
+struct WidePlan {
+  int TB;        // scenarios per block (0: none fits)
+  int stage;     // floats of one ring stage
+  size_t bytes;  // dynamic shared memory of a block
+};
+
+// The largest of TILES whose iteration product is one window (so its
+// epilogue may write d) and whose state leaves a ring of two stages of at
+// least WIDE_MIN_PANEL rows of the widest window; the ring takes the rest
+// of the block.
+WidePlan wide_plan(int S, int nbm, int nbp, int nbox, int nxi) {
+  const size_t limit = SMEM_LIMIT / sizeof(float);
+  for (int TB : TILES) {
+    const Shape d = make_shape(S, nbm, nbp, nbox, nxi, TB);
+    if (d.ldv > wide_window_cols(TB)) continue;
+    const size_t state = wide_state_floats(d);
+    if (state >= limit) continue;
+    const int stage = (int)((limit - state) / 2) & ~3;
+    if (stage >= WIDE_MIN_PANEL * wide_widest(d))
+      return {TB, stage, sizeof(float) * (state + 2 * (size_t)stage)};
+  }
+  return {0, 0, 0};
+}
+
+// acc[j][r][c] += sum_k a[k LDS + r] pan[k wl + 4 cg[j] + c] over the
+// panel's rows, for the thread's NTL tiles (one row group).
+template <int NTL>
+__device__ __forceinline__ void wide_accumulate(const float* a, int LDS,
+                                                const float* pan, int wl,
+                                                int rows, const int (&cg)[2],
+                                                float (&acc)[2][4][4]) {
+#pragma unroll 4
+  for (int k = 0; k < rows; ++k) {
+    const float4 a4 = ld4(a + k * LDS);
+    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+    for (int j = 0; j < NTL; ++j) {
+      const float4 o4 = ld4(pan + k * wl + 4 * cg[j]);
+      const float ov[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[j][r][c] = fmaf(av[r], ov[c], acc[j][r][c]);
+    }
+  }
+}
+
+// out[r][c] = sum_k A[k][r] Op[k][c] for the block's TB scenarios: A is
+// scenario-minor in shared memory (row k at A + k LDS), Op (K, N)
+// row-major in global memory. The columns go in windows of
+// wide_window_cols(TB); a window's K rows stream through the ring (two
+// stages of `stage` floats) in panels of kp rows by cp.async, the next
+// panel in flight while the block works on this one. Tile i of a window
+// is row group i % RG, column group i / RG; thread tid takes tiles tid
+// and tid + THREADS, which share a row group, so one float4 of A feeds
+// both. epi(r0, c0, acc) consumes a tile once every thread is done with
+// the window's last panel, so an epilogue may write A when the product
+// is one window. Each output is one FMA chain over k = 0 .. K-1 from
+// zero, as tile_product and warp_product sum it.
+template <class Epi>
+__device__ __forceinline__ void stream_product(const float* A, int LDS,
+                                               const float* __restrict__ Op,
+                                               int K, int N, int TB,
+                                               int stage, float* ring,
+                                               Epi&& epi) {
+  const int tid = threadIdx.x;
+  const int RG = TB >> 2, WW = wide_window_cols(TB);
+  const int rg = tid % RG;
+  const float* a = A + 4 * rg;
+  const bool vec =
+      (N & 3) == 0 && (reinterpret_cast<uintptr_t>(Op) & 15) == 0;
+  for (int cw = 0; cw < N; cw += WW) {
+    const int wn = min(WW, N - cw), wl = ceil4(wn), ncg = wl >> 2;
+    const int n_tiles = RG * ncg;
+    const int kp = min(K, stage / wl);
+    const int n_pan = (K + kp - 1) / kp;
+    const int cg[2] = {tid / RG, tid / RG + THREADS / RG};
+    const bool t0 = tid < n_tiles, t1 = tid + THREADS < n_tiles;
+    // Panel p (rows p kp .. of the window) into stage p & 1; columns
+    // past the window's width are zero.
+    auto fetch = [&](int p) {
+      float* dst = ring + (p & 1) * stage;
+      const int k0 = p * kp, rows = min(kp, K - k0);
+      const float* src = Op + (size_t)k0 * N + cw;
+      if (vec) {
+        for (int idx = tid; idx < rows * ncg; idx += THREADS) {
+          const int r = idx / ncg, g = idx - r * ncg;
+          __pipeline_memcpy_async(dst + r * wl + 4 * g,
+                                  src + (size_t)r * N + 4 * g, 16);
+        }
+      } else {
+        for (int idx = tid; idx < rows * wl; idx += THREADS) {
+          const int r = idx / wl, c = idx - r * wl;
+          if (c < wn)
+            __pipeline_memcpy_async(dst + r * wl + c, src + (size_t)r * N + c,
+                                    sizeof(float));
+          else
+            dst[r * wl + c] = 0.f;
+        }
+      }
+      __pipeline_commit();
+    };
+    float acc[2][4][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][r][c] = 0.f;
+    fetch(0);
+    for (int p = 0; p < n_pan; ++p) {
+      if (p + 1 < n_pan) {
+        fetch(p + 1);
+        __pipeline_wait_prior(1);
+      } else {
+        __pipeline_wait_prior(0);
+      }
+      __syncthreads();  // panel p, and every earlier write of A, are in
+      const float* pan = ring + (p & 1) * stage;
+      const float* ak = a + (size_t)p * kp * LDS;
+      const int rows = min(kp, K - p * kp);
+      if (t1)
+        wide_accumulate<2>(ak, LDS, pan, wl, rows, cg, acc);
+      else if (t0)
+        wide_accumulate<1>(ak, LDS, pan, wl, rows, cg, acc);
+      __syncthreads();  // every thread is done with stage p & 1
+    }
+    if (t0) epi(4 * rg, cw + 4 * cg[0], acc[0]);
+    if (t1) epi(4 * rg, cw + 4 * cg[1], acc[1]);
+  }
+}
+
+// K4w (LADDER = false) or K5w (LADDER = true): admm_rollout's math with
+// the state in shared memory and the operators streamed.
+template <bool LADDER>
+__device__ __forceinline__ void admm_rollout_wide(const Params& P,
+                                                  const Shape& d,
+                                                  int stage) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int LDS = d.LDS, TB = d.TB;
+  const int S = d.S, nbm = d.nbm, nbp = d.nbp, nbox = d.nbox, nxi = d.nxi;
+  const int Mw = d.Mw, D2 = d.D2, W1 = d.W1, W2 = d.W2;
+  const int row0 = blockIdx.x * TB;
+  const int tid = threadIdx.x;
+
+  float* lo = sm;
+  float* hi = lo + d.ldv;
+  float* ulo = hi + d.ldv;
+  float* uhi = ulo + d.ldu;
+  // Scenario-minor rows of LDS floats.
+  float* xin = uhi + d.ldu;       // (D2): [s_flat | u | w_noise]
+  float* pre = xin + D2 * LDS;    // (Mw): [u_theta | q]
+  float* vc = pre + Mw * LDS;     // (nbox)
+  float* zth = vc + nbox * LDS;   // (nxi)
+  float* s = zth + nxi * LDS;     // (nbox)
+  float* w = s + nbox * LDS;      // (nbox)
+  float* dbuf = w + nbox * LDS;   // (max(nbox, S)): s - w, or s_next
+  float* snext = dbuf;
+  float* rpr = dbuf + max(nbox, S) * LDS;  // (TB) row maxima
+  float* rdr = rpr + TB;
+  float* smag = rdr + TB;
+  float* wmag = smag + TB;
+  float* ring = wmag + TB;  // (2 stage)
+
+  int ri = 0;  // K5: the group's rung
+  float rho = P.rho;
+  if (LADDER) {
+    ri = P.rung0[blockIdx.x];
+    rho = P.rhos[ri];
+  }
+  load_op(lo, P.lo, 1, nbox, d.ldv);
+  load_op(hi, P.hi, 1, nbox, d.ldv);
+  load_op(ulo, P.u_lo, 1, nbm, d.ldu);
+  load_op(uhi, P.u_hi, 1, nbm, d.ldu);
+  load_carry(xin, P.s0, S, row0, d);
+  load_carry(pre, P.pre0, Mw, row0, d);
+  load_carry(vc, P.vc0, nbox, row0, d);
+  load_carry(zth, P.zth0, nxi, row0, d);
+  load_carry(s, P.sa0, nbox, row0, d);
+  load_carry(w, P.wa0, nbox, row0, d);
+  __syncthreads();
+  const int Wadd = Mw + nbox + nxi;
+  const float alpha = P.alpha, beta = P.beta;
+
+  // The iteration's epilogue on one tile: v = acc + vc, the over-relaxed
+  // step, the clip, d; on the last iteration the tile's row maxima of
+  // |v - s'| and |s' - s| go to rpr, rdr (non-negative or NaN floats
+  // order as their bits, so an integer max keeps a NaN).
+  bool last = false;
+  auto iter_epi = [&](int r0, int c0, float (&acc)[4][4]) {
+    float pm[4] = {0.f, 0.f, 0.f, 0.f}, dm[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = c0 + c;
+      if (col >= nbox) break;
+      const int o = col * LDS + r0;
+      const float4 s4 = ld4(s + o), w4 = ld4(w + o), v4 = ld4(vc + o);
+      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+      const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+      const float vcv[4] = {v4.x, v4.y, v4.z, v4.w};
+      const float lc = lo[col], hc = hi[col];
+      float sn[4], wn[4], dn[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float v = __fadd_rn(acc[r][c], vcv[r]);
+        const float vh =
+            __fadd_rn(__fmul_rn(alpha, v), __fmul_rn(beta, sv[r]));
+        sn[r] = fminf(fmaxf(__fadd_rn(vh, wv[r]), lc), hc);
+        wn[r] = __fsub_rn(__fadd_rn(wv[r], vh), sn[r]);
+        dn[r] = __fsub_rn(sn[r], wn[r]);
+        if (last) {
+          pm[r] = nan_max(pm[r], fabsf(__fsub_rn(v, sn[r])));
+          dm[r] = nan_max(dm[r], fabsf(__fsub_rn(sn[r], sv[r])));
+        }
+      }
+      *reinterpret_cast<float4*>(s + o) =
+          make_float4(sn[0], sn[1], sn[2], sn[3]);
+      *reinterpret_cast<float4*>(w + o) =
+          make_float4(wn[0], wn[1], wn[2], wn[3]);
+      *reinterpret_cast<float4*>(dbuf + o) =
+          make_float4(dn[0], dn[1], dn[2], dn[3]);
+    }
+    if (last) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        atomicMax(reinterpret_cast<int*>(rpr + r0 + r), __float_as_int(pm[r]));
+        atomicMax(reinterpret_cast<int*>(rdr + r0 + r), __float_as_int(dm[r]));
+      }
+    }
+  };
+
+  for (int t = 0; t < d.n_blocks; ++t) {
+    // This block's noise into xin's w rows.
+    for (int idx = tid; idx < TB * nbp; idx += THREADS) {
+      const int r = idx / nbp, i = idx - r * nbp;
+      const int b = row0 + r;
+      xin[(S + nbm + i) * LDS + r] =
+          b < d.B ? P.W[((size_t)b * d.n_blocks + t) * nbp + i] : 0.f;
+    }
+    // K4's tracking adds, to pre, vc and zth.
+    if (!LADDER && P.adds != nullptr) {
+      const float* add = P.adds + (size_t)t * Wadd;
+      for (int idx = tid; idx < Wadd * TB; idx += THREADS) {
+        const int j = idx / TB, r = idx - j * TB;
+        pre[j * LDS + r] = __fadd_rn(pre[j * LDS + r], add[j]);
+      }
+    }
+    // d = s - w (s_next has left it for xin), the row maxima from zero.
+    for (int idx = tid; idx < nbox * TB; idx += THREADS) {
+      const int j = idx / TB, r = idx - j * TB;
+      dbuf[j * LDS + r] = __fsub_rn(s[j * LDS + r], w[j * LDS + r]);
+    }
+    for (int r = tid; r < TB; r += THREADS) rpr[r] = rdr[r] = 0.f;
+    // (stream_product's first barrier orders these writes.)
+
+    for (int it = 0; it < d.n_iter; ++it) {
+      last = it == d.n_iter - 1;
+      stream_product(dbuf, LDS, P.Vop + (size_t)ri * nbox * nbox, nbox,
+                     nbox, TB, stage, ring, iter_epi);
+    }
+    __syncthreads();  // s, w, d and the residual maxima are in
+
+    // Per row: max |s| (K5, or n_iter = 0, where v_last = s_prev = 0 make
+    // both residuals max |s|) and max |w| (K5), 16 lanes a row.
+    if (LADDER || d.n_iter == 0) {
+      for (int r = tid >> 4; r < TB; r += THREADS >> 4) {
+        float smx = 0.f, wmx = 0.f;
+        for (int j = tid & 15; j < nbox; j += 16) {
+          smx = nan_max(smx, fabsf(s[j * LDS + r]));
+          if (LADDER) wmx = nan_max(wmx, fabsf(w[j * LDS + r]));
+        }
+        smx = row_group_max(smx);
+        if (LADDER) wmx = row_group_max(wmx);
+        if ((tid & 15) == 0) {
+          smag[r] = smx;
+          wmag[r] = wmx;
+          if (d.n_iter == 0) rpr[r] = rdr[r] = smx;
+        }
+      }
+    }
+
+    // Extraction: t = s - w through M1.
+    stream_product(
+        dbuf, LDS, P.M1 + (size_t)ri * nbox * W1, nbox, W1, TB, stage, ring,
+        [&](int r0, int c0, float (&acc)[4][4]) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int col = c0 + c;
+            if (col >= W1) break;
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int rr = r0 + r;
+              if (col < nbm) {
+                const float u = fminf(
+                    fmaxf(__fadd_rn(pre[col * LDS + rr], acc[r][c]),
+                          ulo[col]),
+                    uhi[col]);
+                xin[(S + col) * LDS + rr] = u;
+                const int b = row0 + rr;
+                if (b < d.B)
+                  P.U[((size_t)b * d.n_blocks + t) * nbm + col] = u;
+              } else if (col == nbm) {
+                pre[col * LDS + rr] = __fadd_rn(pre[col * LDS + rr], acc[r][c]);
+              } else {
+                float* zp = zth + (col - Mw) * LDS + rr;
+                const float z = __fadd_rn(*zp, acc[r][c]);
+                *zp = __fmul_rn(z, z);
+              }
+            }
+          }
+        });
+    __syncthreads();  // u, z^2 and q are in
+
+    // Cost and residuals, 16 lanes a row: each lane sums every 16th z^2
+    // of the row, the lanes' sums by shuffles (admm_rollout's order).
+    for (int r = tid >> 4; r < TB; r += THREADS >> 4) {
+      const int cg = tid & 15;
+      float cs = 0.f;
+      for (int j = cg; j < nxi; j += 16) cs = __fadd_rn(cs, zth[j * LDS + r]);
+#pragma unroll
+      for (int off = 8; off >= 1; off >>= 1)
+        cs = __fadd_rn(cs, __shfl_xor_sync(FULL, cs, off));
+      const int b = row0 + r;
+      if (cg == 0 && b < d.B) {
+        const size_t o = (size_t)b * d.n_blocks + t;
+        P.C[o] = __fadd_rn(cs, pre[nbm * LDS + r]);
+        P.RP[o] = rpr[r];
+        P.RD[o] = __fmul_rn(rho, rdr[r]);
+      }
+    }
+
+    // K5: balance the group's rung on its rows before B; every thread
+    // reaches the same ri'.
+    if (LADDER) {
+      float red[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int r = 0; r < TB && row0 + r < d.B; ++r) {
+        red[0] = nan_max(red[0], rpr[r]);
+        red[1] = nan_max(red[1], __fmul_rn(rho, rdr[r]));
+        red[2] = nan_max(red[2], smag[r]);
+        red[3] = nan_max(red[3], wmag[r]);
+      }
+      const float tiny = 1e-12f;
+      const float s_mag = red[2], w_mag = red[3];
+      const float rp_rel =
+          __fdiv_rn(red[0], nan_max(nan_max(s_mag, w_mag), tiny));
+      const float rd_rel =
+          __fdiv_rn(__fdiv_rn(red[1], rho), nan_max(w_mag, tiny));
+      const bool up = rp_rel > __fmul_rn(P.ratio, rd_rel) && ri < P.R - 1;
+      const bool down = rd_rel > __fmul_rn(P.ratio, rp_rel) && ri > 0;
+      const int rn = ri + (int)up - (int)down;
+      for (int r = tid; r < TB; r += THREADS)
+        if (row0 + r < d.B) P.RUNG[(size_t)(row0 + r) * d.n_blocks + t] = rn;
+      if (rn != ri) {
+        // The unscaled dual rho w is rung-invariant; the next solve
+        // takes d = s - w from the scaled w.
+        const float fac = __fdiv_rn(P.rhos[ri], P.rhos[rn]);
+        for (int idx = tid; idx < nbox * TB; idx += THREADS) {
+          const int j = idx / TB, r = idx - j * TB;
+          w[j * LDS + r] = __fmul_rn(w[j * LDS + r], fac);
+        }
+        ri = rn;
+        rho = P.rhos[rn];
+      }
+    }
+
+    // Plant step and the next solve's maps: [s_flat | u | w] through M2.
+    const float* b2 = P.b2 + (size_t)ri * W2;
+    const int oU = S, oY = S + nbm, oQ = S + nbm + nbp, oV = oQ + 1;
+    const int oZ = oV + nbox;
+    stream_product(
+        xin, LDS, P.M2 + (size_t)ri * D2 * W2, D2, W2, TB, stage, ring,
+        [&](int r0, int c0, float (&acc)[4][4]) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int col = c0 + c;
+            if (col >= W2) break;
+            const float bias = b2[col];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int rr = r0 + r;
+              const float v = __fadd_rn(acc[r][c], bias);
+              if (col < oU) {
+                snext[col * LDS + rr] = v;
+              } else if (col < oY) {
+                pre[(col - oU) * LDS + rr] = v;
+              } else if (col < oQ) {
+                const int b = row0 + rr;
+                if (b < d.B)
+                  P.Y[((size_t)b * d.n_blocks + t) * nbp + (col - oY)] = v;
+              } else if (col == oQ) {
+                pre[nbm * LDS + rr] = v;
+              } else if (col < oZ) {
+                vc[(col - oV) * LDS + rr] = v;
+              } else {
+                zth[(col - oZ) * LDS + rr] = v;
+              }
+            }
+          }
+        });
+    __syncthreads();  // s_next is in
+    for (int idx = tid; idx < S * TB; idx += THREADS) {
+      const int j = idx / TB, r = idx - j * TB;
+      xin[j * LDS + r] = snext[j * LDS + r];
+    }
+    __syncthreads();  // xin has s_next before d is stored over it
+  }
+  store_carry(P.s_fin, xin, S, row0, d);
+  store_carry(P.sa_fin, s, nbox, row0, d);
+  store_carry(P.wa_fin, w, nbox, row0, d);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+fused_admm_wide_kernel(const Params P, const Shape d, int stage) {
+  admm_rollout_wide<false>(P, d, stage);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+fused_ladder_wide_kernel(const Params P, const Shape d, int stage) {
+  admm_rollout_wide<true>(P, d, stage);
+}
+
+using WideKernel = void (*)(const Params, const Shape, int);
+
+template <bool LADDER>
+WideKernel wide_kernel() {
+  return LADDER ? fused_ladder_wide_kernel : fused_admm_wide_kernel;
+}
+
+// Launches the wide body on `stream` at its plan for d's sizes (d.B,
+// d.n_blocks and d.n_iter set); cudaErrorInvalidValue when no tile fits.
+template <bool LADDER>
+int launch_wide(const Params& P, Shape d, void* stream) {
+  const WidePlan plan = wide_plan(d.S, d.nbm, d.nbp, d.nbox, d.nxi);
+  if (plan.TB == 0) return (int)cudaErrorInvalidValue;
+  const Shape w = make_shape(d.S, d.nbm, d.nbp, d.nbox, d.nxi, plan.TB);
+  d.TB = w.TB;
+  d.LDS = w.LDS;
+  const WideKernel kernel = wide_kernel<LADDER>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((d.B + d.TB - 1) / d.TB);
+  kernel<<<grid, THREADS, plan.bytes, (cudaStream_t)stream>>>(P, d,
+                                                               plan.stage);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -981,6 +1488,93 @@ int fused_ladder_launch(const float* Vop, const float* M1, const float* M2,
                  wa_fin, alpha, beta, 0.f,  rhos,  rung0, RUNG,
                  R,      ratio};
   return launch<true>(P, d, stream);
+}
+
+// Scenarios per block of the wide kernels (K4w, and K5w, whose tile is its
+// rung group) for these sizes: the largest tile whose state and a ring of
+// at least four rows of the widest window fit one block, with the
+// iteration one window; or 0.
+int fused_wide_tile_rows(int S, int nbm, int nbp, int nbox, int nxi) {
+  return wide_plan(S, nbm, nbp, nbox, nxi).TB;
+}
+
+// Dynamic shared memory, in bytes, of a K4w or K5w block at those sizes
+// (0 when no tile fits).
+int fused_wide_smem_bytes(int S, int nbm, int nbp, int nbox, int nxi) {
+  return (int)wide_plan(S, nbm, nbp, nbox, nxi).bytes;
+}
+
+// Registers and local (spill) bytes per thread of K4w (ladder = 0) or
+// K5w (ladder = 1); 0 or a CUDA error.
+int fused_wide_kernel_attributes(int ladder, int* registers,
+                                 int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, ladder ? wide_kernel<true>() : wide_kernel<false>());
+  if (err != cudaSuccess) return (int)err;
+  *registers = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
+}
+
+// Launches K4w on `stream`, with the arguments of fused_admm_launch, at
+// fused_wide_tile_rows scenarios per block; returns
+// cudaGetLastError(), or cudaErrorInvalidValue when no tile fits.
+int fused_admm_wide_launch(const float* Vop, const float* M1,
+                           const float* M2, const float* b2, const float* lo,
+                           const float* hi, const float* u_lo,
+                           const float* u_hi, const float* s0,
+                           const float* pre0, const float* vc0,
+                           const float* zth0, const float* sa0,
+                           const float* wa0, const float* W,
+                           const float* adds, float* U, float* Y, float* C,
+                           float* RP, float* RD, float* s_fin, float* sa_fin,
+                           float* wa_fin, int B, int S, int nbm, int nbp,
+                           int nbox, int nxi, int n_blocks, int n_iter,
+                           float alpha, float beta, float rho, void* stream) {
+  if (B < 1 || n_blocks < 1 || n_iter < 0) return (int)cudaErrorInvalidValue;
+  Shape d = make_shape(S, nbm, nbp, nbox, nxi, 4);
+  d.B = B;
+  d.n_blocks = n_blocks;
+  d.n_iter = n_iter;
+  const Params P{Vop,   M1,   M2,   b2,      lo,      hi,     u_lo, u_hi,
+                 s0,    pre0, vc0,  zth0,    sa0,     wa0,    W,    adds,
+                 U,     Y,    C,    RP,      RD,      s_fin,  sa_fin,
+                 wa_fin, alpha, beta, rho,   nullptr, nullptr, nullptr,
+                 1,     0.f};
+  return launch_wide<false>(P, d, stream);
+}
+
+// Launches K5w on `stream`, with the arguments of fused_ladder_launch,
+// one block per rung group of fused_wide_tile_rows scenarios
+// (rung0 has one entry per group); returns cudaGetLastError(), or
+// cudaErrorInvalidValue when no tile fits.
+int fused_ladder_wide_launch(const float* Vop, const float* M1,
+                             const float* M2, const float* b2,
+                             const float* lo, const float* hi,
+                             const float* u_lo, const float* u_hi,
+                             const float* rhos, const int* rung0,
+                             const float* s0, const float* pre0,
+                             const float* vc0, const float* zth0,
+                             const float* sa0, const float* wa0,
+                             const float* W, float* U, float* Y, float* C,
+                             float* RP, float* RD, int* RUNG, float* s_fin,
+                             float* sa_fin, float* wa_fin, int B, int S,
+                             int nbm, int nbp, int nbox, int nxi,
+                             int n_blocks, int n_iter, int R, float alpha,
+                             float beta, float ratio, void* stream) {
+  if (B < 1 || n_blocks < 1 || n_iter < 0 || R < 1)
+    return (int)cudaErrorInvalidValue;
+  Shape d = make_shape(S, nbm, nbp, nbox, nxi, 4);
+  d.B = B;
+  d.n_blocks = n_blocks;
+  d.n_iter = n_iter;
+  const Params P{Vop,    M1,   M2,   b2,    lo,    hi,    u_lo,  u_hi,
+                 s0,     pre0, vc0,  zth0,  sa0,   wa0,   W,     nullptr,
+                 U,      Y,    C,    RP,    RD,    s_fin, sa_fin,
+                 wa_fin, alpha, beta, 0.f,  rhos,  rung0, RUNG,
+                 R,      ratio};
+  return launch_wide<true>(P, d, stream);
 }
 
 }  // extern "C"

@@ -18,7 +18,13 @@ step and builds the next solve's theta-side maps::
 Everything a solve carries stays on the chip between solves. The rollout
 runs as the hand-written CUDA kernel ``csrc/fused_admm.cu`` on CUDA
 tensors (:func:`fused_admm`) and as :func:`fused_admm_reference` on CPU
-tensors and in comparisons.
+tensors and in comparisons. The kernel has two bodies, and the plan picks
+one, with no option: the resident body (:func:`admm_plan`) holds the
+operators in shared memory and ``s``, ``w`` in registers; where that does
+not fit (``nbox`` above 192, or operators too large for one block, as at
+``bench.py``'s ``large_plant``) the wide body (:func:`admm_wide_plan`)
+holds every scenario's state in shared memory and streams the operators
+from global memory (L2) through a ring of row panels.
 
 Counterpart of ``direct_data_driven_mpc_tpu/ops/pallas_admm.py``
 (``_normalize_admm_op``, ``_openloop_block_rows``, ``FusedADMMDims``,
@@ -60,8 +66,14 @@ _OP_KEYS = ("v_c", "V_theta", "V_s", "u_c", "U_theta", "U_s", "cost_P",
             "cost_q", "cost_r")
 #: Opt-in shared memory of one thread block (bytes), as in the .cu.
 _SMEM_LIMIT = 232448
-#: The widest box the kernels take: three 64-column tiles per lane.
+#: The widest box the resident body takes: three 64-column register
+#: tiles per lane (the wide body takes any box its plan fits).
 _MAX_NBOX = 192
+#: The wide body's products go in windows of this many 4 x 4 output
+#: tiles (two a thread); a ring stage holds at least this many rows of
+#: the widest window.
+_WIDE_TILES = 512
+_WIDE_MIN_PANEL = 4
 
 
 def _normalize_admm_op(op: dict) -> dict:
@@ -456,18 +468,19 @@ def _check_kernel_inputs(ops, dims, carry, W, adds):
         raise ValueError(f"empty batch or rollout: W {tuple(W.shape)}")
 
 
+def _ceil4(x: int) -> int:
+    return (x + 3) & ~3
+
+
 def _op_floats(dims: FusedADMMDims) -> int:
     """Shared-memory floats of one operator set (``Vop``, ``M1``, ``M2``,
     ``b2``) and the bounds, rows padded to a multiple of 4 floats, as
     ``csrc/fused_admm.cu`` lays them out (``op_floats``)."""
-    def ceil4(x):
-        return (x + 3) & ~3
-
     nbm, nbp = dims.nb * dims.m, dims.nb * dims.p
     S, nbox, nxi, Mw = dims.S, dims.nbox, dims.nxi, dims.Mw
     D2 = S + nbm + nbp
     W1, W2 = Mw + nxi, D2 + 1 + nbox + nxi
-    ldv, ld1, ld2, ldu = ceil4(nbox), ceil4(W1), ceil4(W2), ceil4(nbm)
+    ldv, ld1, ld2, ldu = _ceil4(nbox), _ceil4(W1), _ceil4(W2), _ceil4(nbm)
     return nbox * ldv + nbox * ld1 + D2 * ld2 + ld2 + 2 * ldv + 2 * ldu
 
 
@@ -477,7 +490,8 @@ def admm_plan(dims: FusedADMMDims) -> Tuple[int, int]:
     (``fused_admm_tile_rows`` and ``fused_admm_smem_bytes``): the largest
     of 64, 32, 16, 8, 4 scenarios whose block fits, so the most warps
     own scenarios; ``(0, bytes of the 4-row block)`` when none fits or
-    ``nbox`` is above 192. A block holds the operators, the carry rows
+    ``nbox`` is above 192, where :func:`fused_admm` takes the wide body
+    (:func:`admm_wide_plan`). A block holds the operators, the carry rows
     ``[s | u | w]``, ``pre``, ``vc``, ``zth`` and ``d = s - w``, over
     which ``s_next`` is laid (``max(nbox, S)`` rows); ``s`` and ``w``
     live in registers. 111,168 bytes for 64 scenarios at
@@ -491,6 +505,52 @@ def admm_plan(dims: FusedADMMDims) -> Tuple[int, int]:
     return 0, nbytes
 
 
+def _wide_plan(dims: FusedADMMDims) -> Tuple[int, int, int]:
+    """``(rows, bytes, stage floats)`` of the wide body, as ``wide_plan``
+    in ``csrc/fused_admm.cu`` computes them (see
+    :func:`admm_wide_plan`)."""
+    nbm, nbp = dims.nb * dims.m, dims.nb * dims.p
+    S, nbox, nxi, Mw = dims.S, dims.nbox, dims.nxi, dims.Mw
+    D2 = S + nbm + nbp
+    W1, W2 = Mw + nxi, D2 + 1 + nbox + nxi
+    ldv, ldu = _ceil4(nbox), _ceil4(nbm)
+    limit = _SMEM_LIMIT // 4
+    rows_per = D2 + Mw + nxi + 3 * nbox + max(nbox, S)
+    need = 0
+    for rows in (64, 32, 16, 8, 4):
+        window = 4 * (_WIDE_TILES // (rows // 4))
+        widest = max(_ceil4(min(n, window)) for n in (nbox, W1, W2))
+        state = 2 * ldv + 2 * ldu + rows_per * (rows + 4) + 4 * rows
+        need = 4 * (state + 2 * _WIDE_MIN_PANEL * widest)
+        if ldv > window or state >= limit:
+            continue
+        stage = ((limit - state) // 2) & ~3
+        if stage >= _WIDE_MIN_PANEL * widest:
+            return rows, 4 * (state + 2 * stage), stage
+    return 0, need, 0
+
+
+def admm_wide_plan(dims: FusedADMMDims) -> Tuple[int, int]:
+    """``(rows, bytes)``: the wide body's scenarios per thread block and
+    its shared memory, as ``csrc/fused_admm.cu`` plans them
+    (``fused_wide_tile_rows`` and ``fused_wide_smem_bytes``, shared by
+    the ladder's wide kernel). A block holds every
+    scenario's state, scenario-minor: the carry rows ``[s | u | w]``,
+    ``pre``, ``vc``, ``zth``, ``s``, ``w`` and ``d = s - w`` with
+    ``s_next`` laid over it, and four row maxima; the rest of the block
+    is a two-stage ring through which the operators stream in row panels.
+    The rows are the largest of 64, 32, 16, 8, 4 for which the iteration
+    product is one window of 512 4 x 4 output tiles (``ceil4(nbox) <=
+    2048 / rows``) and a ring stage holds at least four rows of the
+    widest window (``min(width, 2048 / rows)`` of ``Vop``, ``M1``,
+    ``M2``); ``(0, bytes of the 4-row block with that ring)`` when none
+    does. 16 scenarios at ``large_plant`` with CONVEX slack (nbox 300),
+    32 on its input box (nbox 200); the ring takes what the state leaves
+    of the 232,448 bytes a block may opt in to (232,432 at both)."""
+    rows, nbytes, _ = _wide_plan(dims)
+    return rows, nbytes
+
+
 def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
                carry: ADMMCarry, W: torch.Tensor, n_iter: int,
                adds: Optional[torch.Tensor] = None):
@@ -498,11 +558,13 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
     :func:`fused_admm_reference`).
 
     CPU tensors run the plain version. CUDA tensors launch kernel K4
-    (``fused_admm_kernel`` of ``csrc/fused_admm.cu``, float32,
-    contiguous; :func:`admm_plan` scenarios per block) and add one to
-    ``fused_admm.launches``; anything the kernel does not take (dtype,
-    shape, contiguity, operators too large for its shared-memory plan)
-    raises before the launch."""
+    (``csrc/fused_admm.cu``, float32, contiguous): its resident body
+    ``fused_admm_kernel`` where :func:`admm_plan` gives rows, adding one
+    to ``fused_admm.launches``, else its wide body
+    ``fused_admm_wide_kernel`` (K4w) where :func:`admm_wide_plan` does,
+    adding one to ``fused_admm.wide_launches``. Anything the kernel does
+    not take (dtype, shape, contiguity, operators too large for both
+    plans) raises before the launch; a failed launch raises after it."""
     if carry.s.device.type == "cpu":
         return fused_admm_reference(ops, dims, carry, W, n_iter, adds)
     if carry.s.device.type != "cuda":
@@ -513,16 +575,21 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
         raise ValueError(f"n_iter={n_iter} must be >= 0")
 
     rows, nbytes = admm_plan(dims)
-    if rows == 0:
+    wide = rows == 0
+    wide_rows, wide_bytes = admm_wide_plan(dims)
+    if wide and wide_rows == 0:
         raise ValueError(
-            f"operators too large for the kernel's shared-memory plan "
-            f"(S={dims.S}, nbox={dims.nbox}, nxi={dims.nxi}): {nbytes} "
-            f"bytes at 4 scenarios per block, more than one block's "
-            f"{_SMEM_LIMIT}, or nbox above {_MAX_NBOX}"
+            f"operators too large for both of the kernel's shared-memory "
+            f"plans (S={dims.S}, nbox={dims.nbox}, nxi={dims.nxi}): the "
+            f"resident body needs {nbytes} bytes at 4 scenarios per block "
+            f"and nbox at most {_MAX_NBOX}, the wide body {wide_bytes} "
+            f"bytes at 4 scenarios per block and its iteration in one "
+            f"window, against one block's {_SMEM_LIMIT}"
         )
     from direct_data_driven_mpc_tpu_torch.ops import _kernels
 
     lib = _kernels.load("fused_admm").lib
+    launch = lib.fused_admm_wide_launch if wide else lib.fused_admm_launch
     Bsz, n_blocks, nbp = W.shape
     nbm = dims.nb * dims.m
     sizes = (dims.S, nbm, nbp, dims.nbox, dims.nxi)
@@ -535,7 +602,7 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
     wa_fin = torch.empty((Bsz, dims.nbox), **kw)
     with torch.cuda.device(carry.s.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_admm_launch(
+        err = launch(
             ops.Vop.data_ptr(), ops.M1.data_ptr(), ops.M2.data_ptr(),
             ops.b2.data_ptr(), ops.lo.data_ptr(), ops.hi.data_ptr(),
             ops.u_lo.data_ptr(), ops.u_hi.data_ptr(),
@@ -549,14 +616,20 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
         )
     if err != 0:
         raise RuntimeError(
-            f"fused_admm kernel launch failed: CUDA error {err}"
+            f"fused_admm {'wide ' if wide else ''}kernel launch failed: "
+            f"CUDA error {err}"
         )
-    fused_admm.launches += 1
+    if wide:
+        fused_admm.wide_launches += 1
+    else:
+        fused_admm.launches += 1
     return U, Y, C, RP, RD, s_fin, sa_fin, wa_fin
 
 
-#: Kernel launches made by :func:`fused_admm` in this process.
+#: Launches of the resident body (K4) made by :func:`fused_admm` in this
+#: process, and of the wide body (K4w).
 fused_admm.launches = 0
+fused_admm.wide_launches = 0
 
 
 def make_fused_admm_rollout(

@@ -25,9 +25,10 @@ residual lanes report the rest.
 last group may be short): the group is part of the result, not a tiling
 detail. The plain version takes any ``rung_group >= 1``; the kernel's
 group is its tile (``ladder_tile_rows``: 64 scenarios at
-``four_tank_ladder``), and its wrapper refuses any other. So
-``make_fused_ladder_rollout(rung_group=None)`` means the kernel's tile
-for these sizes, on the CPU as on the card.
+``four_tank_ladder``; where that rule gives none, the wide body's tile,
+``ladder_wide_group``: 32 at ``large_plant``), and its wrapper refuses
+any other. So ``make_fused_ladder_rollout(rung_group=None)`` means the
+kernel's tile for these sizes, on the CPU as on the card.
 
 **One rung resident.** The kernel keeps only its group's current rung in
 shared memory (41 KB at ``four_tank_ladder``; all seven rungs would be
@@ -37,7 +38,12 @@ operators between the balancer and the plant step. Each warp owns eight
 of the group's scenarios, whose ``s`` and ``w`` stay in its registers
 for the whole rollout, so two blocks share an SM
 (:func:`ladder_kernel_smem_bytes`); the group is still sized by the
-rule the kernel had before (:func:`ladder_smem_bytes`).
+rule the kernel had before (:func:`ladder_smem_bytes`). Where no group
+of that rule fits (nbox above 170 always, since one rung's operators
+alone then outgrow a block), the wide body (K5w) runs instead: every
+scenario's state in shared memory and the current rung's operators
+streamed from global memory in row panels, so a rung move only moves a
+pointer.
 
 **Warm restart.** ``solver_state0.rho_idx`` carries every row's rung;
 each group resumes at the rung its rows carry (its ``w`` is scaled for
@@ -70,6 +76,7 @@ from direct_data_driven_mpc_tpu_torch.ops.fused_admm import (
     ADMMCarry,
     FusedADMMDims,
     _op_floats,
+    admm_wide_plan,
     build_fused_admm_operator,
 )
 from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
@@ -187,6 +194,20 @@ def ladder_tile_rows(dims: FusedADMMDims) -> int:
         if ladder_smem_bytes(dims, tile) <= _SMEM_LIMIT:
             return tile
     return 0
+
+
+def ladder_wide_group(dims: FusedADMMDims) -> int:
+    """The default rung group where :func:`ladder_tile_rows` gives 0: the
+    wide ladder kernel's (K5w) scenarios per block, from the plan it
+    shares with K4w (:func:`~.fused_admm.admm_wide_plan`,
+    ``fused_wide_tile_rows`` of the ``.cu``): the largest of 64, 32,
+    16, 8, 4 scenarios whose state (the carry rows, ``s``, ``w``, ``d``
+    under ``s_next``, four row maxima) leaves a two-stage ring of at
+    least four rows of the widest window of ``Vop``, ``M1``, ``M2``, with
+    the iteration product one window (``ceil4(nbox) <= 2048 / rows``); 0
+    when none does. 32 at ``large_plant`` (nbox 200). Mirrored here so
+    the CPU and the card group alike without a card at hand."""
+    return admm_wide_plan(dims)[0]
 
 
 def _per_rung(fn, row_rung: torch.Tensor, present):
@@ -344,11 +365,15 @@ def fused_ladder(ops: FusedLadderOperator, dims: FusedADMMDims,
     """The ladder rollout (same contract as
     :func:`fused_ladder_reference`).
 
-    CPU tensors run the plain version. CUDA tensors launch kernel K5
-    (``csrc/fused_admm.cu``, float32, contiguous, ``rung0`` int32) and
-    add one to ``fused_ladder.launches``; a ``rung_group`` other than the
-    kernel's tile, a rung outside the ladder, or anything else the
-    kernel does not take raises."""
+    CUDA tensors launch kernel K5 (``csrc/fused_admm.cu``, float32,
+    contiguous, ``rung0`` int32): its resident body where the group rule
+    gives a tile (:func:`ladder_tile_rows`), adding one to
+    ``fused_ladder.launches``, else its wide body (K5w) where
+    :func:`ladder_wide_group` gives one, adding one to
+    ``fused_ladder.wide_launches``. A ``rung_group`` other than the
+    route's tile, a rung outside the ladder, or anything else the kernel
+    does not take raises; so does a failed launch. CPU tensors run the
+    plain version."""
     if carry.s.device.type == "cpu":
         return fused_ladder_reference(ops, dims, carry, W, n_iter, rung0,
                                       rung_group)
@@ -365,14 +390,19 @@ def fused_ladder(ops: FusedLadderOperator, dims: FusedADMMDims,
     R = ops.Vop.shape[0]
     sizes = (dims.S, nbm, nbp, dims.nbox, dims.nxi)
     tile = lib.fused_ladder_tile_rows(*sizes)
-    if tile == 0:
-        raise ValueError(
-            f"operators too large for the ladder kernel's shared-memory "
-            f"plan (S={dims.S}, nbox={dims.nbox}, nxi={dims.nxi})"
-        )
+    wide = tile == 0
+    if wide:
+        tile = lib.fused_wide_tile_rows(*sizes)
+        if tile == 0:
+            raise ValueError(
+                f"operators too large for both of the ladder kernel's "
+                f"shared-memory plans (S={dims.S}, nbox={dims.nbox}, "
+                f"nxi={dims.nxi})"
+            )
     if rung_group != tile:
         raise ValueError(
-            f"rung_group={rung_group}: the ladder kernel shares a rung per "
+            f"rung_group={rung_group}: the ladder kernel's "
+            f"{'wide' if wide else 'resident'} body shares a rung per "
             f"thread block of {tile} scenarios (its tile at these sizes)"
         )
     n_groups = -(-Bsz // tile)
@@ -391,7 +421,9 @@ def fused_ladder(ops: FusedLadderOperator, dims: FusedADMMDims,
     wa_fin = torch.empty((Bsz, dims.nbox), **kw)
     with torch.cuda.device(carry.s.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_ladder_launch(
+        launch = (lib.fused_ladder_wide_launch if wide
+                  else lib.fused_ladder_launch)
+        err = launch(
             ops.Vop.data_ptr(), ops.M1.data_ptr(), ops.M2.data_ptr(),
             ops.b2.data_ptr(), ops.lo.data_ptr(), ops.hi.data_ptr(),
             ops.u_lo.data_ptr(), ops.u_hi.data_ptr(), ops.rhos.data_ptr(),
@@ -404,14 +436,20 @@ def fused_ladder(ops: FusedLadderOperator, dims: FusedADMMDims,
         )
     if err != 0:
         raise RuntimeError(
-            f"fused_ladder kernel launch failed: CUDA error {err}"
+            f"fused_ladder {'wide ' if wide else ''}kernel launch failed: "
+            f"CUDA error {err}"
         )
-    fused_ladder.launches += 1
+    if wide:
+        fused_ladder.wide_launches += 1
+    else:
+        fused_ladder.launches += 1
     return U, Y, C, RP, RD, RUNG, s_fin, sa_fin, wa_fin
 
 
-#: Kernel launches made by :func:`fused_ladder` in this process.
+#: Launches of the resident body (K5) made by :func:`fused_ladder` in
+#: this process, and of the wide body (K5w).
 fused_ladder.launches = 0
+fused_ladder.wide_launches = 0
 
 
 def _group_rungs(solver_state0, Bsz: int, G: int, R: int,
@@ -485,7 +523,8 @@ def make_fused_ladder_rollout(
             ``solver_state0`` it must agree with every group's rung, or
             be None to resume each group at its own.
         rung_group: scenarios that share one rung; None means the
-            kernel's tile for these sizes (:func:`ladder_tile_rows`).
+            kernel's tile for these sizes (:func:`ladder_tile_rows`, or
+            :func:`ladder_wide_group` where that gives 0).
         device, dtype: where and in which dtype the operators live (None
             means the CUDA card; ``"cpu"`` runs the plain version).
         rollout: :func:`fused_ladder` (the kernel on CUDA tensors) or
@@ -504,7 +543,10 @@ def make_fused_ladder_rollout(
     rung_first = R // 2 if init_rung is None else int(init_rung)
     if not 0 <= rung_first < R:
         raise ValueError(f"init_rung {rung_first} outside ladder [0, {R})")
-    G = ladder_tile_rows(dims) if rung_group is None else int(rung_group)
+    if rung_group is None:
+        G = ladder_tile_rows(dims) or ladder_wide_group(dims)
+    else:
+        G = int(rung_group)
     if G < 1:
         raise ValueError(
             f"rung_group={rung_group}: no kernel tile fits these sizes; "

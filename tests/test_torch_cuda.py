@@ -377,25 +377,49 @@ def test_admm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fa.fused_admm(ops, dims, carry, W[:, :, :1].contiguous(), 4)
     with pytest.raises(ValueError, match="n_iter"):
         fa.fused_admm(ops, dims, carry, W, -1)
-    # An operator whose shared-memory plan does not fit one block.
+    # An operator whose resident plan does not fit one block (nbox 600)
+    # takes the wide body (K4w), which matches the plain version.
     nbox = 600
     big = dims._replace(nbox=nbox, nxi=dims.n_theta + nbox,
                         W2=dims.D2 + 1 + nbox + dims.n_theta + nbox)
-    big_ops = ops._replace(
-        Vop=torch.zeros(nbox, nbox, device=cuda),
-        lo=torch.zeros(nbox, device=cuda), hi=torch.zeros(nbox, device=cuda),
-        M1=torch.zeros(nbox, big.Mw + big.nxi, device=cuda),
-        M2=torch.zeros(big.D2, big.W2, device=cuda),
-        b2=torch.zeros(big.W2, device=cuda),
+    big_ops, big_carry = _random_wide_operators(ops, big, B, cuda)
+    assert fa.admm_plan(big)[0] == 0 and fa.admm_wide_plan(big)[0] == 8
+    before = (fa.fused_admm.launches, fa.fused_admm.wide_launches)
+    got = fa.fused_admm(big_ops, big, big_carry, W, 4)
+    torch.cuda.synchronize()
+    assert (fa.fused_admm.launches,
+            fa.fused_admm.wide_launches) == (before[0], before[1] + 1)
+    want = fa.fused_admm_reference(big_ops, big, big_carry, W, 4)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=2e-5)
+
+
+def _random_wide_operators(ops, dims, B, cuda, R=None, seed=0):
+    """Seeded random operators and carries at ``dims`` (a wide shape):
+    a contracting iteration (``Vop`` of norm about 0.4), bounds of +-1
+    that a carry of 0.01 seldom reaches, so rounding is not amplified
+    through the clip. With ``R``, a ladder of R rungs stacked."""
+    rng = np.random.default_rng(seed)
+    nbox = dims.nbox
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor(scale * rng.standard_normal(shape),
+                               dtype=torch.float32, device=cuda)
+
+    lead = () if R is None else (R,)
+    new = dict(
+        Vop=t(*lead, nbox, nbox, scale=0.2 / math.sqrt(nbox)),
+        M1=t(*lead, nbox, dims.Mw + dims.nxi, scale=0.05),
+        M2=t(*lead, dims.D2, dims.W2, scale=0.05),
+        b2=t(*lead, dims.W2, scale=0.05),
+        lo=torch.full((nbox,), -1.0, device=cuda),
+        hi=torch.full((nbox,), 1.0, device=cuda),
     )
-    big_carry = fa.ADMMCarry(*(
-        torch.zeros(B, w, device=cuda)
-        for w in (big.S, big.Mw, nbox, big.nxi, nbox, nbox)
+    carry = fa.ADMMCarry(*(
+        t(B, w, scale=0.01)
+        for w in (dims.S, dims.Mw, nbox, dims.nxi, nbox, nbox)
     ))
-    before = fa.fused_admm.launches
-    with pytest.raises(ValueError, match="too large"):
-        fa.fused_admm(big_ops, big, big_carry, W, 4)
-    assert fa.fused_admm.launches == before
+    return ops._replace(**new), carry
 
 
 def _ladder_setup(u_box=0.85):
@@ -467,9 +491,11 @@ def test_ladder_kernel_matches_plain_version(cuda, u_box, batch, n_steps):
 
 
 def test_ladder_plan_matches_library_and_wrapper_rejects(cuda):
-    """``ladder_tile_rows`` mirrors the library's plan; the wrapper
-    refuses another rung group, rungs outside the ladder and operators
-    too large for one block."""
+    """``ladder_tile_rows`` and ``ladder_wide_group`` mirror the
+    library's plans; operators too large for the resident group rule
+    (nbox 600) take the wide body (K5w), which matches the plain
+    version; the wrapper refuses another rung group, rungs outside the
+    ladder and inputs of the wrong type."""
     from direct_data_driven_mpc_tpu_torch.ops import _kernels
 
     fl, g, op, kw = _ladder_setup()
@@ -483,6 +509,35 @@ def test_ladder_plan_matches_library_and_wrapper_rejects(cuda):
         tile = fl.ladder_tile_rows(d)
         assert lib.fused_ladder_smem_bytes(*sizes) == (
             fl.ladder_kernel_smem_bytes(d, tile) if tile else 0)
+        wide = fa.admm_wide_plan(d)
+        assert (lib.fused_wide_tile_rows(*sizes),
+                lib.fused_wide_smem_bytes(*sizes)) == wide
+        assert wide[0] == fl.ladder_wide_group(d)
+    # nbox 600: no resident group; the wide body, against the plain
+    # version.
+    nbox = 600
+    big = dims._replace(nbox=nbox, nxi=dims.n_theta + nbox,
+                        W2=dims.D2 + 1 + nbox + dims.n_theta + nbox)
+    R = ops.Vop.shape[0]
+    big_ops, big_carry = _random_wide_operators(ops, big, 19, cuda, R=R)
+    G = fl.ladder_wide_group(big)
+    assert fl.ladder_tile_rows(big) == 0 and G == 8
+    Wb = torch.as_tensor(
+        0.002 * np.random.default_rng(1).uniform(-1, 1, (19, 6, 2)),
+        dtype=torch.float32, device=cuda)
+    rung0b = torch.tensor([0, 3, 6], dtype=torch.int32, device=cuda)
+    before = (fl.fused_ladder.launches, fl.fused_ladder.wide_launches)
+    got = fl.fused_ladder(big_ops, big, big_carry, Wb, 4, rung0b, G)
+    torch.cuda.synchronize()
+    assert (fl.fused_ladder.launches,
+            fl.fused_ladder.wide_launches) == (before[0], before[1] + 1)
+    want = fl.fused_ladder_reference(big_ops, big, big_carry, Wb, 4,
+                                     rung0b, G)
+    assert torch.equal(got[5], want[5])  # the rung lanes
+    for a, b in zip(got[:5] + got[6:], want[:5] + want[6:]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=2e-5)
+    with pytest.raises(ValueError, match="rung_group"):
+        fl.fused_ladder(big_ops, big, big_carry, Wb, 4, rung0b, 16)
     B, T = 70, 6
     carry = fa.ADMMCarry(*(
         torch.zeros(B, w, device=cuda)
@@ -1234,3 +1289,208 @@ def test_k5_at_random_dims_bit_equal_to_plain_version(cuda, seed):
         *args, rollout=keep(fl.fused_ladder_reference, "p"), **kw)(*ins)
     assert torch.equal(lanes["k"], lanes["p"])
     _assert_bit_equal(got, want)
+
+
+def _mid_wide_plant(slack, n, m, p, L, seed, N=600):
+    """A random plant (``random_stable_lti(seed, ns=n, m, p)``) with a
+    Robust controller built as ``chip_smoke.build_large_plant`` builds
+    ``large_plant``'s, at other sizes."""
+    from direct_data_driven_mpc_tpu_torch.models.random_lti import (
+        random_stable_lti,
+    )
+
+    plant = random_stable_lti(seed=seed, ns=n, m=m, p=p)
+    eps = plant.get_eps_max()
+    u_s = 0.5 * np.ones((m, 1))
+    y_s = plant.get_equilibrium_output_from_input(u_s.ravel()).reshape(-1, 1)
+    rng = np.random.default_rng(seed)
+    u_d = rng.uniform(-1, 1, (N, m))
+    y_d = plant.simulate(u_d, eps * rng.uniform(-1, 1, (N, p)), N)
+    return plant, DirectDataDrivenMPCController(
+        n=n, m=m, p=p, u_d=u_d, y_d=y_d, L=L, Q=3.0 * np.eye(p * L),
+        R=1e-4 * np.eye(m * L), u_s=u_s, y_s=y_s, eps_max=eps,
+        lamb_alpha=0.1 / eps, lamb_sigma=1000.0, c=1.0,
+        slack_var_constraint_type=SlackVarConstraintTypes[slack],
+        controller_type=DataDrivenMPCType.ROBUST,
+    )
+
+
+def _wide_case(name):
+    """``(plant, controller, operator, engine keywords, ladder)`` of a
+    shape only the wide bodies take: ``large_plant`` with CONVEX slack
+    (nbox 300) or on the box |u| <= 0.85 with the default ladder (nbox
+    200), and just past the resident cap, nbox 196 both (CONVEX at m = p
+    = 7, L = 28; the box at m = 7, p = 4, n = 4, L = 32)."""
+    import chip_smoke as cs
+
+    ladder = name.endswith("ladder")
+    slack = "NONE" if ladder else "CONVEX"
+    if name.startswith("large_plant"):
+        plant, ctrl = cs.build_large_plant(slack=slack)
+    elif ladder:
+        plant, ctrl = _mid_wide_plant(slack, n=4, m=7, p=4, L=32, seed=0)
+    else:
+        plant, ctrl = _mid_wide_plant(slack, n=2, m=7, p=7, L=28, seed=7)
+    if ladder:
+        op = compute_box_admm_operator_np(
+            ctrl.spec, u_bounds=(-cs.WIDE_BOX, cs.WIDE_BOX))
+        return plant, ctrl, op, dict(cs.LADDER_KW), True
+    op = compute_admm_operator_np(ctrl.spec)
+    return plant, ctrl, op, dict(cs.WIDE_CONVEX_KW), False
+
+
+def _engine(ladder):
+    """``(module, make rollout, wrapper, plain version)`` of K4 or K5."""
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+
+    if ladder:
+        return (fl, fl.make_fused_ladder_rollout, fl.fused_ladder,
+                fl.fused_ladder_reference)
+    return (fa, fa.make_fused_admm_rollout, fa.fused_admm,
+            fa.fused_admm_reference)
+
+
+def _keep(fn, lanes, key):
+    """``fn``, keeping its residual lanes (and K5's rung lanes)."""
+    def rollout(*args):
+        out = fn(*args)
+        lanes[key] = out[3:6] if len(out) == 9 else out[3:5]
+        return out
+    return rollout
+
+
+def _assert_close_at_rounding(got, want, lanes, tol):
+    """u, y, the final windows, s and w within 2e-5, costs (small
+    differences of terms near 1e3 at large_plant) at rtol 1e-3 / atol
+    1e-2, the residual lanes within 2e-5, a converged flag different
+    only where the two residuals fall on either side of ``tol``, and
+    K5's rung lanes and final rungs equal."""
+    for f in ("u_sys", "y_sys", "x_final", "u_past", "y_past"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                   rtol=0, atol=2e-5, msg=f)
+    for a, b in zip(got.solver_state[:2], want.solver_state[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+    torch.testing.assert_close(got.costs, want.costs, rtol=1e-3, atol=1e-2)
+    k, p = lanes["k"], lanes["p"]
+    for a, b in zip(k[:2], p[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+    straddle = ((k[0] <= tol) != (p[0] <= tol)) | ((k[1] <= tol)
+                                                   != (p[1] <= tol))
+    flipped = got.converged != want.converged
+    assert bool(straddle[flipped].all())
+    if len(k) > 2:
+        assert torch.equal(k[2], p[2])
+        assert torch.equal(got.solver_state.rho_idx,
+                           want.solver_state.rho_idx)
+
+
+@pytest.mark.parametrize("name", ["large_plant_convex", "large_plant_ladder",
+                                  "mid_wide_convex", "mid_wide_ladder"])
+def test_wide_kernels_match_plain_version(cuda, name):
+    """K4w and K5w, where the resident plans refuse the shape, against
+    their plain versions at B = 8179 x T = 12: the route (the wide launch
+    count goes up by one, the resident one not at all), K5's rung group
+    ``ladder_wide_group``, and the results at
+    ``_assert_close_at_rounding``'s bar."""
+    plant, ctrl, op, kw, ladder = _wide_case(name)
+    mod, make, wrapper, plain = _engine(ladder)
+    args = (plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, 12)
+    dims = (mod.build_fused_ladder_operator if ladder
+            else mod.build_fused_admm_operator)(*args[:5], device=cuda)[1]
+    assert dims.nbox == {"large_plant_convex": 300, "large_plant_ladder": 200
+                         }.get(name, 196)
+    ins = _random_dims_inputs(plant, ctrl, 8192 - 13, 12, cuda)
+    lanes = {}
+    run = make(*args, device=cuda, rollout=_keep(wrapper, lanes, "k"), **kw)
+    if ladder:
+        assert mod.ladder_tile_rows(dims) == 0
+        assert run.rung_group == mod.ladder_wide_group(dims) > 0
+    else:
+        assert fa.admm_plan(dims)[0] == 0 and fa.admm_wide_plan(dims)[0] > 0
+    before = (wrapper.launches, wrapper.wide_launches)
+    got = run(*ins)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.wide_launches) == (before[0],
+                                                         before[1] + 1)
+    want = make(*args, device=cuda, rollout=_keep(plain, lanes, "p"),
+                **kw)(*ins)
+    _assert_close_at_rounding(got, want, lanes, kw["tol"])
+
+
+@pytest.mark.parametrize("name", ["four_tank_convex", "four_tank_ladder",
+                                  "four_tank_admm_tracking"])
+def test_wide_body_matches_resident_body(cuda, name):
+    """At shapes both bodies take, the wide body through the library's
+    launcher against the resident one through the wrapper, at B = 8179 x
+    T = 30: u, y, the final windows, s and w within 2e-5 (each output is
+    the same FMA chain in both, so they agree to the bit unless the
+    compiler contracts differently), costs at rtol 1e-3 / atol 1e-5, and
+    K5's rung lanes equal: the wide plan's tile is the resident rung
+    group, 64."""
+    import chip_smoke as cs
+
+    plant, ctrl, op, kw = cs.admm_config(name)
+    ladder = name == "four_tank_ladder"
+    mod, make, wrapper, _ = _engine(ladder)
+    T = 30
+    if "setpoints" in kw:
+        kw["setpoints"] = kw["setpoints"][:T]
+    args = (plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, T)
+    ins = _random_dims_inputs(plant, ctrl, 8192 - 13, T, cuda)
+    lanes = {}
+    run = make(*args, device=cuda, rollout=_keep(wrapper, lanes, "r"), **kw)
+    before = wrapper.launches
+    got = run(*ins)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    if ladder:
+        assert run.rung_group == mod.ladder_wide_group(
+            mod.build_fused_ladder_operator(*args[:5], device=cuda)[1]) == 64
+    wide = make(*args, device=cuda,
+                rollout=_keep(cs.wide_launcher(ladder), lanes, "w"),
+                **kw)(*ins)
+    torch.cuda.synchronize()
+    for f in ("u_sys", "y_sys", "x_final", "u_past", "y_past"):
+        torch.testing.assert_close(getattr(wide, f), getattr(got, f),
+                                   rtol=0, atol=2e-5, msg=f)
+    for a, b in zip(wide.solver_state, got.solver_state):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+    torch.testing.assert_close(wide.costs, got.costs, rtol=1e-3, atol=1e-5)
+    if ladder:
+        assert torch.equal(lanes["w"][2], lanes["r"][2])
+
+
+def test_segmented_ladder_resume_at_the_wide_group(cuda):
+    """``large_plant_ladder`` through K5w in two segments, the second
+    warm-started through ``solver_state0`` at the wide rung group (each
+    group resumes at its own rung): each segment matches the plain
+    version's same segment at ``_assert_close_at_rounding``'s bar, and
+    the joined run stays within 1e-4 of the uninterrupted one (the
+    resumed segment rebuilds its first maps from the carried window,
+    the uninterrupted run takes them from the plant step)."""
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+
+    plant, ctrl, op, kw, _ = _wide_case("large_plant_ladder")
+    T, T1, Bs = 16, 6, 2048
+    ins = _random_dims_inputs(plant, ctrl, Bs, T, cuda)
+    base = (plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p)
+    full = fl.make_fused_ladder_rollout(*base, T, device=cuda, **kw)(*ins)
+    segs = {}
+    for key, fn in (("k", fl.fused_ladder), ("p", fl.fused_ladder_reference)):
+        lanes = {}
+        first = fl.make_fused_ladder_rollout(
+            *base, T1, device=cuda, rollout=_keep(fn, lanes, "1"), **kw)
+        second = fl.make_fused_ladder_rollout(
+            *base, T - T1, device=cuda, rollout=_keep(fn, lanes, "2"),
+            **dict(kw, cold_iters=0))
+        assert first.rung_group == second.rung_group == 32
+        s1 = first(*ins[:3], ins[3][:, :T1])
+        s2 = second(s1.x_final, s1.u_past, s1.y_past, ins[3][:, T1:],
+                    solver_state0=s1.solver_state)
+        segs[key] = (s1, s2, lanes)
+    for h in (0, 1):
+        lanes = {"k": segs["k"][2][str(h + 1)], "p": segs["p"][2][str(h + 1)]}
+        _assert_close_at_rounding(segs["k"][h], segs["p"][h], lanes,
+                                  kw["tol"])
+    joined = torch.cat([segs["k"][0].u_sys, segs["k"][1].u_sys], dim=1)
+    torch.testing.assert_close(joined, full.u_sys, rtol=0, atol=1e-4)
