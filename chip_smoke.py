@@ -222,9 +222,10 @@ after phase 35, so that phase 38 reads ``torch.profiler`` before phase
     ``linear_closed_loop_rollout`` in float64 (u, y, final state 1e-9;
     costs rtol 1e-7), float32 max |du| < 1e-4 against float64; ms per
     trajectory by CUDA events after a warm-up, in turns with the
-    sequential engine at B = 1, and the device kernels per call of
-    each (``torch.profiler``, three calls, one for the sequential engine
-    at K = 1, after a discarded warm-up call, in each of two sessions);
+    sequential engine at B = 1, and the kernels and copies launched per
+    call of each (the host's launch records in ``torch.profiler``, three
+    calls, one for the sequential engine at K = 1, after a discarded
+    warm-up call, in each of two sessions; ``device_kernels``);
 39. the device ops on the paper's data on the card: ``hankel_matrix``
     bit-equal to the host's, ``matrix_rank`` and
     ``evaluate_persistent_excitation`` equal to the host's, the
@@ -345,7 +346,10 @@ of K4 and K5 do not fit one block (after phase 47; it reads no
     rung lanes and final rungs equal; the converged fraction; the
     kernel's max |du| against float64 (64 scenarios) no more than 2e-5
     above the plain version's; ms per rollout of the kernel and of the
-    plain version, each alone, in turns, beside ``admm_bound``'s bound.
+    plain version, each alone, in turns, beside ``admm_bound``'s bound
+    and the share of it reached; the ring's stages, the padded rows, the
+    blocks the card holds at once, and the panel bytes the design reads
+    over the kernel's time (derived).
     Then, at ``four_tank_convex`` and ``four_tank_ladder`` (B = 65536 x
     T = 400), the wide body through the library's launcher against the
     resident one at the same bar (costs at atol 1e-5), both timed in
@@ -2757,12 +2761,26 @@ def export_phase(smi, T=400) -> None:
             f"(exit statuses {codes[0]}, {codes[1]})")
 
 
+#: The CUDA runtime and driver calls that start device work, as
+#: ``torch.profiler`` records them on the host: kernel launches, then
+#: copies and fills.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+COPY_CALLS = ("cudaMemcpy", "cudaMemcpyAsync", "cudaMemset",
+              "cudaMemsetAsync")
+
+
 def device_kernels(fn, calls: int = 3) -> tuple:
-    """``(kernels, copies)`` per call of ``fn()``: the device activities
-    of ``calls`` calls under ``torch.profiler``, after one discarded
-    warm-up call in the same session (the profiler's own ``warmup``
-    step): sessions opened right at a single call counted different
-    numbers of kernels for one fixed call from run to run."""
+    """``(kernels, copies)`` per call of ``fn()``: the kernel launches and
+    the copies and fills it issued, counted from the runtime calls that
+    ``torch.profiler`` records on the host over ``calls`` calls, after one
+    discarded warm-up call in the same session (the profiler's own
+    ``warmup`` step). Not from the device's own activity records: in a
+    session of a few milliseconds some of those went missing, now and
+    then all of them, their times scattered against the host's by up to
+    ~21 ms on the card's machine (``scripts/profiler_sessions.py``,
+    ``PERF.md`` §7), while the host's launch records were all there.
+    Raises if ``fn`` issued no device work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2775,21 +2793,22 @@ def device_kernels(fn, calls: int = 3) -> tuple:
             torch.cuda.synchronize()
             prof.step()
     names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
-    if not names:
-        raise AssertionError("torch.profiler saw no device activity")
-    return (len(names) - copies) / calls, copies / calls
+             if e.device_type == DeviceType.CPU]
+    kernels = sum(n in LAUNCH_CALLS for n in names)
+    copies = sum(n in COPY_CALLS for n in names)
+    if not kernels + copies:
+        raise AssertionError("the profiled calls issued no device work")
+    return kernels / calls, copies / calls
 
 
 def kernel_counts(fn, calls: int) -> str:
-    """Kernels and copies per call from two profiler sessions of
-    ``calls`` calls each (one pair when they agree), and the seconds the
-    two sessions took."""
+    """Kernels and copies launched per call (:func:`device_kernels`) from
+    two profiler sessions of ``calls`` calls each (one pair when they
+    agree), and the seconds the two sessions took."""
     t0 = time.perf_counter()
     counts = [device_kernels(fn, calls) for _ in range(2)]
     shown = counts[:1] if counts[0] == counts[1] else counts
-    return (" / ".join(f"{k:g} device kernels and {c:g} copies"
+    return (" / ".join(f"{k:g} kernels and {c:g} copies launched"
                        for k, c in shown)
             + f" per call (counted in {time.perf_counter() - t0:.1f} s)")
 
@@ -3431,9 +3450,9 @@ def pminres_phase(dev, smi, main, mesh, outs, T_loop=T_PMINRES,
                 max_iters=n_iter)
             counts.append(device_kernels(lambda: fixed(p["theta"]), 1))
         per = [(b - a) / 40 for a, b in zip(counts[0], counts[1])]
-        log(f"PMINRES on one rank: {per[0]:g} device kernels and {per[1]:g} "
-            "copies per MINRES iteration (a 60-iteration solve less a "
-            "20-iteration one, over 40)")
+        log(f"PMINRES on one rank: {per[0]:g} kernels and {per[1]:g} "
+            "copies launched per MINRES iteration (a 60-iteration solve "
+            "less a 20-iteration one, over 40)")
 
     run = qd.make_distributed_closed_loop(mesh, plant.as_params(), spec,
                                           T_loop, device=dev,
@@ -4151,15 +4170,19 @@ WIDE_BOX = 0.85  # large_plant_ladder's input box |u| <= 0.85
 
 def wide_launcher(ladder):
     """A rollout (``fused_admm``'s or ``fused_ladder``'s arguments) that
-    calls the library's wide launcher directly, K4w or K5w, at any shape
-    its plan takes: at resident shapes it holds the two bodies against
-    each other. It counts no launch."""
+    calls the library's wide launcher directly, K4w or K5w, on the padded
+    operators (``wide_operators``), at any shape its plan takes: at
+    resident shapes it holds the two bodies against each other. It counts
+    no launch."""
     from direct_data_driven_mpc_tpu_torch.ops import _kernels
     from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+
+    from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa
 
     lib = _kernels.load("fused_admm").lib
 
     def rollout(ops, dims, carry, W, n_iter, *rest):
+        Vop, M1, M2 = fa.wide_operators(ops.Vop, ops.M1, ops.M2)
         Bsz, n_blocks, nbp = W.shape
         nbm = dims.nb * dims.m
         sizes = (dims.S, nbm, nbp, dims.nbox, dims.nxi)
@@ -4178,7 +4201,7 @@ def wide_launcher(ladder):
             rung = torch.empty((Bsz, n_blocks), dtype=torch.int32,
                                device=W.device)
             err = lib.fused_ladder_wide_launch(
-                ops.Vop.data_ptr(), ops.M1.data_ptr(), ops.M2.data_ptr(),
+                Vop.data_ptr(), M1.data_ptr(), M2.data_ptr(),
                 ops.b2.data_ptr(), ops.lo.data_ptr(), ops.hi.data_ptr(),
                 ops.u_lo.data_ptr(), ops.u_hi.data_ptr(),
                 ops.rhos.data_ptr(), rung0.data_ptr(),
@@ -4191,7 +4214,7 @@ def wide_launcher(ladder):
         else:
             adds = rest[0] if rest else None
             err = lib.fused_admm_wide_launch(
-                ops.Vop.data_ptr(), ops.M1.data_ptr(), ops.M2.data_ptr(),
+                Vop.data_ptr(), M1.data_ptr(), M2.data_ptr(),
                 ops.b2.data_ptr(), ops.lo.data_ptr(), ops.hi.data_ptr(),
                 ops.u_lo.data_ptr(), ops.u_hi.data_ptr(),
                 *(c.data_ptr() for c in carry), W.data_ptr(),
@@ -4204,6 +4227,16 @@ def wide_launcher(ladder):
         return (*out, *fin)
 
     return rollout
+
+
+def wide_panel_bytes(plan, dims, B, n_blocks, n_iter) -> int:
+    """Bytes of operator panels the wide body reads from L2 in one
+    rollout, by its design: each block streams the padded Vop n_iter
+    times, M1 and M2 once, per solve. A count from shapes, not a
+    measurement."""
+    per_solve = 4 * (n_iter * dims.nbox * plan.ldv + dims.nbox * plan.ld1
+                     + dims.D2 * plan.ld2)
+    return per_solve * -(-B // plan.rows) * n_blocks
 
 
 def _keep(fn, key, calls, lanes, ladder):
@@ -4272,6 +4305,11 @@ def wide_admm_phase(dev, smi) -> list:
             raise AssertionError(f"{name} wide plan: library {plan} vs "
                                  f"Python {fa.admm_wide_plan(dims)}, "
                                  f"group {tile}")
+        wplan = fa.wide_plan(dims)
+        if lib.fused_wide_stage_floats(*sizes) != wplan.stage:
+            raise AssertionError(f"{name} ring stage: library "
+                                 f"{lib.fused_wide_stage_floats(*sizes)} "
+                                 f"floats vs Python {wplan.stage}")
         if resident != 0 or tile == 0:
             raise AssertionError(f"{name}: resident plan {resident}, wide "
                                  f"{tile}: not a wide shape")
@@ -4289,9 +4327,12 @@ def wide_admm_phase(dev, smi) -> list:
             f"operator bytes); resident plan 0, wide plan {plan[0]} "
             f"scenarios per block ({'the rung group, ' if ladder else ''}"
             f"{plan[1]} B of shared memory), {regs.value} registers and "
-            f"{local.value} local (spill) bytes per thread; iters "
-            f"{kw['iters']} + cold {kw['cold_iters']}, tol {kw['tol']}; "
-            f"host build {time.perf_counter() - t0:.1f} s")
+            f"{local.value} local (spill) bytes per thread; a ring of "
+            f"{fa.WIDE_STAGES} stages of {wplan.stage} floats, operator "
+            f"rows padded to {wplan.ldv}, {wplan.ld1}, {wplan.ld2}; "
+            f"blocks not clustered; iters {kw['iters']} + cold "
+            f"{kw['cold_iters']}, tol {kw['tol']}; host build "
+            f"{time.perf_counter() - t0:.1f} s")
 
         calls, lanes = {}, {}
         args = (plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, T)
@@ -4349,6 +4390,7 @@ def wide_admm_phase(dev, smi) -> list:
                          lambda: wrapper.wide_launches)
         bnd = admm_bound(ops, dims, B, T, n_iter,
                          extra_out_floats=int(ladder))
+        panel = wide_panel_bytes(wplan, dims, B, T, n_iter)
         conv = float(got.converged.float().mean())
         log(f"  {kname} main path (B={B} x T={T}): wide launches "
             f"{launches}, resident 0; vs plain "
@@ -4359,8 +4401,13 @@ def wide_admm_phase(dev, smi) -> list:
             f"converged {conv:.4f}; max |du| vs float64 ({n64} scenarios) "
             f"{du64:.3e}, the plain version's {du64_plain:.3e}; kernel "
             f"{ms['kernel']:.2f} ms per rollout (bound "
-            f"{bnd['bound_ms']:.1f} ms by {bnd['bound_by']}), plain "
-            f"{ms['plain']:.2f} ms (each alone, means of 2 turns) [{smi}]; "
+            f"{bnd['bound_ms']:.1f} ms by {bnd['bound_by']}: "
+            f"{bnd['bound_ms'] / ms['kernel']:.1%} of it reached), plain "
+            f"{ms['plain']:.2f} ms (each alone, means of 2 turns); "
+            f"{fa.WIDE_STAGES} ring stages, blocks not clustered; "
+            f"panel bytes the design reads from L2 {panel / 1e12:.3f} TB "
+            f"per rollout, {panel / ms['kernel'] / 1e9:.2f} TB/s over the "
+            f"kernel's time (derived, not measured traffic) [{smi}]; "
             f"{time.perf_counter() - t0:.1f} s")
         records.append({
             "name": f"{prefix}_wide",

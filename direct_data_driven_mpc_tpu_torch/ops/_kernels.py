@@ -74,6 +74,7 @@ _SIGNATURES = {
         "fused_wide_kernel_attributes": (
             [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)], ctypes.c_int
         ),
+        "fused_wide_stage_floats": ([_I] * 5, ctypes.c_int),
     },
 }
 

@@ -105,26 +105,41 @@
 // 192 (three 64-column register tiles a lane), or one rung's operators
 // too large to sit beside the carry in one block (bench.py's large_plant:
 // Vop 300 x 300, M1 300 x 511, M2 230 x 1031, 1.9 MB, against one block's
-// 227 KB). Their body, admm_rollout_wide, keeps each scenario's state in
-// shared memory instead (s, w, d = s - w with s_next laid over it, the
-// carry [s | u | w], pre, vc, zth; 7.8 KB a scenario at large_plant) and
-// streams the operators from global memory, where every block reads the
-// same bytes, so they come from L2: each product walks its operator in
-// row panels through a double-buffered ring in shared memory, filled by
-// cp.async, and a K5 rung move only moves the pointer. A block of TB
-// scenarios (wide_plan: the largest of 64 .. 4 whose state and a ring of
-// at least four rows of the widest window fit; 16 at large_plant with
-// CONVEX slack, nbox 300, and 32 on its input box, nbox 200) computes
-// each product in windows of 4 x 4 output tiles, two a thread. Every
-// output is still one FMA chain over k from zero in order, the
-// elementwise steps round as in admm_rollout, and the cost is summed by
-// 16 lanes a row in the same order, so the wide body gives the resident
-// body's bits wherever both run. What bounds it: the float32 FMA pipes as
-// before, and now the L2 reads of the operator panels. K4w at large_plant
-// reads Vop (360 KB) 38 times and M1 and M2 (1.5 MB) once per solve of a
-// block, 6.2 TB per rollout of 16384 x 400 scenario-steps; with one panel
-// in flight behind the one in use, the ring does not hide those reads,
-// and the kernel runs at about a sixth of its FMA bound on an H100.
+// 227 KB). Their body, admm_rollout_wide, keeps each scenario's carry in
+// shared memory instead (d = s - w with s_next laid over it, [s | u | w],
+// pre, vc, zth), s and w in the registers of the thread that owns their
+// iteration tile, and streams the operators from global memory, where
+// every block reads the same bytes, so they come from L2. The wrapper
+// pads each operator row to a multiple of four floats at each launch,
+// so every panel row is a 16-byte aligned run. A producer warp walks the
+// rollout's panels in the consumers' order and keeps a ring of two large
+// stages full: for each panel it waits on the stage's empty mbarrier,
+// arms its full mbarrier with the panel's bytes and issues bulk copies
+// (cp.async.bulk, one for a panel of whole rows, else one a row). The 16
+// consumer warps wait on full, multiply, and arrive on empty: a product
+// needs no block barrier per panel, only the barriers that order the
+// state between products (two an iteration). A product's columns go in
+// windows of whole units of 128 tiles, spread evenly (no narrow tail
+// window), each window's 32-tile slots dealt to the warps in turn, so
+// every warp runs at most one slot with no divergent tile branch and
+// each scheduler partition at most one slot more than another. K5w's
+// consumers hand the balancer's rung to the producer through one more
+// mbarrier before the plant step's panels. A block of TB scenarios
+// (wide_group_rows, the tile rule of the body's first plan, kept because
+// K5w's rung group is part of its result: 16 at large_plant with CONVEX
+// slack, nbox 300, and 32 on its input box, nbox 200). Every output is
+// still one FMA chain over k from zero in order, the elementwise steps
+// round as in admm_rollout, and the cost is summed by 16 lanes a row in
+// the same order, so the wide body's bits do not depend on its ring or
+// tiling, and equal the resident body's wherever both run. What bounds
+// it: the float32 FMA pipes (the loads are hidden: cutting them saves
+// 1-3 %); the products reach about a third of the card's FMA rate, with
+// one block of 16 consumer warps per SM.
+// Measured on an H100 and not kept: K4w in clusters of two blocks that
+// share each panel (each producer multicasting half of each panel's
+// rows into both blocks' rings) took 1.3-1.6x the time of single blocks;
+// 3 and 4 smaller stages, 8 consumer warps and a 4-deep k loop were all
+// slower.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libfused_admm.so fused_admm.cu
@@ -881,24 +896,50 @@ int kernel_attributes(int nbox, int* registers, int* local_bytes) {
 }
 
 // ---------------------------------------------------------------------
-// The wide body (K4w, K5w): state in shared memory, operators streamed.
+// The wide body (K4w, K5w): state in shared memory, operators streamed
+// through an mbarrier ring that a producer warp fills.
 
-constexpr int WIDE_TILES = 2 * THREADS;  // 4 x 4 tiles of a window
+constexpr int WIDE_WARPS = 16;                     // consumer warps
+constexpr int WIDE_CONSUMERS = 32 * WIDE_WARPS;    // consumer threads
+constexpr int WIDE_THREADS = WIDE_CONSUMERS + 32;  // + the producer warp
+constexpr int WIDE_TILES = 512;  // 4 x 4 tiles of a window, at most
+constexpr int WIDE_SLOTS = WIDE_TILES / 32 / WIDE_WARPS;  // slots a warp
+constexpr int WIDE_UNIT = 4 * 32;  // tiles of one slot on each partition
 constexpr int WIDE_MIN_PANEL = 4;  // rows of the widest window a stage holds
+// Ring stages: measured on an H100, two large stages beat three and
+// four smaller ones in the same bytes (each panel costs a wait and an
+// arrive a warp, and the loads are hidden at two).
+constexpr int WIDE_STAGES = 2;
+// Head of the block: full and empty mbarriers of each stage, the rung
+// barrier and the rung word (K5w), in 128 bytes.
+constexpr int WIDE_HEAD_FLOATS = 32;
 
-// Columns of one window of a product: WIDE_TILES tiles over the block's
-// TB / 4 row groups.
+__host__ __device__ inline int ceil32(size_t x) {
+  return (int)((x + 31) & ~(size_t)31);
+}
+
+// Columns of the widest window: WIDE_TILES tiles over the block's TB / 4
+// row groups. It sizes the frozen tile rule below and the widest panel.
 __host__ __device__ inline int wide_window_cols(int TB) {
   return 4 * (WIDE_TILES / (TB >> 2));
 }
 
-// Floats of the wide body's state: lo, hi, the u bounds; the carry rows
-// xin (D2), pre (Mw), vc (nbox), zth (nxi) (pre, vc and zth consecutive,
-// as the tracking adds are laid), s and w (nbox each), d = s - w with
-// s_next laid over it (max(nbox, S)); the row maxima rp, rd, |s|, |w|.
+// Floats of the wide state as first laid out (s and w in shared memory),
+// which sizes the frozen tile rule below:
+// lo, hi, the u bounds; the carry rows xin (D2), pre (Mw), vc (nbox),
+// zth (nxi), s and w (nbox each), d = s - w with s_next laid over it
+// (max(nbox, S)); the row maxima rp, rd, |s|, |w|.
 size_t wide_state_floats(const Shape& d) {
+  const int rows = d.D2 + d.Mw + d.nxi + 3 * d.nbox + std::max(d.nbox, d.S);
+  return 2 * (size_t)d.ldv + 2 * (size_t)d.ldu + (size_t)rows * d.LDS +
+         4 * (size_t)d.TB;
+}
+
+// Floats of the wide body's state as it is laid out now: the same
+// without s and w, which live in the consumers' registers.
+__host__ __device__ inline size_t wide_layout_floats(const Shape& d) {
   const int rows =
-      d.D2 + d.Mw + d.nxi + 3 * d.nbox + std::max(d.nbox, d.S);
+      d.D2 + d.Mw + d.nxi + d.nbox + (d.nbox > d.S ? d.nbox : d.S);
   return 2 * (size_t)d.ldv + 2 * (size_t)d.ldu + (size_t)rows * d.LDS +
          4 * (size_t)d.TB;
 }
@@ -911,17 +952,13 @@ int wide_widest(const Shape& d) {
                            ceil4(std::min(d.W2, ww))));
 }
 
-struct WidePlan {
-  int TB;        // scenarios per block (0: none fits)
-  int stage;     // floats of one ring stage
-  size_t bytes;  // dynamic shared memory of a block
-};
-
-// The largest of TILES whose iteration product is one window (so its
-// epilogue may write d) and whose state leaves a ring of two stages of at
-// least WIDE_MIN_PANEL rows of the widest window; the ring takes the rest
-// of the block.
-WidePlan wide_plan(int S, int nbm, int nbp, int nbox, int nxi) {
+// The wide tile rule, frozen as the body's first plan had it because
+// K5w's rung group is part of its result: the largest of TILES whose
+// iteration product is one window and whose state leaves two ring stages
+// of at least
+// WIDE_MIN_PANEL rows of the widest window; 0 if none. K4w keeps the
+// same tile.
+int wide_group_rows(int S, int nbm, int nbp, int nbox, int nxi) {
   const size_t limit = SMEM_LIMIT / sizeof(float);
   for (int TB : TILES) {
     const Shape d = make_shape(S, nbm, nbp, nbox, nxi, TB);
@@ -929,26 +966,145 @@ WidePlan wide_plan(int S, int nbm, int nbp, int nbox, int nxi) {
     const size_t state = wide_state_floats(d);
     if (state >= limit) continue;
     const int stage = (int)((limit - state) / 2) & ~3;
-    if (stage >= WIDE_MIN_PANEL * wide_widest(d))
-      return {TB, stage, sizeof(float) * (state + 2 * (size_t)stage)};
+    if (stage >= WIDE_MIN_PANEL * wide_widest(d)) return TB;
   }
-  return {0, 0, 0};
+  return 0;
 }
 
-// acc[j][r][c] += sum_k a[k LDS + r] pan[k wl + 4 cg[j] + c] over the
-// panel's rows, for the thread's NTL tiles (one row group).
-template <int NTL>
-__device__ __forceinline__ void wide_accumulate(const float* a, int LDS,
-                                                const float* pan, int wl,
-                                                int rows, const int (&cg)[2],
-                                                float (&acc)[2][4][4]) {
-#pragma unroll 4
+struct WidePlan {
+  int TB;        // scenarios per block (0: none fits)
+  int stage;     // floats of one ring stage
+  size_t bytes;  // dynamic shared memory of a block
+};
+
+// The tile of wide_group_rows; after the head and the state (s and w
+// moved to registers), WIDE_STAGES stages that share the rest, each a
+// multiple of 128 bytes and holding WIDE_MIN_PANEL rows of the widest
+// window.
+WidePlan wide_plan(int S, int nbm, int nbp, int nbox, int nxi) {
+  const int TB = wide_group_rows(S, nbm, nbp, nbox, nxi);
+  if (TB == 0) return {0, 0, 0};
+  const Shape d = make_shape(S, nbm, nbp, nbox, nxi, TB);
+  const size_t limit = SMEM_LIMIT / sizeof(float);
+  const size_t head = WIDE_HEAD_FLOATS + ceil32(wide_layout_floats(d));
+  if (head >= limit) return {0, 0, 0};
+  const int stage = (int)((limit - head) / WIDE_STAGES) & ~31;
+  if (stage < WIDE_MIN_PANEL * wide_widest(d)) return {0, 0, 0};
+  return {TB, stage, sizeof(float) * (head + (size_t)WIDE_STAGES * stage)};
+}
+
+// Windows of a product of N columns over RG row groups: whole units of
+// WIDE_UNIT tiles (one 32-tile slot on each of the SM's four scheduler
+// partitions), at most WIDE_TILES tiles a window, the units spread evenly
+// over the fewest windows (the first windows one unit more), so no
+// window is a narrow tail. Window i covers column groups
+// [cg0(i), cg0(i + 1)) of 4 columns, the last ending at ceil(N / 4).
+struct Windows {
+  int ncg, unit, n, base, extra;
+  __device__ __forceinline__ Windows(int N, int RG) {
+    ncg = (N + 3) >> 2;
+    unit = WIDE_UNIT / RG;
+    const int units = (ncg + unit - 1) / unit;
+    const int per = WIDE_TILES / WIDE_UNIT;
+    n = (units + per - 1) / per;
+    base = units / n;
+    extra = units - base * n;
+  }
+  __device__ __forceinline__ int cg0(int i) const {
+    return min(ncg, unit * (i * base + min(i, extra)));
+  }
+};
+
+// Shared-memory mbarriers (PTX), by 32-bit shared address.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 state;\n"
+      " mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// One bulk copy (TMA, 1-D) of `bytes` from global memory into this
+// block's shared memory, completing on bar.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The consumer warps' own block barrier (the producer warp never joins).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(WIDE_CONSUMERS) : "memory");
+}
+
+// The ring: WIDE_STAGES stages of `stage` floats, each with a full
+// barrier (the producer's expect_tx, then the copies' bytes) and an empty
+// barrier (one arrival per consumer warp). A position walks the stages in
+// order; its parity flips at each wrap.
+struct Ring {
+  float* buf;
+  uint64_t* full;
+  uint64_t* empty;
+  int stage;
+};
+
+struct RingPos {
+  int s = 0, ph = 0;
+  __device__ __forceinline__ void next() {
+    if (++s == WIDE_STAGES) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// acc[j][r][c] += sum_k a[k LDS + r] pan[k wl + co[j] + c] over the
+// panel's rows, for the thread's NS tiles (one row group).
+template <int NS>
+__device__ __forceinline__ void wide_accumulate(
+    const float* a, int LDS, const float* pan, int wl, int rows,
+    const int (&co)[WIDE_SLOTS], float (&acc)[WIDE_SLOTS][4][4]) {
+#pragma unroll 8
   for (int k = 0; k < rows; ++k) {
     const float4 a4 = ld4(a + k * LDS);
     const float av[4] = {a4.x, a4.y, a4.z, a4.w};
 #pragma unroll
-    for (int j = 0; j < NTL; ++j) {
-      const float4 o4 = ld4(pan + k * wl + 4 * cg[j]);
+    for (int j = 0; j < NS; ++j) {
+      const float4 o4 = ld4(pan + k * wl + co[j]);
       const float ov[4] = {o4.x, o4.y, o4.z, o4.w};
 #pragma unroll
       for (int r = 0; r < 4; ++r)
@@ -959,97 +1115,143 @@ __device__ __forceinline__ void wide_accumulate(const float* a, int LDS,
   }
 }
 
-// out[r][c] = sum_k A[k][r] Op[k][c] for the block's TB scenarios: A is
-// scenario-minor in shared memory (row k at A + k LDS), Op (K, N)
-// row-major in global memory. The columns go in windows of
-// wide_window_cols(TB); a window's K rows stream through the ring (two
-// stages of `stage` floats) in panels of kp rows by cp.async, the next
-// panel in flight while the block works on this one. Tile i of a window
-// is row group i % RG, column group i / RG; thread tid takes tiles tid
-// and tid + THREADS, which share a row group, so one float4 of A feeds
-// both. epi(r0, c0, acc) consumes a tile once every thread is done with
-// the window's last panel, so an epilogue may write A when the product
-// is one window. Each output is one FMA chain over k = 0 .. K-1 from
-// zero, as tile_product and warp_product sum it.
+// Consumer side of out[r][c] = sum_k A[k][r] Op[k][c] for the block's TB
+// scenarios: A is scenario-minor in shared memory (row k at A + k LDS),
+// Op (K, N) streams through the ring window by window (Windows), a
+// window's K rows in panels of min(K, stage / wl) rows. A window of nt
+// tiles has ceil(nt / 32) slots of 32 tiles; slot i goes to warp i %
+// WIDE_WARPS, so a warp takes up to WIDE_SLOTS slots, the same count for
+// all its lanes (no divergent tile branch), and each partition at most
+// one slot more than another. Lane l of a slot takes tile 32 i + l: row
+// group l % RG, column group (32 i + l) / RG, so a thread's tiles share
+// one float4 of A. epi(j, r0, c0, acc) consumes slot j's tile; with
+// `epi_writes_a` the warps first wait for each other, so an epilogue may
+// write A. Each output is one FMA chain over k = 0 .. K-1 from zero, as
+// tile_product and warp_product sum it.
 template <class Epi>
-__device__ __forceinline__ void stream_product(const float* A, int LDS,
-                                               const float* __restrict__ Op,
-                                               int K, int N, int TB,
-                                               int stage, float* ring,
-                                               Epi&& epi) {
-  const int tid = threadIdx.x;
-  const int RG = TB >> 2, WW = wide_window_cols(TB);
-  const int rg = tid % RG;
-  const float* a = A + 4 * rg;
-  const bool vec =
-      (N & 3) == 0 && (reinterpret_cast<uintptr_t>(Op) & 15) == 0;
-  for (int cw = 0; cw < N; cw += WW) {
-    const int wn = min(WW, N - cw), wl = ceil4(wn), ncg = wl >> 2;
-    const int n_tiles = RG * ncg;
-    const int kp = min(K, stage / wl);
-    const int n_pan = (K + kp - 1) / kp;
-    const int cg[2] = {tid / RG, tid / RG + THREADS / RG};
-    const bool t0 = tid < n_tiles, t1 = tid + THREADS < n_tiles;
-    // Panel p (rows p kp .. of the window) into stage p & 1; columns
-    // past the window's width are zero.
-    auto fetch = [&](int p) {
-      float* dst = ring + (p & 1) * stage;
-      const int k0 = p * kp, rows = min(kp, K - k0);
-      const float* src = Op + (size_t)k0 * N + cw;
-      if (vec) {
-        for (int idx = tid; idx < rows * ncg; idx += THREADS) {
-          const int r = idx / ncg, g = idx - r * ncg;
-          __pipeline_memcpy_async(dst + r * wl + 4 * g,
-                                  src + (size_t)r * N + 4 * g, 16);
-        }
-      } else {
-        for (int idx = tid; idx < rows * wl; idx += THREADS) {
-          const int r = idx / wl, c = idx - r * wl;
-          if (c < wn)
-            __pipeline_memcpy_async(dst + r * wl + c, src + (size_t)r * N + c,
-                                    sizeof(float));
-          else
-            dst[r * wl + c] = 0.f;
-        }
-      }
-      __pipeline_commit();
-    };
-    float acc[2][4][4];
+__device__ __forceinline__ void consume_product(const float* A, int LDS, int K,
+                                                int N, int TB,
+                                                const Ring& ring,
+                                                RingPos& pos, bool epi_writes_a,
+                                                Epi&& epi) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int RG = TB >> 2;
+  const float* a = A + 4 * (lane % RG);
+  const Windows win(N, RG);
+  for (int i = 0; i < win.n; ++i) {
+    const int g0 = win.cg0(i), ng = win.cg0(i + 1) - g0;
+    const int wl = 4 * ng, nt = RG * ng;
+    const int slots = (nt + 31) >> 5;
+    const int mine = warp < slots ? (slots - warp + WIDE_WARPS - 1) / WIDE_WARPS
+                                  : 0;
+    int co[WIDE_SLOTS];
+    bool ok[WIDE_SLOTS];
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < WIDE_SLOTS; ++j) {
+      const int tile = 32 * (warp + WIDE_WARPS * j) + lane;
+      ok[j] = j < mine && tile < nt;
+      co[j] = 4 * min(tile / RG, ng - 1);  // inside the panel if not ok
+    }
+    const int kp = min(K, ring.stage / wl);
+    float acc[WIDE_SLOTS][4][4];
+#pragma unroll
+    for (int j = 0; j < WIDE_SLOTS; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[j][r][c] = 0.f;
-    fetch(0);
-    for (int p = 0; p < n_pan; ++p) {
-      if (p + 1 < n_pan) {
-        fetch(p + 1);
-        __pipeline_wait_prior(1);
-      } else {
-        __pipeline_wait_prior(0);
-      }
-      __syncthreads();  // panel p, and every earlier write of A, are in
-      const float* pan = ring + (p & 1) * stage;
-      const float* ak = a + (size_t)p * kp * LDS;
-      const int rows = min(kp, K - p * kp);
-      if (t1)
-        wide_accumulate<2>(ak, LDS, pan, wl, rows, cg, acc);
-      else if (t0)
-        wide_accumulate<1>(ak, LDS, pan, wl, rows, cg, acc);
-      __syncthreads();  // every thread is done with stage p & 1
+    for (int k0 = 0; k0 < K; k0 += kp) {
+      const int rows = min(kp, K - k0);
+      mbar_wait(ring.full + pos.s, pos.ph);
+      const float* pan = ring.buf + (size_t)pos.s * ring.stage;
+      if (WIDE_SLOTS == 2 && mine == 2)
+        wide_accumulate<WIDE_SLOTS>(a + (size_t)k0 * LDS, LDS, pan, wl, rows,
+                                    co, acc);
+      else if (mine >= 1)
+        wide_accumulate<1>(a + (size_t)k0 * LDS, LDS, pan, wl, rows, co, acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(ring.empty + pos.s);
+      pos.next();
     }
-    if (t0) epi(4 * rg, cw + 4 * cg[0], acc[0]);
-    if (t1) epi(4 * rg, cw + 4 * cg[1], acc[1]);
+    if (epi_writes_a) consumer_sync();
+    const int r0 = 4 * (lane % RG);
+#pragma unroll
+    for (int j = 0; j < WIDE_SLOTS; ++j)
+      if (ok[j]) epi(j, r0, 4 * g0 + co[j], acc[j]);
+  }
+}
+
+// Producer side of the same product: for each panel, lane 0 waits until
+// every consumer warp has left the stage, arms the full barrier with the
+// panel's bytes, and the copies follow: one bulk copy where the window is
+// the whole padded row (the panel is contiguous), else one a row, spread
+// over the warp's lanes.
+__device__ __forceinline__ void produce_product(const float* __restrict__ Op,
+                                                int K, int N, int ld, int TB,
+                                                const Ring& ring,
+                                                RingPos& pos) {
+  const int lane = threadIdx.x & 31;
+  const Windows win(N, TB >> 2);
+  for (int i = 0; i < win.n; ++i) {
+    const int g0 = win.cg0(i), wl = 4 * (win.cg0(i + 1) - g0);
+    const int kp = min(K, ring.stage / wl);
+    for (int k0 = 0; k0 < K; k0 += kp) {
+      const int rows = min(kp, K - k0);
+      if (lane == 0) {
+        mbar_wait(ring.empty + pos.s, pos.ph ^ 1);
+        mbar_expect(ring.full + pos.s, (uint32_t)(rows * wl * sizeof(float)));
+      }
+      __syncwarp();
+      float* dst = ring.buf + (size_t)pos.s * ring.stage;
+      const float* src = Op + (size_t)k0 * ld + 4 * g0;
+      if (wl == ld) {
+        if (lane == 0)
+          bulk_copy(dst, src, (uint32_t)(rows * wl * sizeof(float)),
+                    ring.full + pos.s);
+      } else {
+        for (int r = lane; r < rows; r += 32)
+          bulk_copy(dst + (size_t)r * wl, src + (size_t)r * ld,
+                    (uint32_t)(wl * sizeof(float)), ring.full + pos.s);
+      }
+      pos.next();
+    }
+  }
+}
+
+// The producer warp: every panel of the rollout, in the consumers'
+// order. K5w's plant step takes the rung the balancer picks, which the
+// consumers hand over through the rung barrier.
+template <bool LADDER>
+__device__ __forceinline__ void wide_producer(const Params& P, const Shape& d,
+                                              const Ring& ring,
+                                              uint64_t* rung_bar,
+                                              const int* rung_word) {
+  RingPos pos;
+  int ri = LADDER ? P.rung0[blockIdx.x] : 0;
+  for (int t = 0; t < d.n_blocks; ++t) {
+    for (int it = 0; it < d.n_iter; ++it)
+      produce_product(P.Vop + (size_t)ri * d.nbox * d.ldv, d.nbox, d.nbox,
+                      d.ldv, d.TB, ring, pos);
+    produce_product(P.M1 + (size_t)ri * d.nbox * d.ld1, d.nbox, d.W1, d.ld1,
+                    d.TB, ring, pos);
+    if (LADDER) {
+      if ((threadIdx.x & 31) == 0) mbar_wait(rung_bar, t & 1);
+      __syncwarp();
+      ri = *(volatile const int*)rung_word;
+    }
+    produce_product(P.M2 + (size_t)ri * d.D2 * d.ld2, d.D2, d.W2, d.ld2,
+                    d.TB, ring, pos);
   }
 }
 
 // K4w (LADDER = false) or K5w (LADDER = true): admm_rollout's math with
-// the state in shared memory and the operators streamed.
+// the carry in shared memory, s and w in the registers of the consumer
+// that owns their iteration tile, and the operators (rows padded to ldv,
+// ld1, ld2) streamed by the producer warp through a ring of WIDE_STAGES
+// stages of `stage` floats.
 template <bool LADDER>
 __device__ __forceinline__ void admm_rollout_wide(const Params& P,
-                                                  const Shape& d,
-                                                  int stage) {
+                                                  const Shape& d, int stage) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int LDS = d.LDS, TB = d.TB;
@@ -1058,7 +1260,11 @@ __device__ __forceinline__ void admm_rollout_wide(const Params& P,
   const int row0 = blockIdx.x * TB;
   const int tid = threadIdx.x;
 
-  float* lo = sm;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm);
+  uint64_t* empty = full + WIDE_STAGES;
+  uint64_t* rung_bar = empty + WIDE_STAGES;
+  int* rung_word = reinterpret_cast<int*>(rung_bar + 1);
+  float* lo = sm + WIDE_HEAD_FLOATS;
   float* hi = lo + d.ldv;
   float* ulo = hi + d.ldv;
   float* uhi = ulo + d.ldu;
@@ -1067,86 +1273,128 @@ __device__ __forceinline__ void admm_rollout_wide(const Params& P,
   float* pre = xin + D2 * LDS;    // (Mw): [u_theta | q]
   float* vc = pre + Mw * LDS;     // (nbox)
   float* zth = vc + nbox * LDS;   // (nxi)
-  float* s = zth + nxi * LDS;     // (nbox)
-  float* w = s + nbox * LDS;      // (nbox)
-  float* dbuf = w + nbox * LDS;   // (max(nbox, S)): s - w, or s_next
+  float* dbuf = zth + nxi * LDS;  // (max(nbox, S)): s - w, or s_next
   float* snext = dbuf;
   float* rpr = dbuf + max(nbox, S) * LDS;  // (TB) row maxima
   float* rdr = rpr + TB;
   float* smag = rdr + TB;
   float* wmag = smag + TB;
-  float* ring = wmag + TB;  // (2 stage)
+  const Ring ring{sm + WIDE_HEAD_FLOATS + ceil32(wide_layout_floats(d)),
+                  full, empty, stage};
 
+  if (tid == 0) {
+    for (int i = 0; i < WIDE_STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, WIDE_WARPS);
+    }
+    mbar_init(rung_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   int ri = 0;  // K5: the group's rung
   float rho = P.rho;
   if (LADDER) {
     ri = P.rung0[blockIdx.x];
     rho = P.rhos[ri];
   }
-  load_op(lo, P.lo, 1, nbox, d.ldv);
-  load_op(hi, P.hi, 1, nbox, d.ldv);
-  load_op(ulo, P.u_lo, 1, nbm, d.ldu);
-  load_op(uhi, P.u_hi, 1, nbm, d.ldu);
-  load_carry(xin, P.s0, S, row0, d);
-  load_carry(pre, P.pre0, Mw, row0, d);
-  load_carry(vc, P.vc0, nbox, row0, d);
-  load_carry(zth, P.zth0, nxi, row0, d);
-  load_carry(s, P.sa0, nbox, row0, d);
-  load_carry(w, P.wa0, nbox, row0, d);
+  if (tid < THREADS) {  // the loaders stride THREADS
+    load_op(lo, P.lo, 1, nbox, d.ldv);
+    load_op(hi, P.hi, 1, nbox, d.ldv);
+    load_op(ulo, P.u_lo, 1, nbm, d.ldu);
+    load_op(uhi, P.u_hi, 1, nbm, d.ldu);
+    load_carry(xin, P.s0, S, row0, d);
+    load_carry(pre, P.pre0, Mw, row0, d);
+    load_carry(vc, P.vc0, nbox, row0, d);
+    load_carry(zth, P.zth0, nxi, row0, d);
+  }
   __syncthreads();
+
+  if (tid >= WIDE_CONSUMERS) {
+    wide_producer<LADDER>(P, d, ring, rung_bar, rung_word);
+    return;
+  }
+
+  // This thread's iteration tiles (the iteration product is one window,
+  // dealt as consume_product deals it): rows r0 .. r0 + 3, columns
+  // c0[j] .. c0[j] + 3 of slot j, whose s and w it holds for the whole
+  // rollout (zero past B and past nbox).
+  const int warp = tid >> 5, lane = tid & 31, RG = TB >> 2;
+  const int r0 = 4 * (lane % RG);
+  int c0[WIDE_SLOTS];
+  bool own[WIDE_SLOTS];
+  {
+    const int nt = RG * ((nbox + 3) >> 2), slots = (nt + 31) >> 5;
+    const int mine =
+        warp < slots ? (slots - warp + WIDE_WARPS - 1) / WIDE_WARPS : 0;
+#pragma unroll
+    for (int j = 0; j < WIDE_SLOTS; ++j) {
+      const int tile = 32 * (warp + WIDE_WARPS * j) + lane;
+      own[j] = j < mine && tile < nt;
+      c0[j] = 4 * (tile / RG);
+    }
+  }
+  float s[WIDE_SLOTS][4][4], w[WIDE_SLOTS][4][4];
+#pragma unroll
+  for (int j = 0; j < WIDE_SLOTS; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int b = row0 + r0 + r, col = c0[j] + c;
+        const bool in = own[j] && b < d.B && col < nbox;
+        s[j][r][c] = in ? P.sa0[(size_t)b * nbox + col] : 0.f;
+        w[j][r][c] = in ? P.wa0[(size_t)b * nbox + col] : 0.f;
+      }
+
+  RingPos pos;
   const int Wadd = Mw + nbox + nxi;
   const float alpha = P.alpha, beta = P.beta;
 
-  // The iteration's epilogue on one tile: v = acc + vc, the over-relaxed
-  // step, the clip, d; on the last iteration the tile's row maxima of
-  // |v - s'| and |s' - s| go to rpr, rdr (non-negative or NaN floats
-  // order as their bits, so an integer max keeps a NaN).
+  // The iteration's epilogue on slot j's tile: v = acc + vc, the
+  // over-relaxed step, the clip, d; on the last iteration the tile's row
+  // maxima of |v - s'| and |s' - s| go to rpr, rdr (non-negative or NaN
+  // floats order as their bits, so an integer max keeps a NaN).
   bool last = false;
-  auto iter_epi = [&](int r0, int c0, float (&acc)[4][4]) {
+  auto iter_epi = [&](int j, int rr0, int cc0, float (&acc)[4][4]) {
     float pm[4] = {0.f, 0.f, 0.f, 0.f}, dm[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int col = c0 + c;
+      const int col = cc0 + c;
       if (col >= nbox) break;
-      const int o = col * LDS + r0;
-      const float4 s4 = ld4(s + o), w4 = ld4(w + o), v4 = ld4(vc + o);
-      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-      const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+      const int o = col * LDS + rr0;
+      const float4 v4 = ld4(vc + o);
       const float vcv[4] = {v4.x, v4.y, v4.z, v4.w};
       const float lc = lo[col], hc = hi[col];
-      float sn[4], wn[4], dn[4];
+      float dn[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
+        const float sv = s[j][r][c], wv = w[j][r][c];
         const float v = __fadd_rn(acc[r][c], vcv[r]);
-        const float vh =
-            __fadd_rn(__fmul_rn(alpha, v), __fmul_rn(beta, sv[r]));
-        sn[r] = fminf(fmaxf(__fadd_rn(vh, wv[r]), lc), hc);
-        wn[r] = __fsub_rn(__fadd_rn(wv[r], vh), sn[r]);
-        dn[r] = __fsub_rn(sn[r], wn[r]);
+        const float vh = __fadd_rn(__fmul_rn(alpha, v), __fmul_rn(beta, sv));
+        const float sn = fminf(fmaxf(__fadd_rn(vh, wv), lc), hc);
+        const float wn = __fsub_rn(__fadd_rn(wv, vh), sn);
+        dn[r] = __fsub_rn(sn, wn);
         if (last) {
-          pm[r] = nan_max(pm[r], fabsf(__fsub_rn(v, sn[r])));
-          dm[r] = nan_max(dm[r], fabsf(__fsub_rn(sn[r], sv[r])));
+          pm[r] = nan_max(pm[r], fabsf(__fsub_rn(v, sn)));
+          dm[r] = nan_max(dm[r], fabsf(__fsub_rn(sn, sv)));
         }
+        s[j][r][c] = sn;
+        w[j][r][c] = wn;
       }
-      *reinterpret_cast<float4*>(s + o) =
-          make_float4(sn[0], sn[1], sn[2], sn[3]);
-      *reinterpret_cast<float4*>(w + o) =
-          make_float4(wn[0], wn[1], wn[2], wn[3]);
       *reinterpret_cast<float4*>(dbuf + o) =
           make_float4(dn[0], dn[1], dn[2], dn[3]);
     }
     if (last) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        atomicMax(reinterpret_cast<int*>(rpr + r0 + r), __float_as_int(pm[r]));
-        atomicMax(reinterpret_cast<int*>(rdr + r0 + r), __float_as_int(dm[r]));
+        atomicMax(reinterpret_cast<int*>(rpr + rr0 + r), __float_as_int(pm[r]));
+        atomicMax(reinterpret_cast<int*>(rdr + rr0 + r), __float_as_int(dm[r]));
       }
     }
   };
 
   for (int t = 0; t < d.n_blocks; ++t) {
     // This block's noise into xin's w rows.
-    for (int idx = tid; idx < TB * nbp; idx += THREADS) {
+    for (int idx = tid; idx < TB * nbp; idx += WIDE_CONSUMERS) {
       const int r = idx / nbp, i = idx - r * nbp;
       const int b = row0 + r;
       xin[(S + nbm + i) * LDS + r] =
@@ -1155,56 +1403,75 @@ __device__ __forceinline__ void admm_rollout_wide(const Params& P,
     // K4's tracking adds, to pre, vc and zth.
     if (!LADDER && P.adds != nullptr) {
       const float* add = P.adds + (size_t)t * Wadd;
-      for (int idx = tid; idx < Wadd * TB; idx += THREADS) {
+      for (int idx = tid; idx < Wadd * TB; idx += WIDE_CONSUMERS) {
         const int j = idx / TB, r = idx - j * TB;
         pre[j * LDS + r] = __fadd_rn(pre[j * LDS + r], add[j]);
       }
     }
     // d = s - w (s_next has left it for xin), the row maxima from zero.
-    for (int idx = tid; idx < nbox * TB; idx += THREADS) {
-      const int j = idx / TB, r = idx - j * TB;
-      dbuf[j * LDS + r] = __fsub_rn(s[j * LDS + r], w[j * LDS + r]);
+#pragma unroll
+    for (int j = 0; j < WIDE_SLOTS; ++j) {
+      if (!own[j]) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c0[j] + c >= nbox) break;
+        *reinterpret_cast<float4*>(dbuf + (c0[j] + c) * LDS + r0) =
+            make_float4(__fsub_rn(s[j][0][c], w[j][0][c]),
+                        __fsub_rn(s[j][1][c], w[j][1][c]),
+                        __fsub_rn(s[j][2][c], w[j][2][c]),
+                        __fsub_rn(s[j][3][c], w[j][3][c]));
+      }
     }
-    for (int r = tid; r < TB; r += THREADS) rpr[r] = rdr[r] = 0.f;
-    // (stream_product's first barrier orders these writes.)
+    for (int r = tid; r < TB; r += WIDE_CONSUMERS)
+      rpr[r] = rdr[r] = smag[r] = wmag[r] = 0.f;
+    consumer_sync();  // xin, pre, vc, zth, d and the maxima are in
 
     for (int it = 0; it < d.n_iter; ++it) {
       last = it == d.n_iter - 1;
-      stream_product(dbuf, LDS, P.Vop + (size_t)ri * nbox * nbox, nbox,
-                     nbox, TB, stage, ring, iter_epi);
+      consume_product(dbuf, LDS, nbox, nbox, TB, ring, pos, true, iter_epi);
+      consumer_sync();  // d (and the residual maxima) are in
     }
-    __syncthreads();  // s, w, d and the residual maxima are in
 
     // Per row: max |s| (K5, or n_iter = 0, where v_last = s_prev = 0 make
-    // both residuals max |s|) and max |w| (K5), 16 lanes a row.
+    // both residuals max |s|) and max |w| (K5), from each owner's tile.
     if (LADDER || d.n_iter == 0) {
-      for (int r = tid >> 4; r < TB; r += THREADS >> 4) {
-        float smx = 0.f, wmx = 0.f;
-        for (int j = tid & 15; j < nbox; j += 16) {
-          smx = nan_max(smx, fabsf(s[j * LDS + r]));
-          if (LADDER) wmx = nan_max(wmx, fabsf(w[j * LDS + r]));
-        }
-        smx = row_group_max(smx);
-        if (LADDER) wmx = row_group_max(wmx);
-        if ((tid & 15) == 0) {
-          smag[r] = smx;
-          wmag[r] = wmx;
-          if (d.n_iter == 0) rpr[r] = rdr[r] = smx;
+#pragma unroll
+      for (int j = 0; j < WIDE_SLOTS; ++j) {
+        if (!own[j]) continue;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float smx = 0.f, wmx = 0.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (c0[j] + c >= nbox) break;
+            smx = nan_max(smx, fabsf(s[j][r][c]));
+            wmx = nan_max(wmx, fabsf(w[j][r][c]));
+          }
+          atomicMax(reinterpret_cast<int*>(smag + r0 + r), __float_as_int(smx));
+          if (LADDER)
+            atomicMax(reinterpret_cast<int*>(wmag + r0 + r),
+                      __float_as_int(wmx));
+          if (d.n_iter == 0) {
+            atomicMax(reinterpret_cast<int*>(rpr + r0 + r),
+                      __float_as_int(smx));
+            atomicMax(reinterpret_cast<int*>(rdr + r0 + r),
+                      __float_as_int(smx));
+          }
         }
       }
     }
 
     // Extraction: t = s - w through M1.
-    stream_product(
-        dbuf, LDS, P.M1 + (size_t)ri * nbox * W1, nbox, W1, TB, stage, ring,
-        [&](int r0, int c0, float (&acc)[4][4]) {
+    consume_product(
+        dbuf, LDS, nbox, W1, TB, ring, pos, false,
+        [&](int, int rr0, int cc0, float (&acc)[4][4]) {
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const int col = c0 + c;
+            const int col = cc0 + c;
             if (col >= W1) break;
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
-              const int rr = r0 + r;
+              const int rr = rr0 + r;
               if (col < nbm) {
                 const float u = fminf(
                     fmaxf(__fadd_rn(pre[col * LDS + rr], acc[r][c]),
@@ -1224,11 +1491,11 @@ __device__ __forceinline__ void admm_rollout_wide(const Params& P,
             }
           }
         });
-    __syncthreads();  // u, z^2 and q are in
+    consumer_sync();  // u, z^2, q and the row maxima are in
 
     // Cost and residuals, 16 lanes a row: each lane sums every 16th z^2
     // of the row, the lanes' sums by shuffles (admm_rollout's order).
-    for (int r = tid >> 4; r < TB; r += THREADS >> 4) {
+    for (int r = tid >> 4; r < TB; r += WIDE_CONSUMERS >> 4) {
       const int cg = tid & 15;
       float cs = 0.f;
       for (int j = cg; j < nxi; j += 16) cs = __fadd_rn(cs, zth[j * LDS + r]);
@@ -1245,7 +1512,7 @@ __device__ __forceinline__ void admm_rollout_wide(const Params& P,
     }
 
     // K5: balance the group's rung on its rows before B; every thread
-    // reaches the same ri'.
+    // reaches the same ri', and thread 0 hands it to the producer.
     if (LADDER) {
       float red[4] = {0.f, 0.f, 0.f, 0.f};
       for (int r = 0; r < TB && row0 + r < d.B; ++r) {
@@ -1263,36 +1530,43 @@ __device__ __forceinline__ void admm_rollout_wide(const Params& P,
       const bool up = rp_rel > __fmul_rn(P.ratio, rd_rel) && ri < P.R - 1;
       const bool down = rd_rel > __fmul_rn(P.ratio, rp_rel) && ri > 0;
       const int rn = ri + (int)up - (int)down;
-      for (int r = tid; r < TB; r += THREADS)
+      if (tid == 0) {
+        *rung_word = rn;
+        mbar_arrive(rung_bar);
+      }
+      for (int r = tid; r < TB; r += WIDE_CONSUMERS)
         if (row0 + r < d.B) P.RUNG[(size_t)(row0 + r) * d.n_blocks + t] = rn;
       if (rn != ri) {
         // The unscaled dual rho w is rung-invariant; the next solve
         // takes d = s - w from the scaled w.
         const float fac = __fdiv_rn(P.rhos[ri], P.rhos[rn]);
-        for (int idx = tid; idx < nbox * TB; idx += THREADS) {
-          const int j = idx / TB, r = idx - j * TB;
-          w[j * LDS + r] = __fmul_rn(w[j * LDS + r], fac);
-        }
+#pragma unroll
+        for (int j = 0; j < WIDE_SLOTS; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) w[j][r][c] = __fmul_rn(w[j][r][c], fac);
         ri = rn;
         rho = P.rhos[rn];
       }
     }
+    consumer_sync();  // the cost's reads of pre, zth and the maxima are done
 
     // Plant step and the next solve's maps: [s_flat | u | w] through M2.
     const float* b2 = P.b2 + (size_t)ri * W2;
     const int oU = S, oY = S + nbm, oQ = S + nbm + nbp, oV = oQ + 1;
     const int oZ = oV + nbox;
-    stream_product(
-        xin, LDS, P.M2 + (size_t)ri * D2 * W2, D2, W2, TB, stage, ring,
-        [&](int r0, int c0, float (&acc)[4][4]) {
+    consume_product(
+        xin, LDS, D2, W2, TB, ring, pos, false,
+        [&](int, int rr0, int cc0, float (&acc)[4][4]) {
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const int col = c0 + c;
+            const int col = cc0 + c;
             if (col >= W2) break;
             const float bias = b2[col];
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
-              const int rr = r0 + r;
+              const int rr = rr0 + r;
               const float v = __fadd_rn(acc[r][c], bias);
               if (col < oU) {
                 snext[col * LDS + rr] = v;
@@ -1312,24 +1586,34 @@ __device__ __forceinline__ void admm_rollout_wide(const Params& P,
             }
           }
         });
-    __syncthreads();  // s_next is in
-    for (int idx = tid; idx < S * TB; idx += THREADS) {
+    consumer_sync();  // s_next is in
+    for (int idx = tid; idx < S * TB; idx += WIDE_CONSUMERS) {
       const int j = idx / TB, r = idx - j * TB;
       xin[j * LDS + r] = snext[j * LDS + r];
     }
-    __syncthreads();  // xin has s_next before d is stored over it
+    consumer_sync();  // xin has s_next before d is stored over it
   }
-  store_carry(P.s_fin, xin, S, row0, d);
-  store_carry(P.sa_fin, s, nbox, row0, d);
-  store_carry(P.wa_fin, w, nbox, row0, d);
+  if (tid < THREADS) store_carry(P.s_fin, xin, S, row0, d);
+#pragma unroll
+  for (int j = 0; j < WIDE_SLOTS; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int b = row0 + r0 + r, col = c0[j] + c;
+        if (own[j] && b < d.B && col < nbox) {
+          P.sa_fin[(size_t)b * nbox + col] = s[j][r][c];
+          P.wa_fin[(size_t)b * nbox + col] = w[j][r][c];
+        }
+      }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
 fused_admm_wide_kernel(const Params P, const Shape d, int stage) {
   admm_rollout_wide<false>(P, d, stage);
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
 fused_ladder_wide_kernel(const Params P, const Shape d, int stage) {
   admm_rollout_wide<true>(P, d, stage);
 }
@@ -1337,12 +1621,13 @@ fused_ladder_wide_kernel(const Params P, const Shape d, int stage) {
 using WideKernel = void (*)(const Params, const Shape, int);
 
 template <bool LADDER>
-WideKernel wide_kernel() {
+constexpr WideKernel wide_kernel() {
   return LADDER ? fused_ladder_wide_kernel : fused_admm_wide_kernel;
 }
 
 // Launches the wide body on `stream` at its plan for d's sizes (d.B,
-// d.n_blocks and d.n_iter set); cudaErrorInvalidValue when no tile fits.
+// d.n_blocks and d.n_iter set), ceil(B / TB) blocks; the launch's error,
+// or cudaErrorInvalidValue when no tile fits.
 template <bool LADDER>
 int launch_wide(const Params& P, Shape d, void* stream) {
   const WidePlan plan = wide_plan(d.S, d.nbm, d.nbp, d.nbox, d.nxi);
@@ -1355,10 +1640,11 @@ int launch_wide(const Params& P, Shape d, void* stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((d.B + d.TB - 1) / d.TB);
-  kernel<<<grid, THREADS, plan.bytes, (cudaStream_t)stream>>>(P, d,
-                                                               plan.stage);
+  kernel<<<grid, WIDE_THREADS, plan.bytes, (cudaStream_t)stream>>>(P, d,
+                                                                   plan.stage);
   return (int)cudaGetLastError();
 }
+
 
 }  // namespace
 
@@ -1490,18 +1776,25 @@ int fused_ladder_launch(const float* Vop, const float* M1, const float* M2,
   return launch<true>(P, d, stream);
 }
 
+
 // Scenarios per block of the wide kernels (K4w, and K5w, whose tile is its
-// rung group) for these sizes: the largest tile whose state and a ring of
-// at least four rows of the widest window fit one block, with the
-// iteration one window; or 0.
+// rung group) for these sizes: wide_group_rows, the largest tile whose
+// state leaves a ring of at least four rows of the widest window, with
+// the iteration one window; or 0.
 int fused_wide_tile_rows(int S, int nbm, int nbp, int nbox, int nxi) {
-  return wide_plan(S, nbm, nbp, nbox, nxi).TB;
+  return wide_group_rows(S, nbm, nbp, nbox, nxi);
 }
 
 // Dynamic shared memory, in bytes, of a K4w or K5w block at those sizes
 // (0 when no tile fits).
 int fused_wide_smem_bytes(int S, int nbm, int nbp, int nbox, int nxi) {
   return (int)wide_plan(S, nbm, nbp, nbox, nxi).bytes;
+}
+
+// Floats of one of the WIDE_STAGES ring stages of a K4w or K5w block at
+// those sizes (0 when no tile fits).
+int fused_wide_stage_floats(int S, int nbm, int nbp, int nbox, int nxi) {
+  return wide_plan(S, nbm, nbp, nbox, nxi).stage;
 }
 
 // Registers and local (spill) bytes per thread of K4w (ladder = 0) or
@@ -1517,9 +1810,11 @@ int fused_wide_kernel_attributes(int ladder, int* registers,
   return 0;
 }
 
-// Launches K4w on `stream`, with the arguments of fused_admm_launch, at
-// fused_wide_tile_rows scenarios per block; returns
-// cudaGetLastError(), or cudaErrorInvalidValue when no tile fits.
+// Launches K4w on `stream`, with the arguments of fused_admm_launch but
+// Vop, M1 and M2 rows padded to a multiple of four floats (nbox, nbm+1+nxi
+// and W2 rounded up, the padding zero), one block per
+// fused_wide_tile_rows scenarios; returns the launch's error, or
+// cudaErrorInvalidValue when no tile fits.
 int fused_admm_wide_launch(const float* Vop, const float* M1,
                            const float* M2, const float* b2, const float* lo,
                            const float* hi, const float* u_lo,
@@ -1545,9 +1840,10 @@ int fused_admm_wide_launch(const float* Vop, const float* M1,
   return launch_wide<false>(P, d, stream);
 }
 
-// Launches K5w on `stream`, with the arguments of fused_ladder_launch,
-// one block per rung group of fused_wide_tile_rows scenarios
-// (rung0 has one entry per group); returns cudaGetLastError(), or
+// Launches K5w on `stream`, with the arguments of fused_ladder_launch but
+// every rung's Vop, M1 and M2 rows padded as for fused_admm_wide_launch,
+// one block per rung group of fused_wide_tile_rows scenarios (rung0 has
+// one entry per group); returns the launch's error, or
 // cudaErrorInvalidValue when no tile fits.
 int fused_ladder_wide_launch(const float* Vop, const float* M1,
                              const float* M2, const float* b2,

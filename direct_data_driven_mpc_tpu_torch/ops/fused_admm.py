@@ -24,7 +24,9 @@ operators in shared memory and ``s``, ``w`` in registers; where that does
 not fit (``nbox`` above 192, or operators too large for one block, as at
 ``bench.py``'s ``large_plant``) the wide body (:func:`admm_wide_plan`)
 holds every scenario's state in shared memory and streams the operators
-from global memory (L2) through a ring of row panels.
+(rows padded to a multiple of four floats, :func:`wide_operators`) from
+global memory (L2) through an mbarrier ring of row panels that a
+producer warp fills.
 
 Counterpart of ``direct_data_driven_mpc_tpu/ops/pallas_admm.py``
 (``_normalize_admm_op``, ``_openloop_block_rows``, ``FusedADMMDims``,
@@ -69,11 +71,15 @@ _SMEM_LIMIT = 232448
 #: The widest box the resident body takes: three 64-column register
 #: tiles per lane (the wide body takes any box its plan fits).
 _MAX_NBOX = 192
-#: The wide body's products go in windows of this many 4 x 4 output
-#: tiles (two a thread); a ring stage holds at least this many rows of
-#: the widest window.
+#: The wide body's windows: at most this many 4 x 4 output tiles (one
+#: 32-tile slot a consumer warp); a ring stage holds at least
+#: ``_WIDE_MIN_PANEL`` rows of the widest window; ``WIDE_STAGES`` stages
+#: after a 128-byte head of mbarriers (``WIDE_STAGES`` of the .cu: two
+#: measured faster than three or four).
 _WIDE_TILES = 512
 _WIDE_MIN_PANEL = 4
+WIDE_STAGES = 2
+_WIDE_HEAD_FLOATS = 32
 
 
 def _normalize_admm_op(op: dict) -> dict:
@@ -472,6 +478,10 @@ def _ceil4(x: int) -> int:
     return (x + 3) & ~3
 
 
+def _ceil32(x: int) -> int:
+    return (x + 31) & ~31
+
+
 def _op_floats(dims: FusedADMMDims) -> int:
     """Shared-memory floats of one operator set (``Vop``, ``M1``, ``M2``,
     ``b2``) and the bounds, rows padded to a multiple of 4 floats, as
@@ -505,50 +515,117 @@ def admm_plan(dims: FusedADMMDims) -> Tuple[int, int]:
     return 0, nbytes
 
 
-def _wide_plan(dims: FusedADMMDims) -> Tuple[int, int, int]:
-    """``(rows, bytes, stage floats)`` of the wide body, as ``wide_plan``
-    in ``csrc/fused_admm.cu`` computes them (see
-    :func:`admm_wide_plan`)."""
+def _wide_state_floats(dims: FusedADMMDims, rows: int,
+                       frozen: bool = True) -> int:
+    """Floats of the wide body's state at ``rows`` scenarios per block:
+    the first layout, with ``s`` and ``w`` (``wide_state_floats`` in the
+    .cu, which sizes the frozen tile rule), or, with ``frozen=False``,
+    the layout the body has now, whose ``s`` and ``w`` live in registers
+    (``wide_layout_floats``)."""
     nbm, nbp = dims.nb * dims.m, dims.nb * dims.p
     S, nbox, nxi, Mw = dims.S, dims.nbox, dims.nxi, dims.Mw
-    D2 = S + nbm + nbp
-    W1, W2 = Mw + nxi, D2 + 1 + nbox + nxi
-    ldv, ldu = _ceil4(nbox), _ceil4(nbm)
+    per = (S + nbm + nbp + Mw + nxi + (3 if frozen else 1) * nbox
+           + max(nbox, S))
+    return (2 * _ceil4(nbox) + 2 * _ceil4(nbm) + per * (rows + 4)
+            + 4 * rows)
+
+
+def _wide_widest(dims: FusedADMMDims, rows: int) -> int:
+    """The widest window of the three products at ``rows`` (padded to
+    four floats; ``wide_widest`` in the .cu)."""
+    window = 4 * (_WIDE_TILES // (rows // 4))
+    return max(_ceil4(min(n, window)) for n in (dims.nbox, dims.Mw + dims.nxi,
+                                                 _wide_W2(dims)))
+
+
+def _wide_W2(dims: FusedADMMDims) -> int:
+    """``M2``'s width from the sizes, as ``make_shape`` in the .cu."""
+    return (dims.S + dims.nb * (dims.m + dims.p) + 1 + dims.nbox
+            + dims.nxi)
+
+
+def wide_group_rows(dims: FusedADMMDims) -> int:
+    """The wide bodies' scenarios per block (``wide_group_rows`` of the
+    .cu): the largest of 64, 32, 16, 8, 4 whose iteration product is one
+    window of 512 tiles (``ceil4(nbox) <= 8192 / rows``) and whose state
+    leaves two ring stages of at least four rows of the widest window;
+    0 when none does. It is the rule of the body's first plan, frozen:
+    K5w's rung group is part of its result."""
     limit = _SMEM_LIMIT // 4
-    rows_per = D2 + Mw + nxi + 3 * nbox + max(nbox, S)
-    need = 0
     for rows in (64, 32, 16, 8, 4):
         window = 4 * (_WIDE_TILES // (rows // 4))
-        widest = max(_ceil4(min(n, window)) for n in (nbox, W1, W2))
-        state = 2 * ldv + 2 * ldu + rows_per * (rows + 4) + 4 * rows
-        need = 4 * (state + 2 * _WIDE_MIN_PANEL * widest)
-        if ldv > window or state >= limit:
+        state = _wide_state_floats(dims, rows)
+        if _ceil4(dims.nbox) > window or state >= limit:
             continue
         stage = ((limit - state) // 2) & ~3
-        if stage >= _WIDE_MIN_PANEL * widest:
-            return rows, 4 * (state + 2 * stage), stage
-    return 0, need, 0
+        if stage >= _WIDE_MIN_PANEL * _wide_widest(dims, rows):
+            return rows
+    return 0
+
+
+class WidePlan(NamedTuple):
+    """The wide body's plan (``wide_plan`` of the .cu), K4w's and K5w's."""
+    rows: int     # scenarios per block (0: none fits)
+    stage: int    # floats of one of the WIDE_STAGES ring stages
+    bytes: int    # dynamic shared memory of a block
+    ldv: int      # padded row of Vop
+    ld1: int      # padded row of M1
+    ld2: int      # padded row of M2
+
+
+def wide_plan(dims: FusedADMMDims) -> WidePlan:
+    """The wide bodies' plan, as ``wide_plan`` in ``csrc/fused_admm.cu``
+    computes it (``fused_wide_tile_rows``, ``fused_wide_stage_floats``,
+    ``fused_wide_smem_bytes``): :func:`wide_group_rows` scenarios per
+    block; after a 128-byte head of mbarriers and the state (``s`` and
+    ``w`` in registers; rounded up to 128 bytes), ``WIDE_STAGES`` ring
+    stages that share the rest, each a multiple of 32 floats holding four
+    rows of the widest window; the operators' rows padded to a multiple
+    of four floats. On a shape without a tile, ``rows`` and ``stage``
+    are 0 and ``bytes`` what the 4-row block would need."""
+    pads = (_ceil4(dims.nbox), _ceil4(dims.Mw + dims.nxi),
+            _ceil4(_wide_W2(dims)))
+    rows = wide_group_rows(dims)
+    limit = _SMEM_LIMIT // 4
+    if rows:
+        head = _WIDE_HEAD_FLOATS + _ceil32(
+            _wide_state_floats(dims, rows, frozen=False))
+        stage = (max(limit - head, 0) // WIDE_STAGES) & ~31
+        if stage >= _WIDE_MIN_PANEL * _wide_widest(dims, rows):
+            return WidePlan(rows, stage, 4 * (head + WIDE_STAGES * stage),
+                            *pads)
+    need = 4 * (_WIDE_HEAD_FLOATS + _wide_state_floats(dims, 4, False)
+                + WIDE_STAGES * _WIDE_MIN_PANEL * _wide_widest(dims, 4))
+    return WidePlan(0, 0, need, *pads)
 
 
 def admm_wide_plan(dims: FusedADMMDims) -> Tuple[int, int]:
     """``(rows, bytes)``: the wide body's scenarios per thread block and
-    its shared memory, as ``csrc/fused_admm.cu`` plans them
-    (``fused_wide_tile_rows`` and ``fused_wide_smem_bytes``, shared by
-    the ladder's wide kernel). A block holds every
-    scenario's state, scenario-minor: the carry rows ``[s | u | w]``,
-    ``pre``, ``vc``, ``zth``, ``s``, ``w`` and ``d = s - w`` with
-    ``s_next`` laid over it, and four row maxima; the rest of the block
-    is a two-stage ring through which the operators stream in row panels.
-    The rows are the largest of 64, 32, 16, 8, 4 for which the iteration
-    product is one window of 512 4 x 4 output tiles (``ceil4(nbox) <=
-    2048 / rows``) and a ring stage holds at least four rows of the
-    widest window (``min(width, 2048 / rows)`` of ``Vop``, ``M1``,
-    ``M2``); ``(0, bytes of the 4-row block with that ring)`` when none
-    does. 16 scenarios at ``large_plant`` with CONVEX slack (nbox 300),
-    32 on its input box (nbox 200); the ring takes what the state leaves
-    of the 232,448 bytes a block may opt in to (232,432 at both)."""
-    rows, nbytes, _ = _wide_plan(dims)
-    return rows, nbytes
+    its shared memory (:func:`wide_plan`; ``fused_wide_tile_rows`` and
+    ``fused_wide_smem_bytes`` of the .cu, shared by the ladder's wide
+    kernel). A block holds every scenario's carry, scenario-minor: the
+    rows ``[s | u | w]``, ``pre``, ``vc``, ``zth`` and ``d = s - w`` with
+    ``s_next`` laid over it, and four row maxima (``s`` and ``w`` stay in
+    the registers of the thread that owns their iteration tile); the rest
+    of the block is the ring through which the operators stream in row
+    panels. 16 scenarios at ``large_plant`` with CONVEX slack
+    (nbox 300), 32 on its input box (nbox 200), each with a ring of
+    ``WIDE_STAGES`` stages up to the 232,448 bytes a block may opt in
+    to."""
+    plan = wide_plan(dims)
+    return plan.rows, plan.bytes
+
+
+def wide_operators(Vop: torch.Tensor, M1: torch.Tensor, M2: torch.Tensor):
+    """New copies of ``Vop``, ``M1`` and ``M2`` (one operator, or the
+    ladder's stack of rungs) with each row padded with zeros to a
+    multiple of four floats, as the wide bodies take them, so every panel
+    row is a 16-byte aligned run. The wrappers pad at each wide launch
+    (a few MB, against a rollout of seconds); the plain versions and the
+    resident body take the operators as built."""
+    return tuple(
+        torch.nn.functional.pad(t, (0, _ceil4(t.shape[-1]) - t.shape[-1]))
+        .contiguous() for t in (Vop, M1, M2))
 
 
 def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
@@ -562,7 +639,8 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
     ``fused_admm_kernel`` where :func:`admm_plan` gives rows, adding one
     to ``fused_admm.launches``, else its wide body
     ``fused_admm_wide_kernel`` (K4w) where :func:`admm_wide_plan` does,
-    adding one to ``fused_admm.wide_launches``. Anything the kernel does
+    on the operators of :func:`wide_operators`, adding one to
+    ``fused_admm.wide_launches``. Anything the kernel does
     not take (dtype, shape, contiguity, operators too large for both
     plans) raises before the launch; a failed launch raises after it."""
     if carry.s.device.type == "cpu":
@@ -590,6 +668,8 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
 
     lib = _kernels.load("fused_admm").lib
     launch = lib.fused_admm_wide_launch if wide else lib.fused_admm_launch
+    Vop, M1, M2 = (wide_operators(ops.Vop, ops.M1, ops.M2) if wide
+                   else (ops.Vop, ops.M1, ops.M2))
     Bsz, n_blocks, nbp = W.shape
     nbm = dims.nb * dims.m
     sizes = (dims.S, nbm, nbp, dims.nbox, dims.nxi)
@@ -603,7 +683,7 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
     with torch.cuda.device(carry.s.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
-            ops.Vop.data_ptr(), ops.M1.data_ptr(), ops.M2.data_ptr(),
+            Vop.data_ptr(), M1.data_ptr(), M2.data_ptr(),
             ops.b2.data_ptr(), ops.lo.data_ptr(), ops.hi.data_ptr(),
             ops.u_lo.data_ptr(), ops.u_hi.data_ptr(),
             *(c.data_ptr() for c in carry), W.data_ptr(),

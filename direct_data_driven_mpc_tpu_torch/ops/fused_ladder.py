@@ -41,9 +41,9 @@ for the whole rollout, so two blocks share an SM
 rule the kernel had before (:func:`ladder_smem_bytes`). Where no group
 of that rule fits (nbox above 170 always, since one rung's operators
 alone then outgrow a block), the wide body (K5w) runs instead: every
-scenario's state in shared memory and the current rung's operators
-streamed from global memory in row panels, so a rung move only moves a
-pointer.
+scenario's carry in shared memory and the current rung's operators
+streamed from global memory in row panels by a producer warp, so a rung
+move only moves a pointer.
 
 **Warm restart.** ``solver_state0.rho_idx`` carries every row's rung;
 each group resumes at the rung its rows carry (its ``w`` is scaled for
@@ -76,8 +76,9 @@ from direct_data_driven_mpc_tpu_torch.ops.fused_admm import (
     ADMMCarry,
     FusedADMMDims,
     _op_floats,
-    admm_wide_plan,
     build_fused_admm_operator,
+    wide_group_rows,
+    wide_operators,
 )
 from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
 from direct_data_driven_mpc_tpu_torch.qp.box import BoxADMMState
@@ -198,16 +199,17 @@ def ladder_tile_rows(dims: FusedADMMDims) -> int:
 
 def ladder_wide_group(dims: FusedADMMDims) -> int:
     """The default rung group where :func:`ladder_tile_rows` gives 0: the
-    wide ladder kernel's (K5w) scenarios per block, from the plan it
-    shares with K4w (:func:`~.fused_admm.admm_wide_plan`,
-    ``fused_wide_tile_rows`` of the ``.cu``): the largest of 64, 32,
-    16, 8, 4 scenarios whose state (the carry rows, ``s``, ``w``, ``d``
-    under ``s_next``, four row maxima) leaves a two-stage ring of at
-    least four rows of the widest window of ``Vop``, ``M1``, ``M2``, with
-    the iteration product one window (``ceil4(nbox) <= 2048 / rows``); 0
-    when none does. 32 at ``large_plant`` (nbox 200). Mirrored here so
-    the CPU and the card group alike without a card at hand."""
-    return admm_wide_plan(dims)[0]
+    wide ladder kernel's (K5w) scenarios per block, the tile rule it
+    shares with K4w (:func:`~.fused_admm.wide_group_rows`,
+    ``fused_wide_tile_rows`` of the ``.cu``), frozen at the plan the wide
+    body first had: the largest of 64, 32, 16, 8, 4 scenarios whose state
+    in that layout (the carry rows, ``s``, ``w``, ``d`` under ``s_next``,
+    four row maxima) leaves a two-stage ring of at least four rows of the
+    widest window of ``Vop``, ``M1``, ``M2``, with the iteration product
+    one window (``ceil4(nbox) <= 8192 / rows``); 0 when none does. 32 at
+    ``large_plant`` (nbox 200). Mirrored here so the CPU and the card
+    group alike without a card at hand."""
+    return wide_group_rows(dims)
 
 
 def _per_rung(fn, row_rung: torch.Tensor, present):
@@ -369,7 +371,8 @@ def fused_ladder(ops: FusedLadderOperator, dims: FusedADMMDims,
     contiguous, ``rung0`` int32): its resident body where the group rule
     gives a tile (:func:`ladder_tile_rows`), adding one to
     ``fused_ladder.launches``, else its wide body (K5w) where
-    :func:`ladder_wide_group` gives one, adding one to
+    :func:`ladder_wide_group` gives one, on every rung's operators padded
+    by :func:`~.fused_admm.wide_operators`, adding one to
     ``fused_ladder.wide_launches``. A ``rung_group`` other than the
     route's tile, a rung outside the ladder, or anything else the kernel
     does not take raises; so does a failed launch. CPU tensors run the
@@ -423,8 +426,10 @@ def fused_ladder(ops: FusedLadderOperator, dims: FusedADMMDims,
         stream = torch.cuda.current_stream().cuda_stream
         launch = (lib.fused_ladder_wide_launch if wide
                   else lib.fused_ladder_launch)
+        Vop, M1, M2 = (wide_operators(ops.Vop, ops.M1, ops.M2) if wide
+                       else (ops.Vop, ops.M1, ops.M2))
         err = launch(
-            ops.Vop.data_ptr(), ops.M1.data_ptr(), ops.M2.data_ptr(),
+            Vop.data_ptr(), M1.data_ptr(), M2.data_ptr(),
             ops.b2.data_ptr(), ops.lo.data_ptr(), ops.hi.data_ptr(),
             ops.u_lo.data_ptr(), ops.u_hi.data_ptr(), ops.rhos.data_ptr(),
             rung0.data_ptr(), *(c.data_ptr() for c in carry), W.data_ptr(),

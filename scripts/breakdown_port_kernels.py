@@ -10,7 +10,12 @@ by kernel over the amortized rollouts; and at K = 10 and 25 solves per
 block beside 50 (the TPU's tuning constant, measured here, not changed).
 
 K4 and K5 are timed as shipped, at 0 and at twice their iterations (the
-fixed and per-iteration costs), and pinned to one block per SM; K3 with parts
+fixed and per-iteration costs), and pinned to one block per SM. The wide
+bodies K4w (``large_plant_convex``) and K5w (``large_plant_ladder``, both
+B = 16384 x T = 400, as ``chip_smoke.py`` phase 48) are timed the same
+way and in variants of their body (``WIDE``: a deeper ring, 8 consumer
+warps, a shallower unroll, panel loads cut, products cut, each product
+alone) beside the plain version. K3 with parts
 of its work cut, held to its 32-row plan at K = 25, and at K = 50
 solves per block, where that plan is the one it runs. Last, the largest
 difference between K4 or K5 and its plain version over batch sizes (30
@@ -18,7 +23,8 @@ closed-loop steps): where cuBLAS sums the plain version's products as
 one FMA chain, the two are bit-equal.
 
 Run from the repository root: ``python3 scripts/breakdown_port_kernels.py
-[k1] [k4] [k5] [k3] [batch]`` (all five parts when none is named).
+[k1] [k4] [k5] [k3] [k4w] [k5w] [batch]`` (all seven parts when none is
+named).
 It builds patched copies of the kernel sources under
 ``build/breakdown/`` (one nvcc each, all together), swaps each in for
 the shipped library and times it with CUDA events at the main shapes of
@@ -133,6 +139,67 @@ VARIANTS = [
          "const size_t smem = LADDER ? kernel_smem_bytes<LADDER>(d) : "
          "SMEM_LIMIT;")),
 ]
+
+def _skip(*calls):
+    """Put ``if (false)`` before each call site (consumer and producer of
+    one product, so both walk the same panels)."""
+    def patch(t):
+        for call in calls:
+            t = t.replace(call, "if (false) " + call)
+        return t
+    return patch
+
+
+_ITER = ("consume_product(dbuf, LDS, nbox, nbox,",
+         "produce_product(P.Vop +")
+_M1 = ("consume_product(\n        dbuf, LDS, nbox, W1,",
+       "produce_product(P.M1 +")
+_M2 = ("consume_product(\n        xin, LDS, D2, W2,",
+       "produce_product(P.M2 +")
+
+# The wide body (K4w, K5w): 16 consumer warps and a producer warp, an
+# mbarrier ring of two stages, balanced windows, s and w in registers.
+WIDE = [
+    ("wide_warps8", "8 consumer warps (two 32-tile slots a warp at most) "
+     "instead of 16",
+     lambda t: t.replace("constexpr int WIDE_WARPS = 16;",
+                         "constexpr int WIDE_WARPS = 8;")),
+    ("wide_ring3", "a 3-stage ring (stages smaller)",
+     lambda t: t.replace("constexpr int WIDE_STAGES = 2;",
+                         "constexpr int WIDE_STAGES = 3;")),
+    ("wide_ring4", "a 4-stage ring (stages smaller)",
+     lambda t: t.replace("constexpr int WIDE_STAGES = 2;",
+                         "constexpr int WIDE_STAGES = 4;")),
+    ("wide_unroll4", "the k loop of the products unrolled 4 deep instead "
+     "of 8",
+     lambda t: t.replace(
+         "    const int (&co)[WIDE_SLOTS], float (&acc)[WIDE_SLOTS][4][4]) {\n"
+         "#pragma unroll 8\n",
+         "    const int (&co)[WIDE_SLOTS], float (&acc)[WIDE_SLOTS][4][4]) {\n"
+         "#pragma unroll 4\n")),
+    ("wide_no_loads", "no panel loads (the producer arms each stage with "
+     "no bytes; the products on whatever the ring holds)",
+     lambda t: t.replace(
+         "mbar_expect(ring.full + pos.s, (uint32_t)(rows * wl * "
+         "sizeof(float)));",
+         "mbar_arrive(ring.full + pos.s);").replace(
+         "      if (wl == ld) {\n        if (lane == 0)\n",
+         "      if (false) {\n        if (lane == 0)\n").replace(
+         "for (int r = lane; r < rows; r += 32)",
+         "for (int r = rows; r < rows; r += 32)")),
+    ("wide_no_products", "no products (the panel loads, ring waits and "
+     "epilogues only)",
+     lambda t: t.replace("      if (WIDE_SLOTS == 2 && mine == 2)\n",
+                         "      if (false)\n").replace(
+         "      else if (mine >= 1)\n", "      else if (false)\n")),
+    ("wide_iter_only", "the iteration product alone (no M1, no M2)",
+     _skip(*_M1, *_M2)),
+    ("wide_m1_only", "the extraction (M1) alone", _skip(*_ITER, *_M2)),
+    ("wide_m2_only", "the plant step (M2) alone", _skip(*_ITER, *_M1)),
+]
+
+#: Variants that keep every product's arithmetic: bit-equal to shipped.
+WIDE_SAME_BITS = ("wide_warps8", "wide_ring3", "wide_ring4", "wide_unroll4")
 
 
 def build(variant):
@@ -301,6 +368,70 @@ def k1_breakdown(dev, smi, patched, what) -> None:
                   f"{name}: {ms:.3f} ms", flush=True)
 
 
+def wide_breakdown(dev, smi, patched, what, ladder) -> None:
+    """K4w at ``large_plant_convex`` or K5w at ``large_plant_ladder``
+    (``chip_smoke.py`` phase 48's shapes, B = 16384 x T = 400): as
+    shipped, at 0 and twice its iterations, each wide-body variant, and
+    the plain version; the variants that keep the arithmetic are checked
+    bit-equal to the shipped kernel. Each row: one warm-up, then one
+    timed launch."""
+    from direct_data_driven_mpc_tpu_torch.qp.admm import (
+        compute_admm_operator_np,
+    )
+
+    name = "large_plant_ladder" if ladder else "large_plant_convex"
+    plant, ctrl = cs.build_large_plant(slack="NONE" if ladder else "CONVEX")
+    if ladder:
+        op = compute_box_admm_operator_np(
+            ctrl.spec, u_bounds=(-cs.WIDE_BOX, cs.WIDE_BOX))
+        kw, make, wrapper = dict(cs.LADDER_KW), fl.make_fused_ladder_rollout, \
+            fl.fused_ladder
+        plain = fl.fused_ladder_reference
+    else:
+        op = compute_admm_operator_np(ctrl.spec)
+        kw, make, wrapper = dict(cs.WIDE_CONVEX_KW), \
+            fa.make_fused_admm_rollout, fa.fused_admm
+        plain = fa.fused_admm_reference
+    B, T = cs.B_WIDE, cs.T_WIDE
+    ins = (*cs.scenario_batch(plant, ctrl, B, dev),
+           draw_noise_batch(0, B, T, ctrl.p, plant.get_eps_max(),
+                            device=dev))
+    store = {}
+
+    def keep(*args):
+        store["args"] = args
+        return wrapper(*args)
+
+    make(plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, T, device=dev,
+         rollout=keep, **kw)(*ins)
+    args = list(store["args"])
+    n_iter = args[4]
+    del ins, store
+
+    def run(iters=n_iter, fn=wrapper):
+        return lambda: fn(*args[:4], iters, *args[5:])
+
+    shipped = run()()
+    rows = [("as shipped", run(), False), ("0 iterations", run(0), False),
+            (f"{2 * n_iter} iterations", run(2 * n_iter), False)]
+    rows += [(what[tag], lambda tag=tag: swapped(
+        "fused_admm", patched[tag], run()), tag in WIDE_SAME_BITS)
+        for tag in patched if tag.startswith("wide_")]
+    rows.append(("plain version (cuBLAS SGEMMs + elementwise)",
+                 run(fn=plain), False))
+    for label, fn, check in rows:
+        ms = cs.cuda_ms(fn, reps=1)
+        same = ""
+        if check:
+            out = fn()
+            same = ("; bit-equal to shipped" if all(
+                torch.equal(a, b) for a, b in zip(out, shipped))
+                else "; DIFFERS from shipped")
+        print(f"{name} K{5 if ladder else 4}w {label}: {ms:.2f} ms per "
+              f"launch{same} [{smi}]", flush=True)
+    del shipped, args
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: CUDA is not available; nothing run")
@@ -313,12 +444,16 @@ def main() -> int:
         check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
-    with ThreadPoolExecutor(len(VARIANTS) + 2) as pool:
+    paths = sys.argv[1:] or ["k1", "k4", "k5", "k3", "k4w", "k5w", "batch"]
+    wanted = [v for v in VARIANTS
+              if any(v[1].startswith(f"{p}_") for p in paths)]
+    if {"k4w", "k5w"} & set(paths):
+        wanted += [("fused_admm", *v) for v in WIDE]
+    with ThreadPoolExecutor(len(wanted) + 2) as pool:
         shipped = pool.map(_kernels.load, ("fused_rollout", "fused_admm"))
-        patched = dict(pool.map(build, VARIANTS))
+        patched = dict(pool.map(build, wanted))
         list(shipped)
-    what = {tag: text for _, tag, text, _ in VARIANTS}
-    paths = sys.argv[1:] or ["k1", "k4", "k5", "k3", "batch"]
+    what = {tag: text for _, tag, text, _ in wanted}
 
     if "k1" in paths:
         k1_breakdown(dev, smi, patched, what)
@@ -502,6 +637,9 @@ def main() -> int:
         print(f"large_plant device busy {d_ms:.1f} ms of {w_ms:.1f} ms wall "
               f"over 2 amortized rollouts (idle {1 - d_ms / w_ms:.1%})",
               flush=True)
+    for path in ("k4w", "k5w"):
+        if path in paths:
+            wide_breakdown(dev, smi, patched, what, path == "k5w")
     if "batch" in paths:
         bit_equality_by_batch(dev)
     return 0

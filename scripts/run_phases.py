@@ -3,7 +3,8 @@ their functions, in the order given, each phase's seconds printed. The
 kernels are compiled first. A phase that returns records for the
 ``kernels`` line has them printed as one JSON object. A phase that takes
 the main path's inputs (``multidevice_phases``) gets them built as
-``chip_smoke.py`` builds them: the four-tank Robust controller of seed 0,
+``chip_smoke.py`` builds them (a parameter named ``main_run`` or ``main``):
+the four-tank Robust controller of seed 0,
 the block maps at K = 50 and 100, B = 4096 x T = 400 of seed-0 noise.
 
 Run from the repository root, for example:
@@ -13,6 +14,11 @@ Run from the repository root, for example:
         entry_phase                                           # 43-45
     python3 scripts/run_phases.py random_dims_phase long_horizon_phase
     python3 scripts/run_phases.py wide_admm_phase             # 48
+    python3 scripts/run_phases.py --repeat 20 time_parallel_phase  # 38
+
+``--repeat N`` runs the named phases N times in one process (one build,
+one set of inputs) and prints how many of the N runs failed, with each
+failure's traceback; it exits 1 if any did.
 """
 
 import inspect
@@ -20,6 +26,7 @@ import json
 import os
 import sys
 import time
+import traceback
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -50,7 +57,7 @@ def main_run_inputs(cs, dev) -> dict:
     )
 
 
-def main(names) -> int:
+def main(names, repeat=1) -> int:
     import subprocess
     from concurrent.futures import ThreadPoolExecutor
 
@@ -78,18 +85,34 @@ def main(names) -> int:
         list(pool.map(_kernels.load, cs.KERNELS))
     cs.log(f"build {time.perf_counter() - t0:.1f} s")
     main_run = None
-    for name, phase in zip(names, phases):
-        t0 = time.perf_counter()
-        args = [dev, smi]
-        if "main_run" in inspect.signature(phase).parameters:
-            main_run = main_run or main_run_inputs(cs, dev)
-            args.append(main_run)
-        out = phase(*args)
-        if isinstance(out, list):
-            print(json.dumps({"kernels": out}))
-        cs.log(f"{name}: {time.perf_counter() - t0:.1f} s [{smi}]")
-    return 0
+    failed = 0
+    for run in range(repeat):
+        try:
+            for name, phase in zip(names, phases):
+                t0 = time.perf_counter()
+                args = [dev, smi]
+                params = inspect.signature(phase).parameters
+                if {"main_run", "main"} & set(params):
+                    main_run = main_run or main_run_inputs(cs, dev)
+                    args.append(main_run)
+                out = phase(*args)
+                if isinstance(out, list):
+                    print(json.dumps({"kernels": out}))
+                cs.log(f"{name}: {time.perf_counter() - t0:.1f} s [{smi}]")
+        except Exception:
+            if repeat == 1:
+                raise
+            failed += 1
+            cs.log(f"run {run + 1} of {repeat} failed:\n"
+                   f"{traceback.format_exc()}")
+    if repeat > 1:
+        cs.log(f"{' '.join(names)}: {failed} of {repeat} runs failed")
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    argv = sys.argv[1:]
+    repeat = 1
+    if argv[:1] == ["--repeat"]:
+        repeat, argv = int(argv[1]), argv[2:]
+    sys.exit(main(argv, repeat))

@@ -513,6 +513,8 @@ def test_ladder_plan_matches_library_and_wrapper_rejects(cuda):
         assert (lib.fused_wide_tile_rows(*sizes),
                 lib.fused_wide_smem_bytes(*sizes)) == wide
         assert wide[0] == fl.ladder_wide_group(d)
+        plan = fa.wide_plan(d)
+        assert lib.fused_wide_stage_floats(*sizes) == plan.stage
     # nbox 600: no resident group; the wide body, against the plain
     # version.
     nbox = 600
@@ -1494,3 +1496,128 @@ def test_segmented_ladder_resume_at_the_wide_group(cuda):
                                   kw["tol"])
     joined = torch.cat([segs["k"][0].u_sys, segs["k"][1].u_sys], dim=1)
     torch.testing.assert_close(joined, full.u_sys, rtol=0, atol=1e-4)
+
+
+def test_wide_kernel_on_an_odd_grid(cuda):
+    """At B = 8163 K4w's 16-scenario tile gives an odd grid of 511
+    blocks, the last one part empty (its rows past B compute on zeros and
+    store nothing). Held to the plain version at ``large_plant_convex``
+    (T = 12) at ``_assert_close_at_rounding``'s bar."""
+    plant, ctrl, op, kw, _ = _wide_case("large_plant_convex")
+    args = (plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, 12)
+    dims = fa.build_fused_admm_operator(*args[:5], device=cuda)[1]
+    plan = fa.wide_plan(dims)
+    assert plan.rows == 16
+    B = 8163
+    assert -(-B // plan.rows) == 511
+    ins = _random_dims_inputs(plant, ctrl, B, 12, cuda)
+    lanes = {}
+    before = fa.fused_admm.wide_launches
+    got = fa.make_fused_admm_rollout(
+        *args, device=cuda, rollout=_keep(fa.fused_admm, lanes, "k"),
+        **kw)(*ins)
+    torch.cuda.synchronize()
+    assert fa.fused_admm.wide_launches == before + 1
+    want = fa.make_fused_admm_rollout(
+        *args, device=cuda, rollout=_keep(fa.fused_admm_reference, lanes,
+                                          "p"), **kw)(*ins)
+    _assert_close_at_rounding(got, want, lanes, kw["tol"])
+
+
+@pytest.mark.parametrize("ladder", [False, True])
+def test_wide_kernels_at_zero_iterations(cuda, ladder):
+    """``n_iter = 0``: no iteration product, so the residuals are max |s|
+    of the carried state, and the producer warp streams only M1 and M2.
+    K4w and K5w (three rungs) on seeded random operators at nbox 300
+    against the plain version, at the bar of the wide launches in
+    ``test_admm_wrapper_rejects_what_the_kernel_does_not_take``."""
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+
+    g, op, kw = _admm_setup("CONVEX")
+    ops, dims = fa.build_fused_admm_operator(PLANT, op, 4, 2, 2,
+                                             device=cuda)
+    nbox = 300
+    big = dims._replace(nbox=nbox, nxi=dims.n_theta + nbox,
+                        W2=dims.D2 + 1 + nbox + dims.n_theta + nbox)
+    B = 37
+    W = torch.as_tensor(
+        0.002 * np.random.default_rng(3).uniform(-1, 1, (B, 5, 2)),
+        dtype=torch.float32, device=cuda)
+    if ladder:
+        R = 3
+        lops, _ = fl.build_fused_ladder_operator(
+            PLANT, _ladder_setup()[2], 4, 2, 2, device=cuda)
+        big_ops, carry = _random_wide_operators(lops, big, B, cuda, R=R)
+        big_ops = big_ops._replace(rhos=big_ops.rhos[:R].contiguous())
+        G = fl.ladder_wide_group(big)
+        rung0 = torch.tensor([i % R for i in range(-(-B // G))],
+                             dtype=torch.int32, device=cuda)
+        before = fl.fused_ladder.wide_launches
+        got = fl.fused_ladder(big_ops, big, carry, W, 0, rung0, G)
+        torch.cuda.synchronize()
+        assert fl.fused_ladder.wide_launches == before + 1
+        want = fl.fused_ladder_reference(big_ops, big, carry, W, 0, rung0,
+                                         G)
+        assert torch.equal(got[5], want[5])  # the rung lanes
+        got, want = got[:5] + got[6:], want[:5] + want[6:]
+    else:
+        big_ops, carry = _random_wide_operators(ops, big, B, cuda)
+        before = fa.fused_admm.wide_launches
+        got = fa.fused_admm(big_ops, big, carry, W, 0)
+        torch.cuda.synchronize()
+        assert fa.fused_admm.wide_launches == before + 1
+        want = fa.fused_admm_reference(big_ops, big, carry, W, 0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=2e-5)
+
+
+@pytest.mark.parametrize("S,nbox,nxi,residue", [(22, 200, 201, 0),
+                                                (23, 199, 200, 3)])
+def test_wide_kernels_at_widths_aligned_and_not(cuda, S, nbox, nxi, residue):
+    """The wide bodies pad every operator row to a multiple of four
+    floats: at widths nbox, W1 = Mw + nxi and W2 all = 0 mod 4 the padded
+    operators are the operators, at widths all = 3 mod 4 (as at
+    ``large_plant``: 511, 1031) each row gains one zero. K4w and K5w on
+    seeded random operators at both, against the plain version, at the
+    bar of the wide launches in
+    ``test_admm_wrapper_rejects_what_the_kernel_does_not_take``."""
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+
+    g, op, kw = _admm_setup("CONVEX")
+    ops, dims = fa.build_fused_admm_operator(PLANT, op, 4, 2, 2,
+                                             device=cuda)
+    D2 = S + 4
+    big = dims._replace(S=S, D2=D2, nbox=nbox, nxi=nxi,
+                        W2=D2 + 1 + nbox + nxi)
+    widths = (big.nbox, big.Mw + big.nxi, big.W2)
+    assert all(x % 4 == residue for x in widths), widths
+    assert fa.admm_plan(big)[0] == 0
+    B = 70
+    W = torch.as_tensor(
+        0.002 * np.random.default_rng(4).uniform(-1, 1, (B, 6, 2)),
+        dtype=torch.float32, device=cuda)
+    big_ops, carry = _random_wide_operators(ops, big, B, cuda)
+    padded = fa.wide_operators(big_ops.Vop, big_ops.M1, big_ops.M2)
+    assert all(p.shape[-1] % 4 == 0 and p.is_contiguous() for p in padded)
+    before = fa.fused_admm.wide_launches
+    got = fa.fused_admm(big_ops, big, carry, W, 5)
+    torch.cuda.synchronize()
+    assert fa.fused_admm.wide_launches == before + 1
+    want = fa.fused_admm_reference(big_ops, big, carry, W, 5)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=2e-5)
+    lops, _ = fl.build_fused_ladder_operator(
+        PLANT, _ladder_setup()[2], 4, 2, 2, device=cuda)
+    R = lops.Vop.shape[0]
+    lad_ops, carry = _random_wide_operators(lops, big, B, cuda, R=R, seed=1)
+    G = fl.ladder_wide_group(big)
+    rung0 = torch.tensor([(3 * i) % R for i in range(-(-B // G))],
+                         dtype=torch.int32, device=cuda)
+    before = fl.fused_ladder.wide_launches
+    got = fl.fused_ladder(lad_ops, big, carry, W, 5, rung0, G)
+    torch.cuda.synchronize()
+    assert fl.fused_ladder.wide_launches == before + 1
+    want = fl.fused_ladder_reference(lad_ops, big, carry, W, 5, rung0, G)
+    assert torch.equal(got[5], want[5])  # the rung lanes
+    for a, b in zip(got[:5] + got[6:], want[:5] + want[6:]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=2e-5)

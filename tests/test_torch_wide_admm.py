@@ -196,26 +196,29 @@ def test_k5_plain_version_matches_jax_twin_at_large_plant():
 
 #: The wide plan (rows, bytes) at large_plant's other sizes (S 210,
 #: n_theta 200, nb m = nb p = 10, Mw 11), nbox from just past the
-#: resident cap to 600, with nxi = n_theta + nbox.
-WIDE_PLANS = {193: (32, 232432), 196: (32, 232432), 200: (32, 232432),
-              256: (16, 232432), 300: (16, 232432), 400: (16, 232432),
-              520: (8, 232432), 600: (8, 232432)}
+#: resident cap to 600, with nxi = n_theta + nbox. The rows are the
+#: frozen tile rule's (so ladder_wide_group's); the bytes are the
+#: mbarrier head, the state without s and w, and two ring stages of a
+#: multiple of 32 floats.
+WIDE_PLANS = {193: (32, 232320), 196: (32, 232448), 200: (32, 232320),
+              256: (16, 232448), 300: (16, 232320), 400: (16, 232320),
+              520: (8, 232448), 600: (8, 232320)}
 
 
 def test_wide_plans_pinned_at_large_plant():
     """``admm_wide_plan`` and ``ladder_wide_group`` mirror ``wide_plan``
-    of ``csrc/fused_admm.cu`` (held to the library on a card in
-    tests/test_torch_cuda.py): 16 scenarios per block for
-    ``large_plant_convex``, a rung group of 32 for
+    and ``wide_group_rows`` of ``csrc/fused_admm.cu`` (held to the
+    library on a card in tests/test_torch_cuda.py): 16 scenarios per
+    block for ``large_plant_convex``, a rung group of 32 for
     ``large_plant_ladder``, each block taking its ring up to the opt-in
     shared memory; the resident plans refuse both."""
     convex, ladder = _dims("CONVEX"), _dims("NONE")
     assert (convex.nbox, convex.nxi, convex.W2) == (300, 500, 1031)
     assert (ladder.nbox, ladder.nxi, ladder.W2) == (200, 400, 831)
-    assert fa.admm_wide_plan(convex) == (16, 232432)
-    assert fa._wide_plan(convex)[2] == 9300  # ring stage floats
+    assert fa.admm_wide_plan(convex) == (16, 232320)
+    assert fa.wide_plan(convex).stage == 15264  # ring stage floats
     assert fl.ladder_wide_group(ladder) == 32
-    assert fa.admm_wide_plan(ladder) == (32, 232432)
+    assert fa.admm_wide_plan(ladder) == (32, 232320)
     assert fa.admm_plan(convex) == (0, 1973376)
     assert fa.admm_plan(ladder)[0] == 0
     assert fl.ladder_tile_rows(ladder) == 0
@@ -247,7 +250,7 @@ def test_wide_plan_at_resident_shapes_and_its_limit():
     dims = fa.build_fused_admm_operator(plant.as_params(), op, ctrl.n,
                                         ctrl.m, ctrl.p, device="cpu")[1]
     assert fa.admm_plan(dims) == (64, 111168)
-    assert fa.admm_wide_plan(dims) == (64, 232432)
+    assert fa.admm_wide_plan(dims) == (64, 232320)
     plant, ctrl, op, _ = cs.admm_config("four_tank_ladder")
     dims = fl.build_fused_ladder_operator(plant.as_params(), op, ctrl.n,
                                           ctrl.m, ctrl.p, device="cpu")[1]
@@ -256,6 +259,38 @@ def test_wide_plan_at_resident_shapes_and_its_limit():
     huge = dims._replace(nbox=2100, nxi=2116, W2=24 + 1 + 2100 + 2116)
     rows, nbytes = fa.admm_wide_plan(huge)
     assert rows == 0 and nbytes > fa._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("slack,plan", [
+    ("CONVEX", fa.WidePlan(16, 15264, 232320, 300, 512, 1032)),
+    ("NONE", fa.WidePlan(32, 9824, 232320, 200, 412, 832)),
+])
+def test_wide_plan_pads_rows_and_sets_ring(slack, plan):
+    """The whole wide plan at both ``large_plant`` shapes: K4w
+    (``large_plant_convex``, nbox 300, W1 511, W2 1031) and K5w
+    (``large_plant_ladder``, nbox 200, W1 411, W2 831) pad their operator
+    rows to a multiple of four floats (300, 512, 1032 and 200, 412, 832)
+    and keep two ring stages after the state (two measured faster than
+    three or four on the card). ``wide_operators`` pads to exactly those
+    widths with zeros, into new tensors, leaving the operators as they
+    were."""
+    dims = _dims(slack)
+    assert fa.WIDE_STAGES == 2
+    assert fa.wide_plan(dims) == plan
+    assert plan.bytes == 4 * (32 + fa._ceil32(fa._wide_state_floats(
+        dims, plan.rows, frozen=False)) + fa.WIDE_STAGES * plan.stage)
+    Vop, M1, M2 = (torch.ones(2, dims.nbox, w) for w in (
+        dims.nbox, dims.Mw + dims.nxi, dims.W2))
+    Vop = Vop[:, :, :dims.nbox].contiguous()
+    M2 = torch.ones(2, dims.D2, dims.W2)
+    padded = fa.wide_operators(Vop, M1, M2)
+    assert [tuple(p.shape[1:]) for p in padded] == [
+        (dims.nbox, plan.ldv), (dims.nbox, plan.ld1), (dims.D2, plan.ld2)]
+    for p, src in zip(padded, (Vop, M1, M2)):
+        w = src.shape[-1]
+        assert p.is_contiguous() and torch.equal(p[..., :w], src)
+        assert not bool(p[..., w:].any())
+        assert p.data_ptr() != src.data_ptr() and bool(src.eq(1).all())
 
 
 def test_ladder_entry_point_takes_the_wide_group():
