@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from direct_data_driven_mpc_tpu import native as jax_native  # noqa: E402
 from direct_data_driven_mpc_tpu.control.controller import (  # noqa: E402
     DirectDataDrivenMPCController as JaxController,
 )
@@ -55,6 +56,10 @@ from direct_data_driven_mpc_tpu_torch.utils.export import (  # noqa: E402
     export_controller,
 )
 
+from tests._torch_jax_native import (  # noqa: E402,F401
+    jax_c_solve,
+    reference_c_solve,
+)
 from tests.test_closed_loop import FOUR_TANK  # noqa: E402
 
 STEPS = 20
@@ -66,6 +71,9 @@ LOOP_IDS = ["NONE-1", "NONE-4", "CONVEX-1"]
 #: CONVEX exit may fall one iteration apart).
 JAX_ATOL = {"NONE": 1e-12, "CONVEX": 1e-10}
 NUMPY_ATOL = {"NONE": 1e-12, "CONVEX": 1e-7}
+#: The JAX package's shared build of its extension, which every worker
+#: of a run may write (tests/_torch_jax_native.py).
+SHARED_LIB = jax_native._LIB
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -158,8 +166,7 @@ def test_native_admm_matches_numpy():
         solver.solve(theta, s[:-1], w, 5, 1e-10)
 
 
-@pytest.mark.parametrize("slack,n_mpc_step", LOOPS, ids=LOOP_IDS)
-def test_native_loop_matches_jax_controller(slack, n_mpc_step):
+def _check_loop_matches_jax(slack, n_mpc_step):
     """The port's controller on its C solve against the JAX controller
     on its own, over a closed loop on the same plant and noise."""
     ctrl, jctrl = _port(slack, n_mpc_step), _jax(slack, n_mpc_step)
@@ -171,6 +178,60 @@ def test_native_loop_matches_jax_controller(slack, n_mpc_step):
     assert ctrl.get_problem_solve_status() == "optimal"
     assert ctrl.get_optimal_cost_value() == pytest.approx(
         jctrl.get_optimal_cost_value(), abs=1e-8)
+
+
+@pytest.mark.parametrize("slack,n_mpc_step", LOOPS, ids=LOOP_IDS)
+def test_native_loop_matches_jax_controller(slack, n_mpc_step, jax_c_solve):
+    """:func:`_check_loop_matches_jax`, with the JAX package's C extension
+    loaded whatever this worker's build race did."""
+    _check_loop_matches_jax(slack, n_mpc_step)
+
+
+def _lose_the_reference_build(monkeypatch):
+    """What the JAX package's ``get_lib()`` keeps after ``load failed
+    (... file too short)``: no module, and no second attempt. Returns a
+    reader of the shared extension's ``os.stat`` (None when absent)."""
+    monkeypatch.setattr(jax_native, "_ext", None)
+    monkeypatch.setattr(jax_native, "_load_attempted", True)
+
+    def shared():
+        if not os.path.exists(SHARED_LIB):
+            return None
+        st = os.stat(SHARED_LIB)
+        return st.st_ino, st.st_size, st.st_mtime_ns
+
+    return shared
+
+
+@pytest.mark.parametrize("slack,n_mpc_step", LOOPS, ids=LOOP_IDS)
+def test_lost_reference_build_still_runs_the_c_solve(
+        slack, n_mpc_step, monkeypatch, tmp_path):
+    """A worker whose reference build was lost to another worker's (the
+    shared ``_ddmpc_ext.so`` read half-written) still holds the port's
+    loop against the JAX controller's C solve, through a private build
+    that leaves the shared file as it was."""
+    shared = _lose_the_reference_build(monkeypatch)
+    before = shared()
+    ext = reference_c_solve(monkeypatch, tmp_path)
+    assert jax_native.get_lib() is ext
+    _check_loop_matches_jax(slack, n_mpc_step)
+    assert shared() == before and jax_native._LIB == SHARED_LIB
+
+
+def test_lost_reference_build_with_no_compiler_raises(monkeypatch, tmp_path):
+    """With the reference's build lost and no working compiler, the
+    helper raises the build's ``RuntimeError``: it neither skips nor
+    leaves the JAX controller on its numpy solve."""
+    shared = _lose_the_reference_build(monkeypatch)
+    before = shared()
+    monkeypatch.setenv("CC", "/bin/false")
+    with pytest.raises(RuntimeError, match="/bin/false"):
+        reference_c_solve(monkeypatch, tmp_path)
+    monkeypatch.setenv("CC", "/nonexistent/cc")
+    with pytest.raises(RuntimeError, match="nonexistent"):
+        reference_c_solve(monkeypatch, tmp_path)
+    assert jax_native._ext is None and jax_native.get_lib() is None
+    assert shared() == before and jax_native._LIB == SHARED_LIB
 
 
 @pytest.mark.parametrize("slack,n_mpc_step", LOOPS, ids=LOOP_IDS)
