@@ -355,6 +355,28 @@ of K4 and K5 do not fit one block (after phase 47; it reads no
     resident one at the same bar (costs at atol 1e-5), both timed in
     turns: why the resident body keeps the shapes it takes.
 
+Then the last options the port took from the JAX package (after phase
+48; it reads no ``torch.profiler``):
+
+49. the classic engine's Monte-Carlo aggregate mode at ``bench.py``'s
+    ``large_plant`` classic configuration (l.971-992: the plant of phase
+    18, K = 50, B = 65536 x T = 400, noise drawn in the block loop from a
+    generator at the plant's eps_max): ``make_linear_batched_rollout``
+    with ``emit_trajectories=False`` and ``True``, costs, converged
+    flags, final state and windows bit-equal, u and y empty ``(B, 0,
+    10)`` in the first; each run's peak device memory and ms per rollout
+    (CUDA events, in turns); then the ladder's ``balance_ratio``
+    through its kernels, each launched once with its counts read: K5 at
+    ``four_tank_ladder`` (phase 14's shape) at 5.0 and 7.3 (not exact in
+    float32), on its box |u| <= 0.85 and on phase 16's |u| <= 3, K5w at
+    ``large_plant_ladder`` (phase 48's shape) at 20.0, each bit-equal to
+    its plain version at that ratio (u, y, the final windows, s, w, the
+    residual and rung lanes, the final rungs), the rung lanes that differ
+    from the default ratio's kernel run counted (at least one, except at
+    |u| <= 0.85, where every group climbs to the top rung at any of these
+    ratios), and its converged fraction from solve 10 printed beside the
+    default's.
+
 The script sets ``torch.set_float32_matmul_precision("high")`` first,
 as a user's process might: the port scopes IEEE float32 to its
 parity-bound paths (``ops/precision.py``), the library yardsticks are
@@ -4169,14 +4191,12 @@ WIDE_BOX = 0.85  # large_plant_ladder's input box |u| <= 0.85
 
 
 def wide_launcher(ladder):
-    """A rollout (``fused_admm``'s or ``fused_ladder``'s arguments) that
-    calls the library's wide launcher directly, K4w or K5w, on the padded
-    operators (``wide_operators``), at any shape its plan takes: at
-    resident shapes it holds the two bodies against each other. It counts
-    no launch."""
+    """A rollout (``fused_admm``'s or ``fused_ladder``'s arguments, the
+    balance ratio included) that calls the library's wide launcher
+    directly, K4w or K5w, on the padded operators (``wide_operators``),
+    at any shape its plan takes: at resident shapes it holds the two
+    bodies against each other. It counts no launch."""
     from direct_data_driven_mpc_tpu_torch.ops import _kernels
-    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
-
     from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa
 
     lib = _kernels.load("fused_admm").lib
@@ -4194,7 +4214,7 @@ def wide_launcher(ladder):
                for w in (dims.S, dims.nbox, dims.nbox)]
         stream = torch.cuda.current_stream().cuda_stream
         if ladder:
-            rung0, G = rest
+            rung0, G, ratio = rest
             if G != lib.fused_wide_tile_rows(*sizes):
                 raise AssertionError(f"rung group {G} is not the wide tile "
                                      f"{lib.fused_wide_tile_rows(*sizes)}")
@@ -4209,7 +4229,7 @@ def wide_launcher(ladder):
                 *(o.data_ptr() for o in out), rung.data_ptr(),
                 *(f.data_ptr() for f in fin), Bsz, *sizes, n_blocks,
                 int(n_iter), ops.Vop.shape[0], dims.alpha, 1.0 - dims.alpha,
-                fl.BALANCE_RATIO, stream)
+                ratio, stream)
             out.append(rung)
         else:
             adds = rest[0] if rest else None
@@ -4467,6 +4487,179 @@ def wide_admm_phase(dev, smi) -> list:
             f"[{smi}]; {time.perf_counter() - t0:.1f} s")
         del calls, lanes, got, wide, ins
     return records
+
+
+#: Phase 49: bench.py's large_plant classic configuration (l.971-992)
+#: in the aggregate mode, and the ladder's balance ratio through K5 and
+#: K5w (the default is 10).
+B_AGG, T_AGG, K_AGG = 65536, 400, 50
+K5_RATIOS = (5.0, 7.3)  # 7.3 is not exact in float32
+K5W_RATIO = 20.0
+
+
+def aggregate_mode_check(dev, smi, plant, ctrl) -> None:
+    """Phase 49's first part: the classic engine at ``large_plant`` with
+    ``emit_trajectories=False`` against ``True``, bit-equal in every
+    emitted field, with peak device memory and ms per rollout."""
+    from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
+        build_linear_engine,
+        make_linear_batched_rollout,
+    )
+
+    t0 = time.perf_counter()
+    B, T = B_AGG, T_AGG
+    bm = build_linear_engine(ctrl, plant.as_params(),
+                             solves_per_block=K_AGG, device=dev)
+    ins = scenario_batch(plant, ctrl, B, dev)
+    runs = {emit: make_linear_batched_rollout(
+                bm, T, use_rng_noise=True, eps_max=plant.get_eps_max(),
+                emit_trajectories=emit)
+            for emit in (False, True)}
+
+    def call(emit):
+        return runs[emit](*ins, torch.Generator(device=dev).manual_seed(0))
+
+    res, peak = {}, {}
+    for emit in (False, True):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res[emit] = call(emit)
+        torch.cuda.synchronize()
+        peak[emit] = torch.cuda.max_memory_allocated() - base
+    agg, full = res[False], res[True]
+    m, p = ctrl.m, ctrl.p
+    if (tuple(agg.u_sys.shape), tuple(agg.y_sys.shape)) != ((B, 0, m),
+                                                            (B, 0, p)):
+        raise AssertionError(f"aggregate mode: u {tuple(agg.u_sys.shape)}, "
+                             f"y {tuple(agg.y_sys.shape)}")
+    if tuple(full.u_sys.shape) != (B, T, m):
+        raise AssertionError(f"full mode: u {tuple(full.u_sys.shape)}")
+    same_bits("aggregate vs full mode", agg, full,
+              ("costs", "x_final", "u_past", "y_past"))
+    if not torch.equal(agg.converged, full.converged):
+        raise AssertionError("aggregate vs full mode: converged differs")
+    if not bool(agg.converged.all()):
+        raise AssertionError("aggregate mode: non-finite costs")
+    traj = tensor_bytes(full.u_sys, full.y_sys)
+    del res, agg, full
+    ms = event_turns({"aggregate": lambda: call(False),
+                      "full": lambda: call(True)},
+                     {"aggregate": 3, "full": 3}, lambda: 0)
+    log(f"phase 49 aggregate mode: large_plant classic engine (K={K_AGG}, "
+        f"B={B} x T={T}, generator noise): emit_trajectories=False "
+        f"bit-equal to True in costs, converged, x_final, u_past, y_past; "
+        f"u, y empty ({B}, 0, {m}); peak device memory above the inputs "
+        f"{peak[False] / 1e9:.3f} GB aggregate, {peak[True] / 1e9:.3f} GB "
+        f"full ({(peak[True] - peak[False]) / 1e9:.3f} GB less; the "
+        f"trajectories are {traj / 1e9:.3f} GB); {ms['aggregate']:.2f} ms "
+        f"per rollout aggregate, {ms['full']:.2f} ms full "
+        f"({1 - ms['aggregate'] / ms['full']:.1%} less; means of 2 turns "
+        f"of 3) [{smi}]; {time.perf_counter() - t0:.1f} s")
+
+
+def ratio_check(dev, smi, name, plant, ctrl, op, ratios, B, wide,
+                require_move=True) -> None:
+    """Phase 49's second part for one configuration: the ladder kernel
+    (K5, or K5w where ``wide``) at each of ``ratios``, launched once with
+    the counts read, bit-equal to its plain version at that ratio; the
+    rung lanes that differ from the default ratio's kernel run counted,
+    and with ``require_move`` at least one required."""
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+    from direct_data_driven_mpc_tpu_torch.parallel.batch import (
+        draw_noise_batch,
+    )
+
+    t0 = time.perf_counter()
+    T, wrapper = T_ADMM, fl.fused_ladder
+    kname = "K5w" if wide else "K5"
+    ins = (*scenario_batch(plant, ctrl, B, dev),
+           draw_noise_batch(0, B, T, ctrl.p, plant.get_eps_max(),
+                            device=dev))
+    args = (plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, T)
+
+    def kernel_run(ratio, lanes):
+        calls = {}
+        run = fl.make_fused_ladder_rollout(
+            *args, device=dev, balance_ratio=ratio,
+            rollout=_keep(wrapper, "kernel", calls, lanes, True),
+            **LADDER_KW)
+        wrapper.launches = wrapper.wide_launches = 0
+        res = run(*ins)
+        torch.cuda.synchronize()
+        launched = (wrapper.wide_launches, wrapper.launches)
+        if launched != ((1, 0) if wide else (0, 1)):
+            raise AssertionError(f"{name} {kname} at ratio {ratio}: "
+                                 f"{launched} wide and resident launches")
+        return res
+
+    def conv10(res):
+        return float(res.converged[:, fl.CONVERGED_FROM:].float().mean())
+
+    base_lanes = {}
+    base = conv10(kernel_run(fl.BALANCE_RATIO, base_lanes))
+    rung_base = base_lanes["kernel"][2]
+    for ratio in ratios:
+        lanes = {}
+        got = kernel_run(ratio, lanes)
+        want = fl.make_fused_ladder_rollout(
+            *args, device=dev, balance_ratio=ratio,
+            rollout=_keep(fl.fused_ladder_reference, "plain", {}, lanes,
+                          True), **LADDER_KW)(*ins)
+        if not result_bits(got, want):
+            raise AssertionError(f"{name} {kname} at ratio {ratio}: not "
+                                 "bit-equal to the plain version")
+        for lane, a, b in zip(("RP", "RD", "rung"), lanes["kernel"],
+                              lanes["plain"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} {kname} at ratio {ratio}: "
+                                     f"{lane} lanes differ")
+        if not torch.equal(got.solver_state.rho_idx,
+                           want.solver_state.rho_idx):
+            raise AssertionError(f"{name} {kname} at ratio {ratio}: final "
+                                 "rungs differ")
+        moved = int((lanes["kernel"][2] != rung_base).sum())
+        if require_move and moved == 0:
+            raise AssertionError(f"{name} {kname} at ratio {ratio}: rung "
+                                 "lanes equal to the default ratio's")
+        log(f"phase 49 {name} {kname} (B={B} x T={T}) at balance_ratio "
+            f"{ratio} (float32 {float(np.float32(ratio))!r}): launched once, "
+            f"bit-equal to the plain version (u, y, windows, s, w, residual "
+            f"and rung lanes, final rungs); {moved} rung lanes differ from "
+            f"ratio {fl.BALANCE_RATIO}'s; converged from solve "
+            f"{fl.CONVERGED_FROM} {conv10(got):.6f} (ratio "
+            f"{fl.BALANCE_RATIO}: {base:.6f}) [{smi}]")
+    log(f"phase 49 {name}: {time.perf_counter() - t0:.1f} s")
+
+
+def last_options_phase(dev, smi) -> None:
+    """Phase 49: the classic engine's aggregate mode at ``large_plant``,
+    then the balance ratio through K5 (``four_tank_ladder``, B_ADMM) and
+    K5w (``large_plant_ladder``, B_WIDE)."""
+    from direct_data_driven_mpc_tpu_torch.qp.box import (
+        compute_box_admm_operator_np,
+    )
+
+    t0 = time.perf_counter()
+    plant, ctrl = build_large_plant()
+    log(f"phase 49 host build: large_plant nz={ctrl.spec.nz}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    aggregate_mode_check(dev, smi, plant, ctrl)
+    # At |u| <= 0.85 every group climbs to the top rung in its first two
+    # solves at any of these ratios (measured on the CPU at B = 8192), so
+    # there the ratio leaves the rung lanes as they are; at phase 16's
+    # |u| <= 3 on the same shape the groups walk down the ladder, at a
+    # pace the ratio sets.
+    plant4, ctrl4, op4, _ = admm_config("four_tank_ladder")
+    ratio_check(dev, smi, "four_tank_ladder", plant4, ctrl4, op4,
+                K5_RATIOS, B_ADMM, wide=False, require_move=False)
+    op4 = admm_config("four_tank_ladder_u3")[2]
+    ratio_check(dev, smi, "four_tank_ladder_u3", plant4, ctrl4, op4,
+                K5_RATIOS, B_ADMM, wide=False)
+    op = compute_box_admm_operator_np(ctrl.spec,
+                                      u_bounds=(-WIDE_BOX, WIDE_BOX))
+    ratio_check(dev, smi, "large_plant_ladder", plant, ctrl, op,
+                (K5W_RATIO,), B_WIDE, wide=True)
 
 
 def main() -> int:
@@ -4760,6 +4953,10 @@ def main() -> int:
     t0 = time.perf_counter()
     k4w, k5w = wide_admm_phase(dev, smi)
     log(f"phase 48: {time.perf_counter() - t0:.1f} s")
+    # 49, after 48: it reads no torch.profiler.
+    t0 = time.perf_counter()
+    last_options_phase(dev, smi)
+    log(f"phase 49: {time.perf_counter() - t0:.1f} s")
     if (torch.get_float32_matmul_precision() != "high"
             or torch.backends.cuda.matmul.fp32_precision != "tf32"):
         raise AssertionError("the caller's float32 matmul precision did not "

@@ -30,7 +30,9 @@ Counterpart of ``direct_data_driven_mpc_tpu/control/linear_engine.py``
 (``AffineBlockMap``, ``build_affine_block_map``, ``build_linear_engine``,
 ``build_tracking_engine``, ``closed_loop_spectrum``,
 ``linear_closed_loop_rollout`` with explicit noise or noise drawn block
-by block, ``time_parallel_rollout``, ``make_linear_batched_rollout``).
+by block, ``time_parallel_rollout``, ``make_linear_batched_rollout``),
+with its Monte-Carlo aggregate mode (``emit_trajectories=False``) and its
+``precision`` names (both IEEE float32 here, ``ops.precision``).
 """
 
 from __future__ import annotations
@@ -48,7 +50,10 @@ from direct_data_driven_mpc_tpu_torch.control.loop import (
 )
 from direct_data_driven_mpc_tpu_torch.device import resolve_device
 from direct_data_driven_mpc_tpu_torch.ops.lti import LTIParams
-from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
+from direct_data_driven_mpc_tpu_torch.ops.precision import (
+    check_precision,
+    ieee_float32,
+)
 from direct_data_driven_mpc_tpu_torch.parallel.batch import (
     draw_block_noise,
 )
@@ -455,6 +460,7 @@ def linear_batched_rollout(
     generator: Optional[torch.Generator] = None,
     eps_max: float = 0.0,
     noise_rows: Optional[Tuple[int, int]] = None,
+    emit_trajectories: bool = True,
 ) -> ClosedLoopResult:
     """Batched rollout of the condensed recursion.
 
@@ -474,6 +480,12 @@ def linear_batched_rollout(
     schedule of a tracking map (see :func:`_setpoint_deltas`); its deltas
     ride the last ``n_r`` lanes of each block's ``w`` and each solve's
     cost is the joint ``[theta; dr]`` quadratic.
+
+    ``emit_trajectories=False`` is the Monte-Carlo aggregate mode: the
+    per-step u and y products are not computed and ``u_sys``/``y_sys``
+    come back empty, ``(B, 0, m)`` and ``(B, 0, p)``. The costs and the
+    final state are the same products in the same order, so they equal
+    the full mode's bit for bit.
     """
     bm = block_map
     dtype, device = bm.M_T.dtype, bm.M_T.device
@@ -509,8 +521,10 @@ def linear_batched_rollout(
          y_pasts.reshape(Bsz, -1)], dim=1,
     ).to(dtype) - bm.s_star
 
-    U = torch.empty((Bsz, n_outer, K * nb * m), dtype=dtype, device=device)
-    Y = torch.empty((Bsz, n_outer, K * nb * p), dtype=dtype, device=device)
+    # The aggregate mode's trajectories are empty from the start.
+    n_traj = n_outer if emit_trajectories else 0
+    U = torch.empty((Bsz, n_traj, K * nb * m), dtype=dtype, device=device)
+    Y = torch.empty((Bsz, n_traj, K * nb * p), dtype=dtype, device=device)
     Cst = torch.empty((Bsz, n_outer, K), dtype=dtype, device=device)
     for t in range(n_outer):
         if Ws is None:
@@ -531,14 +545,15 @@ def linear_batched_rollout(
         Cst[:, t] = (
             ((xi @ bm.cost_P) * xi).sum(-1) + xi @ bm.cost_q + bm.cost_r
         )
-        U[:, t] = s @ bm.OuS_T + bm.ou_c + w @ bm.OuW_T
-        Y[:, t] = s @ bm.OyS_T + bm.oy_c + w @ bm.OyW_T
+        if emit_trajectories:
+            U[:, t] = s @ bm.OuS_T + bm.ou_c + w @ bm.OuW_T
+            Y[:, t] = s @ bm.OyS_T + bm.oy_c + w @ bm.OyW_T
         s = s @ bm.M_T + bm.c + w @ bm.N_T
     s_fin = s + bm.s_star
     costs = Cst.reshape(Bsz, -1)[:, :n_solves]
     return ClosedLoopResult(
-        u_sys=U.reshape(Bsz, -1, m)[:, :n_steps],
-        y_sys=Y.reshape(Bsz, -1, p)[:, :n_steps],
+        u_sys=U.reshape(Bsz, n_traj * K * nb, m)[:, :n_steps],
+        y_sys=Y.reshape(Bsz, n_traj * K * nb, p)[:, :n_steps],
         costs=costs,
         converged=torch.isfinite(costs),
         x_final=s_fin[:, :ns],
@@ -553,6 +568,8 @@ def make_linear_batched_rollout(
     n_mpc_step: int = 1,
     use_rng_noise: bool = False,
     eps_max: float = 0.0,
+    emit_trajectories: bool = True,
+    precision: str = "highest",
     setpoints=None,
 ):
     """``run(x0s, u_pasts, y_pasts, noise) -> ClosedLoopResult`` over the
@@ -560,12 +577,17 @@ def make_linear_batched_rollout(
     is the explicit ``(B, n_steps, p)`` noise or, with
     ``use_rng_noise=True``, a ``torch.Generator`` on the map's device
     from which each block's ``eps_max``-bounded noise is drawn.
+    ``emit_trajectories=False``: the aggregate mode, ``u_sys`` and
+    ``y_sys`` empty, ``(B, 0, m)`` and ``(B, 0, p)``. ``precision``:
+    "highest" or "high", both IEEE float32
+    (:func:`~direct_data_driven_mpc_tpu_torch.ops.precision.check_precision`).
     ``setpoints``: a tracking map's schedule, ``(n_r,)``, ``(n_outer,
     n_r)`` or per scenario ``(B, n_outer, n_r)``."""
+    check_precision(precision)
 
     def run(x0s, u_pasts, y_pasts, noise):
         kw = dict(n_steps=n_steps, n_mpc_step=n_mpc_step,
-                  setpoints=setpoints)
+                  setpoints=setpoints, emit_trajectories=emit_trajectories)
         if use_rng_noise:
             return linear_batched_rollout(
                 block_map, x0s, u_pasts, y_pasts, None, generator=noise,
@@ -597,23 +619,28 @@ def linear_closed_loop_rollout(
     n_mpc_step: int = 1,
     generator: Optional[torch.Generator] = None,
     eps_max: float = 0.0,
+    emit_trajectories: bool = True,
+    precision: str = "highest",
     setpoints=None,
 ) -> ClosedLoopResult:
     """One scenario through the condensed recursion: ``x0 (ns,)``,
     ``u_past (n, m)``, ``y_past (n, p)`` and noise ``W (n_steps, p)``
     explicitly, or drawn block by block from ``generator`` (bounded by
     ``eps_max``). :func:`linear_batched_rollout` at B = 1 on the map's
-    device; the result's fields are unbatched: ``u_sys (n_steps, m)``,
-    ``costs (ceil(n_steps / n_mpc_step),)``, ``x_final (ns,)``, ``u_past
-    (n, m)`` and so on. ``setpoints``: a tracking map's schedule,
-    ``(n_r,)`` or ``(n_outer, n_r)``."""
+    device; the result's fields are unbatched: ``u_sys (n_steps, m)``
+    (``(0, m)`` with ``emit_trajectories=False``), ``costs (ceil(n_steps
+    / n_mpc_step),)``, ``x_final (ns,)``, ``u_past (n, m)`` and so on.
+    ``precision``: as in :func:`make_linear_batched_rollout`.
+    ``setpoints``: a tracking map's schedule, ``(n_r,)`` or ``(n_outer,
+    n_r)``."""
+    check_precision(precision)
     x0, u_past, y_past = _scenario(block_map, x0, u_past, y_past)
     if W is not None:
         W = torch.as_tensor(W, dtype=x0.dtype, device=x0.device)[None]
     res = linear_batched_rollout(
         block_map, x0[None], u_past[None], y_past[None], W, n_steps,
         n_mpc_step=n_mpc_step, setpoints=setpoints, generator=generator,
-        eps_max=eps_max,
+        eps_max=eps_max, emit_trajectories=emit_trajectories,
     )
     return ClosedLoopResult(*(f[0] for f in res[:7]))
 

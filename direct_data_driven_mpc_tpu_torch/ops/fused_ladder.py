@@ -15,7 +15,9 @@ relative rule of ``qp/box.py``)::
     ri' = ri + [rp_rel > ratio rd_rel and ri < R-1]
              - [rd_rel > ratio rp_rel and ri > 0]
 
-(maxima over the group's scenarios and box lanes, keeping a NaN), scales
+(maxima over the group's scenarios and box lanes, keeping a NaN;
+``ratio`` is ``balance_ratio``, 10 by default as in ``qp/box.py``,
+rounded to float32 as the kernel takes it), scales
 the dual by ``rho[ri] / rho[ri']`` and takes the plant step with rung
 ``ri'``'s maps. Every rung's fixed point is the same optimum, so a
 converged solve is exact whatever the rung path; the per-scenario
@@ -83,7 +85,8 @@ from direct_data_driven_mpc_tpu_torch.ops.fused_admm import (
 from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
 from direct_data_driven_mpc_tpu_torch.qp.box import BoxADMMState
 
-#: The balancer's ratio (``qp/box.py``'s, and ``bench.py``'s ladder).
+#: The balancer's default ratio (``qp/box.py``'s, and ``bench.py``'s
+#: ladder); any other is the ``balance_ratio`` argument.
 BALANCE_RATIO = 10.0
 #: Solves of the rung walk's transient that the amortized run's ``ok``
 #: does not require to converge (``bench.py``'s ``conv_from``).
@@ -222,13 +225,22 @@ def _per_rung(fn, row_rung: torch.Tensor, present):
     return out
 
 
+def _ratio32(balance_ratio: float) -> float:
+    """The balance ratio as the kernel takes it, rounded to float32
+    (its product with a float32 residual ratio is then the kernel's
+    ``__fmul_rn``, also at a ratio float32 cannot hold exactly)."""
+    return float(np.float32(balance_ratio))
+
+
 @ieee_float32()
 def fused_ladder_reference(ops: FusedLadderOperator, dims: FusedADMMDims,
                            carry: ADMMCarry, W: torch.Tensor, n_iter: int,
-                           rung0: torch.Tensor, rung_group: int):
+                           rung0: torch.Tensor, rung_group: int,
+                           balance_ratio: float = BALANCE_RATIO):
     """Plain PyTorch version of the ladder kernel, in the dtype of
     ``ops``: per solve block, the fixed-penalty solve at each group's
-    rung, the balancer, and the plant step at the new rung.
+    rung, the balancer at ``balance_ratio`` (rounded to float32), and
+    the plant step at the new rung.
 
     ``W`` is the noise ``(B, n_blocks, nb*p)``; ``rung0`` the first rung
     of each of the ``ceil(B / rung_group)`` groups. Returns ``U``,
@@ -257,6 +269,7 @@ def fused_ladder_reference(ops: FusedLadderOperator, dims: FusedADMMDims,
     RD = torch.empty((Bsz, n_blocks), **kw)
     RUNG = torch.empty((Bsz, n_blocks), dtype=torch.int32, device=dev)
     tiny = torch.tensor(1e-12, **kw)
+    ratio = _ratio32(balance_ratio)
     rung = rung0.to(device=dev, dtype=torch.int64)
     if rung.shape != (n_groups,):
         raise ValueError(f"rung0 has shape {tuple(rung.shape)}, expected "
@@ -297,8 +310,8 @@ def fused_ladder_reference(ops: FusedLadderOperator, dims: FusedADMMDims,
         rd_rel = (group_max(RD[:, t]) / ops.rhos[rung]) / torch.maximum(
             w_mag, tiny
         )
-        up = (rp_rel > BALANCE_RATIO * rd_rel) & (rung < R - 1)
-        down = (rd_rel > BALANCE_RATIO * rp_rel) & (rung > 0)
+        up = (rp_rel > ratio * rd_rel) & (rung < R - 1)
+        down = (rd_rel > ratio * rp_rel) & (rung > 0)
         new = rung + up.long() - down.long()
         w = w * (ops.rhos[rung] / ops.rhos[new]).repeat_interleave(G)[
             :Bsz, None
@@ -363,9 +376,11 @@ def _check_kernel_inputs(ops, dims, carry, W, rung0, n_groups):
 
 def fused_ladder(ops: FusedLadderOperator, dims: FusedADMMDims,
                  carry: ADMMCarry, W: torch.Tensor, n_iter: int,
-                 rung0: torch.Tensor, rung_group: int):
+                 rung0: torch.Tensor, rung_group: int,
+                 balance_ratio: float = BALANCE_RATIO):
     """The ladder rollout (same contract as
-    :func:`fused_ladder_reference`).
+    :func:`fused_ladder_reference`; the kernel takes ``balance_ratio``
+    at run time, as a float32).
 
     CUDA tensors launch kernel K5 (``csrc/fused_admm.cu``, float32,
     contiguous, ``rung0`` int32): its resident body where the group rule
@@ -379,7 +394,7 @@ def fused_ladder(ops: FusedLadderOperator, dims: FusedADMMDims,
     plain version."""
     if carry.s.device.type == "cpu":
         return fused_ladder_reference(ops, dims, carry, W, n_iter, rung0,
-                                      rung_group)
+                                      rung_group, balance_ratio)
     if carry.s.device.type != "cuda":
         raise ValueError(f"no fused ladder rollout for device "
                          f"{carry.s.device}")
@@ -437,7 +452,7 @@ def fused_ladder(ops: FusedLadderOperator, dims: FusedADMMDims,
             RD.data_ptr(), RUNG.data_ptr(), s_fin.data_ptr(),
             sa_fin.data_ptr(), wa_fin.data_ptr(),
             Bsz, *sizes, n_blocks, int(n_iter), R,
-            dims.alpha, 1.0 - dims.alpha, BALANCE_RATIO, stream,
+            dims.alpha, 1.0 - dims.alpha, _ratio32(balance_ratio), stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -511,6 +526,7 @@ def make_fused_ladder_rollout(
     device=None,
     dtype=torch.float32,
     rollout=fused_ladder,
+    balance_ratio: float = BALANCE_RATIO,
 ):
     """Build the fused batched closed-loop rollout with the adaptive
     penalty ladder (``qp/box.py``'s default box solver) in the loop.
@@ -530,6 +546,8 @@ def make_fused_ladder_rollout(
         rung_group: scenarios that share one rung; None means the
             kernel's tile for these sizes (:func:`ladder_tile_rows`, or
             :func:`ladder_wide_group` where that gives 0).
+        balance_ratio: the balancer's ratio (module docstring), passed
+            to ``rollout``; the JAX package's default, 10.
         device, dtype: where and in which dtype the operators live (None
             means the CUDA card; ``"cpu"`` runs the plain version).
         rollout: :func:`fused_ladder` (the kernel on CUDA tensors) or
@@ -607,6 +625,7 @@ def make_fused_ladder_rollout(
         U, Y, C, RP, RD, RUNG, s_fin, sa, wa = rollout(
             ops, dims, carry, W.contiguous(), n_iter,
             rung_g.to(device=s0.device, dtype=torch.int32), G,
+            balance_ratio,
         )
         return ClosedLoopResult(
             u_sys=U.reshape(Bsz, -1, dims.m)[:, :n_steps],

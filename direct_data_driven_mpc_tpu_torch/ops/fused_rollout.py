@@ -56,22 +56,13 @@ from direct_data_driven_mpc_tpu_torch.control.loop import (
     ClosedLoopResult,
     setpoint_schedule,
 )
-from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
+from direct_data_driven_mpc_tpu_torch.ops.precision import (
+    check_precision,
+    ieee_float32,
+)
 
-#: Accepted for API parity with the JAX package. On the TPU "high" ran
-#: the cost columns as three bf16 passes; here both values run the
-#: whole operator in float32 and give identical results.
-_COST_PRECISIONS = ("highest", "high")
 #: Opt-in shared memory of one thread block (bytes), as in the .cu.
 _SMEM_LIMIT = 232448
-
-
-def _check_cost_precision(name: str) -> None:
-    if name not in _COST_PRECISIONS:
-        raise ValueError(
-            f"cost_precision must be one of {sorted(_COST_PRECISIONS)}, "
-            f"got {name!r}"
-        )
 
 
 def build_theta_operator(block_map: AffineBlockMap, ns: int):
@@ -734,7 +725,7 @@ def make_fused_batched_rollout(
     A tracking map (``build_tracking_engine``) is called as ``run(x0s,
     u_pasts, y_pasts, Ws, setpoints)`` with a schedule of absolute
     setpoints, one per outer block (see :func:`_center_and_pack`)."""
-    _check_cost_precision(cost_precision)
+    check_precision(cost_precision, "cost_precision")
     S, steps_per_outer, n_outer, pad = _shape(
         block_map, n_steps, n_mpc_step
     )
@@ -819,7 +810,7 @@ def make_amortized_run(
     no repetition's work is dead. ``rollout`` is :func:`fused_rollout`
     or, to time the plain version on the same inputs,
     :func:`fused_rollout_reference`."""
-    _check_cost_precision(cost_precision)
+    check_precision(cost_precision, "cost_precision")
     _, steps_per_outer, n_outer, pad = _shape(
         block_map, n_steps, n_mpc_step
     )

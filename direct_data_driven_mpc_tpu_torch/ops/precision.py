@@ -8,6 +8,12 @@ TF32 when the caller allows it (``torch.set_float32_matmul_precision(
 a call and then restores what the caller had, through the
 ``fp32_precision`` settings alone: the legacy ``allow_tf32`` flags, once
 written, make ``torch.get_float32_matmul_precision()`` raise.
+
+The JAX package's precision keywords (``precision`` of the classic
+engine, ``cost_precision`` of the fused one) name TPU matmul passes:
+"highest" (six bf16 passes) and "high" (three). :func:`check_precision`
+accepts both names, and every path runs both in IEEE float32, with
+identical results: TF32 for "high" would move u past the parity bar.
 """
 
 from __future__ import annotations
@@ -15,6 +21,18 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+#: The precision names the port accepts, for parity with the JAX package.
+PRECISIONS = ("highest", "high")
+
+
+def check_precision(value: str, keyword: str = "precision") -> None:
+    """Raise ``ValueError`` unless ``value`` is one of
+    :data:`PRECISIONS` (``keyword`` names the argument in the message)."""
+    if value not in PRECISIONS:
+        raise ValueError(
+            f"{keyword} must be one of {sorted(PRECISIONS)}, got {value!r}"
+        )
 
 
 @contextlib.contextmanager

@@ -271,17 +271,20 @@ def make_sharded_linear_rollout(
     n_mpc_step: int = 1,
     use_rng_noise: bool = False,
     eps_max: float = 0.0,
+    emit_trajectories: bool = True,
 ):
     """The classic condensed engine on this rank's shard, with no
     collective: ``run(x0s, u_pasts, y_pasts, noise) -> ClosedLoopResult``
-    (``control.linear_engine.make_linear_batched_rollout``'s contract).
+    (``control.linear_engine.make_linear_batched_rollout``'s contract,
+    ``emit_trajectories=False`` its aggregate mode).
 
     With ``use_rng_noise=True``, ``noise`` is a ``torch.Generator``
     seeded alike on every rank; each block draws the global batch's noise
     and keeps this shard's rows, so the shards of a sharded run draw what
     the unsharded run draws."""
     sizes, coord = mesh_layout(mesh)
-    kw = dict(n_steps=n_steps, n_mpc_step=n_mpc_step)
+    kw = dict(n_steps=n_steps, n_mpc_step=n_mpc_step,
+              emit_trajectories=emit_trajectories)
 
     def run(x0s, u_pasts, y_pasts, noise):
         if use_rng_noise:

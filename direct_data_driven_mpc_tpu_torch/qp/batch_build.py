@@ -333,12 +333,14 @@ def build_solution_operators_fallback(
             for k in BATCHED_OPERATOR_KEYS}
 
 
-def stacked_solution_map(ops: dict, dtype=torch.float32,
+def stacked_solution_map(ops: dict, dtype=None,
                          device=None) -> SolutionMap:
     """A :class:`SolutionMap` with a leading scenario axis on ``device``
-    (None: the CUDA card) in ``dtype``, from a batch of operators
-    (tensors or numpy arrays) -- the direct input to
-    ``parallel.batch.heterogeneous_closed_loop``."""
+    (None: the CUDA card) in ``dtype`` (None: float32, as in the JAX
+    package), from a batch of operators (tensors or numpy arrays) -- the
+    direct input to ``parallel.batch.heterogeneous_closed_loop``."""
+    if dtype is None:
+        dtype = torch.float32
     _check_dtype_supported(dtype)
     device = resolve_device(device)
     return SolutionMap(**{

@@ -14,6 +14,7 @@ Run from the repository root, for example:
         entry_phase                                           # 43-45
     python3 scripts/run_phases.py random_dims_phase long_horizon_phase
     python3 scripts/run_phases.py wide_admm_phase             # 48
+    python3 scripts/run_phases.py last_options_phase          # 49
     python3 scripts/run_phases.py --repeat 20 time_parallel_phase  # 38
 
 ``--repeat N`` runs the named phases N times in one process (one build,

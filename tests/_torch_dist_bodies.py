@@ -102,6 +102,7 @@ def mesh_cases(rank, world, case):
             run = pm.make_sharded_linear_rollout(
                 mesh, c["block_map"], T, use_rng_noise=True,
                 eps_max=c["eps_max"],
+                emit_trajectories=c.get("emit_trajectories", True),
             )
             res = run(x0s, ups, yps, torch.Generator().manual_seed(c["seed"]))
         _result(out, name, res, metrics)

@@ -1621,3 +1621,70 @@ def test_wide_kernels_at_widths_aligned_and_not(cuda, S, nbox, nxi, residue):
     assert torch.equal(got[5], want[5])  # the rung lanes
     for a, b in zip(got[:5] + got[6:], want[:5] + want[6:]):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", ["four_tank_ladder_u3", "mid_wide_ladder"])
+def test_ladder_kernels_bit_equal_to_plain_version_at_a_balance_ratio(
+        cuda, name):
+    """K5 (nbox 52, |u| <= 3, where the groups walk down the ladder) and
+    K5w (nbox 196) at ``balance_ratio=7.3``, which float32 does not hold
+    exactly, at B = 8179: launched once each, bit-equal to the plain
+    version at that ratio in u, y, the final windows, s, w, the residual
+    and rung lanes and the final rungs (costs at rtol 1e-3 / atol 1e-5).
+    K5's rung lanes differ from its run at the default ratio: the kernel
+    reads the argument."""
+    import chip_smoke as cs
+    from direct_data_driven_mpc_tpu_torch.ops import fused_ladder as fl
+
+    wide = name == "mid_wide_ladder"
+    if wide:
+        plant, ctrl, op, kw, _ = _wide_case(name)
+    else:
+        plant, ctrl, op, kw = cs.admm_config(name)
+    n_steps = 12 if wide else 30
+    ins = _random_dims_inputs(plant, ctrl, 8192 - 13, n_steps, cuda)
+    args = (plant.as_params(), op, ctrl.n, ctrl.m, ctrl.p, n_steps)
+    lanes = {}
+    runs = {}
+    for key, fn, ratio in (("k", fl.fused_ladder, 7.3),
+                           ("p", fl.fused_ladder_reference, 7.3),
+                           ("d", fl.fused_ladder, fl.BALANCE_RATIO)):
+        before = (fl.fused_ladder.launches, fl.fused_ladder.wide_launches)
+        runs[key] = fl.make_fused_ladder_rollout(
+            *args, device=cuda, balance_ratio=ratio,
+            rollout=_keep(fn, lanes, key), **kw)(*ins)
+        torch.cuda.synchronize()
+        after = (fl.fused_ladder.launches, fl.fused_ladder.wide_launches)
+        if key != "p":
+            assert after == (before[0] + (not wide), before[1] + wide)
+    for a, b in zip(lanes["k"], lanes["p"]):
+        assert torch.equal(a, b)  # residual and rung lanes
+    _assert_bit_equal(runs["k"], runs["p"])
+    assert torch.equal(runs["k"].solver_state.rho_idx,
+                       runs["p"].solver_state.rho_idx)
+    if not wide:
+        assert not torch.equal(lanes["k"][2], lanes["d"][2])
+
+
+def test_classic_engine_aggregate_mode_on_the_card(cuda, golden):
+    """``make_linear_batched_rollout(emit_trajectories=False)`` on the
+    card, with noise drawn in the block loop: u and y empty, costs,
+    converged flags, final state and windows bit-equal to the full run."""
+    from direct_data_driven_mpc_tpu_torch.control.linear_engine import (
+        make_linear_batched_rollout,
+    )
+
+    ctrl = _controller(golden)
+    bm = build_linear_engine(ctrl, PLANT, solves_per_block=25, device=cuda)
+    B, T = 8192 - 13, 100
+    ins = _bit_equal_inputs(ctrl, golden["x0"], B, T, cuda)[:3]
+    out = {}
+    for emit in (True, False):
+        out[emit] = make_linear_batched_rollout(
+            bm, T, use_rng_noise=True, eps_max=0.002,
+            emit_trajectories=emit,
+        )(*ins, torch.Generator(device=cuda).manual_seed(3))
+    assert out[False].u_sys.shape == (B, 0, 2) == out[False].y_sys.shape
+    assert out[True].u_sys.shape == (B, T, 2)
+    for f in ("costs", "converged", "x_final", "u_past", "y_past"):
+        assert torch.equal(getattr(out[False], f), getattr(out[True], f)), f

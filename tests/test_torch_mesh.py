@@ -61,6 +61,7 @@ SHAPES = {
     "fused_tracking": ((8, 1), 16, 20),
     "fused_admm": ((8, 1), 16, 20),
     "linear_rng": ((8, 1), 16, 20),
+    "linear_rng_aggregate": ((8, 1), 16, 20),
 }
 ITERS = {"admm": 150, "box_ladder": 120, "nonconvex": 16}
 
@@ -123,11 +124,13 @@ def setup():
         elif name == "fused_admm":
             c.update(kind="fused_admm", plant=plant,
                      op=compute_admm_operator_np(cvx.spec), kw=ADMM_KW)
-        else:
+        elif name == "linear_rng":
             c.update(kind="linear_rng", seed=3, eps_max=0.002,
                      block_map=le.build_linear_engine(
                          ctrl, plant, solves_per_block=K, device="cpu",
                          dtype=F64))
+        else:  # the same run in the aggregate mode
+            c = dict(cases["linear_rng"], emit_trajectories=False)
         cases[name] = c
     return dict(jplant=jplant, jctrl=jctrl, ctrl=ctrl, plant=plant,
                 cases=cases)
@@ -306,3 +309,21 @@ def test_sharded_classic_engine_in_scan_noise_matches_unsharded(setup,
         np.testing.assert_allclose(_global(ranks, "linear_rng", field),
                                    getattr(ref, field).numpy(), rtol=0,
                                    atol=SHARDED_EXACT, err_msg=field)
+
+
+def test_sharded_classic_engine_aggregate_mode_matches_full_mode(setup,
+                                                                 ranks):
+    """The same in-scan-noise run in the aggregate mode
+    (``emit_trajectories=False``) over (8, 1): each shard's u and y are
+    empty, ``(2, 0, 2)``, and its costs, flags and final state equal the
+    full mode's shard bit for bit."""
+    (n_data, _), B, _ = SHAPES["linear_rng_aggregate"]
+    for d in range(n_data):
+        for field in ("u_sys", "y_sys"):
+            assert ranks[d][f"linear_rng_aggregate/{field}"].shape == (
+                B // n_data, 0, 2), field
+        for field in ("costs", "converged", "x_final", "u_past", "y_past"):
+            np.testing.assert_array_equal(
+                ranks[d][f"linear_rng_aggregate/{field}"],
+                ranks[d][f"linear_rng/{field}"],
+                err_msg=f"{field}, shard {d}")
