@@ -16,8 +16,11 @@ NONE) through
 4. main path: ``make_fused_batched_rollout`` on the card, with launch
    counts; K1's plan (its state pass and its product) from the library
    against ``rollout_plan``, each kernel's blocks per SM, registers and
-   local (spill) bytes, and the CUDA kernels one rollout launches
-   (``torch.profiler``); kernel vs its plain PyTorch version (u, y and
+   local (spill) bytes, and the CUDA kernels one rollout launches (2,
+   0 copies: the host's launch records in ``torch.profiler`` over three
+   calls after a discarded warm-up; their names from the device's
+   records where the session holds one per launch, else printed as not
+   read); kernel vs its plain PyTorch version (u, y and
    final state bit-equal; costs rtol 1e-3, atol 1e-5) and vs the classic
    condensed engine (u, y, final state atol 2e-5; costs as before);
 5. float64 truth: the kernel's max |du| against the plain version in
@@ -99,8 +102,10 @@ path's controller and batch, B = 4096 x T = 400, with a setpoint channel
 of 4 lanes, K = 50, and the 4-phase retarget schedule: the baked
 setpoints, then 0.85 x them, in alternation every 2 outer blocks)
 through K1, run right after phase 7: once the post-pass of phase 19 has
-run a cuDNN convolution, ``torch.profiler`` sees no device activity in
-this process (measured on the H100), and phases 23 and 26 read it:
+run a cuDNN convolution, ``torch.profiler`` has been seen to record no
+device activity in the process (on the H100), and phases 23 and 26 print
+numbers from the device's records (each check there rests on the host's
+launch records):
 
 22. host build: the tracking operator and block map, with their set-up
     seconds; K1's plan and slot table at this shape (rank 20: two
@@ -123,15 +128,18 @@ this process (measured on the H100), and phases 23 and 26 read it:
     noise at full width (bounded, finite, equal to the explicit-noise run
     fed the same draws);
 26. timing: K1, its plain version and the classic engine, in turns, the
-    one-addmm yardstick, and the device's idle share over the amortized
-    rollouts (``torch.profiler``).
+    one-addmm yardstick, and the device's idle share over 20 amortized
+    rollouts (``torch.profiler``; printed with the device records and
+    host launches of the session, and only where each launch and copy
+    has its device record, else "not read").
 
 Then ``bench.py``'s three generic configurations (its
 ``run_convex_config``: the four-tank controller of seed 0, N = 400,
 L = 30, B = 4096 x T = 400, the main path's noise) through the generic
 loop's iterative solvers and ``parallel.batch.make_batched_rollout``,
 plain PyTorch with no kernel of their own, run right after phase 26
-(phase 30 reads ``torch.profiler``):
+(phase 30 prints a busy share from ``torch.profiler``'s device
+records):
 
 27. ``four_tank_convex_generic``: CONVEX slack, c = 1, 16 ADMM
     iterations per solve; the converged lanes; against K4 from the same
@@ -149,14 +157,16 @@ plain PyTorch with no kernel of their own, run right after phase 26
     and the largest violation of the Eq. 6d constraint; against its
     float64 run on 64 scenarios (max |du| < 1e-4);
 30. timing: each of the three in turns, ms per rollout and solves/s by
-    CUDA events, then the device kernels one rollout launches
-    (``torch.profiler`` over ten segments chained through
-    ``solver_state0``, each bit-equal to the full run) and the device's
-    idle share. None of the converged fractions is asserted.
+    CUDA events, then the kernels and copies one rollout launches (the
+    host's launch records in ten ``torch.profiler`` sessions, one per
+    segment chained through ``solver_state0``, each bit-equal to the
+    full run; at least one kernel per step) and the device's idle share
+    where every session's device records are complete (else "not read",
+    with the counts). None of the converged fractions is asserted.
 
 Then the sweep and tuning path (plain PyTorch and numpy, no kernel of
-its own), right after phase 30, so that phase 35 reads
-``torch.profiler`` before phase 19's convolution:
+its own), right after phase 30, so that phase 35 traces before phase
+19's convolution:
 
 31. the host layer: the four-tank controller through
     ``create_data_driven_mpc_controller`` from ``four_tank_params``
@@ -189,13 +199,15 @@ its own), right after phase 30, so that phase 35 reads
     at lr 0.4 (B = 64, T = 80) that lower the loss; ms per value and
     grad;
 35. profiling: one heterogeneous segment (B = 4096, T = 40) under
-    ``utils.profiling.trace``; the Chrome trace must hold CUDA kernel
-    events.
+    ``utils.profiling.trace``; the Chrome trace must hold the host's
+    kernel launch events, and the card's kernel events are counted
+    against them (``trace`` warns when some are missing; the warning is
+    printed).
 
 Then one controller for one plant, with nothing batched (no kernel of
 its own: the C runtime on the host, plain PyTorch on the card), right
-after phase 35, so that phase 38 reads ``torch.profiler`` before phase
-19's convolution:
+after phase 35 and before phase 19's convolution (phase 38 counts the
+host's launch records in ``torch.profiler``):
 
 36. the interactive per-step solve: the C extension and the runtime's
     demo built from this checkout (compiler, its version, seconds);
@@ -234,8 +246,9 @@ after phase 35, so that phase 38 reads ``torch.profiler`` before phase
     in float64; given numpy and no device, the ops run on the card.
 
 Then the multi-device path on ``torch.distributed`` (no kernel of its
-own: K1 and K4 run per shard), right after phase 39, so that phase 42
-reads ``torch.profiler`` before phase 19's convolution:
+own: K1 and K4 run per shard), right after phase 39 and before phase
+19's convolution (phase 42 counts the host's launch records in
+``torch.profiler``):
 
 40. ``bench.py``'s ``sharded`` configuration (l.798-906) on a world of
     one NCCL rank, ``make_scenario_mesh()``: the four-tank Robust
@@ -377,6 +390,13 @@ Then the last options the port took from the JAX package (after phase
     ratios), and its converged fraction from solve 10 printed beside the
     default's.
 
+The profiled checks (phases 4, 23, 26, 30, 35, 38, 42) rest on the host's
+launch records, which ``torch.profiler`` keeps. The device's own records,
+which a session can lose in part or in whole (more the more sessions the
+process has run), feed only printed numbers (K1's kernel names, busy shares, a trace's kernel events), each
+beside the session's record and launch counts, or printed as not read
+(``session_records``).
+
 The script sets ``torch.set_float32_matmul_precision("high")`` first,
 as a user's process might: the port scopes IEEE float32 to its
 parity-bound paths (``ops/precision.py``), the library yardsticks are
@@ -395,6 +415,7 @@ bound kept beside it), the H100 SXM's published peaks at 700 W.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import json
 import math
@@ -405,7 +426,9 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -706,28 +729,125 @@ def time_amortized(run, args, seconds=1.0, min_reps=8):
     return timed(R), R
 
 
-def busy_share(fn) -> tuple:
-    """``(device ms, wall ms, device ms by kernel name)`` of ``fn()``
-    under ``torch.profiler``: the device's own activities (one stream,
-    so they do not overlap) against the host's wall clock."""
+#: The CUDA runtime and driver calls that start device work, as
+#: ``torch.profiler`` records them on the host: kernel launches, then
+#: copies and fills.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+COPY_CALLS = ("cudaMemcpy", "cudaMemcpyAsync", "cudaMemset",
+              "cudaMemsetAsync")
+
+
+class Session(NamedTuple):
+    """What one ``torch.profiler`` session recorded of the device work it
+    saw start (:func:`session_records`).
+
+    ``launches`` and ``copies`` are the host's kernel launch and copy or
+    fill calls, the evidence every check rests on; ``kernel_records`` and
+    ``copy_records`` the device's own records matched to them, ``names``
+    the kernel records by kernel name and ``ms`` the matched records'
+    device milliseconds by name; ``complete`` says that each launch and
+    each copy has its one device record, and only then are ``names`` and
+    ``ms`` the whole of the session's device work. ``stray`` counts the
+    device records of no call in the session (matched by correlation id;
+    0 when matched by count)."""
+
+    launches: int
+    copies: int
+    kernel_records: int
+    copy_records: int
+    names: collections.Counter
+    ms: dict
+    complete: bool
+    matched_by: str
+    stray: int = 0
+
+    def counts(self) -> str:
+        """The device records against the host's calls, for a printed
+        line."""
+        return (f"device records: {self.kernel_records} of {self.launches} "
+                f"kernel launches, {self.copy_records} of {self.copies} "
+                f"copies, {self.stray} of no call in the session (matched "
+                f"by {self.matched_by})")
+
+
+def session_records(events) -> Session:
+    """Read one profiler session's events (``prof.events()``): the host's
+    launch and copy calls (``LAUNCH_CALLS``, ``COPY_CALLS``, recorded
+    on the host, never lost) and the device's records of them, which a
+    session can lose in part or in whole, more the more sessions the
+    process has run (``PERF.md`` §7).
+
+    A device record is matched to its call by correlation id, which
+    torch gives a runtime call and the device record it started alike
+    (``FunctionEvent.id``), where every host call carries a distinct
+    positive one; else by count, copies told from kernels by name
+    (``Memcpy``/``Memset``). The per-step ``ProfilerStep*`` marker on
+    the device track is no record of a call. Raises only if the host
+    shows no device work."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and e.name in LAUNCH_CALLS + COPY_CALLS]
+    launches = sum(e.name in LAUNCH_CALLS for e in host)
+    copies = len(host) - launches
+    if not host:
+        raise AssertionError("the profiled calls issued no device work")
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("ProfilerStep")]
+    ids = [getattr(e, "id", 0) for e in host]
+    by_id = all(isinstance(i, int) and i > 0 for i in ids) \
+        and len(set(ids)) == len(ids)
+    stray = 0
+    if by_id:
+        kind = {e.id: e.name in LAUNCH_CALLS for e in host}
+        stray = len(device)
+        device = [e for e in device if getattr(e, "id", 0) in kind]
+        stray -= len(device)
+        is_kernel = [kind[e.id] for e in device]
+        whole = all(n == 1 for n in
+                    collections.Counter(e.id for e in device).values())
+    else:
+        is_kernel = [not e.name.startswith(("Memcpy", "Memset"))
+                     for e in device]
+        whole = True
+    kernel_records = sum(is_kernel)
+    copy_records = len(device) - kernel_records
+    names, ms = collections.Counter(), {}
+    for e, kernel in zip(device, is_kernel):
+        name = (re.findall(r"\w+_kernel\b", e.name) or [e.name])[0]
+        if kernel:
+            names[name] += 1
+        ms[name] = ms.get(name, 0.0) + e.device_time_total / 1e3
+    return Session(launches, copies, kernel_records, copy_records, names,
+                   ms, whole and (kernel_records, copy_records)
+                   == (launches, copies),
+                   "correlation id" if by_id else "count", stray)
+
+
+def profile_session(fn, calls: int = 1, warmup: int = 0) -> tuple:
+    """``(Session, wall ms, fn()'s last result)``: ``calls`` calls of
+    ``fn()`` under one ``torch.profiler`` session (CPU and CUDA
+    activity), after ``warmup`` calls the session discards (the
+    profiler's own ``warmup`` step), each call waited for; the wall time
+    is the host's clock over the recorded calls."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = (re.findall(r"\w+_kernel\b", e.name) or [e.name])[0]
-            by_name[name] = by_name.get(name, 0.0) + e.device_time_total / 1e3
-    if not by_name:
-        raise AssertionError("torch.profiler saw no device activity")
-    return sum(by_name.values()), wall, by_name
+    steps = schedule(wait=0, warmup=warmup, active=calls, repeat=1) \
+        if warmup else None
+    wall = 0.0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=steps) as prof:
+        for i in range(warmup + calls):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            if i >= warmup:
+                wall += (time.perf_counter() - t0) * 1e3
+            if steps is not None:
+                prof.step()
+    return session_records(prof.events()), wall, out
 
 
 def admm_config(name: str):
@@ -1492,14 +1612,14 @@ def k1_rows(op, s0, W):
         -1, op.G.shape[0])
 
 
-def k1_report(op, s0, W) -> int:
+def k1_report(op, s0, W, calls: int = 3) -> int:
     """K1's plan from the library against ``rollout_plan``, each of its
     two kernels' blocks per SM, registers and local (spill) bytes, and
-    the CUDA kernels one ``fused_rollout`` call launches, counted by
-    ``torch.profiler`` (returned)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    the CUDA kernels one ``fused_rollout`` call launches (returned):
+    counted from the host's launch records over ``calls`` calls after a
+    discarded warm-up (:func:`profile_session`), each call adding one to
+    ``fused_rollout.launches``; the kernels' names read from the device's
+    records only where the session holds one for each launch."""
     from direct_data_driven_mpc_tpu_torch.ops import _kernels
     from direct_data_driven_mpc_tpu_torch.ops import fused_rollout as fr
 
@@ -1524,19 +1644,28 @@ def k1_report(op, s0, W) -> int:
             raise AssertionError(f"K1 {name}: {per_sm} blocks per SM")
         log(f"K1 {name}: {per_sm} blocks per SM, {regs.value} registers, "
             f"{local.value} local (spill) bytes per thread")
-    fr.fused_rollout(op, s0, W)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fr.fused_rollout(op, s0, W)
-        torch.cuda.synchronize()
-    names = [(re.findall(r"\w+_kernel\b", e.name) or [e.name])[0]
-             for e in prof.events() if e.device_type == DeviceType.CUDA]
-    log(f"K1: {len(names)} CUDA kernel launches per rollout: {names}")
-    if sorted(names) != ["fused_rollout_product_kernel",
-                         "fused_rollout_state_kernel"]:
-        raise AssertionError(f"K1 launched {names}")
-    return len(names)
+    before = fr.fused_rollout.launches
+    s = profile_session(lambda: fr.fused_rollout(op, s0, W), calls,
+                        warmup=1)[0]
+    moved = fr.fused_rollout.launches - before
+    if moved != calls + 1 or (s.launches, s.copies) != (2 * calls, 0):
+        raise AssertionError(f"K1: {moved} wrapper launches, {s.launches} "
+                             f"kernel launches and {s.copies} copies over "
+                             f"{calls + 1} calls (the first discarded), "
+                             "expected one and two per call, no copy")
+    if s.complete:
+        expected = collections.Counter({
+            "fused_rollout_state_kernel": calls,
+            "fused_rollout_product_kernel": calls})
+        if s.names != expected:
+            raise AssertionError(f"K1 launched {dict(s.names)}")
+        names = f"names {sorted(s.names)}"
+    else:
+        names = (f"names not read: {s.kernel_records} of {s.launches} "
+                 "device records")
+    log(f"K1: 2 CUDA kernel launches per rollout (host records, {calls} "
+        f"calls), 0 copies; {names}; {s.counts()}")
+    return s.launches // calls
 
 
 def equal_or_close(name, got, want, why) -> float:
@@ -1841,16 +1970,22 @@ def tracking_phases(dev, smi, main) -> dict:
         + ", ".join(f"{k} {solves / (v * 1e-3):,.0f}"
                     for k, v in mean.items()))
     R_p = 20
-    dev_ms, wall_ms, by_name = busy_share(
-        lambda: runs["kernel"](*args, R_p))
-    log(f"tracking device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms wall over "
-        f"{R_p} amortized rollouts under the profiler (idle "
-        f"{1 - dev_ms / wall_ms:.1%}); against {mean['kernel']:.4f} ms per "
-        f"rollout without it, idle {1 - dev_ms / R_p / mean['kernel']:.1%}; "
-        "device ms per rollout: "
-        + ", ".join(f"{k} {v / R_p:.4f}"
-                    for k, v in sorted(by_name.items(),
-                                       key=lambda kv: -kv[1])))
+    sess, wall_ms, _ = profile_session(lambda: runs["kernel"](*args, R_p))
+    if sess.complete:
+        dev_ms = sum(sess.ms.values())
+        log(f"tracking device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms wall "
+            f"over {R_p} amortized rollouts under the profiler (idle "
+            f"{1 - dev_ms / wall_ms:.1%}); against {mean['kernel']:.4f} ms "
+            f"per rollout without it, idle "
+            f"{1 - dev_ms / R_p / mean['kernel']:.1%}; device ms per "
+            "rollout: "
+            + ", ".join(f"{k} {v / R_p:.4f}"
+                        for k, v in sorted(sess.ms.items(),
+                                           key=lambda kv: -kv[1]))
+            + f"; {sess.counts()}")
+    else:
+        log(f"tracking busy share not read over {R_p} amortized rollouts "
+            f"({wall_ms:.3f} ms wall under the profiler): {sess.counts()}")
     rows = k1_rows(op, s0, W)
     t_lib = cuda_ms(lambda: torch.addmm(op.bias, rows, op.G), reps=20)
     del rows
@@ -2058,12 +2193,10 @@ def generic_phases(dev, smi, main, B=B_MAIN, T=T_MAIN) -> dict:
 def generic_timing(dev, smi, runs) -> None:
     """Phase 30: each generic configuration's rollout, in turns, by CUDA
     events (its phase's run was the warm-up): ms per rollout and
-    solves/s; then the device kernels one rollout launches, counted by
-    ``torch.profiler`` over ten segments chained through
-    ``solver_state0``, and the device's busy share under it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    solves/s; then the kernels and copies one rollout launches, from the
+    host's records of ten ``torch.profiler`` sessions, one per segment
+    chained through ``solver_state0``, and the device's busy share under
+    them where every session's device records are complete."""
     from direct_data_driven_mpc_tpu_torch.parallel.batch import (
         batched_closed_loop,
     )
@@ -2092,43 +2225,47 @@ def generic_timing(dev, smi, runs) -> None:
         )
         B, T = ref.costs.shape
         mean = sum(ms[name]) / len(ms[name])
-        kernels = copies = 0
+        total = collections.Counter()
         dev_ms = wall = 0.0
+        complete = True
         state, x, up, yp = None, *ins[:3]
         seg = T // 10
         for t0 in range(0, T, seg):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                w0 = time.perf_counter()
-                part = batched_closed_loop(
+            sess, w, part = profile_session(
+                lambda: batched_closed_loop(
                     plant, solver, x, up, yp, ins[3][:, t0 : t0 + seg],
                     n_steps=seg, admm_iters=iters, solver_state0=state,
-                )
-                torch.cuda.synchronize()
-                wall += (time.perf_counter() - w0) * 1e3
-            for e in prof.events():
-                if e.device_type == DeviceType.CUDA:
-                    if e.name.startswith(("Memcpy", "Memset")):
-                        copies += 1
-                    else:
-                        kernels += 1
-                    dev_ms += e.device_time_total / 1e3
+                ))
+            wall += w
+            dev_ms += sum(sess.ms.values())
+            complete &= sess.complete
+            total.update(launches=sess.launches, copies=sess.copies,
+                         kernel_records=sess.kernel_records,
+                         copy_records=sess.copy_records, stray=sess.stray)
             if not torch.equal(part.u_sys, ref.u_sys[:, t0 : t0 + seg]):
                 raise AssertionError(f"{name}: profiled segment at step "
                                      f"{t0} differs from the full run")
             state, x, up, yp = (part.solver_state, part.x_final,
                                 part.u_past, part.y_past)
+        kernels, copies = total["launches"], total["copies"]
         if kernels < T:
-            raise AssertionError(f"{name}: torch.profiler saw {kernels} "
-                                 "device kernels")
+            raise AssertionError(f"{name}: {kernels} kernel launches over "
+                                 f"{T} steps")
+        counts = (f"device records: {total['kernel_records']} of {kernels} "
+                  f"kernel launches, {total['copy_records']} of {copies} "
+                  f"copies, {total['stray']} of no call in the session, "
+                  f"over the ten sessions (matched by {sess.matched_by})")
+        busy = (f"device busy {dev_ms:.1f} of {wall:.1f} ms under the "
+                f"profiler (idle {1 - dev_ms / wall:.1%}), against "
+                f"{mean:.2f} ms without it (idle {1 - dev_ms / mean:.1%})"
+                if complete else
+                f"device busy not read ({wall:.1f} ms wall under the "
+                "profiler)")
         log(f"generic {name} (B={B} x T={T}, {smi}): {mean:.2f} ms per "
             f"rollout (mean of 2 turns) -> {B * T / mean * 1e3:,.0f} "
-            f"solves/s; {kernels} device kernels and {copies} copies per "
-            f"rollout ({kernels / T:.1f} per closed-loop step), device busy "
-            f"{dev_ms:.1f} of {wall:.1f} ms under the profiler (idle "
-            f"{1 - dev_ms / wall:.1%}), against {mean:.2f} ms without it "
-            f"(idle {1 - dev_ms / mean:.1%})")
+            f"solves/s; {kernels} kernels and {copies} copies launched per "
+            f"rollout ({kernels / T:.1f} per closed-loop step, host "
+            f"records); {busy}; {counts}")
 
 
 def timer_ms(timer) -> str:
@@ -2555,29 +2692,48 @@ def tuning_phase(dev, smi, main, B=64, T=80, steps=25, lr=0.4) -> None:
 def profiling_phase(dev, smi, sweep, T=40) -> None:
     """Phase 35: one heterogeneous segment (the sweep's batch, ``T``
     steps) under ``utils.profiling.trace``: the Chrome trace file exists
-    and holds device kernel events (host operator events on the CPU)."""
+    and holds the host's kernel launch events (on the CPU, host operator
+    events); the card's kernel events are counted against them, and a
+    warning of ``trace`` that some are missing is printed, not
+    raised."""
     from direct_data_driven_mpc_tpu_torch.parallel.batch import (
         heterogeneous_closed_loop,
     )
-    from direct_data_driven_mpc_tpu_torch.utils.profiling import trace
+    from direct_data_driven_mpc_tpu_torch.utils.profiling import (
+        _launches_and_kernels,
+        trace,
+    )
 
     ins = sweep["ins"]
-    category = "kernel" if dev.type == "cuda" else "cpu_op"
     with tempfile.TemporaryDirectory() as tmp:
-        with trace(tmp) as path:
-            heterogeneous_closed_loop(sweep["plants"], sweep["sol"],
-                                      *ins[:3], ins[3][:, :T], n_steps=T)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with trace(tmp) as path:
+                heterogeneous_closed_loop(sweep["plants"], sweep["sol"],
+                                          *ins[:3], ins[3][:, :T],
+                                          n_steps=T)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
         size = os.path.getsize(path)
-    count = sum(e.get("cat") == category for e in events)
-    if count == 0:
-        raise AssertionError(f"profiling: the trace holds no {category} "
-                             "events")
     B = ins[0].shape[0]
-    log(f"profiling: utils.profiling.trace of one heterogeneous segment "
-        f"(B={B} x T={T}) wrote a {size:,}-byte Chrome trace with {count} "
-        f"{category} events ({count / T:.1f} per step) [{smi}]")
+    head = (f"profiling: utils.profiling.trace of one heterogeneous segment "
+            f"(B={B} x T={T}) wrote a {size:,}-byte Chrome trace with")
+    if dev.type != "cuda":
+        count = sum(e.get("cat") == "cpu_op" for e in events)
+        if count == 0:
+            raise AssertionError("profiling: the trace holds no cpu_op "
+                                 "events")
+        log(f"{head} {count} cpu_op events ({count / T:.1f} per step) "
+            f"[{smi}]")
+        return
+    launches, kernels = _launches_and_kernels(events)
+    if launches == 0:
+        raise AssertionError("profiling: the trace holds no kernel launch "
+                             "events")
+    log(f"{head} {launches} kernel launch events ({launches / T:.1f} per "
+        f"step) and {kernels} kernel events of the card against them"
+        + "".join(f"; warning: {w.message}" for w in caught)
+        + f" [{smi}]")
 
 
 def host_cpu() -> str:
@@ -2783,44 +2939,19 @@ def export_phase(smi, T=400) -> None:
             f"(exit statuses {codes[0]}, {codes[1]})")
 
 
-#: The CUDA runtime and driver calls that start device work, as
-#: ``torch.profiler`` records them on the host: kernel launches, then
-#: copies and fills.
-LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                "cuLaunchKernelEx")
-COPY_CALLS = ("cudaMemcpy", "cudaMemcpyAsync", "cudaMemset",
-              "cudaMemsetAsync")
-
-
 def device_kernels(fn, calls: int = 3) -> tuple:
     """``(kernels, copies)`` per call of ``fn()``: the kernel launches and
-    the copies and fills it issued, counted from the runtime calls that
-    ``torch.profiler`` records on the host over ``calls`` calls, after one
-    discarded warm-up call in the same session (the profiler's own
-    ``warmup`` step). Not from the device's own activity records: in a
-    session of a few milliseconds some of those went missing, now and
-    then all of them, their times scattered against the host's by up to
-    ~21 ms on the card's machine (``scripts/profiler_sessions.py``,
-    ``PERF.md`` §7), while the host's launch records were all there.
-    Raises if ``fn`` issued no device work."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=calls,
-                                   repeat=1)) as prof:
-        for _ in range(1 + calls):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CPU]
-    kernels = sum(n in LAUNCH_CALLS for n in names)
-    copies = sum(n in COPY_CALLS for n in names)
-    if not kernels + copies:
-        raise AssertionError("the profiled calls issued no device work")
-    return kernels / calls, copies / calls
+    the copies and fills it issued, from the host's runtime calls in one
+    profiler session of ``calls`` calls after one discarded warm-up call
+    (:func:`profile_session`). Not from the device's own activity
+    records: in a session of a few milliseconds some of those went
+    missing, now and then all of them, their times scattered against the
+    host's by up to ~21 ms on the card's machine
+    (``scripts/profiler_sessions.py``, ``PERF.md`` §7), while the host's
+    launch records were all there. Raises if ``fn`` issued no device
+    work."""
+    s = profile_session(fn, calls, warmup=1)[0]
+    return s.launches / calls, s.copies / calls
 
 
 def kernel_counts(fn, calls: int) -> str:
@@ -4903,7 +5034,7 @@ def main() -> int:
         "ms": mean["kernel"],
         "plain_ms": mean["plain"],
         **bound(flops, nbytes),
-        "cuda_kernels": k1_cuda_kernels,  # per launch: state, product
+        "cuda_kernels": k1_cuda_kernels,  # per launch (host records)
         "library_ms": t_lib,
     }
 
@@ -4914,23 +5045,23 @@ def main() -> int:
     main_run = dict(plant=plant, ctrl=ctrl, inputs=(x0s, ups, yps, Ws),
                     bm50=bm50, bm100=bm100)
     generic_timing(dev, smi, generic_phases(dev, smi, main_run))
-    # 31-35, before phase 19's convolution (phase 35 reads
-    # torch.profiler).
+    # 31-35, before phase 19's convolution (phase 35 counts a trace's
+    # kernel events).
     host_layer_phase(dev, smi, main_run)
     sweep = sweep_phase(dev, smi, main_run)
     segmented_phase(dev, smi, main_run)
     tuning_phase(dev, smi, main_run)
     profiling_phase(dev, smi, sweep)
     del sweep
-    # 36-39, before phase 19's convolution (phase 38 reads
-    # torch.profiler).
+    # 36-39, before phase 19's convolution (phase 38 counts the host's
+    # launch records in torch.profiler).
     host = host_cpu()
     native_phase(smi, host)
     export_phase(smi)
     time_parallel_phase(dev, smi, main_run)
     device_ops_phase(dev, smi, main_run)
-    # 40-42, before phase 19's convolution (phase 42 reads
-    # torch.profiler).
+    # 40-42, before phase 19's convolution (phase 42 counts the host's
+    # launch records in torch.profiler).
     t0 = time.perf_counter()
     multidevice_phases(dev, smi, main_run)
     log(f"phases 40-42: {time.perf_counter() - t0:.1f} s")

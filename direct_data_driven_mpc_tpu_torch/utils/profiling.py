@@ -10,28 +10,40 @@
   :class:`~direct_data_driven_mpc_tpu_torch.control.loop.ClosedLoopResult`
   (costs, tracking error, convergence lanes) for host-side logging.
 
-Counterpart of ``direct_data_driven_mpc_tpu/utils/profiling.py``. After
-a cuDNN convolution in the process, ``torch.profiler`` has been seen to
-record no device activity at all, so trace device work before any
-convolution runs.
+Counterpart of ``direct_data_driven_mpc_tpu/utils/profiling.py``. The
+card's own activity records can go missing from a trace, the host's
+launch records do not (seen on an H100: some or all of a session's, more
+the more sessions the process has run, and all of them after a cuDNN
+convolution). :func:`trace` warns when the trace it wrote holds fewer
+kernel events than kernel launches.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 
+#: The CUDA runtime and driver calls that launch a kernel, as a trace
+#: records them on the host.
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the enclosed block with ``torch.profiler`` and write a
     Chrome trace into ``log_dir`` (created if missing); yields the
-    trace file's path."""
+    trace file's path. With the card's activity recorded, warns if the
+    written trace holds fewer kernel events than the host launched
+    kernels; the file stays as written."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -45,6 +57,30 @@ def trace(log_dir: str):
         yield path
         _synchronize()
     prof.export_chrome_trace(path)
+    if ProfilerActivity.CUDA in activities:
+        _warn_if_kernels_missing(path)
+
+
+def _launches_and_kernels(events) -> tuple:
+    """``(launches, kernels)`` of a Chrome trace's events: the host's
+    kernel launch calls (categories ``cuda_runtime``, ``cuda_driver``)
+    and the card's kernel events (category ``kernel``)."""
+    launches = sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and e.get("name") in _LAUNCH_CALLS for e in events)
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    return launches, kernels
+
+
+def _warn_if_kernels_missing(path: str) -> None:
+    """Warn, with both counts and the path, if the Chrome trace at
+    ``path`` holds fewer kernel events than kernel launches."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    launches, kernels = _launches_and_kernels(events)
+    if kernels < launches:
+        warnings.warn(f"{path}: {kernels} kernel events for {launches} "
+                      "kernel launches; the card's activity records are "
+                      "incomplete", RuntimeWarning, stacklevel=3)
 
 
 def _synchronize() -> None:

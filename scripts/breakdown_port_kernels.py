@@ -35,13 +35,14 @@ fixed-penalty kernel K4 on the ladder's top rung, the plain version's
 per-block cuBLAS product, the cost post-pass (``F.conv1d``) and, as a
 yardstick, the same post-pass as one window-unfold and a matrix
 product; and the device's busy share over each path's amortized
-rollouts (``torch.profiler``). Prints one line per measurement, with the
-card's name and power limit.
+rollouts (``torch.profiler``), printed beside the session's device
+records and host launches and only where each launch and copy has its
+device record, else as not read. Prints one line per measurement, with
+the card's name and power limit.
 """
 
 from __future__ import annotations
 
-import re
 import subprocess
 import sys
 import time
@@ -230,23 +231,34 @@ def swapped(name, lib, fn):
         _kernels._loaded[name] = shipped
 
 
-def busy_share(fn) -> tuple:
-    """(device ms, wall ms) of ``fn()`` under torch.profiler: the summed
-    time of the device's own activities (kernels, copies; one stream, so
-    they do not overlap) against the host's wall clock."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def device_read(fn) -> tuple:
+    """``(device ms, wall ms, session)`` of ``fn()`` under one
+    torch.profiler session (``chip_smoke.profile_session``): the device
+    time of the kernels and copies the host started, summed over their
+    device records (one stream, so they do not overlap), against the
+    host's wall clock. The device ms is None unless every launch and copy
+    has its device record (``session.complete``): records lost in a
+    session would read as idle time."""
+    s, wall, _ = cs.profile_session(fn)
+    return (sum(s.ms.values()) if s.complete else None), wall, s
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev_us = sum(e.device_time_total for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-    return dev_us / 1e3, wall
+
+def busy_line(tag, fn, reps, per_rollout_ms=None) -> str:
+    """The device's busy share over ``fn()`` (``reps`` amortized
+    rollouts), with the session's record and launch counts, or "not
+    read"."""
+    d_ms, w_ms, s = device_read(fn)
+    if d_ms is None:
+        return (f"{tag} device busy not read over {reps} amortized "
+                f"rollouts ({w_ms:.2f} ms wall); {s.counts()}")
+    line = (f"{tag} device busy {d_ms:.2f} ms of {w_ms:.2f} ms wall over "
+            f"{reps} amortized rollouts under the profiler (idle "
+            f"{1 - d_ms / w_ms:.1%})")
+    if per_rollout_ms is not None:
+        line += (f"; against the amortized {per_rollout_ms:.4f} ms per "
+                 f"rollout without it, idle "
+                 f"{1 - d_ms / reps / per_rollout_ms:.1%}")
+    return f"{line}; {s.counts()}"
 
 
 def bit_equality_by_batch(dev) -> None:
@@ -291,25 +303,6 @@ def bit_equality_by_batch(dev) -> None:
                   f"u, y, state {diff:.3e}, s, w {diff_sw:.3e}", flush=True)
 
 
-def kernel_times(fn) -> dict:
-    """Device milliseconds per kernel name over ``fn()``
-    (``torch.profiler``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = (re.findall(r"\w+_kernel\b", e.name) or [e.name])[0]
-            out[name] = out.get(name, 0.0) + e.device_time_total / 1e3
-    return out
-
-
 def k1_breakdown(dev, smi, patched, what) -> None:
     """K1 at four_tank_robust (B = 4096 x T = 400, K = 50): as shipped,
     its two kernels apart and with parts cut, beside the one-addmm
@@ -349,23 +342,24 @@ def k1_breakdown(dev, smi, patched, what) -> None:
         # Short launches are paced by the host (the wrapper's own ~0.06
         # ms), so each row also gives the device time of its kernels.
         for label, fn in rows:
-            dev_ms = sum(kernel_times(lambda: [fn() for _ in range(10)])
-                         .values()) / 10
+            dev_ms, _, s = device_read(lambda: [fn() for _ in range(10)])
+            device = ("device not read" if dev_ms is None else
+                      f"device {dev_ms / 10:.4f} ms")
             print(f"four_tank_robust {label}: "
-                  f"{cs.cuda_ms(fn, reps=20):.4f} ms per call, device "
-                  f"{dev_ms:.4f} ms [{smi}]", flush=True)
+                  f"{cs.cuda_ms(fn, reps=20):.4f} ms per call, {device} "
+                  f"({s.counts()}) [{smi}]", flush=True)
         del A
-        d_ms, w_ms = busy_share(lambda: amort(x0s, ups, yps, Ws, 20))
-        print(f"four_tank_robust device busy {d_ms:.2f} ms of {w_ms:.2f} "
-              f"ms wall over 20 amortized rollouts under the profiler "
-              f"(idle {1 - d_ms / w_ms:.1%}); against the amortized "
-              f"{t_amort:.4f} ms per rollout without it, idle "
-              f"{1 - d_ms / 20 / t_amort:.1%}", flush=True)
-        for name, ms in sorted(kernel_times(
-                lambda: amort(x0s, ups, yps, Ws, 20)).items(),
-                key=lambda kv: -kv[1]):
+        print(busy_line("four_tank_robust",
+                        lambda: amort(x0s, ups, yps, Ws, 20), 20, t_amort),
+              flush=True)
+        _, _, s = device_read(lambda: amort(x0s, ups, yps, Ws, 20))
+        if not s.complete:
+            print(f"four_tank_robust 20 amortized rollouts, device time by "
+                  f"kernel not read; {s.counts()}", flush=True)
+        for name, ms in sorted(s.ms.items() if s.complete else (),
+                               key=lambda kv: -kv[1]):
             print(f"four_tank_robust 20 amortized rollouts, device time "
-                  f"{name}: {ms:.3f} ms", flush=True)
+                  f"{name}: {ms:.3f} ms ({s.counts()})", flush=True)
 
 
 def wide_breakdown(dev, smi, patched, what, ladder) -> None:
@@ -529,9 +523,7 @@ def main() -> int:
                   flush=True)
         amort = fl.make_amortized_ladder_run(plant.as_params(), op, 4, 2, 2,
                                              T, device=dev, **kw)
-        d_ms, w_ms = busy_share(lambda: amort(*ins, 2))
-        print(f"four_tank_ladder device busy {d_ms:.1f} ms of {w_ms:.1f} ms "
-              f"wall over 2 amortized rollouts (idle {1 - d_ms / w_ms:.1%})",
+        print(busy_line("four_tank_ladder", lambda: amort(*ins, 2), 2),
               flush=True)
         del store, args, ins
 
@@ -633,10 +625,8 @@ def main() -> int:
               f"[{smi}]", flush=True)
         torch.backends.cudnn.benchmark = False
         amort = fr.make_amortized_run(bm, T, cost_mode="post")
-        d_ms, w_ms = busy_share(lambda: amort(x0s, ups, yps, Ws, 2))
-        print(f"large_plant device busy {d_ms:.1f} ms of {w_ms:.1f} ms wall "
-              f"over 2 amortized rollouts (idle {1 - d_ms / w_ms:.1%})",
-              flush=True)
+        print(busy_line("large_plant", lambda: amort(x0s, ups, yps, Ws, 2),
+                        2), flush=True)
     for path in ("k4w", "k5w"):
         if path in paths:
             wide_breakdown(dev, smi, patched, what, path == "k5w")

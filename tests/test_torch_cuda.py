@@ -1688,3 +1688,70 @@ def test_classic_engine_aggregate_mode_on_the_card(cuda, golden):
     assert out[True].u_sys.shape == (B, T, 2)
     for f in ("costs", "converged", "x_final", "u_past", "y_past"):
         assert torch.equal(getattr(out[False], f), getattr(out[True], f)), f
+
+
+def _k1_small(golden, cuda):
+    """K1's operator and packed inputs at a small shape (K = 8, B = 16,
+    T = 40)."""
+    bm = build_linear_engine(_controller(golden), PLANT, solves_per_block=8,
+                             device=cuda)
+    op = fr._build_fused_operator(bm)
+    return op, *_packed(golden, bm, 40, 16, cuda)
+
+
+def test_session_reader_counts_two_kernels_per_k1_call(cuda, golden):
+    """``chip_smoke``'s session reader over ``fused_rollout`` calls: the
+    host's records give 2 kernel launches and 0 copies per call, and
+    where the device's records are complete they are K1's two
+    kernels."""
+    from collections import Counter
+
+    from chip_smoke import device_kernels, profile_session
+
+    op, s0, W = _k1_small(golden, cuda)
+    call = lambda: fr.fused_rollout(op, s0, W)  # noqa: E731
+    assert device_kernels(call, 3) == (2, 0)
+    before = fr.fused_rollout.launches
+    s = profile_session(call, 3, warmup=1)[0]
+    assert fr.fused_rollout.launches == before + 4
+    assert (s.launches, s.copies) == (6, 0)
+    print(f"K1 x 3: {s.counts()}, complete {s.complete}")
+    if s.complete:
+        assert s.names == Counter({"fused_rollout_state_kernel": 3,
+                                   "fused_rollout_product_kernel": 3})
+
+
+def test_trace_after_a_convolution_holds_every_kernel_or_warns(
+        cuda, golden, tmp_path):
+    """``utils.profiling.trace`` around a K1 call that follows an
+    ``F.conv1d`` (cuDNN) on the card: the trace holds as many kernel
+    events as kernel launches, or ``trace`` warned with both counts and
+    the path; never fewer in silence."""
+    import json
+    import warnings
+
+    from direct_data_driven_mpc_tpu_torch.utils.profiling import (
+        _launches_and_kernels,
+        trace,
+    )
+
+    op, s0, W = _k1_small(golden, cuda)
+    x = torch.randn(64, 8, 400, device=cuda)
+    w = torch.randn(16, 8, 30, device=cuda)
+    torch.nn.functional.conv1d(x, w).sum().item()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with trace(str(tmp_path)) as path:
+            fr.fused_rollout(op, s0, W)
+    with open(path) as f:
+        launches, kernels = _launches_and_kernels(json.load(f)["traceEvents"])
+    ours = [str(m.message) for m in caught
+            if "kernel events for" in str(m.message)]
+    print(f"trace after F.conv1d: {kernels} kernel events for {launches} "
+          f"kernel launches; warnings {ours}")
+    assert launches >= 2
+    if kernels < launches:
+        assert any(f"{kernels} kernel events for {launches} kernel "
+                   "launches" in m and path in m for m in ours), ours
+    else:
+        assert not ours
