@@ -63,6 +63,7 @@ from direct_data_driven_mpc_tpu_torch.control.loop import ClosedLoopResult
 from direct_data_driven_mpc_tpu_torch.device import resolve_device
 from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
 from direct_data_driven_mpc_tpu_torch.qp.admm import ADMMState
+from direct_data_driven_mpc_tpu_torch.utils.profiling import span
 
 _OP_KEYS = ("v_c", "V_theta", "V_s", "u_c", "U_theta", "U_s", "cost_P",
             "cost_q", "cost_r")
@@ -640,7 +641,8 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
     to ``fused_admm.launches``, else its wide body
     ``fused_admm_wide_kernel`` (K4w) where :func:`admm_wide_plan` does,
     on the operators of :func:`wide_operators`, adding one to
-    ``fused_admm.wide_launches``. Anything the kernel does
+    ``fused_admm.wide_launches``; the launch call alone is the span
+    ``ddmpc.kernel`` (``utils.profiling``). Anything the kernel does
     not take (dtype, shape, contiguity, operators too large for both
     plans) raises before the launch; a failed launch raises after it."""
     if carry.s.device.type == "cpu":
@@ -682,7 +684,7 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
     wa_fin = torch.empty((Bsz, dims.nbox), **kw)
     with torch.cuda.device(carry.s.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
+        args = (
             Vop.data_ptr(), M1.data_ptr(), M2.data_ptr(),
             ops.b2.data_ptr(), ops.lo.data_ptr(), ops.hi.data_ptr(),
             ops.u_lo.data_ptr(), ops.u_hi.data_ptr(),
@@ -694,6 +696,8 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
             Bsz, *sizes, n_blocks, int(n_iter),
             dims.alpha, 1.0 - dims.alpha, dims.rho, stream,
         )
+        with span("ddmpc.kernel", True):
+            err = launch(*args)
     if err != 0:
         raise RuntimeError(
             f"fused_admm {'wide ' if wide else ''}kernel launch failed: "
@@ -760,7 +764,11 @@ def make_fused_admm_rollout(
     Returns ``run(x0s, u_pasts, y_pasts, Ws, solver_state0=None) ->
     ClosedLoopResult`` with ``solver_state = ADMMState(s, w)`` of shape
     ``(B, nbox)``; pass it back as ``solver_state0`` to continue a
-    segmented run.
+    segmented run. Each call is the span ``ddmpc.call``
+    (``utils.profiling``) holding ``ddmpc.pack`` (the plant window, the
+    theta maps of solve 0, the noise, the carry), ``ddmpc.cold_start``
+    (without ``solver_state0``), ``ddmpc.rollout`` (the ``rollout``
+    call) and ``ddmpc.result``.
     """
     track = setpoints is not None
     ops, dims = build_fused_admm_operator(
@@ -787,56 +795,63 @@ def make_fused_admm_rollout(
     Gc = ops.Gpre[:, : Mw + nbox].contiguous()
     Gz = ops.Gpre[:, Mw + nbox :].contiguous()
     alpha, beta = dims.alpha, 1.0 - dims.alpha
+    cuda = ops.Vop.is_cuda
 
-    @ieee_float32()
     def run(x0s, u_pasts, y_pasts, Ws, solver_state0=None):
-        Bsz = x0s.shape[0]
-        s0 = torch.cat(
-            [x0s.reshape(Bsz, -1), u_pasts.reshape(Bsz, -1),
-             y_pasts.reshape(Bsz, -1)], dim=1,
-        ).to(dtype)
-        # Theta-side maps of solve 0.
-        pv = s0 @ Gc + ops.bpre[: Mw + nbox]
-        zth0 = s0 @ Gz + ops.bpre[Mw + nbox :]
-        pre0, vc0 = pv[:, :Mw], pv[:, Mw:]
-        if solver_state0 is None:
-            sa0 = torch.zeros((Bsz, nbox), dtype=dtype, device=s0.device)
-            wa0 = torch.zeros_like(sa0)
-            # Cold start outside the kernel, at the first block's
-            # setpoint (the engine adds block 0's channels itself, so
-            # vc0 passes through unmodified).
-            vc_cold = vc0 if adds is None else vc0 + adds[0, Mw : Mw + nbox]
-            for _ in range(cold_iters):
-                v = (sa0 - wa0) @ ops.Vop + vc_cold
-                vh = alpha * v + beta * sa0
-                s_new = torch.clamp(vh + wa0, ops.lo, ops.hi)
-                wa0 = wa0 + vh - s_new
-                sa0 = s_new
-        else:
-            sa0 = solver_state0[0].to(dtype)
-            wa0 = solver_state0[1].to(dtype)
-        W = Ws.to(dtype)
-        if pad:
-            W = torch.cat(
-                [W, torch.zeros((Bsz, pad, dims.p), dtype=dtype,
-                                device=W.device)], dim=1,
-            )
-        W = W.reshape(Bsz, n_blocks, nb * dims.p)
-        carry = ADMMCarry(*(c.contiguous() for c in
-                            (s0, pre0, vc0, zth0, sa0, wa0)))
-        U, Y, C, RP, RD, s_fin, sa, wa = rollout(
-            ops, dims, carry, W.contiguous(), n_iter, adds
-        )
-        return ClosedLoopResult(
-            u_sys=U.reshape(Bsz, -1, dims.m)[:, :n_steps],
-            y_sys=Y.reshape(Bsz, -1, dims.p)[:, :n_steps],
-            costs=C,
-            converged=(RP <= tol) & (RD <= tol),
-            x_final=s_fin[:, :ns],
-            u_past=s_fin[:, ns : ns + n * m].reshape(Bsz, n, m),
-            y_past=s_fin[:, ns + n * m :].reshape(Bsz, n, p),
-            solver_state=ADMMState(s=sa, w=wa),
-        )
+        with span("ddmpc.call"), ieee_float32():
+            with span("ddmpc.pack", cuda):
+                Bsz = x0s.shape[0]
+                s0 = torch.cat(
+                    [x0s.reshape(Bsz, -1), u_pasts.reshape(Bsz, -1),
+                     y_pasts.reshape(Bsz, -1)], dim=1,
+                ).to(dtype)
+                # Theta-side maps of solve 0.
+                pv = s0 @ Gc + ops.bpre[: Mw + nbox]
+                zth0 = s0 @ Gz + ops.bpre[Mw + nbox :]
+                pre0, vc0 = pv[:, :Mw], pv[:, Mw:]
+                W = Ws.to(dtype)
+                if pad:
+                    W = torch.cat(
+                        [W, torch.zeros((Bsz, pad, dims.p), dtype=dtype,
+                                        device=W.device)], dim=1,
+                    )
+                W = W.reshape(Bsz, n_blocks, nb * dims.p).contiguous()
+                carry0 = [c.contiguous() for c in (s0, pre0, vc0, zth0)]
+                if solver_state0 is not None:
+                    state = [c.to(dtype).contiguous() for c in solver_state0]
+            if solver_state0 is None:
+                with span("ddmpc.cold_start", cuda):
+                    sa0 = torch.zeros((Bsz, nbox), dtype=dtype,
+                                      device=s0.device)
+                    wa0 = torch.zeros_like(sa0)
+                    # Cold start outside the kernel, at the first block's
+                    # setpoint (the engine adds block 0's channels itself,
+                    # so vc0 passes through unmodified).
+                    vc_cold = (vc0 if adds is None
+                               else vc0 + adds[0, Mw : Mw + nbox])
+                    for _ in range(cold_iters):
+                        v = (sa0 - wa0) @ ops.Vop + vc_cold
+                        vh = alpha * v + beta * sa0
+                        s_new = torch.clamp(vh + wa0, ops.lo, ops.hi)
+                        wa0 = wa0 + vh - s_new
+                        sa0 = s_new
+                    state = [sa0.contiguous(), wa0.contiguous()]
+            carry = ADMMCarry(*carry0, *state)
+            with span("ddmpc.rollout"):
+                U, Y, C, RP, RD, s_fin, sa, wa = rollout(
+                    ops, dims, carry, W, n_iter, adds
+                )
+            with span("ddmpc.result", cuda):
+                return ClosedLoopResult(
+                    u_sys=U.reshape(Bsz, -1, dims.m)[:, :n_steps],
+                    y_sys=Y.reshape(Bsz, -1, dims.p)[:, :n_steps],
+                    costs=C,
+                    converged=(RP <= tol) & (RD <= tol),
+                    x_final=s_fin[:, :ns],
+                    u_past=s_fin[:, ns : ns + n * m].reshape(Bsz, n, m),
+                    y_past=s_fin[:, ns + n * m :].reshape(Bsz, n, p),
+                    solver_state=ADMMState(s=sa, w=wa),
+                )
 
     return run
 

@@ -60,6 +60,7 @@ from direct_data_driven_mpc_tpu_torch.ops.precision import (
     check_precision,
     ieee_float32,
 )
+from direct_data_driven_mpc_tpu_torch.utils.profiling import span
 
 #: Opt-in shared memory of one thread block (bytes), as in the .cu.
 _SMEM_LIMIT = 232448
@@ -502,7 +503,8 @@ def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
     CUDA kernels on the current stream, the state recursion and then
     every other column of all ``B x n_outer`` rows as one product, its
     operator packed by :func:`k1_pack`. Each call that launches them adds
-    one to ``fused_rollout.launches``. Anything K1 does not take,
+    one to ``fused_rollout.launches``; the launch call alone is the span
+    ``ddmpc.kernel`` (``utils.profiling``). Anything K1 does not take,
     operators beyond :func:`rollout_plan` included, raises before the
     launch."""
     if s0.device.type == "cpu":
@@ -534,13 +536,15 @@ def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
     n_tiles, n_pass = pack.slots.shape[:2]
     with torch.cuda.device(s0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_rollout_launch(
+        args = (
             pack.Gs.data_ptr(), pack.bs.data_ptr(), pack.Gp.data_ptr(),
             pack.bp.data_ptr(), pack.slots.data_ptr(), s0.data_ptr(),
             W.data_ptr(), rows.data_ptr(), U.data_ptr(), Y.data_ptr(),
             C.data_ptr(), s_fin.data_ptr(), Bsz, S, nw, op.Ku, op.Kp,
             op.K, n_outer, int(w_off), n_tiles, n_pass, stream,
         )
+        with span("ddmpc.kernel", True):
+            err = lib.fused_rollout_launch(*args)
     if err != 0:
         raise RuntimeError(
             f"fused_rollout kernel launch failed: CUDA error {err}"
@@ -615,11 +619,13 @@ def fused_rollout_nocost(op: FusedOperator, s0: torch.Tensor,
     s_fin = torch.empty((Bsz, S), **kw)
     with torch.cuda.device(s0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_rollout_nocost_launch(
+        args = (
             G.data_ptr(), op.bias.data_ptr(), s0.data_ptr(),
             W.data_ptr(), U.data_ptr(), Y.data_ptr(), s_fin.data_ptr(),
             Bsz, S, nw, op.Ku, op.Kp, ldg, n_outer, int(w_off), stream,
         )
+        with span("ddmpc.kernel", True):
+            err = lib.fused_rollout_nocost_launch(*args)
     if err != 0:
         raise RuntimeError(
             f"fused_rollout_nocost kernel launch failed: CUDA error {err}"
@@ -724,7 +730,11 @@ def make_fused_batched_rollout(
 
     A tracking map (``build_tracking_engine``) is called as ``run(x0s,
     u_pasts, y_pasts, Ws, setpoints)`` with a schedule of absolute
-    setpoints, one per outer block (see :func:`_center_and_pack`)."""
+    setpoints, one per outer block (see :func:`_center_and_pack`).
+
+    Each call is the span ``ddmpc.call`` (``utils.profiling``) holding
+    ``ddmpc.pack`` (:func:`_center_and_pack`), ``ddmpc.rollout`` (the
+    ``rollout`` call) and ``ddmpc.result``."""
     check_precision(cost_precision, "cost_precision")
     S, steps_per_outer, n_outer, pad = _shape(
         block_map, n_steps, n_mpc_step
@@ -734,32 +744,36 @@ def make_fused_batched_rollout(
     ns = S - n_theta
     op, post_cost = _cost_mode_parts(block_map, n_mpc_step, cost_mode,
                                      cost_rank_rtol)
+    cuda = block_map.M_T.is_cuda
 
-    @ieee_float32()
     def run(x0s, u_pasts, y_pasts, Ws, setpoints=None):
-        Bsz, n, m = u_pasts.shape
-        p = y_pasts.shape[2]
-        s0, W = _center_and_pack(
-            block_map, x0s, u_pasts, y_pasts, Ws, n_outer,
-            steps_per_outer, pad, setpoints=setpoints,
-        )
-        U, Y, C, s_fin = rollout(op, s0, W)
-        s_fin = s_fin + block_map.s_star
-        u_sys = U.reshape(Bsz, -1, m)[:, :n_steps]
-        y_sys = Y.reshape(Bsz, -1, p)[:, :n_steps]
-        if post_cost is None:
-            costs = C.reshape(Bsz, -1)[:, :n_solves]
-        else:
-            costs = post_cost(u_pasts, y_pasts, u_sys, y_sys)
-        return ClosedLoopResult(
-            u_sys=u_sys,
-            y_sys=y_sys,
-            costs=costs,
-            converged=torch.isfinite(costs),
-            x_final=s_fin[:, :ns],
-            u_past=s_fin[:, ns : ns + n * m].reshape(Bsz, n, m),
-            y_past=s_fin[:, ns + n * m :].reshape(Bsz, n, p),
-        )
+        with span("ddmpc.call"), ieee_float32():
+            with span("ddmpc.pack", cuda):
+                s0, W = _center_and_pack(
+                    block_map, x0s, u_pasts, y_pasts, Ws, n_outer,
+                    steps_per_outer, pad, setpoints=setpoints,
+                )
+            with span("ddmpc.rollout"):
+                U, Y, C, s_fin = rollout(op, s0, W)
+            with span("ddmpc.result", cuda):
+                Bsz, n, m = u_pasts.shape
+                p = y_pasts.shape[2]
+                s_fin = s_fin + block_map.s_star
+                u_sys = U.reshape(Bsz, -1, m)[:, :n_steps]
+                y_sys = Y.reshape(Bsz, -1, p)[:, :n_steps]
+                if post_cost is None:
+                    costs = C.reshape(Bsz, -1)[:, :n_solves]
+                else:
+                    costs = post_cost(u_pasts, y_pasts, u_sys, y_sys)
+                return ClosedLoopResult(
+                    u_sys=u_sys,
+                    y_sys=y_sys,
+                    costs=costs,
+                    converged=torch.isfinite(costs),
+                    x_final=s_fin[:, :ns],
+                    u_past=s_fin[:, ns : ns + n * m].reshape(Bsz, n, m),
+                    y_past=s_fin[:, ns + n * m :].reshape(Bsz, n, p),
+                )
 
     return run
 

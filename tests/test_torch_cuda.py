@@ -38,6 +38,7 @@ from direct_data_driven_mpc_tpu_torch.qp.spec import (  # noqa: E402
     DataDrivenMPCType,
     SlackVarConstraintTypes,
 )
+from direct_data_driven_mpc_tpu_torch.utils import profiling  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -355,6 +356,56 @@ def test_admm_kernel_matches_plain_version(cuda, scheme, batch, n_steps):
     assert du < 1e-4, du
     if scheme == "BOX":
         assert float(got.u_sys.abs().max()) <= float(g["u_box"]) + 1e-6
+
+
+@pytest.mark.parametrize("entry", ["k1", "k4"])
+def test_kernel_span_times_the_kernel_alone(cuda, golden, entry):
+    """Each entry's ``ddmpc.kernel`` span holds a positive device time no
+    longer than a CUDA-event pair around the whole ``rollout(...)``
+    call, and its pack, cold start and result spans have device times."""
+    pairs = []
+
+    def timed(kernel):
+        def rollout(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = kernel(*args)
+            end.record()
+            pairs.append((start, end))
+            return out
+        return rollout
+
+    batch, n_steps = 1024, 120  # the box golden's noise run
+    if entry == "k1":
+        bm = build_linear_engine(_controller(golden), PLANT,
+                                 solves_per_block=50, device=cuda)
+        run = fr.make_fused_batched_rollout(bm, n_steps,
+                                            rollout=timed(fr.fused_rollout))
+        ins = _admm_inputs(np.load(BOX_GOLDEN), "CONVEX", batch, n_steps,
+                           cuda)
+        device_spans = {"ddmpc.pack", "ddmpc.kernel", "ddmpc.result"}
+    else:
+        g, op, kw = _admm_setup("CONVEX")
+        run = fa.make_fused_admm_rollout(PLANT, op, 4, 2, 2, n_steps,
+                                         device=cuda,
+                                         rollout=timed(fa.fused_admm), **kw)
+        ins = _admm_inputs(g, "CONVEX", batch, n_steps, cuda)
+        device_spans = {"ddmpc.pack", "ddmpc.cold_start", "ddmpc.kernel",
+                        "ddmpc.result"}
+    run(*ins)
+    torch.cuda.synchronize()
+    pairs.clear()
+    with profiling.collect() as spans:
+        for _ in range(3):
+            run(*ins)
+    kernel = [s for s in spans if s.name == "ddmpc.kernel"]
+    rollout = [s for s in spans if s.name == "ddmpc.rollout"]
+    assert len(kernel) == len(rollout) == len(pairs) == 3
+    for k, r, (start, end) in zip(kernel, rollout, pairs):
+        assert k.parent == r.id and k.call == r.call
+        assert 0 < k.device_ms <= start.elapsed_time(end)
+    assert {s.name for s in spans if s.device_ms is not None} == device_spans
 
 
 def test_admm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
