@@ -1630,10 +1630,14 @@ def k1_report(op, s0, W, calls: int = 3) -> int:
     if tuple(plan) != tuple(want) or bool(fits) != want.fits:
         raise AssertionError(f"K1 plan: library {tuple(plan)} vs Python "
                              f"{want}")
-    table = fr.k1_pack(op).slots
+    pack = fr.k1_pack(op)
+    table = pack.slots
     log(f"K1 plan: {want}; {table.shape[0]} column tiles x "
         f"{table.shape[1]} pass(es) of {want.slots} slots, "
-        f"{-(-B_MAIN * W.shape[1] // want.rows)} row tiles")
+        f"{-(-B_MAIN * W.shape[1] // want.rows)} row tiles; a row tile "
+        f"streams {pack.streamed} of {pack.dense} slices of D "
+        f"({100 * pack.streamed / pack.dense:.2f} %), per tile and pass "
+        f"{pack.slices[..., 0].tolist()}")
     for which, name in enumerate(("state pass", "product")):
         regs, local = ctypes.c_int(), ctypes.c_int()
         if lib.fused_rollout_kernel_attributes(which, ctypes.byref(regs),
@@ -1728,7 +1732,7 @@ def tracking_phases(dev, smi, main) -> dict:
         raise AssertionError(f"four_tank_tracking shape K={K}, S={op.S}, "
                              f"nw={op.nw}, rank {op.rank}, G "
                              f"{tuple(op.G.shape)}")
-    if (n_tiles, n_pass, pack.Gp.shape[2]) != (8, 2, 144):
+    if (n_tiles, n_pass, pack.Gp.shape[2]) != (8, 2, 128):
         raise AssertionError(f"K1 slot table {n_tiles} tiles x {n_pass} "
                              f"passes, D padded to {pack.Gp.shape[2]}")
     log(f"K1 slot table at four_tank_tracking: n_tiles {n_tiles}, n_pass "

@@ -32,7 +32,7 @@ _F = ctypes.c_float
 #: C signatures: name -> (argtypes, restype).
 _SIGNATURES = {
     "fused_rollout": {
-        "fused_rollout_launch": ([_P] * 12 + [_I] * 10 + [_P], ctypes.c_int),
+        "fused_rollout_launch": ([_P] * 14 + [_I] * 10 + [_P], ctypes.c_int),
         "fused_rollout_plan": ([_I, _I, ctypes.POINTER(_I)], ctypes.c_int),
         "fused_rollout_blocks_per_sm": ([_I] * 3, ctypes.c_int),
         "fused_rollout_kernel_attributes": (

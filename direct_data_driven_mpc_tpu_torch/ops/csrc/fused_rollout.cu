@@ -30,16 +30,17 @@
 //    noise arrives by cp.async while step t computes into the other
 //    tile. G's state columns sit in shared memory, in chunks of 64. The
 //    pass also assembles the product's rows [w | s_t | 0] (the noise
-//    rotation applied), (B, n_outer, D rounded up to 24) floats, written
-//    coalesced: 15.7 MB at the main shape, read back from L2.
+//    rotation applied), (B, n_outer, D rounded up to 8) floats, written
+//    coalesced: 15.7 MB at the main shape, read back from L2, and a flag
+//    per row (below).
 // 2. fused_rollout_product_kernel, every other column of all B x n_outer
 //    rows (b, t) as one product: 32768 x 120 times 120 x 1050 at the main
 //    shape, 256 row tiles x 8 column tiles = 2048 blocks of 128 threads,
 //    two per SM. A thread owns 8 rows x one slot of 17 columns (136 FMAs
 //    per 7 shared-memory loads); a warp is 4 row groups x 8 slots, whose
-//    rows lie 28 floats apart and whose slot columns 20, so its 16-byte
+//    rows lie 12 floats apart and whose slot columns 20, so its 16-byte
 //    loads hit 32 banks. The rows and the tile's packed columns stream
-//    through a 3-stage cp.async ring of 24-row slices of D (91,008 B a
+//    through a 6-stage cp.async ring of 8-row slices of D (71,424 B a
 //    block, whatever D is; a pass's last slice also brings its bias),
 //    all 16-byte copies. A slot either stores 16
 //    columns of U or of Y (16-byte stores where the widths allow), or
@@ -51,10 +52,35 @@
 //    it); a solve with more than 17 such columns takes several passes
 //    over D, its cost carried in registers from pass to pass.
 //
+// The zero band. Solve k of a block sees only the noise of the steps
+// before it: control/linear_engine.py starts every tracked quantity with
+// zero noise columns and writes step t's p columns at step t (`Wj`), and
+// the cost factor mixes columns within one solve only. So solve k's U, Z
+// and q columns are exact zeros in the noise rows from 2k on (p = 2), its
+// Y columns from 2k + 2; a tracking map's setpoint rows, after the noise,
+// are not, so the band is a gap in the middle of D. The wrapper orders
+// the slots by how many slices of D their columns touch (how far back
+// their noise reaches), so a tile holds neighbouring solves, and reads
+// from the packed operator, per tile and pass, the list of slices that
+// hold a nonzero entry. The ring stages and the FMA loop run over that
+// list alone, in ascending order; its length is the same for the whole
+// block. At the four-tank shape (8 tiles of 15 slices) the tiles stream
+// 5, 7, 8, 10, 11, 13, 15 and 15 slices: 70.0 % of the product's slices
+// (77.5 % at the 24-row slices of before: 8 rows paid for their extra
+// barriers on the H100, and a 6-deep ring for its shared memory).
+//
 // Each s, U and Y value is fmaf over i = 0 .. D-1 in order from 0, then
 // __fadd_rn(., bias): the previous kernel's chain and, at the main shape,
-// cuBLAS's, so all three stay bit-equal. Each cost sums its squares in
-// column order and then its q-part, as before.
+// cuBLAS's, so all three stay bit-equal. A skipped term is fmaf(a, 0,
+// acc) = acc for finite a, so skipping keeps the chain and the bits.
+// Each cost sums its squares in column order and then its q-part, as
+// before. A value that is not finite makes its skipped terms NaN, so the
+// state pass flags each row [w | s_t] that holds one, and a product
+// block with a flagged row streams the other slices too, after the
+// listed ones. Its finite rows add only zeros then, and keep their bits;
+// a flagged row's outputs are NaN or +-inf just as the full chain's,
+// whatever the order (NaN absorbs every term, an infinity every finite
+// one): NaN wherever the plain version's are.
 //
 // K3 (fused_rollout_nocost_kernel) replaces the same function's body
 // `kernel_nocost` (pallas_rollout.py:629, launched at :743 and :760):
@@ -131,14 +157,15 @@ constexpr int PR_NC = 17;
 constexpr int PR_LDC = 20;
 constexpr int PR_BN = PR_SLOTS * PR_LDC;
 constexpr int PR_TM = 8;
-constexpr int PR_BK = 24;
+constexpr int PR_BK = 8;
 constexpr int PR_LDA = PR_BK + 4;
-constexpr int PR_STAGES = 3;
+constexpr int PR_STAGES = 6;
 constexpr int PR_THREADS = 128;
 // A stage: A's rows, the operator's slice and the pass's bias.
 constexpr int PR_STAGE_FLOATS = PR_BM * PR_LDA + (PR_BK + 1) * PR_BN;
 static_assert((PR_THREADS / 32) * (32 / PR_SLOTS) * PR_TM == PR_BM,
               "warps x row groups x rows per thread");
+static_assert(PR_THREADS == PR_BM, "a thread reads one row's flag");
 static_assert(PR_LDC % 4 == 0 && PR_LDC >= PR_NC, "slot stride");
 static_assert(PR_BK % 8 == 0 && PR_LDA % 8 == 4,
               "16-byte copies; 4 consecutive rows in 4 bank groups");
@@ -217,6 +244,7 @@ fused_rollout_state_kernel(const float* __restrict__ Gs,  // (D, ldgs)
                            const float* __restrict__ s0,  // (B, S)
                            const float* __restrict__ W,   // (B, n, nw)
                            float* __restrict__ A,      // (B, n, row_stride)
+                           int* __restrict__ flags,    // (B, n)
                            float* __restrict__ s_fin,  // (B, S)
                            int B, int S, int nw, int n_outer, int w_off) {
   extern __shared__ float4 smem4[];
@@ -249,11 +277,19 @@ fused_rollout_state_kernel(const float* __restrict__ Gs,  // (D, ldgs)
       stage_state_rows(W + (size_t)((t + 1 + w_off) % n_outer) * nw,
                        wstride, nw, nxt, row0, B);
     __pipeline_commit();
-    // Row (b, t) of the product, [w | s_t | 0], a warp per row.
+    // Row (b, t) of the product, [w | s_t | 0], a warp per row, and its
+    // flag: 1 where a value of the row is not finite.
     for (int rr = warp; rr < ST_ROWS && row0 + rr < B; rr += n_warps) {
-      float* a = A + ((size_t)(row0 + rr) * n_outer + t) * lda;
-      for (int k = lane; k < lda; k += 32)
-        a[k] = k < D ? cur[k * ST_LDS + rr] : 0.f;
+      const size_t row = (size_t)(row0 + rr) * n_outer + t;
+      float* a = A + row * lda;
+      bool bad = false;
+      for (int k = lane; k < lda; k += 32) {
+        const float v = k < D ? cur[k * ST_LDS + rr] : 0.f;
+        a[k] = v;
+        bad |= !isfinite(v);
+      }
+      const int any_bad = __any_sync(0xffffffffu, bad);
+      if (lane == 0) flags[row] = any_bad;
     }
     // s_{t+1} = [w | s_t] @ G[:, :S] + bias[:S] into the next tile, one
     // chunk of G's state columns at a time.
@@ -298,7 +334,9 @@ fused_rollout_product_kernel(
     const float* __restrict__ Gp,   // (n_tiles, n_pass, D_pad, PR_BN)
     const float* __restrict__ bp,   // (n_tiles, n_pass, PR_BN), aligned
     const int4* __restrict__ slots,  // (n_tiles, n_pass, PR_SLOTS)
+    const int* __restrict__ slices,  // (n_tiles, n_pass, n_k + 1)
     const float* __restrict__ A,    // (R, lda): rows [w | s_t | 0]
+    const int* __restrict__ flags,  // (R,): 1 where a row is not finite
     float* __restrict__ U,          // (R, Ku)
     float* __restrict__ Y,          // (R, Kp)
     float* __restrict__ C,          // (R, K)
@@ -307,9 +345,23 @@ fused_rollout_product_kernel(
   float* smem = reinterpret_cast<float*>(smem4);
   const int lda = row_stride(D);
   const int n_k = lda / PR_BK;
-  const int total = n_k * n_pass;
   const int tile = blockIdx.y;
   const int row0 = blockIdx.x * PR_BM;
+  // Pass p of this tile streams the slices of D its list names (a count,
+  // then every slice: the listed ones in ascending order, then the
+  // others), and the others too where a row of the block holds a value
+  // that is not finite (the skipped terms would be NaN). The rows' flags
+  // are read now and voted on only when the ring first needs the vote,
+  // so the read overlaps the first copies.
+  const int flag = row0 + (int)threadIdx.x < R
+                       ? __ldg(flags + row0 + threadIdx.x) : 0;
+  int dense = -1;
+  const int* list = slices + (size_t)tile * n_pass * (n_k + 1);
+  auto listed = [&](int p) { return __ldg(list + (size_t)p * (n_k + 1)); };
+  auto count = [&](int p) {
+    if (dense < 0) dense = __syncthreads_or(flag);
+    return dense ? n_k : listed(p);
+  };
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int slot = lane % PR_SLOTS;
   // This thread's rows: m0 + 4 r (r < PR_TM), so a warp's 4 row groups
@@ -321,12 +373,14 @@ fused_rollout_product_kernel(
 
   const float4* gsrc = reinterpret_cast<const float4*>(
       Gp + (size_t)tile * n_pass * lda * PR_BN);
-  int pm = 0;  // ring slices staged: pass pm / n_k, depth slice pm % n_k
+  // Ring slices staged: pm in all; the next is entry si of pass sp, whose
+  // list has sl entries, slice kt (each read a stage ahead of its use).
+  int pm = 0, sp = 0, si = 0, sl = listed(0), kt = __ldg(list + 1);
   auto stage = [&]() {
-    if (pm < total) {
+    if (sp < n_pass) {
       float* As = smem + (pm % PR_STAGES) * PR_STAGE_FLOATS;
       float* Gsm = As + PR_BM * PR_LDA;
-      const int k0 = (pm % n_k) * PR_BK;
+      const int k0 = kt * PR_BK;
       // A: each row's PR_BK floats as 16-byte copies (zero past R).
       for (int c = threadIdx.x; c < PR_BM * PR_BK / 4; c += PR_THREADS) {
         const int m = c / (PR_BK / 4), h = c % (PR_BK / 4);
@@ -337,17 +391,25 @@ fused_rollout_product_kernel(
         else
           *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      const float4* src = gsrc + (size_t)pm * (PR_BK * PR_BN / 4);
+      const float4* src =
+          gsrc + ((size_t)sp * n_k + kt) * (PR_BK * PR_BN / 4);
       for (int v = threadIdx.x; v < PR_BK * PR_BN / 4; v += PR_THREADS)
         __pipeline_memcpy_async(Gsm + 4 * v, src + v, 16);
-      // A pass's last slice brings its bias, read by the epilogue.
-      if (pm % n_k == n_k - 1) {
+      // A pass's last slice brings its bias, read by the epilogue; the
+      // vote is needed only once the list's end is reached.
+      const bool last = si + 1 >= sl && si + 1 == count(sp);
+      if (last) {
         const float4* bsrc = reinterpret_cast<const float4*>(
-            bp + ((size_t)tile * n_pass + pm / n_k) * PR_BN);
+            bp + ((size_t)tile * n_pass + sp) * PR_BN);
         for (int v = threadIdx.x; v < PR_BN / 4; v += PR_THREADS)
           __pipeline_memcpy_async(Gsm + PR_BK * PR_BN + 4 * v, bsrc + v,
                                   16);
+        si = 0;
+        if (++sp < n_pass) sl = listed(sp);
+      } else {
+        ++si;
       }
+      if (sp < n_pass) kt = __ldg(list + (size_t)sp * (n_k + 1) + 1 + si);
     }
     ++pm;
     __pipeline_commit();
@@ -364,7 +426,8 @@ fused_rollout_product_kernel(
     for (int r = 0; r < PR_TM; ++r)
 #pragma unroll
       for (int c = 0; c < PR_NC; ++c) acc[r][c] = 0.f;
-    for (int kt = 0; kt < n_k; ++kt, ++m) {
+    const int n = count(p);  // the same for the whole block
+    for (int i = 0; i < n; ++i, ++m) {
       __pipeline_wait_prior(PR_STAGES - 2);  // this thread's copies of
       __syncthreads();  // slice m are in, and everyone's; slice m - 1 is
                         // done, so its slot takes slice m + STAGES - 1
@@ -815,16 +878,19 @@ int fused_rollout_kernel_attributes(int which, int* registers,
 // plan does not fit or a packed operand is not 16-byte aligned. Device
 // pointers to contiguous arrays: the packed operator of the state pass
 // Gs (nw + S, 4 ceil(S/4)) and bs (4 ceil(S/4)); of the product Gp
-// (n_tiles, n_pass, D_pad, 160) with D_pad = nw + S rounded up to 24, bp
-// (n_tiles, n_pass, 160) and the slot table (n_tiles, n_pass, 8, 4) of
-// int32; s0 (B, S), W (B, n_outer, nw), the scratch A (B, n_outer,
-// D_pad) of the product's rows [w | s_t | 0];
+// (n_tiles, n_pass, D_pad, 160) with D_pad = nw + S rounded up to 8, bp
+// (n_tiles, n_pass, 160), the slot table (n_tiles, n_pass, 8, 4) and the
+// slice lists (n_tiles, n_pass, D_pad / 8 + 1; a count of at least 1,
+// then every slice, the listed ones first, each part ascending) of int32; s0 (B, S), W (B, n_outer,
+// nw), the scratch A (B, n_outer, D_pad) of the product's rows
+// [w | s_t | 0] and int32 flags (B, n_outer);
 // outputs U (B, n_outer, Ku), Y (B, n_outer, Kp), C (B, n_outer, K) and
-// s_fin (B, S). All float32 but the slot table.
+// s_fin (B, S). All float32 but the tables and the flags.
 int fused_rollout_launch(const float* Gs, const float* bs, const float* Gp,
-                         const float* bp, const int* slots, const float* s0,
-                         const float* W, float* A, float* U, float* Y,
-                         float* C, float* s_fin, int B, int S, int nw,
+                         const float* bp, const int* slots,
+                         const int* slices, const float* s0, const float* W,
+                         float* A, int* flags, float* U, float* Y, float* C,
+                         float* s_fin, int B, int S, int nw,
                          int Ku, int Kp, int K, int n_outer, int w_off,
                          int n_tiles, int n_pass, void* stream) {
   const size_t st = state_smem_bytes(S, nw);
@@ -846,14 +912,14 @@ int fused_rollout_launch(const float* Gs, const float* bs, const float* Gp,
   const cudaStream_t s = (cudaStream_t)stream;
   fused_rollout_state_kernel<<<(B + ST_ROWS - 1) / ST_ROWS,
                                state_threads(S), st, s>>>(
-      Gs, bs, s0, W, A, s_fin, B, S, nw, n_outer, w_off);
+      Gs, bs, s0, W, A, flags, s_fin, B, S, nw, n_outer, w_off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((R + PR_BM - 1) / PR_BM), n_tiles);
   fused_rollout_product_kernel<<<grid, PR_THREADS, product_smem_bytes(),
                                  s>>>(
-      Gp, bp, reinterpret_cast<const int4*>(slots), A, U, Y, C, (int)R,
-      nw + S, Ku, Kp, K, n_pass);
+      Gp, bp, reinterpret_cast<const int4*>(slots), slices, A, flags, U, Y,
+      C, (int)R, nw + S, Ku, Kp, K, n_pass);
   return (int)cudaGetLastError();
 }
 

@@ -356,8 +356,8 @@ class RolloutPlan(NamedTuple):
     stride of 17 floats and rounded up to whole 16-byte pieces, and G's
     state columns, up to 64 at a time), and
     the product's rows ``(b, t)`` per block, slots, columns per slot and
-    shared memory (a ring of 3 slices of 24 rows of ``D``: 128 rows of A
-    at a stride of 28 floats, and 8 slots of 20 floats for each row and
+    shared memory (a ring of 6 slices of 8 rows of ``D``: 128 rows of A
+    at a stride of 12 floats, and 8 slots of 20 floats for each row and
     for the bias)."""
 
     state_rows: int
@@ -376,7 +376,7 @@ class RolloutPlan(NamedTuple):
 #: K1's product: columns per slot, their stride in the packed operator,
 #: slots per column tile, the depth of a ring slice and the ring's
 #: slices (as in the .cu).
-_SLOT_COLUMNS, _SLOT_STRIDE, _SLOTS, _DEPTH, _STAGES = 17, 20, 8, 24, 3
+_SLOT_COLUMNS, _SLOT_STRIDE, _SLOTS, _DEPTH, _STAGES = 17, 20, 8, 8, 6
 #: Slot kinds of the slot table: store columns of [U | Y]; add one
 #: solve's squares (and, last, its q-part) to its cost.
 _SLOT_STORE, _SLOT_COST = 1, 2
@@ -417,7 +417,16 @@ def k1_slot_table(op: FusedOperator):
     column (kind 2), in chunks of 17 when there are more, one chunk per
     pass, so each solve's cost is summed by one thread. A slot runs
     ``n_pass = ceil((rank + 1) / 17)`` passes (so U and Y slots store
-    that many pieces); 8 slots make a column tile. Returns ``table
+    that many pieces); 8 slots make a column tile.
+
+    The slots' programs are ordered by how many slices of ``D`` (8 rows
+    each) their columns have a nonzero entry in, then by those slices
+    from the last down, before they are cut into tiles. Solve k's columns
+    of the condensed recursion are zero in the noise rows of later solves
+    (``control.linear_engine`` starts every tracked quantity with zero
+    noise columns), so this order is by how far back a slot's noise
+    reaches: a tile holds the slots of neighbouring solves, and
+    :func:`k1_pack` lists the few slices it needs. Returns ``table
     (n_tiles, n_pass, 8, 4)`` of int32 ``{kind, a, n, flags}`` (as the
     .cu reads it) and ``index (n_tiles, n_pass, 160)``, each packed
     column's operator column or -1."""
@@ -441,6 +450,15 @@ def k1_slot_table(op: FusedOperator):
               (c == 0) | 2 * (c + nc > rank)), cols[c : c + nc])
             for c in range(0, rank + 1, nc)
         ])
+    D = op.G.shape[0]
+    live = F.pad(op.G != 0, (0, 0, 0, -D % _DEPTH)).reshape(
+        -1, _DEPTH, op.G.shape[1]).any(1).cpu().numpy()  # (n_k, width)
+
+    def reach(program):
+        used = live[:, [c for _, cols in program for c in cols]].any(1)
+        return used.sum(), tuple(np.flatnonzero(used)[::-1])
+
+    programs.sort(key=reach)
     n_tiles = -(-len(programs) // _SLOTS)
     table = np.zeros((n_tiles, n_pass, _SLOTS, 4), np.int32)
     index = np.full((n_tiles, n_pass, _SLOTS, _SLOT_STRIDE), -1)
@@ -454,16 +472,25 @@ def k1_slot_table(op: FusedOperator):
 class K1Pack(NamedTuple):
     """The operator as K1 reads it: the state columns ``Gs (D, 4
     ceil(S/4))`` and ``bs``, zero-padded; every other column in slot order
-    ``Gp (n_tiles, n_pass, D_pad, 160)`` (``D`` rounded up to 24, zero
+    ``Gp (n_tiles, n_pass, D_pad, 160)`` (``D`` rounded up to 8, zero
     past the last row and in unused slot columns) and ``bp (n_tiles,
-    n_pass, 160)``; and the slot table, int32 on the operator's
-    device."""
+    n_pass, 160)``; the slot table; and the slice lists ``slices
+    (n_tiles, n_pass, n_k + 1)``, ``n_k = D_pad / 8``: per column tile
+    and pass the count of slices of 8 rows of ``Gp`` that hold a
+    nonzero entry (at least one), then every slice, those in ascending
+    order first, then the others (int32, all on the operator's device).
+    ``streamed`` is the sum of the counts and ``dense`` that of ``n_k``
+    over every column tile and pass: the slices one row block of the
+    product streams and would stream without the lists."""
 
     Gs: torch.Tensor
     bs: torch.Tensor
     Gp: torch.Tensor
     bp: torch.Tensor
     slots: torch.Tensor
+    slices: torch.Tensor
+    streamed: int
+    dense: int
 
 
 def k1_pack(op: FusedOperator) -> K1Pack:
@@ -480,6 +507,15 @@ def k1_pack(op: FusedOperator) -> K1Pack:
                               device=op.G.device)
         Gp = G1[:, idx.reshape(-1)].reshape(D, n_tiles, n_pass, -1)
         Gp = F.pad(Gp.permute(1, 2, 0, 3), (0, 0, 0, -D % _DEPTH))
+        # The slices of each column tile and pass that hold a nonzero
+        # entry; one with none lists its last slice, which brings its bias.
+        n_k = Gp.shape[2] // _DEPTH
+        live = (Gp != 0).reshape(n_tiles, n_pass, n_k, -1).any(-1)
+        live = live.cpu().numpy()
+        live[..., -1] |= ~live.any(-1)
+        lists = np.zeros((n_tiles, n_pass, n_k + 1), np.int32)
+        lists[..., 0] = live.sum(-1)
+        lists[..., 1:] = np.argsort(~live, axis=-1, kind="stable")
         ldgs = 4 * -(-S // 4)
         return K1Pack(
             Gs=F.pad(op.G[:, :S], (0, ldgs - S)).contiguous(),
@@ -487,6 +523,9 @@ def k1_pack(op: FusedOperator) -> K1Pack:
             Gp=Gp.contiguous(),
             bp=b1[idx].contiguous(),
             slots=torch.as_tensor(table, device=op.G.device),
+            slices=torch.as_tensor(lists, device=op.G.device),
+            streamed=int(lists[..., 0].sum()),
+            dense=n_tiles * n_pass * n_k,
         )
 
     return _cached(op, "k1", build)
@@ -502,8 +541,13 @@ def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
     kernel K1 of ``csrc/fused_rollout.cu`` (float32, contiguous): two
     CUDA kernels on the current stream, the state recursion and then
     every other column of all ``B x n_outer`` rows as one product, its
-    operator packed by :func:`k1_pack`. Each call that launches them adds
-    one to ``fused_rollout.launches``; the launch call alone is the span
+    operator packed by :func:`k1_pack`. The product streams, for each
+    column tile, only the slices of ``D`` its pack lists; a row block
+    that holds a value that is not finite streams every slice, so such a
+    value poisons its row's outputs as in the plain version. Each call
+    that launches them adds one to ``fused_rollout.launches`` and the
+    pack's ``streamed`` and ``dense`` to ``fused_rollout.slices_streamed``
+    and ``fused_rollout.slices_dense``; the launch call alone is the span
     ``ddmpc.kernel`` (``utils.profiling``). Anything K1 does not take,
     operators beyond :func:`rollout_plan` included, raises before the
     launch."""
@@ -529,6 +573,7 @@ def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
     kw = dict(dtype=torch.float32, device=s0.device)
     rows = torch.empty((Bsz, n_outer, -(-(nw + S) // _DEPTH) * _DEPTH),
                        **kw)
+    flags = torch.empty(Bsz * n_outer, dtype=torch.int32, device=s0.device)
     U = torch.empty((Bsz, n_outer, op.Ku), **kw)
     Y = torch.empty((Bsz, n_outer, op.Kp), **kw)
     C = torch.empty((Bsz, n_outer, op.K), **kw)
@@ -538,8 +583,9 @@ def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         args = (
             pack.Gs.data_ptr(), pack.bs.data_ptr(), pack.Gp.data_ptr(),
-            pack.bp.data_ptr(), pack.slots.data_ptr(), s0.data_ptr(),
-            W.data_ptr(), rows.data_ptr(), U.data_ptr(), Y.data_ptr(),
+            pack.bp.data_ptr(), pack.slots.data_ptr(),
+            pack.slices.data_ptr(), s0.data_ptr(), W.data_ptr(),
+            rows.data_ptr(), flags.data_ptr(), U.data_ptr(), Y.data_ptr(),
             C.data_ptr(), s_fin.data_ptr(), Bsz, S, nw, op.Ku, op.Kp,
             op.K, n_outer, int(w_off), n_tiles, n_pass, stream,
         )
@@ -550,12 +596,20 @@ def fused_rollout(op: FusedOperator, s0: torch.Tensor, W: torch.Tensor,
             f"fused_rollout kernel launch failed: CUDA error {err}"
         )
     fused_rollout.launches += 1
+    fused_rollout.slices_streamed += pack.streamed
+    fused_rollout.slices_dense += pack.dense
     return U, Y, C, s_fin
 
 
 #: Calls of :func:`fused_rollout` in this process that launched K1 (its
 #: state pass and its product, two CUDA kernels, count as one).
 fused_rollout.launches = 0
+#: Over those calls, the slices of ``D`` one row block of K1's product
+#: streams, summed over its column tiles and passes (:class:`K1Pack`'s
+#: ``streamed``), and the slices it would stream without the slice lists
+#: (``dense``): host integers, no device work.
+fused_rollout.slices_streamed = 0
+fused_rollout.slices_dense = 0
 
 
 def nocost_plan(S: int, nw: int):

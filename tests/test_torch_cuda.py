@@ -183,6 +183,67 @@ def test_k1_tracking_at_r_bar_equals_the_plain_map(cuda, golden):
     torch.testing.assert_close(tracked[2], plain[2], rtol=1e-3, atol=1e-5)
 
 
+@pytest.mark.parametrize("row", [99, 50])
+def test_k1_nan_in_the_noise_poisons_as_the_plain_version(cuda, golden,
+                                                          row):
+    """One NaN in noise row ``row`` of one block (K = 50, B = 4096: the
+    last noise row, in the slice every column tile streams, or one that
+    the first three tiles skip): K1's U, Y and costs have the plain
+    version's NaN pattern and its bits elsewhere, and the entry's
+    ``converged`` is the plain entry's."""
+    n_steps, K, batch, b, t = 400, 50, 4096, 1234, 3
+    ctrl = _controller(golden)
+    bm = build_linear_engine(ctrl, PLANT, solves_per_block=K, device=cuda)
+    op = fr._build_fused_operator(bm)
+    s0, W = _packed(golden, bm, n_steps, batch, cuda)
+    W[b, t, row] = float("nan")
+    got = fr.fused_rollout(op, s0, W)
+    want = fr.fused_rollout_reference(op, s0, W)
+    for a, c in zip(got, want):
+        assert torch.equal(a.isnan(), c.isnan())
+    for a, c in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
+        torch.testing.assert_close(a, c, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1e-5,
+                               equal_nan=True)
+    assert got[0][b, t:].isnan().all() and not got[0][b, :t].isnan().any()
+
+    rng = np.random.default_rng(0)
+    Ws = torch.as_tensor(0.002 * rng.uniform(-1, 1, (batch, n_steps, 2)),
+                         dtype=torch.float32, device=cuda)
+    Ws[b, t * K + row // 2, row % 2] = float("nan")
+    args = [torch.as_tensor(np.tile(np.asarray(golden[k])[None],
+                                    (batch,) + (1,) * np.ndim(golden[k])),
+                            dtype=torch.float32, device=cuda)
+            for k in ("x0", "TEC_u_past0", "TEC_y_past0")]
+    res = fr.make_fused_batched_rollout(bm, n_steps)(*args, Ws)
+    ref = fr.make_fused_batched_rollout(
+        bm, n_steps, rollout=fr.fused_rollout_reference)(*args, Ws)
+    assert torch.equal(res.converged, ref.converged)
+    assert not res.converged[b, t * K:].any()
+    assert res.converged[b, : t * K].all()
+
+
+def test_k1_counts_the_slices_it_streams(cuda, golden):
+    """Each K1 launch adds its pack's ``streamed`` and ``dense`` to
+    ``fused_rollout.slices_streamed`` and ``slices_dense``: 84 and 120 a
+    launch at the four-tank shape (K = 50), where the zero band leaves
+    70.0 % of the product's slices."""
+    bm = build_linear_engine(_controller(golden), PLANT,
+                             solves_per_block=50, device=cuda)
+    op = fr._build_fused_operator(bm)
+    pack = fr.k1_pack(op)
+    assert (pack.streamed, pack.dense) == (84, 120)
+    s0, W = _packed(golden, bm, 400, 256, cuda)
+    before = (fr.fused_rollout.launches, fr.fused_rollout.slices_streamed,
+              fr.fused_rollout.slices_dense)
+    for _ in range(3):
+        fr.fused_rollout(op, s0, W)
+    torch.cuda.synchronize()
+    assert (fr.fused_rollout.launches, fr.fused_rollout.slices_streamed,
+            fr.fused_rollout.slices_dense) == (
+        before[0] + 3, before[1] + 3 * 84, before[2] + 3 * 120)
+
+
 def test_rollout_plan_matches_library(cuda):
     """``rollout_plan`` mirrors the library's K1 plan (both kernels'
     threads and shared memory, and whether it fits) over states of 1 to

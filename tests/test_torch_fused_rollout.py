@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
+import torch.nn.functional as F  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -289,15 +290,15 @@ def _old_k1_smem_bytes(S, nw, K):
 
 @pytest.mark.parametrize("S,nw,plan", [
     # four_tank_robust's main shape
-    (20, 100, (16, 96, 25920, 128, 8, 17, 91008, True)),
+    (20, 100, (16, 96, 25920, 128, 8, 17, 71424, True)),
     # the smallest state, no noise rows (D odd: the tiles' 34 floats
     # round up to 36, so G's columns start on a 16-byte boundary)
-    (1, 0, (16, 32, 160, 128, 8, 17, 91008, True)),
+    (1, 0, (16, 32, 160, 128, 8, 17, 71424, True)),
     # large_plant with cost columns (K = 25), which the old plan refused
-    (210, 250, (16, 256, 180320, 128, 8, 17, 91008, True)),
+    (210, 250, (16, 256, 180320, 128, 8, 17, 71424, True)),
     # the widest noise that still fits at S = 210, and one row more
-    (210, 382, (16, 256, 232064, 128, 8, 17, 91008, True)),
-    (210, 383, (16, 256, 232464, 128, 8, 17, 91008, False)),
+    (210, 382, (16, 256, 232064, 128, 8, 17, 71424, True)),
+    (210, 383, (16, 256, 232464, 128, 8, 17, 71424, False)),
 ])
 def test_rollout_plan_pins_main_shape_and_edges(S, nw, plan):
     """``rollout_plan`` (the library's plan, mirrored): the state pass's
@@ -352,11 +353,14 @@ def _slot_columns(op, table):
     return uy, z, q
 
 
-def _packed_rollout(op, s0, W, w_off):
+def _packed_rollout(op, s0, W, w_off, fallback=True):
     """K1's plan in plain arithmetic: the recursion through the packed
-    state columns, then one product of all B x n_outer rows [w | s_t]
+    state columns, then the product of all B x n_outer rows [w | s_t]
     with the packed operator, whose columns go back to U, Y and the costs
-    through the slot table."""
+    through the slot table. Each column tile and pass reads only the
+    slices of D its slice list names (the others' rows are dropped, set
+    to zero), but a block of 128 rows that holds a value that is not
+    finite reads every slice, as the kernel does (``fallback``)."""
     pack = fr.k1_pack(op)
     Bsz, n_outer, nw = W.shape
     S, D = op.S, nw + op.S
@@ -367,8 +371,22 @@ def _packed_rollout(op, s0, W, w_off):
             @ pack.Gs[:, :S] + pack.bs[:S]
     rows = torch.cat([W[:, (torch.arange(n_outer) + w_off) % n_outer],
                       torch.stack(states, 1)], 2).reshape(-1, D)
-    G = pack.Gp[:, :, :D].permute(2, 0, 1, 3).reshape(D, -1)
-    out = rows @ G + pack.bp.reshape(-1)
+    n_tiles, n_pass, D_pad, width = pack.Gp.shape
+    depth = D_pad // (pack.slices.shape[2] - 1)
+    bad = F.pad(~torch.isfinite(rows).all(1), (0, -len(rows) % 128))
+    dense = bad.reshape(-1, 128).any(1).repeat_interleave(128)[: len(rows)]
+    dense &= fallback
+    out = torch.empty((len(rows), n_tiles, n_pass, width), dtype=rows.dtype)
+    for t in range(n_tiles):
+        for p in range(n_pass):
+            count, *ks = pack.slices[t, p].tolist()
+            listed = torch.zeros(D_pad, dtype=torch.bool)
+            for k in ks[:count]:
+                listed[k * depth : (k + 1) * depth] = True
+            keep = listed[:D] | dense[:, None]
+            out[:, t, p] = torch.where(keep, rows, 0.0) \
+                @ pack.Gp[t, p, :D] + pack.bp[t, p]
+    out = out.reshape(len(rows), -1)
     uy, z, q = _slot_columns(op, pack.slots.numpy())
     zz = out[:, z.reshape(-1)].reshape(len(out), op.K, op.rank)
     return (out[:, uy[: op.Ku]].reshape(Bsz, n_outer, op.Ku),
@@ -413,22 +431,48 @@ def test_k1_packed_operator_reproduces_plain_version(setup):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("S,nw,Ku,Kp,K,rank,n_pass", [
-    (21, 13, 7, 9, 3, 40, 3),   # three passes of 17 per solve
-    (5, 6, 3, 40, 2, 33, 2),    # 34 columns per solve: a lone q chunk
-    (9, 4, 17, 17, 4, 0, 1),    # rank 0: the cost is its q-part
-    (20, 104, 100, 100, 50, 20, 2),  # four_tank_tracking: 21 per solve
+def _zero_band(G, S, Ku, Kp, K, rank, n_noise):
+    """Zero ``G``'s noise rows as the condensed recursion does (p = 2,
+    one input and one output pair a solve): solve k's U, Z and q
+    columns from row 2k on, its Y columns from row 2k + 2; the rows from
+    ``n_noise`` on (setpoints, state) stay."""
+    offY, offZ = S + Ku, S + Ku + Kp
+    for k in range(K):
+        for cols in (range(S + 2 * k, S + 2 * k + 2),
+                     range(offZ + k * rank, offZ + (k + 1) * rank),
+                     (offZ + K * rank + k,)):
+            G[2 * k : n_noise, list(cols)] = 0.0
+        G[2 * k + 2 : n_noise, offY + 2 * k : offY + 2 * k + 2] = 0.0
+
+
+@pytest.mark.parametrize("S,nw,Ku,Kp,K,rank,n_pass,band", [
+    # three passes of 17 per solve
+    pytest.param(21, 13, 7, 9, 3, 40, 3, False, id="21-13-7-9-3-40-3"),
+    # 34 columns per solve: a lone q chunk
+    pytest.param(5, 6, 3, 40, 2, 33, 2, False, id="5-6-3-40-2-33-2"),
+    # rank 0: the cost is its q-part
+    pytest.param(9, 4, 17, 17, 4, 0, 1, False, id="9-4-17-17-4-0-1"),
+    # four_tank_tracking's widths: 21 per solve
+    pytest.param(20, 104, 100, 100, 50, 20, 2, False,
+                 id="20-104-100-100-50-20-2"),
+    # four_tank_tracking's zero band: noise rows 0-99, setpoint rows
+    # 100-103 nonzero for every solve
+    pytest.param(20, 104, 100, 100, 50, 20, 2, True,
+                 id="four_tank_tracking_band"),
 ])
 def test_k1_slot_table_covers_every_column_once(S, nw, Ku, Kp, K, rank,
-                                                n_pass):
+                                                n_pass, band):
     """Every U, Y, Z and q column of an operator lands in exactly one
     packed column (one slot per solve, ``ceil((rank + 1) / 17)``
-    passes), and the packed operator, through plain arithmetic, gives
-    the plain version's results bit for bit."""
+    passes), whatever order the slots take, and the packed operator,
+    through plain arithmetic over the listed slices, gives the plain
+    version's results bit for bit."""
     g = torch.Generator().manual_seed(S)
     width = S + Ku + Kp + K * rank + K
     G = torch.randn((nw + S, width), generator=g, dtype=torch.float64)
     G[:, :S] *= 0.5 / (nw + S) ** 0.5
+    if band:
+        _zero_band(G, S, Ku, Kp, K, rank, 2 * K)
     op = fr.FusedOperator(G, torch.randn(width, generator=g,
                                          dtype=torch.float64),
                           S, nw, Ku, Kp, K, rank)
@@ -442,6 +486,95 @@ def test_k1_slot_table_covers_every_column_once(S, nw, Ku, Kp, K, rank,
     want = fr.fused_rollout_reference(op, s0, W, w_off=1)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _four_tank_operators(setup, K=50):
+    """The four-tank controller's fused operator at ``K`` solves per
+    block, and its tracking map's."""
+    from direct_data_driven_mpc_tpu.control.linear_engine import (
+        build_tracking_engine as jax_build_tracking_engine,
+    )
+
+    jplant, jctrl, _, _ = setup
+    return {
+        "four_tank": fr._build_fused_operator(
+            _carry(_jax_map(jplant, jctrl, K))),
+        "four_tank_tracking": fr._build_fused_operator(_carry(
+            jax_build_tracking_engine(jctrl, jplant.as_params(),
+                                      solves_per_block=K,
+                                      dtype=jnp.float32))),
+    }
+
+
+@pytest.mark.parametrize("case,counts", [
+    # K = 50, 8 column tiles of 15 slices: 84 of 120 (70.0 %)
+    ("four_tank", [[5], [7], [8], [10], [11], [13], [15], [15]]),
+    # 104 noise and setpoint rows: 16 slices, two passes; 191 of 256
+    ("four_tank_tracking", [[6, 6], [8, 8], [10, 10], [11, 12], [13, 13],
+                            [15, 15], [16, 16], [16, 16]]),
+    # no zero entry: every slice
+    ("dense", [[15]] * 8),
+])
+def test_k1_slice_lists_name_every_nonzero_slice(setup, case, counts):
+    """Each column tile and pass lists, in ascending order, exactly the
+    slices of 8 rows of its packed operator that hold a nonzero entry,
+    then the others in ascending order; the slots ordered by how far back
+    their noise reaches put the zero band of the four-tank operators in
+    whole slices, and a dense operator lists every slice. ``streamed``
+    and ``dense`` sum the counts."""
+    if case == "dense":
+        g = torch.Generator().manual_seed(3)
+        op = fr.FusedOperator(torch.randn((120, 1070), generator=g),
+                              torch.randn(1070, generator=g),
+                              20, 100, 100, 100, 50, 16)
+    else:
+        op = _four_tank_operators(setup)[case]
+    pack = fr.k1_pack(op)
+    n_tiles, n_pass, D_pad, width = pack.Gp.shape
+    n_k = D_pad // 8
+    assert pack.slices.shape == (n_tiles, n_pass, n_k + 1)
+    assert pack.slices.dtype == torch.int32
+    live = (pack.Gp != 0).reshape(n_tiles, n_pass, n_k, -1).any(-1)
+    for t in range(n_tiles):
+        for p in range(n_pass):
+            count, *ks = pack.slices[t, p].tolist()
+            assert ks[:count] == torch.nonzero(live[t, p]).ravel().tolist()
+            assert ks[count:] == torch.nonzero(~live[t, p]).ravel().tolist()
+    assert pack.slices[..., 0].tolist() == counts
+    assert pack.streamed == sum(map(sum, counts))
+    assert pack.dense == n_tiles * n_pass * n_k
+    if case == "dense":
+        assert pack.streamed == pack.dense
+
+
+@pytest.mark.parametrize("row", [99, 50])
+def test_k1_packed_operator_keeps_the_plain_nan_pattern(setup, row):
+    """One NaN in noise row ``row`` of one block (K = 50: the last noise
+    row, in the slice every tile lists, or one that the first three
+    tiles skip): the packed product over the slice lists, with the
+    kernel's rule that a block of rows holding a value that is not finite
+    reads every slice, gives the plain version's NaN in every output of
+    that row and of the scenario's later rows, and its bits elsewhere.
+    Without the rule, outputs of the skipping tiles would read finite."""
+    jplant, jctrl, _, rng = setup
+    K, n_steps, batch, b, t = 50, 200, 4, 2, 1
+    op = _four_tank_operators(setup, K)["four_tank"]
+    bm = _carry(_jax_map(jplant, jctrl, K))
+    inputs = _t(_inputs(jplant, jctrl, rng, n_steps, batch))
+    s0, W = fr._center_and_pack(bm, *inputs, n_steps // K, K, 0)
+    W[b, t, row] = float("nan")
+    got = _packed_rollout(op, s0, W, 0)
+    want = fr.fused_rollout_reference(op, s0, W)
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a, c, rtol=0, atol=0, equal_nan=True)
+    U, Y, C, s_fin = want
+    for out in (U, Y, C):
+        assert out[b, t:].isnan().all() and not out[b, :t].isnan().any()
+        assert not out[torch.arange(batch) != b].isnan().any()
+    assert s_fin[b].isnan().all()
+    assert torch.isfinite(got[2]).sum() == C.numel() - (4 - t) * K
+    skipped = _packed_rollout(op, s0, W, 0, fallback=False)
+    assert skipped[0][b, t].isnan().all() == (row == 99)
 
 
 def test_operator_packs_are_cached_until_the_operator_changes(setup):
