@@ -163,6 +163,12 @@ records):
     full run; at least one kernel per step) and the device's idle share
     where every session's device records are complete (else "not read",
     with the counts). None of the converged fractions is asserted.
+    Beside ``four_tank_nonconvex``, the same controller through the fused
+    entry (``make_fused_admm_rollout``, K4's NON_CONVEX mode, one launch
+    a rollout, from the generic loop's cold start): its inputs against
+    the generic loop's run and its float64 run (max |du| < 1e-4), its
+    final bounds against the generic loop's, and its ms per rollout in
+    turns with the generic loop's.
 
 Then the sweep and tuning path (plain PyTorch and numpy, no kernel of
 its own), right after phase 30, so that phase 35 traces before phase
@@ -2034,6 +2040,7 @@ def generic_phases(dev, smi, main, B=B_MAIN, T=T_MAIN) -> dict:
         compute_box_admm_operator_np,
     )
     from direct_data_driven_mpc_tpu_torch.qp.nonconvex import (
+        compute_nonconvex_operator_np,
         nonconvex_admm_solve,
     )
 
@@ -2186,12 +2193,64 @@ def generic_phases(dev, smi, main, B=B_MAIN, T=T_MAIN) -> dict:
         f"[{-float(worst['bound_min']):.6e}, "
         f"{float(worst['bound_max']):.6e}] (c eps_max "
         f"{float(solver.c_eps):.1e})")
-    against_f64(tag, plant, ctrl.nonconvex_admm_solver(
+    r64 = against_f64(tag, plant, ctrl.nonconvex_admm_solver(
         device=dev, dtype=torch.float64), 16, res, ins, B64)
     run = make_batched_rollout(plant.as_params(), solver, T, admm_iters=16)
     out[tag] = dict(run=run, ins=ins, res=res, plant=plant.as_params(),
-                    solver=solver, iters=16)
+                    solver=solver, iters=16, res64=r64,
+                    op=compute_nonconvex_operator_np(ctrl.spec))
     return out
+
+
+def fused_nonconvex_timing(nc, smi) -> None:
+    """Phase 30's fused NON_CONVEX path: ``four_tank_nonconvex`` (c =
+    0.05) through ``make_fused_admm_rollout`` (K4's NON_CONVEX mode, 4
+    bound updates x 16 iterations, tolerance 1e-6 as the generic
+    loop's), one launch a rollout, against the generic loop's run and
+    its float64 run, then both timed in turns by CUDA events."""
+    from direct_data_driven_mpc_tpu_torch.ops import fused_admm as fa
+
+    generic, ins, res, r64 = (nc[k] for k in ("run", "ins", "res",
+                                              "res64"))
+    B, T = res.costs.shape
+    fused = fa.make_fused_admm_rollout(
+        nc["plant"], nc["op"], 4, 2, 2, T, iters=(nc["iters"],), tol=1e-6,
+        device=ins[0].device)
+    before = fa.fused_admm.launches
+    got = fused(*ins)
+    torch.cuda.synchronize()
+    if fa.fused_admm.launches != before + 1:
+        raise AssertionError("four_tank_nonconvex fused: "
+                             f"{fa.fused_admm.launches - before} K4 launches")
+    n = r64.u_sys.shape[0]
+    du, du64 = max_abs(got.u_sys, res.u_sys), max_abs(got.u_sys[:n],
+                                                       r64.u_sys)
+    db = float(((got.solver_state.bound - res.solver_state.bound).abs()
+                / res.solver_state.bound).max())
+    if not (du < NORTH_STAR and du64 < NORTH_STAR and db < 1e-5):
+        raise AssertionError(
+            f"four_tank_nonconvex fused: max |du| {du:.3e} against the "
+            f"generic loop, {du64:.3e} against float64, bound {db:.3e} "
+            "relative")
+    ms = {"fused": [], "generic": []}
+    for name in ("fused", "generic", "generic", "fused"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        (fused if name == "fused" else generic)(*ins)
+        end.record()
+        torch.cuda.synchronize()
+        ms[name].append(start.elapsed_time(end))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    log(f"four_tank_nonconvex fused (K4's NON_CONVEX mode, B={B} x T={T}): "
+        f"max |du| {du:.3e} against the generic loop, {du64:.3e} against "
+        f"float64 ({n} scenarios), bounds within {db:.3e} relative; "
+        f"converged {float(got.converged.float().mean()):.6f} (generic "
+        f"{float(res.converged.float().mean()):.6f}); {mean['fused']:.2f} "
+        f"ms per rollout "
+        f"against the generic loop's {mean['generic']:.2f} (means of 2 "
+        f"turns) [{smi}]")
 
 
 def generic_timing(dev, smi, runs) -> None:
@@ -2270,6 +2329,8 @@ def generic_timing(dev, smi, runs) -> None:
             f"solves/s; {kernels} kernels and {copies} copies launched per "
             f"rollout ({kernels / T:.1f} per closed-loop step, host "
             f"records); {busy}; {counts}")
+    if "four_tank_nonconvex" in runs:
+        fused_nonconvex_timing(runs["four_tank_nonconvex"], smi)
 
 
 def timer_ms(timer) -> str:

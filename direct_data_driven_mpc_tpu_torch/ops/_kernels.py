@@ -54,6 +54,15 @@ _SIGNATURES = {
         "fused_admm_kernel_attributes": (
             [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)], ctypes.c_int
         ),
+        "fused_admm_nonconvex_tile_rows": ([_I] * 6, ctypes.c_int),
+        "fused_admm_nonconvex_smem_bytes": ([_I] * 6, ctypes.c_int),
+        "fused_admm_nonconvex_blocks_per_sm": ([_I] * 6, ctypes.c_int),
+        "fused_admm_nonconvex_kernel_attributes": (
+            [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)], ctypes.c_int
+        ),
+        "fused_admm_nonconvex_launch": (
+            [_P] * 31 + [_I] * 10 + [_F] * 4 + [_P], ctypes.c_int
+        ),
         "fused_ladder_tile_rows": ([_I] * 5, ctypes.c_int),
         "fused_ladder_smem_bytes": ([_I] * 5, ctypes.c_int),
         "fused_ladder_launch": (

@@ -74,6 +74,29 @@
 // again. Its tracking adds go to pre and zth before the barrier that
 // precedes the extraction, and to vc as it enters the registers.
 //
+// K4's NON_CONVEX mode (fused_admm_nonconvex_kernel) runs the paper's
+// Eq. 6d, ||sigma_pred||_inf <= c eps (1 + ||alpha||_1), as the
+// convex-concave fixed point of qp/nonconvex.py, which no TPU kernel
+// ran (the JAX package runs it in its generic loop only): each scenario
+// clips at its own bound, held in the registers of the lanes that own
+// its rows, and a solve runs n_outer blocks of n_iter iterations, each
+// block followed by alpha = a_c + [theta; s - w] G, G = [A_theta^T;
+// A_s^T] (76 x 367 at four-tank, 113 KB), and bound = c eps (1 +
+// ||alpha||_1), then sigma_pred = (s - w) Vop + vc for the feasibility
+// of the final iterate. A warp computes alpha for its own scenarios in
+// the iterations' layout (lane l: columns 4 (l & 15) + 64 j .. + 3), so
+// the update needs no block barrier, and sums |alpha| in a fixed order
+// (the lane's columns in turn, then the row group's xor butterfly) that
+// the plain version repeats, so the bound, and every clip after it, is
+// bit-equal to it. G is read from global memory, where every block
+// reads the same bytes, so it comes from L2, and the block stays K4's
+// plus a_c (112,640 bytes at four-tank): two blocks share an SM. Measured
+// on an H100 at four_tank_nonconvex, 65536 x 400, and not kept: G
+// resident beside the operators (224,512 bytes, one block per SM),
+// 850-859 ms a call against 788-790.
+// What bounds it: the iterations as in K4 (64 a solve), and the alpha
+// products, 28 % of the FMAs; the same float32 FMA pipes.
+//
 // K5 replaces _make_ladder_kernel (with _make_ladder_step). The box
 // operator is pre-factorised for R penalties rho_0 < ... < rho_{R-1}; a
 // thread block's TB scenarios form one rung group and share one rung
@@ -164,6 +187,9 @@ struct Shape {
   int Mw, D2, W1, W2;      // pre width, plant input, M1 and M2 widths
   int ldv, ld1, ld2, ldu;  // padded rows of Vop, M1, M2, u bounds
   int TB, LDS;             // scenarios per block, carry row stride
+  // K4's NON_CONVEX mode: theta's width (nxi - nbox), alpha's width, the
+  // padded row of G and a_c, outer iterations (bound updates) per solve.
+  int nth, n_alpha, lda, n_outer;
 };
 
 __host__ __device__ inline Shape make_shape(int S, int nbm, int nbp,
@@ -220,6 +246,16 @@ struct Params {
   int* RUNG;
   int R;
   float ratio;
+  // K4's NON_CONVEX mode: G = [A_theta^T; A_s^T] (nth + nbox, n_alpha),
+  // a_c (n_alpha), the base coefficient c_eps, each scenario's bound in
+  // (B) and out (bd_fin); per solve (B, n_blocks) the relative step of
+  // the last bound update (DL), ||sigma_pred||_inf less the bound (GP)
+  // and the bound (BD); counters (4, or null): bound_cycles,
+  // kernel_cycles, bound_active, nonconvex_solves.
+  const float *G, *a_c, *bd0;
+  float *bd_fin, *DL, *GP, *BD;
+  unsigned long long* counters;
+  float c_eps;
 };
 
 // Copy a (rows, width) row-major operator into shared memory with rows
@@ -410,12 +446,84 @@ size_t kernel_smem_bytes(const Shape& d) {
   return sizeof(float) * floats;
 }
 
+// K4's NON_CONVEX mode adds a_c (lda floats) after the d slab
+// (max(nbox, S) rows); it reads G from global memory.
+size_t nonconvex_smem_bytes(const Shape& d) {
+  return kernel_smem_bytes<false>(d) + sizeof(float) * d.lda;
+}
+
 // x maximised (nan_max) over the 16 lanes of the caller's row group.
 __device__ __forceinline__ float row_group_max(float x) {
 #pragma unroll
   for (int off = 8; off >= 1; off >>= 1)
     x = nan_max(x, __shfl_xor_sync(FULL, x, off));
   return x;
+}
+
+// x summed over the 16 lanes of the caller's row group by the xor
+// butterfly (offsets 8, 4, 2, 1): every lane gets the same sum, in the
+// order the plain version takes it.
+__device__ __forceinline__ float row_group_sum(float x) {
+#pragma unroll
+  for (int off = 8; off >= 1; off >>= 1)
+    x = __fadd_rn(x, __shfl_xor_sync(FULL, x, off));
+  return x;
+}
+
+// ||alpha||_1 of the lane's four rows, alpha = a_c + [theta; t] G: each
+// alpha one FMA chain over theta's nth rows (th, xin's) then t's nbox
+// rows (dcol, the d slab) from zero, plus a_c; the lane sums |alpha| of
+// its columns 4 cg + 64 j + c in the order (j, c), and the row group sums
+// the 16 partial sums (row_group_sum). G is read through the read-only
+// cache from L2.
+__device__ __forceinline__ void alpha_l1(const float* th, const float* dcol,
+                                         int LDS, const float* G,
+                                         const float* ac, const Shape& d,
+                                         int cg, float (&l1)[4]) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  const int nj = (d.n_alpha + 63) >> 6;
+  for (int j = 0; j < nj; ++j) {
+    const int col0 = 4 * cg + 64 * j;
+    const float* g = G + min(col0, d.lda - 4);  // clamped inside the row
+    float acc[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[c][r] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < d.nth; ++k) {
+      const float4 a4 = ld4(th + k * LDS);
+      const float4 g4 = __ldg(reinterpret_cast<const float4*>(g + k * d.lda));
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[c][r] = fmaf(av[r], gv[c], acc[c][r]);
+    }
+    g += d.nth * d.lda;
+#pragma unroll 4
+    for (int k = 0; k < d.nbox; ++k) {
+      const float4 a4 = ld4(dcol + k * LDS);
+      const float4 g4 = __ldg(reinterpret_cast<const float4*>(g + k * d.lda));
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[c][r] = fmaf(av[r], gv[c], acc[c][r]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (col0 + c >= d.n_alpha) break;
+      const float a = ac[col0 + c];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        part[r] = __fadd_rn(part[r], fabsf(__fadd_rn(acc[c][r], a)));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) l1[r] = row_group_sum(part[r]);
 }
 
 // acc[j][c][r] = sum_k d[k][r0 + r] Vop[k][oc[j] + c], one FMA chain per
@@ -452,7 +560,13 @@ __device__ __forceinline__ void warp_product(const float* dcol, int LDS,
 
 // K4 (LADDER = false: fixed penalty P.rho, optional tracking adds) or K5
 // (LADDER = true: the block is a rung group, balanced after each solve).
-template <int NT, bool LADDER>
+// K4's NON_CONVEX mode (NC = true, no tracking):
+// each scenario clips at +-its own bound, and a solve runs n_outer blocks
+// of n_iter iterations, each followed by the bound update
+//   bound = c_eps (1 + ||a_c + [theta; t] G||_1),  t = s - w
+// (alpha_l1), then sigma_pred = t @ Vop + vc, whose max |.| less the
+// bound judges the final iterate's feasibility.
+template <int NT, bool LADDER, bool NC = false>
 __device__ __forceinline__ void admm_rollout(const Params& P,
                                              const Shape& d) {
   extern __shared__ float4 smem4[];
@@ -480,6 +594,7 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
   float* dbuf = zth + nxi * LDS;      // (nbox): s - w
   float* snext = LADDER ? xin + d.D2 * LDS : dbuf;  // (S)
   float* part = dbuf + nbox * LDS;    // K5: (WARPS, 4): max rp, rd, |s|, |w|
+  float* acs = dbuf + max(nbox, S) * LDS;  // NC: a_c (lda)
 
   // The lane's share, rows lr0 .. lr0 + 3: warp-uniform `owner`,
   // lane-level `mine`.
@@ -509,6 +624,20 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
   load_carry(pre, P.pre0, Mw, row0, d);
   load_carry(vc, P.vc0, nbox, row0, d);
   load_carry(zth, P.zth0, nxi, row0, d);
+  if (NC) load_op(acs, P.a_c, 1, d.lda, d.lda);
+  // NC: each row's bound, and the counters' cycles and counts.
+  float bnd[4] = {0.f, 0.f, 0.f, 0.f};
+  if (NC) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int b = row0 + lr0 + r;
+      bnd[r] = mine && b < d.B ? P.bd0[b] : 0.f;
+    }
+  }
+  const bool counting = NC && P.counters != nullptr;
+  const long long cyc_start = counting ? clock64() : 0;
+  long long cyc_bound = 0;
+  unsigned long long n_active = 0;
   // s and w into the owning lanes' registers (zero past B and nbox).
   float s[NT][4][4], w[NT][4][4];
 #pragma unroll
@@ -586,6 +715,9 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
     // ADMM iterations, each warp on its own scenarios, no block barrier.
     // rpm, rdm: the last iteration's residual maxima per row.
     float rpm[4] = {0.f, 0.f, 0.f, 0.f}, rdm[4] = {0.f, 0.f, 0.f, 0.f};
+    // NC: the last bound update's relative step, max |sigma_pred| less
+    // the bound.
+    float dl[4] = {0.f, 0.f, 0.f, 0.f}, gp[4] = {0.f, 0.f, 0.f, 0.f};
     if (owner) {
       float vcr[NT][4][4];
 #pragma unroll
@@ -605,8 +737,10 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
           vcr[j][c][2] = v4.z;
           vcr[j][c][3] = v4.w;
         }
+      const int n_out = NC ? d.n_outer : 1;
+      for (int o = 0; o < n_out; ++o) {
       for (int it = 0; it < d.n_iter; ++it) {
-        const bool last = it == d.n_iter - 1;
+        const bool last = it == d.n_iter - 1 && o == n_out - 1;
         float acc[NT][4][4];
         __syncwarp();  // the warp's d writes are in
         warp_product<NT>(drow, LDS, Vop, d.ldv, nbox, oc, acc);
@@ -626,7 +760,8 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
               const float vh =
                   __fadd_rn(__fmul_rn(P.alpha, v), __fmul_rn(P.beta, sv));
               const float sn =
-                  fminf(fmaxf(__fadd_rn(vh, wv), lor[j][c]), hir[j][c]);
+                  NC ? fminf(fmaxf(__fadd_rn(vh, wv), -bnd[r]), bnd[r])
+                     : fminf(fmaxf(__fadd_rn(vh, wv), lor[j][c]), hir[j][c]);
               const float wn = __fsub_rn(__fadd_rn(wv, vh), sn);
               dnv[r] = __fsub_rn(sn, wn);
               if (last) {
@@ -639,6 +774,40 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
             *reinterpret_cast<float4*>(drow + col * LDS) =
                 make_float4(dnv[0], dnv[1], dnv[2], dnv[3]);
           }
+      }
+      if (NC) {  // the bound update, on the d the iterations left
+        const long long c0 = counting ? clock64() : 0;
+        __syncwarp();  // the warp's d writes are in
+        float l1[4];
+        alpha_l1(xin + (S - d.nth) * LDS + lr0, drow, LDS, P.G, acs, d, cg,
+                 l1);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float bn = __fmul_rn(P.c_eps, __fadd_rn(1.f, l1[r]));
+          dl[r] = __fdiv_rn(fabsf(__fsub_rn(bn, bnd[r])),
+                            __fadd_rn(P.c_eps, bn));
+          bnd[r] = bn;
+        }
+        if (counting) cyc_bound += clock64() - c0;
+      }
+      }
+      if (NC) {  // sigma_pred of the final t, against the final bound
+        float acc[NT][4][4];
+        warp_product<NT>(drow, LDS, Vop, d.ldv, nbox, oc, acc);
+        float sig[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (col_of(j, c) >= nbox) continue;
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              sig[r] = nan_max(sig[r],
+                               fabsf(__fadd_rn(acc[j][c][r], vcr[j][c][r])));
+          }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          gp[r] = __fsub_rn(row_group_max(sig[r]), bnd[r]);
       }
       // Per row: the residuals (and, for K5 or when n_iter = 0, max |s|;
       // for K5 max |w|) over the nbox lanes (a row group's 16 lanes).
@@ -714,6 +883,12 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
           P.C[o] = __fadd_rn(cs[r], pre[nbm * LDS + lr0 + r]);
           P.RP[o] = rpm[r];
           P.RD[o] = __fmul_rn(rho, rdm[r]);
+          if (NC) {
+            P.DL[o] = dl[r];
+            P.GP[o] = gp[r];
+            P.BD[o] = bnd[r];
+            n_active += fabsf(gp[r]) <= __fmul_rn(1e-4f, bnd[r]);
+          }
         }
       }
     }
@@ -788,6 +963,27 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
           P.wa_fin[(size_t)b * nbox + col] = w[j][c][r];
         }
       }
+  if (NC) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int b = row0 + lr0 + r;
+      if (mine && cg == r && b < d.B) P.bd_fin[b] = bnd[r];
+    }
+  }
+  if (counting && owner) {  // one warp's share of the counters
+#pragma unroll
+    for (int off = 16; off >= 1; off >>= 1)
+      n_active += __shfl_xor_sync(FULL, n_active, off);
+    if (lane == 0) {
+      const int rows = max(0, min(min(WARP_ROWS, TB - WARP_ROWS * warp),
+                                  d.B - row0 - WARP_ROWS * warp));
+      atomicAdd(P.counters, (unsigned long long)cyc_bound);
+      atomicAdd(P.counters + 1,
+                (unsigned long long)(clock64() - cyc_start));
+      atomicAdd(P.counters + 2, n_active);
+      atomicAdd(P.counters + 3, (unsigned long long)rows * d.n_blocks);
+    }
+  }
 }
 
 // At NT = 1, two blocks share an SM: at most 128 registers a thread.
@@ -801,6 +997,13 @@ template <int NT>
 __global__ void __launch_bounds__(THREADS, NT == 1 ? 2 : 1)
 fused_ladder_kernel(const Params P, const Shape d) {
   admm_rollout<NT, true>(P, d);
+}
+
+// K4's NON_CONVEX mode: two blocks share an SM at NT = 1, as in K4.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, NT == 1 ? 2 : 1)
+fused_admm_nonconvex_kernel(const Params P, const Shape d) {
+  admm_rollout<NT, false, true>(P, d);
 }
 
 using RolloutKernel = void (*)(const Params, const Shape);
@@ -851,6 +1054,40 @@ int rung_group_rows(int S, int nbm, int nbp, int nbox, int nxi) {
   return 0;
 }
 
+// K4's NON_CONVEX instantiation for nbox box lanes, or null beyond three
+// column tiles.
+RolloutKernel nonconvex_kernel_for(int nbox) {
+  if (nbox <= 64) return fused_admm_nonconvex_kernel<1>;
+  if (nbox <= 128) return fused_admm_nonconvex_kernel<2>;
+  if (nbox <= 192) return fused_admm_nonconvex_kernel<3>;
+  return nullptr;
+}
+
+// The NON_CONVEX sizes: theta is nxi - nbox wide (no tracking features).
+Shape nonconvex_shape(int S, int nbm, int nbp, int nbox, int nxi,
+                      int n_alpha, int TB) {
+  Shape d = make_shape(S, nbm, nbp, nbox, nxi, TB);
+  d.nth = nxi - nbox;
+  d.n_alpha = n_alpha;
+  d.lda = ceil4(n_alpha);
+  return d;
+}
+
+// The NON_CONVEX mode's scenarios per block: the largest of TILES whose
+// block fits, or 0.
+int nonconvex_tile_rows(int S, int nbm, int nbp, int nbox, int nxi,
+                        int n_alpha) {
+  if (nonconvex_kernel_for(nbox) == nullptr || n_alpha < 1 ||
+      nxi < nbox || S < nxi - nbox)
+    return 0;
+  for (int TB : TILES)
+    if (nonconvex_smem_bytes(
+            nonconvex_shape(S, nbm, nbp, nbox, nxi, n_alpha, TB)) <=
+        SMEM_LIMIT)
+      return TB;
+  return 0;
+}
+
 template <bool LADDER>
 int launch(const Params& P, const Shape& d, void* stream) {
   const RolloutKernel kernel = kernel_for<LADDER>(d.nbox);
@@ -882,10 +1119,13 @@ int blocks_per_sm(int S, int nbm, int nbp, int nbox, int nxi, int TB) {
 
 // Registers and local (spill) bytes per thread of the instantiation for
 // nbox box lanes (cudaFuncGetAttributes); returns the CUDA error, or
-// cudaErrorInvalidValue when no instantiation takes nbox.
+// cudaErrorInvalidValue when no instantiation takes nbox; with
+// nonconvex, K4's NON_CONVEX instantiation.
 template <bool LADDER>
-int kernel_attributes(int nbox, int* registers, int* local_bytes) {
-  const RolloutKernel kernel = kernel_for<LADDER>(nbox);
+int kernel_attributes(int nbox, int* registers, int* local_bytes,
+                      bool nonconvex = false) {
+  const RolloutKernel kernel =
+      nonconvex ? nonconvex_kernel_for(nbox) : kernel_for<LADDER>(nbox);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
@@ -1740,6 +1980,93 @@ int fused_admm_launch(const float* Vop, const float* M1, const float* M2,
                  wa_fin, alpha, beta, rho,   nullptr, nullptr, nullptr,
                  1,     0.f};
   return launch<false>(P, d, stream);
+}
+
+// K4's NON_CONVEX mode: scenarios per block (0 when no block fits), the
+// block's dynamic shared memory in bytes (0 likewise), blocks resident
+// per SM (0, or minus a CUDA error), and the registers and local bytes
+// per thread of the nbox instantiation (returns the CUDA error, or
+// cudaErrorInvalidValue).
+int fused_admm_nonconvex_tile_rows(int S, int nbm, int nbp, int nbox, int nxi,
+                                   int n_alpha) {
+  return nonconvex_tile_rows(S, nbm, nbp, nbox, nxi, n_alpha);
+}
+
+int fused_admm_nonconvex_smem_bytes(int S, int nbm, int nbp, int nbox,
+                                    int nxi, int n_alpha) {
+  const int TB = nonconvex_tile_rows(S, nbm, nbp, nbox, nxi, n_alpha);
+  return TB ? (int)nonconvex_smem_bytes(
+                  nonconvex_shape(S, nbm, nbp, nbox, nxi, n_alpha, TB))
+            : 0;
+}
+
+int fused_admm_nonconvex_blocks_per_sm(int S, int nbm, int nbp, int nbox,
+                                       int nxi, int n_alpha) {
+  const int bytes =
+      fused_admm_nonconvex_smem_bytes(S, nbm, nbp, nbox, nxi, n_alpha);
+  if (bytes == 0) return 0;
+  const RolloutKernel kernel = nonconvex_kernel_for(nbox);
+  cudaError_t err = prepare(kernel, bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        THREADS, bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+int fused_admm_nonconvex_kernel_attributes(int nbox, int* registers,
+                                           int* local_bytes) {
+  return kernel_attributes<false>(nbox, registers, local_bytes, true);
+}
+
+// Launches K4's NON_CONVEX rollout on `stream`; returns
+// cudaGetLastError(), or cudaErrorInvalidValue when the sizes do not
+// fit. As fused_admm_launch without adds (lo and hi
+// are not read), plus: G (nxi - nbox + nbox, lda) with lda = n_alpha
+// rounded up to a multiple of 4, zero past n_alpha; a_c (lda); bd0 (B),
+// each scenario's bound at the start; outputs DL, GP, BD (B, n_blocks),
+// bd_fin (B); counters (4 unsigned 64-bit, added to) or null. n_iter
+// and n_outer at least 1.
+int fused_admm_nonconvex_launch(
+    const float* Vop, const float* M1, const float* M2, const float* b2,
+    const float* lo, const float* hi, const float* u_lo, const float* u_hi,
+    const float* s0, const float* pre0, const float* vc0, const float* zth0,
+    const float* sa0, const float* wa0, const float* W, const float* G,
+    const float* a_c, const float* bd0, float* U, float* Y, float* C,
+    float* RP, float* RD, float* s_fin, float* sa_fin, float* wa_fin,
+    float* DL, float* GP, float* BD, float* bd_fin,
+    unsigned long long* counters, int B, int S, int nbm, int nbp, int nbox,
+    int nxi, int n_blocks, int n_iter, int n_alpha, int n_outer,
+    float alpha, float beta, float rho, float c_eps, void* stream) {
+  const int TB = nonconvex_tile_rows(S, nbm, nbp, nbox, nxi, n_alpha);
+  if (TB == 0 || B < 1 || n_blocks < 1 || n_iter < 1 || n_outer < 1)
+    return (int)cudaErrorInvalidValue;
+  Shape d = nonconvex_shape(S, nbm, nbp, nbox, nxi, n_alpha, TB);
+  d.B = B;
+  d.n_blocks = n_blocks;
+  d.n_iter = n_iter;
+  d.n_outer = n_outer;
+  Params P{Vop,    M1,   M2,   b2,    lo,    hi,    u_lo,  u_hi,
+           s0,     pre0, vc0,  zth0,  sa0,   wa0,   W,     nullptr,
+           U,      Y,    C,    RP,    RD,    s_fin, sa_fin,
+           wa_fin, alpha, beta, rho,  nullptr, nullptr, nullptr,
+           1,      0.f};
+  P.G = G;
+  P.a_c = a_c;
+  P.bd0 = bd0;
+  P.bd_fin = bd_fin;
+  P.DL = DL;
+  P.GP = GP;
+  P.BD = BD;
+  P.counters = counters;
+  P.c_eps = c_eps;
+  const RolloutKernel kernel = nonconvex_kernel_for(nbox);
+  const size_t smem = nonconvex_smem_bytes(d);
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((d.B + d.TB - 1) / d.TB);
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(P, d);
+  return (int)cudaGetLastError();
 }
 
 // Launches the ladder rollout (kernel K5) on `stream`, one block per

@@ -49,6 +49,18 @@ loop of ``bench.py``). Differences from the TPU layout, on purpose:
 This engine takes one penalty; a multi-rung box operator (the adaptive
 ladder, kernel K5) goes to ``ops.fused_ladder``, whose kernel is the
 ladder instantiation of the same ``csrc/fused_admm.cu`` body.
+
+The NON_CONVEX slack (the paper's Eq. 6d, ``qp.nonconvex``) is a mode of
+the same engine and of K4's resident body: given the operator of
+``compute_nonconvex_operator_np`` (its ``c_eps`` and alpha maps), each
+scenario clips at its own bound, and a solve runs ``outer_iters`` blocks
+of ``n_iter`` iterations, each followed by the bound update::
+
+    alpha = a_c + [theta; s - w] @ G,  G = [A_theta^T; A_s^T]
+    bound = c_eps (1 + ||alpha||_1)
+
+as ``qp.nonconvex.nonconvex_admm_solve`` runs it, the bound carried
+from solve to solve with ``s`` and ``w``.
 """
 
 from __future__ import annotations
@@ -63,6 +75,8 @@ from direct_data_driven_mpc_tpu_torch.control.loop import ClosedLoopResult
 from direct_data_driven_mpc_tpu_torch.device import resolve_device
 from direct_data_driven_mpc_tpu_torch.ops.precision import ieee_float32
 from direct_data_driven_mpc_tpu_torch.qp.admm import ADMMState
+from direct_data_driven_mpc_tpu_torch.qp.nonconvex import NonConvexState
+from direct_data_driven_mpc_tpu_torch.utils import profiling
 from direct_data_driven_mpc_tpu_torch.utils.profiling import span
 
 _OP_KEYS = ("v_c", "V_theta", "V_s", "u_c", "U_theta", "U_s", "cost_P",
@@ -107,6 +121,11 @@ def _normalize_admm_op(op: dict) -> dict:
         for k in ("V_r", "U_r", "cost_P_ext", "cost_q_ext", "r_bar"):
             if k in op:
                 out[k] = np.asarray(op[k], np.float64)
+        # NON_CONVEX (compute_nonconvex_operator_np): the alpha maps and
+        # the base coefficient of the bound.
+        if "c_eps" in op and "A_s" in op:
+            out["nc"] = {k: np.asarray(op[k], np.float64)
+                         for k in ("a_c", "A_theta", "A_s", "c_eps")}
         nbox = out["v_c"].shape[0]
         b = float(op["bound"])
         out["lo"] = np.full(nbox, -b)
@@ -175,6 +194,19 @@ class FusedADMMDims(NamedTuple):
     W2: int
     rho: float
     alpha: float
+    n_alpha: int = 0  # NON_CONVEX: alpha's width (0: the box modes)
+
+
+class NonConvexMaps(NamedTuple):
+    """The NON_CONVEX mode's bound update on one device: ``G = [A_theta^T;
+    A_s^T]`` ``(n_theta + nbox, lda)`` and ``a_c`` ``(lda,)``, zero past
+    ``n_alpha`` up to ``lda``, a multiple of four floats (the kernel reads
+    four columns as one float4); ``c_eps`` the base coefficient ``c
+    eps_max`` rounded to float32, as a Python float."""
+
+    G: torch.Tensor
+    a_c: torch.Tensor
+    c_eps: float
 
 
 class FusedADMMOperator(NamedTuple):
@@ -198,6 +230,7 @@ class FusedADMMOperator(NamedTuple):
     u_lo: torch.Tensor
     u_hi: torch.Tensor
     track: Optional[dict]
+    nc: Optional[NonConvexMaps] = None  # the NON_CONVEX mode's maps
 
 
 class ADMMCarry(NamedTuple):
@@ -231,7 +264,9 @@ def build_fused_admm_operator(
     ``plant`` is an ``LTIParams`` (host matrices); ``admm_op`` a float64
     dict from ``qp.admm.compute_admm_operator_np`` or a single-rung
     ``qp.box.compute_box_admm_operator_np`` (of this package or the JAX
-    one). ``track=True`` (needs an operator built with
+    one), or from ``qp.nonconvex.compute_nonconvex_operator_np``, whose
+    alpha maps become ``ops.nc`` (:class:`NonConvexMaps`; no tracking).
+    ``track=True`` (needs an operator built with
     ``return_setpoint_maps=True``) extends the cost features to
     ``[theta; t; dr]`` so a per-block setpoint delta enters as three
     additive channels on the carried maps (:func:`compute_setpoint_adds`);
@@ -263,6 +298,8 @@ def build_fused_admm_operator(
             "operator with compute_admm_operator_np("
             "return_setpoint_maps=True)."
         )
+    if track and "nc" in op:
+        raise ValueError("the NON_CONVEX mode has no setpoint tracking")
 
     V_theta, V_s, v_c = op["V_theta"], op["V_s"], op["v_c"]
     U_theta, U_s, u_c = op["U_theta"], op["U_s"], op["u_c"]
@@ -317,10 +354,12 @@ def build_fused_admm_operator(
     M2 = np.concatenate([rows[:, :S], rows[:, S + 1 :]], axis=1).T
     b2 = rows[:, S]
 
+    nc = op.get("nc")
     dims = FusedADMMDims(
         ns=ns, n=n, m=m, p=p, nb=nb, S=S, n_theta=n_theta, nbox=nbox,
         nxi=nxi, Mw=Mw, D2=S + nbm + nbp, W2=M2.shape[1],
         rho=float(op["rho"]), alpha=float(op["alpha"]),
+        n_alpha=nc["a_c"].shape[0] if nc else 0,
     )
     tk = None
     if track:
@@ -338,10 +377,21 @@ def build_fused_admm_operator(
             np.ascontiguousarray(a), dtype=dtype, device=device
         )
 
+    nc_maps = None
+    if nc:
+        lda = _ceil4(dims.n_alpha)
+        G = np.zeros((n_theta + nbox, lda))
+        G[:, : dims.n_alpha] = np.concatenate([nc["A_theta"].T,
+                                               nc["A_s"].T])
+        a_c = np.zeros(lda)
+        a_c[: dims.n_alpha] = nc["a_c"]
+        nc_maps = NonConvexMaps(dev(G), dev(a_c),
+                                float(np.float32(nc["c_eps"])))
     ops = FusedADMMOperator(
         Gpre=dev(Gpre), bpre=dev(bpre), Vop=dev(V_s.T), lo=dev(op["lo"]),
         hi=dev(op["hi"]), M1=dev(M1), M2=dev(M2), b2=dev(b2),
         u_lo=dev(op["u_lo"][:nbm]), u_hi=dev(op["u_hi"][:nbm]), track=tk,
+        nc=nc_maps,
     )
     return ops, dims
 
@@ -368,10 +418,32 @@ def compute_setpoint_adds(ops: FusedADMMOperator, dims: FusedADMMDims,
     return torch.as_tensor(adds, dtype=ops.Vop.dtype, device=ops.Vop.device)
 
 
+def alpha_l1(theta: torch.Tensor, t: torch.Tensor,
+             nc: NonConvexMaps, n_alpha: int) -> torch.Tensor:
+    """``||alpha||_1`` per row of ``alpha = a_c + [theta; t] @ G``, summed
+    in the kernel's order: lane ``cg`` of a row group takes the columns
+    ``4 cg + 64 j + c`` in the order ``(j, c)``, one rounding at a time,
+    and the group adds its 16 partial sums by the xor butterfly (offsets
+    8, 4, 2, 1), so the bound is the kernel's to the bit wherever the
+    product is."""
+    a = torch.cat([theta, t], 1) @ nc.G[:, :n_alpha] + nc.a_c[:n_alpha]
+    nj = -(-n_alpha // 64)
+    a = torch.nn.functional.pad(a.abs(), (0, 64 * nj - n_alpha))
+    a = a.reshape(-1, nj, 16, 4).transpose(1, 2).reshape(-1, 16, 4 * nj)
+    part = torch.zeros_like(a[:, :, 0])
+    for k in range(4 * nj):
+        part = part + a[:, :, k]
+    for half in (8, 4, 2, 1):
+        part = part[:, :half] + part[:, half : 2 * half]
+    return part[:, 0]
+
+
 @ieee_float32()
 def fused_admm_reference(ops: FusedADMMOperator, dims: FusedADMMDims,
                          carry: ADMMCarry, W: torch.Tensor, n_iter: int,
-                         adds: Optional[torch.Tensor] = None):
+                         adds: Optional[torch.Tensor] = None,
+                         bound: Optional[torch.Tensor] = None,
+                         n_outer: int = 1):
     """Plain PyTorch version of the kernel, in the dtype of ``ops``: one
     solve block per step of a Python loop, the same math and iteration
     count as the kernel.
@@ -381,6 +453,15 @@ def fused_admm_reference(ops: FusedADMMOperator, dims: FusedADMMDims,
     n_blocks, nb*m)``, ``Y (B, n_blocks, nb*p)``, the cost ``C``, the
     primal and dual residuals ``RP``, ``RD`` (each ``(B, n_blocks)``)
     and the final ``s (B, S)``, ``sa``, ``wa`` ``(B, nbox)``.
+
+    In the NON_CONVEX mode (``ops.nc`` set) ``bound`` ``(B,)`` is each
+    scenario's bound at the start; every solve runs ``n_outer`` blocks of
+    ``n_iter`` iterations clipped at ``+-bound``, each followed by the
+    bound update (:func:`alpha_l1`), and then ``sigma_pred = (s - w) @
+    Vop + vc``. Four more outputs follow: per solve the last update's
+    relative step ``DL = |bound' - bound| / (c_eps + bound')``, ``GP =
+    max |sigma_pred| - bound`` and the bound ``BD`` (each ``(B,
+    n_blocks)``), and the final bound ``(B,)``.
 
     The products are split at the cost features (``M1``'s z columns,
     ``M2``'s zth' columns), so u, y and the carried state do not depend
@@ -403,6 +484,13 @@ def fused_admm_reference(ops: FusedADMMOperator, dims: FusedADMMDims,
     RP = torch.empty((Bsz, n_blocks), **kw)
     RD = torch.empty((Bsz, n_blocks), **kw)
     s_flat, pre, vc, zth, s, w = carry
+    nc = ops.nc
+    lo, hi = ops.lo, ops.hi
+    if nc is not None:
+        DL, GP, BD = (torch.empty((Bsz, n_blocks), **kw) for _ in range(3))
+        n_theta = dims.n_theta
+    else:
+        n_outer = 1
     for t in range(n_blocks):
         if adds is not None:
             pre = pre + adds[t, :Mw]
@@ -410,12 +498,25 @@ def fused_admm_reference(ops: FusedADMMOperator, dims: FusedADMMDims,
             zth = zth + adds[t, Mw + nbox :]
         v_last = torch.zeros_like(s)
         s_prev = torch.zeros_like(s)
-        for _ in range(n_iter):
-            v = (s - w) @ ops.Vop + vc
-            vh = alpha * v + beta * s
-            s_new = torch.clamp(vh + w, ops.lo, ops.hi)
-            w = w + vh - s_new
-            v_last, s_prev, s = v, s, s_new
+        for _ in range(n_outer):
+            if nc is not None:
+                lo, hi = -bound[:, None], bound[:, None]
+            for _ in range(n_iter):
+                v = (s - w) @ ops.Vop + vc
+                vh = alpha * v + beta * s
+                s_new = torch.clamp(vh + w, lo, hi)
+                w = w + vh - s_new
+                v_last, s_prev, s = v, s, s_new
+            if nc is not None:
+                l1 = alpha_l1(s_flat[:, S - n_theta :], s - w, nc,
+                              dims.n_alpha)
+                bound_new = nc.c_eps * (1.0 + l1)
+                DL[:, t] = (bound_new - bound).abs() / (nc.c_eps + bound_new)
+                bound = bound_new
+        if nc is not None:
+            sigma = (s - w) @ ops.Vop + vc
+            GP[:, t] = sigma.abs().amax(1) - bound
+            BD[:, t] = bound
         RP[:, t] = (v_last - s).abs().amax(1)
         RD[:, t] = rho * (s - s_prev).abs().amax(1)
         tv = s - w
@@ -433,6 +534,9 @@ def fused_admm_reference(ops: FusedADMMOperator, dims: FusedADMMDims,
         Y[:, t] = out[:, S + nbm : S + nbm + nbp]
         vc = out[:, Wc - nbox :]
         zth = in2 @ M2z + b2z
+    if nc is not None:
+        return (U, Y, C, RP, RD, s_flat.contiguous(), s, w, DL, GP, BD,
+                bound)
     return U, Y, C, RP, RD, s_flat.contiguous(), s, w
 
 
@@ -493,6 +597,25 @@ def _op_floats(dims: FusedADMMDims) -> int:
     W1, W2 = Mw + nxi, D2 + 1 + nbox + nxi
     ldv, ld1, ld2, ldu = _ceil4(nbox), _ceil4(W1), _ceil4(W2), _ceil4(nbm)
     return nbox * ldv + nbox * ld1 + D2 * ld2 + ld2 + 2 * ldv + 2 * ldu
+
+
+def nonconvex_plan(dims: FusedADMMDims) -> Tuple[int, int]:
+    """``(rows, bytes)``: K4's scenarios per thread block and its shared
+    memory in the NON_CONVEX mode (``nonconvex_tile_rows`` and
+    ``nonconvex_smem_bytes`` of the .cu): K4's block and ``a_c``, ``lda``
+    floats (G is read from L2); ``(0, bytes of the 4-row block)`` when
+    none fits or ``nbox`` is above 192, which :func:`fused_admm` refuses
+    before the launch (the wide body has no NON_CONVEX mode). 64
+    scenarios, 112,640 bytes at four-tank (n_alpha 367): two blocks
+    share an SM."""
+    lda = _ceil4(dims.n_alpha)
+    D2 = dims.S + dims.nb * (dims.m + dims.p)
+    rows_per = D2 + dims.Mw + dims.nbox + dims.nxi + max(dims.nbox, dims.S)
+    for rows in (64, 32, 16, 8, 4):
+        nbytes = 4 * (_op_floats(dims) + rows_per * (rows + 4) + lda)
+        if nbytes <= _SMEM_LIMIT and dims.nbox <= _MAX_NBOX:
+            return rows, nbytes
+    return 0, nbytes
 
 
 def admm_plan(dims: FusedADMMDims) -> Tuple[int, int]:
@@ -629,11 +752,84 @@ def wide_operators(Vop: torch.Tensor, M1: torch.Tensor, M2: torch.Tensor):
         .contiguous() for t in (Vop, M1, M2))
 
 
+def _card(device) -> str:
+    """``device`` named with its index (``"cuda"`` is the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
+def _nonconvex_counters(device) -> torch.Tensor:
+    """The card's NON_CONVEX counters (4 x int64, made zero once)."""
+    key = _card(device)
+    if key not in _NC_COUNTERS:
+        _NC_COUNTERS[key] = torch.zeros(4, dtype=torch.int64, device=device)
+    return _NC_COUNTERS[key]
+
+
+#: K4's NON_CONVEX counters on each card, added to by the launches made
+#: under ``utils.profiling.collect()``.
+_NC_COUNTERS: dict = {}
+NC_COUNTER_NAMES = ("bound_cycles", "kernel_cycles", "bound_active",
+                    "nonconvex_solves")
+
+
+def fused_admm_counters(device=None) -> dict:
+    """K4's NON_CONVEX counters on ``device`` (None: every card), summed
+    over the launches :func:`fused_admm` made under
+    ``utils.profiling.collect()`` (one wait for the card): ``clock64``
+    cycles the warps that own scenarios spent in the bound update
+    (``bound_cycles``) and in all (``kernel_cycles``), and the
+    scenario-solves whose final ``||sigma_pred||_inf`` lies within 1e-4
+    relative of their bound (``bound_active``) of all
+    (``nonconvex_solves``). Launches outside ``collect()`` pass no
+    buffer and count nothing."""
+    total = [0] * len(NC_COUNTER_NAMES)
+    for key, buf in _NC_COUNTERS.items():
+        if device is None or key == _card(device):
+            total = [a + b for a, b in zip(total, buf.tolist())]
+    return dict(zip(NC_COUNTER_NAMES, total))
+
+
+def _launch_nonconvex(lib, ops, dims, carry, W, n_iter, bound, n_outer,
+                      outs):
+    """K4's NON_CONVEX launch (checked by :func:`fused_admm`); returns
+    the library's error code."""
+    if tuple(bound.shape) != (W.shape[0],) or bound.dtype != torch.float32 \
+            or bound.device != carry.s.device or not bound.is_contiguous():
+        raise ValueError(
+            f"bound must be a contiguous float32 ({W.shape[0]},) tensor on "
+            f"{carry.s.device}; got {bound.dtype} {tuple(bound.shape)} on "
+            f"{bound.device}")
+    if n_iter < 1 or n_outer < 1:
+        raise ValueError(f"the NON_CONVEX mode needs n_iter >= 1 and "
+                         f"n_outer >= 1; got {n_iter}, {n_outer}")
+    counters = (_nonconvex_counters(carry.s.device).data_ptr()
+                if profiling.collecting() else None)
+    Bsz, n_blocks, nbp = W.shape
+    args = (
+        ops.Vop.data_ptr(), ops.M1.data_ptr(), ops.M2.data_ptr(),
+        ops.b2.data_ptr(), ops.lo.data_ptr(), ops.hi.data_ptr(),
+        ops.u_lo.data_ptr(), ops.u_hi.data_ptr(),
+        *(c.data_ptr() for c in carry), W.data_ptr(), ops.nc.G.data_ptr(),
+        ops.nc.a_c.data_ptr(), bound.data_ptr(),
+        *(o.data_ptr() for o in outs), counters,
+        Bsz, dims.S, dims.nb * dims.m, nbp, dims.nbox, dims.nxi, n_blocks,
+        int(n_iter), dims.n_alpha, int(n_outer),
+        dims.alpha, 1.0 - dims.alpha, dims.rho, ops.nc.c_eps,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    with span("ddmpc.kernel", True):
+        return lib.fused_admm_nonconvex_launch(*args)
+
+
 def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
                carry: ADMMCarry, W: torch.Tensor, n_iter: int,
-               adds: Optional[torch.Tensor] = None):
+               adds: Optional[torch.Tensor] = None,
+               bound: Optional[torch.Tensor] = None, n_outer: int = 1):
     """The fused ADMM rollout (same contract as
-    :func:`fused_admm_reference`).
+    :func:`fused_admm_reference`, the NON_CONVEX mode included).
 
     CPU tensors run the plain version. CUDA tensors launch kernel K4
     (``csrc/fused_admm.cu``, float32, contiguous): its resident body
@@ -642,17 +838,52 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
     ``fused_admm_wide_kernel`` (K4w) where :func:`admm_wide_plan` does,
     on the operators of :func:`wide_operators`, adding one to
     ``fused_admm.wide_launches``; the launch call alone is the span
-    ``ddmpc.kernel`` (``utils.profiling``). Anything the kernel does
-    not take (dtype, shape, contiguity, operators too large for both
-    plans) raises before the launch; a failed launch raises after it."""
+    ``ddmpc.kernel`` (``utils.profiling``). The NON_CONVEX mode (``ops.nc``
+    set) launches the resident body's NON_CONVEX instantiation at
+    :func:`nonconvex_plan`, adding one to ``fused_admm.launches``, and,
+    under ``utils.profiling.collect()``, adds to the card's counters
+    (:func:`fused_admm_counters`). Anything the kernel does not take
+    (dtype, shape, contiguity, operators too large for both plans or
+    for the NON_CONVEX block, tracking adds in the NON_CONVEX mode)
+    raises before the launch; a failed launch raises after it."""
     if carry.s.device.type == "cpu":
-        return fused_admm_reference(ops, dims, carry, W, n_iter, adds)
+        return fused_admm_reference(ops, dims, carry, W, n_iter, adds,
+                                    bound, n_outer)
     if carry.s.device.type != "cuda":
         raise ValueError(f"no fused ADMM rollout for device "
                          f"{carry.s.device}")
     _check_kernel_inputs(ops, dims, carry, W, adds)
     if n_iter < 0:
         raise ValueError(f"n_iter={n_iter} must be >= 0")
+    if ops.nc is not None:
+        rows, nbytes = nonconvex_plan(dims)
+        if rows == 0 or adds is not None or bound is None:
+            raise ValueError(
+                "the NON_CONVEX mode takes a bound per scenario, no "
+                "tracking adds, and operators that fit its resident block "
+                f"(S={dims.S}, nbox={dims.nbox}, n_alpha={dims.n_alpha}: "
+                f"{nbytes} bytes at 4 scenarios per block, nbox at most "
+                f"{_MAX_NBOX}, against one block's {_SMEM_LIMIT})")
+        from direct_data_driven_mpc_tpu_torch.ops import _kernels
+
+        lib = _kernels.load("fused_admm").lib
+        Bsz, n_blocks, nbp = W.shape
+        kw = dict(dtype=torch.float32, device=carry.s.device)
+        outs = (torch.empty((Bsz, n_blocks, dims.nb * dims.m), **kw),
+                torch.empty((Bsz, n_blocks, nbp), **kw),
+                *(torch.empty((Bsz, n_blocks), **kw) for _ in range(3)),
+                torch.empty((Bsz, dims.S), **kw),
+                *(torch.empty((Bsz, dims.nbox), **kw) for _ in range(2)),
+                *(torch.empty((Bsz, n_blocks), **kw) for _ in range(3)),
+                torch.empty((Bsz,), **kw))
+        with torch.cuda.device(carry.s.device):
+            err = _launch_nonconvex(lib, ops, dims, carry, W, n_iter, bound,
+                                    n_outer, outs)
+        if err != 0:
+            raise RuntimeError(f"fused_admm NON_CONVEX kernel launch "
+                               f"failed: CUDA error {err}")
+        fused_admm.launches += 1
+        return outs
 
     rows, nbytes = admm_plan(dims)
     wide = rows == 0
@@ -725,20 +956,23 @@ def make_fused_admm_rollout(
     n_steps: int,
     n_mpc_step: int = 1,
     iters: Tuple[int, int, int] = (0, 10, 2),
-    cold_iters: int = 24,
+    cold_iters: Optional[int] = None,
     tol: float = 1e-5,
     setpoints=None,
     device=None,
     dtype=torch.float32,
     rollout=fused_admm,
+    outer_iters: int = 4,
+    outer_tol: float = 1e-6,
 ):
     """Build the fused batched ADMM closed-loop rollout.
 
     Args:
         plant: LTI plant matrices (``LTIParams``, the simulated system).
         admm_op: float64 operator dict from ``compute_admm_operator_np``
-            (CONVEX slack) or a single-rung
-            ``compute_box_admm_operator_np`` (fixed rho).
+            (CONVEX slack), a single-rung ``compute_box_admm_operator_np``
+            (fixed rho), or ``qp.nonconvex.compute_nonconvex_operator_np``
+            (NON_CONVEX slack, recognised by its ``c_eps`` and ``A_s``).
         n, m, p: controller model order / input / output dims.
         n_steps: closed-loop length (ragged: the last solve block is
             cut to the remaining steps).
@@ -748,7 +982,10 @@ def make_fused_admm_rollout(
             ``n1 + n3 + n6`` matters. Convergence is reported per solve
             (``converged = (rp <= tol) & (rd <= tol)``), not assumed.
         cold_iters: iterations run before the kernel (plain PyTorch, on
-            the same device) when no warm-start state is given.
+            the same device) when no warm-start state is given; None: 24.
+            The NON_CONVEX mode takes None or 0: its cold start is
+            ``qp.nonconvex.nonconvex_initial_state``'s (zero ADMM state,
+            the bound at ``c eps_max``), as the generic loop's.
         tol: residual tolerance of the ``converged`` lanes.
         setpoints: optional schedule of absolute ``[u_s; y_s]`` rows,
             ``(n_blocks, m + p)`` (one per solve block) or ``(m + p,)``
@@ -760,11 +997,20 @@ def make_fused_admm_rollout(
             card (raises without one); ``"cpu"`` runs the plain version.
         rollout: :func:`fused_admm` (the kernel on CUDA tensors) or
             :func:`fused_admm_reference` (the plain version anywhere).
+        outer_iters, outer_tol: NON_CONVEX only: bound updates per
+            solve, each after ``sum(iters)`` iterations, and the
+            tolerance of the last update's relative step in
+            ``converged``, which follows
+            ``qp.nonconvex.nonconvex_admm_solve``: the inner residuals
+            at ``tol``, the step at ``outer_tol``, and ``max(0,
+            ||sigma_pred||_inf - bound)`` at most ``max(tol, 10 eps (1
+            + bound))`` (eps of float32).
 
     Returns ``run(x0s, u_pasts, y_pasts, Ws, solver_state0=None) ->
     ClosedLoopResult`` with ``solver_state = ADMMState(s, w)`` of shape
-    ``(B, nbox)``; pass it back as ``solver_state0`` to continue a
-    segmented run. Each call is the span ``ddmpc.call``
+    ``(B, nbox)`` (NON_CONVEX: ``NonConvexState(s, w, bound)``, the bound
+    ``(B,)``); pass it back as ``solver_state0`` to continue a segmented
+    run. Each call is the span ``ddmpc.call``
     (``utils.profiling``) holding ``ddmpc.pack`` (the plant window, the
     theta maps of solve 0, the noise, the carry), ``ddmpc.cold_start``
     (without ``solver_state0``), ``ddmpc.rollout`` (the ``rollout``
@@ -779,6 +1025,14 @@ def make_fused_admm_rollout(
     n_blocks = math.ceil(n_steps / nb)
     pad = n_blocks * nb - n_steps
     n_iter = int(sum(iters))
+    nonconvex = ops.nc is not None
+    if nonconvex and cold_iters:
+        raise ValueError(
+            "the NON_CONVEX mode starts from nonconvex_initial_state (no "
+            f"cold iterations); got cold_iters={cold_iters}")
+    if cold_iters is None:
+        cold_iters = 0 if nonconvex else 24
+    feas_floor = 10.0 * torch.finfo(dtype).eps
     adds = None
     if track:
         sp = np.asarray(setpoints, np.float64)
@@ -819,11 +1073,19 @@ def make_fused_admm_rollout(
                 carry0 = [c.contiguous() for c in (s0, pre0, vc0, zth0)]
                 if solver_state0 is not None:
                     state = [c.to(dtype).contiguous() for c in solver_state0]
+                    if len(state) != 2 + nonconvex:
+                        raise ValueError(
+                            f"solver_state0 has {len(state)} tensors; this "
+                            f"engine carries {2 + nonconvex} (s, w"
+                            f"{', bound' if nonconvex else ''})")
             if solver_state0 is None:
                 with span("ddmpc.cold_start", cuda):
                     sa0 = torch.zeros((Bsz, nbox), dtype=dtype,
                                       device=s0.device)
                     wa0 = torch.zeros_like(sa0)
+                    if nonconvex:
+                        bound0 = torch.full((Bsz,), ops.nc.c_eps,
+                                            dtype=dtype, device=s0.device)
                     # Cold start outside the kernel, at the first block's
                     # setpoint (the engine adds block 0's channels itself,
                     # so vc0 passes through unmodified).
@@ -836,21 +1098,36 @@ def make_fused_admm_rollout(
                         wa0 = wa0 + vh - s_new
                         sa0 = s_new
                     state = [sa0.contiguous(), wa0.contiguous()]
-            carry = ADMMCarry(*carry0, *state)
+                    if nonconvex:
+                        state.append(bound0)
+            carry = ADMMCarry(*carry0, *state[:2])
             with span("ddmpc.rollout"):
-                U, Y, C, RP, RD, s_fin, sa, wa = rollout(
-                    ops, dims, carry, W, n_iter, adds
-                )
+                if nonconvex:
+                    (U, Y, C, RP, RD, s_fin, sa, wa, DL, GP, BD,
+                     bd) = rollout(ops, dims, carry, W, n_iter, None,
+                                   bound=state[2], n_outer=outer_iters)
+                else:
+                    U, Y, C, RP, RD, s_fin, sa, wa = rollout(
+                        ops, dims, carry, W, n_iter, adds
+                    )
             with span("ddmpc.result", cuda):
+                converged = (RP <= tol) & (RD <= tol)
+                if nonconvex:
+                    feas = torch.clamp(feas_floor * (1.0 + BD), min=tol)
+                    converged &= (DL <= outer_tol) & (
+                        torch.clamp(GP, min=0.0) <= feas)
+                    solver_state = NonConvexState(s=sa, w=wa, bound=bd)
+                else:
+                    solver_state = ADMMState(s=sa, w=wa)
                 return ClosedLoopResult(
                     u_sys=U.reshape(Bsz, -1, dims.m)[:, :n_steps],
                     y_sys=Y.reshape(Bsz, -1, dims.p)[:, :n_steps],
                     costs=C,
-                    converged=(RP <= tol) & (RD <= tol),
+                    converged=converged,
                     x_final=s_fin[:, :ns],
                     u_past=s_fin[:, ns : ns + n * m].reshape(Bsz, n, m),
                     y_past=s_fin[:, ns + n * m :].reshape(Bsz, n, p),
-                    solver_state=ADMMState(s=sa, w=wa),
+                    solver_state=solver_state,
                 )
 
     return run

@@ -13,6 +13,9 @@
   the card, the card's milliseconds between two CUDA events on the
   current stream, read when the block ends). :func:`summarize` gives
   the median milliseconds by name.
+- :func:`collecting` -- whether a :func:`collect` block is open, for
+  the counters a kernel fills only then (K4's NON_CONVEX mode:
+  ``ops.fused_admm.fused_admm_counters``).
 - :func:`trace` -- context manager around ``torch.profiler`` (the host
   and, where there is a card, its CUDA activity) that writes a Chrome
   trace, viewable in Perfetto or ``chrome://tracing``. While any
@@ -197,6 +200,12 @@ def collect():
             if kept.end_ns:
                 end.synchronize()
                 kept.device_ms = start.elapsed_time(end)
+
+
+def collecting() -> bool:
+    """Whether a :func:`collect` block is open: the kernels' wrappers fill
+    their device counters only then, so a timed call does no extra work."""
+    return _record is not None
 
 
 def summarize(spans: List[Span]) -> Dict[str, Dict[str, float]]:

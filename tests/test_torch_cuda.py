@@ -827,6 +827,90 @@ def test_admm_plan_matches_library(cuda):
                     nbytes if rows else 0), sizes
 
 
+def _nonconvex_case(c, cuda, batch=8192 - 13, n_steps=30):
+    """The four-tank controller of ``chip_smoke.build_four_tank_robust``
+    with the NON_CONVEX slack at ``c``, its Eq. 6d operator (rho 2000,
+    alpha 1.6, as ``four_tank_nonconvex``) and the bit-equality inputs."""
+    from chip_smoke import build_four_tank_robust
+    from direct_data_driven_mpc_tpu_torch.qp.nonconvex import (
+        compute_nonconvex_operator_np,
+    )
+
+    plant, ctrl = build_four_tank_robust(slack="NON_CONVEX", c=c,
+                                         allow_nonconvex_slack=True)
+    op = compute_nonconvex_operator_np(ctrl.spec, rho=2000.0, alpha=1.6)
+    ins = _bit_equal_inputs(ctrl, plant.get_state(), batch, n_steps, cuda)
+    return plant.as_params(), op, ins
+
+
+@pytest.mark.parametrize("c", [0.005, 1.0])
+def test_admm_nonconvex_kernel_bit_equal_to_plain_version(cuda, c):
+    """K4's NON_CONVEX mode (4 bound updates x 16 iterations) is
+    bit-equal to its plain version on a ragged batch of 8179, where
+    cuBLAS sums the plain version's products as one chain: u, y, the
+    final windows, s, w, the final bound and every converged flag equal
+    (the 1-norm is summed in the kernel's order,
+    ``fused_admm.alpha_l1``); costs at rtol 1e-3 / atol 1e-5. At c =
+    0.005 the bound binds in some solves, at c = 1 in none."""
+    plant, op, ins = _nonconvex_case(c, cuda)
+    kw = dict(iters=(16,), tol=1e-5, device=cuda)
+    args = (plant, op, 4, 2, 2, ins[3].shape[1])
+    before = fa.fused_admm.launches
+    got = fa.make_fused_admm_rollout(*args, **kw)(*ins)
+    torch.cuda.synchronize()
+    assert fa.fused_admm.launches == before + 1
+    want = fa.make_fused_admm_rollout(
+        *args, rollout=fa.fused_admm_reference, **kw)(*ins)
+    _assert_bit_equal(got, want)
+    assert bool(got.converged.all())
+
+
+def test_admm_nonconvex_plan_and_counters(cuda):
+    """``nonconvex_plan`` mirrors the library's (at four-tank 64
+    scenarios, 112,640 bytes, two blocks per SM, at most 128 registers a
+    thread); the counters count only under
+    ``profiling.collect()``: every scenario-solve once, some with the
+    bound active at c = 0.005, the bound update's cycles a part of the
+    kernel's."""
+    import ctypes
+
+    from direct_data_driven_mpc_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("fused_admm").lib
+    plant, op, ins = _nonconvex_case(0.005, cuda, batch=1000, n_steps=20)
+    ops, dims = fa.build_fused_admm_operator(plant, op, 4, 2, 2,
+                                             device=cuda)
+    sizes = (dims.S, 2, 2, dims.nbox, dims.nxi, dims.n_alpha)
+    assert fa.nonconvex_plan(dims) == (64, 112640)
+    assert lib.fused_admm_nonconvex_tile_rows(*sizes) == 64
+    assert lib.fused_admm_nonconvex_smem_bytes(*sizes) == 112640
+    assert lib.fused_admm_nonconvex_blocks_per_sm(*sizes) == 2
+    for nbox in range(4, 200, 8):  # the plan at other boxes too
+        d = dims._replace(nbox=nbox, nxi=dims.n_theta + nbox,
+                          W2=dims.D2 + 1 + nbox + dims.n_theta + nbox)
+        rows, nbytes = fa.nonconvex_plan(d)
+        got = (dims.S, 2, 2, nbox, d.nxi, dims.n_alpha)
+        assert lib.fused_admm_nonconvex_tile_rows(*got) == rows
+        assert lib.fused_admm_nonconvex_smem_bytes(*got) == (
+            nbytes if rows else 0)
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    assert lib.fused_admm_nonconvex_kernel_attributes(
+        60, ctypes.byref(regs), ctypes.byref(local)) == 0
+    assert 0 < regs.value <= 128
+    run = fa.make_fused_admm_rollout(plant, op, 4, 2, 2, 20, iters=(16,),
+                                     device=cuda)
+    before = fa.fused_admm_counters(cuda)
+    run(*ins)
+    assert fa.fused_admm_counters(cuda) == before
+    with profiling.collect():
+        run(*ins)
+    after = fa.fused_admm_counters(cuda)
+    d = {k: after[k] - before[k] for k in after}
+    assert d["nonconvex_solves"] == 1000 * 20
+    assert 0 < d["bound_active"] < d["nonconvex_solves"]
+    assert 0 < d["bound_cycles"] < d["kernel_cycles"]
+
+
 def test_ladder_kernel_two_blocks_per_sm(cuda):
     """At four_tank_ladder the K5 block (100,736 bytes, at most 128
     registers a thread) leaves room for two per SM."""
