@@ -47,7 +47,10 @@ Then the fused ADMM closed loop of ``bench.py``'s ``four_tank_convex``
     ``four_tank_box`` (|u| <= 0.85 checked too), the 4-phase setpoint
     schedule, ``n_mpc_step = 4``, a ragged batch, a segmented run
     (two halves through ``solver_state0``, against the uninterrupted
-    one), L = 15 (nbox 30) and L = 60 (nbox 120, N = 800);
+    one), L = 15 (nbox 30) and L = 60 (nbox 120, N = 800), and
+    ``four_tank_convex`` at B = 4096, where the plan takes the
+    half-height tile (32 scenarios a block; the launch counted in
+    ``fused_admm.small_tile_launches``);
 12. timing: solves/s of the kernel and the plain version, in turns.
 
 Then the adaptive penalty ladder of ``bench.py``'s ``four_tank_ladder``
@@ -941,14 +944,15 @@ def admm_phases(dev, smi) -> dict:
     sizes = (dims.S, dims.nb * dims.m, dims.nb * dims.p, dims.nbox,
              dims.nxi)
     lib = _kernels.load("fused_admm").lib
-    tile = lib.fused_admm_tile_rows(*sizes)
-    smem = lib.fused_admm_smem_bytes(*sizes)
-    if (tile, smem) != fa.admm_plan(dims):
+    tile = lib.fused_admm_tile_rows(*sizes, B_ADMM)
+    smem = lib.fused_admm_smem_bytes(*sizes, B_ADMM)
+    plan = fa.admm_plan(dims, B_ADMM, fa.sm_count(dev))
+    if (tile, smem) != plan:
         raise AssertionError(f"K4 plan: library ({tile}, {smem}) vs Python "
-                             f"{fa.admm_plan(dims)}")
-    per_sm = lib.fused_admm_blocks_per_sm(*sizes)
+                             f"{plan}")
+    per_sm = lib.fused_admm_blocks_per_sm(*sizes, B_ADMM)
     regs, local = ctypes.c_int(), ctypes.c_int()
-    err = lib.fused_admm_kernel_attributes(dims.nbox, ctypes.byref(regs),
+    err = lib.fused_admm_kernel_attributes(dims.nbox, 8, ctypes.byref(regs),
                                            ctypes.byref(local))
     if per_sm < 1 or err:
         raise AssertionError(f"K4 occupancy {per_sm}, attributes error "
@@ -1084,6 +1088,23 @@ def admm_phases(dev, smi) -> dict:
         n_box = op_v["v_c"].shape[0]
         variant(f"{name} (nbox {n_box}) B=4096",
                 rollouts(p_v, c_v, op_v, **kw_v), inputs(p_v, c_v, 4096))
+    # four_tank_convex at 4096 x 400 (the benchmark's convex.b4096 cell):
+    # a batch too small for 64-scenario blocks to fill the card, so K4
+    # runs its half-height tile.
+    B_s, sms = 4096, fa.sm_count(dev)
+    small = (fa.admm_plan(dims, B_s, sms)[0],
+             lib.fused_admm_tile_rows(*sizes, B_s))
+    if small != (fa.SMALL_TILE, fa.SMALL_TILE):
+        raise AssertionError(f"K4 plan at B={B_s} on {sms} SMs: (Python, "
+                             f"library) {small} scenarios a block, "
+                             f"expected {fa.SMALL_TILE}")
+    before = fa.fused_admm.small_tile_launches
+    variant(f"four_tank_convex half-height tile ({fa.SMALL_TILE} scenarios "
+            f"a block) B={B_s}", (run_k, run_p), tuple(a[:B_s] for a in ins))
+    if fa.fused_admm.small_tile_launches != before + 1:
+        raise AssertionError(f"four_tank_convex B={B_s}: "
+                             f"{fa.fused_admm.small_tile_launches - before} "
+                             "launches on the half-height tile, expected 1")
 
     # 12. Timing at the main shape, in turns.
     solves = B_ADMM * T_ADMM

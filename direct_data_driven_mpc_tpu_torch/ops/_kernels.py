@@ -45,14 +45,14 @@ _SIGNATURES = {
         ),
     },
     "fused_admm": {
-        "fused_admm_tile_rows": ([_I] * 5, ctypes.c_int),
-        "fused_admm_smem_bytes": ([_I] * 5, ctypes.c_int),
+        "fused_admm_tile_rows": ([_I] * 6, ctypes.c_int),
+        "fused_admm_smem_bytes": ([_I] * 6, ctypes.c_int),
         "fused_admm_launch": (
             [_P] * 24 + [_I] * 8 + [_F] * 3 + [_P], ctypes.c_int
         ),
-        "fused_admm_blocks_per_sm": ([_I] * 5, ctypes.c_int),
+        "fused_admm_blocks_per_sm": ([_I] * 6, ctypes.c_int),
         "fused_admm_kernel_attributes": (
-            [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)], ctypes.c_int
+            [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)], ctypes.c_int
         ),
         "fused_admm_nonconvex_tile_rows": ([_I] * 6, ctypes.c_int),
         "fused_admm_nonconvex_smem_bytes": ([_I] * 6, ctypes.c_int),

@@ -39,7 +39,8 @@
 // FMA-bound, unless each SM runs many warps and nothing stalls them all
 // at once. So both kernels share one body (admm_rollout):
 // - Warp-owned scenarios. Warp k owns the block's scenarios 8k .. 8k+7
-//   for the whole rollout; lane l takes rows 4 (l >> 4) .. +3 of them
+//   for the whole rollout (4k .. 4k+3 in K4's half-height tile, below);
+//   lane l takes rows 4 (l >> 4) .. +3 of them (2 (l >> 4) .. +1)
 //   and columns 4 (l & 15) + 64 j .. +3, for j < NT = ceil(nbox / 64).
 //   The d = s - w slab is scenario-minor, so a warp reads and writes
 //   only its own columns of it: the iteration loop needs no block
@@ -73,6 +74,20 @@
 // from the extraction until the next solve stores d from the registers
 // again. Its tracking adds go to pre and zth before the barrier that
 // precedes the extraction, and to vc as it enters the registers.
+// Where a grid of 32-scenario blocks would put at most one block on
+// each SM (ceil(B / 32) <= SMs: B <= 4224 on a 132-SM H100), K4 halves
+// its 64-scenario tile: 32 scenarios a block on the same 8 warps, 4 a
+// warp, a lane holding 2 rows of the same 4 columns (RL = 2 rows a
+// lane), so the grid has twice the blocks and reaches twice the SMs.
+// Measured on an H100 at four_tank_convex x 400 steps (K4 alone, ms, the
+// 64 tile against the 32): 18.0 / 12.0 at B = 4096, 18.0 / 18.6 at 8192
+// (where some SMs hold two 32-blocks), 28.4 / 30.2 at 12288, 28.4 / 37.1
+// at 16384. A lane keeps its column group and its row group of 16
+// lanes, so every product, maximum and sum is taken in the same order:
+// the half-height tile gives the same bits. The tile depends only on B
+// and the card. K5 keeps 4 rows a lane at every B (its block is its rung
+// group, part of its result), and so does K4's NON_CONVEX mode (its
+// alpha_l1 is written for 4 rows).
 //
 // K4's NON_CONVEX mode (fused_admm_nonconvex_kernel) runs the paper's
 // Eq. 6d, ||sigma_pred||_inf <= c eps (1 + ||alpha||_1), as the
@@ -423,14 +438,43 @@ __device__ __forceinline__ void plant_step(const float* M2, const float* b2,
 }
 
 // ---------------------------------------------------------------------
-// The rollout body of both kernels. A warp owns WARP_ROWS scenarios of
-// the block; lane l owns rows r0 = WARP_ROWS warp + 4 (l >> 4) .. r0 + 3
+// The rollout body of both kernels. A lane owns RL rows (4, or 2 in K4's
+// half-height tile), a warp WARP_ROWS = 2 RL scenarios of the block;
+// lane l owns rows r0 = WARP_ROWS warp + RL (l >> 4) .. r0 + RL - 1
 // and, for j < NT, columns 4 (l & 15) + 64 j .. + 3 of v, s and w.
 // Register arrays are [tile j][column c][row r].
 
 constexpr int WARPS = THREADS / 32;
-constexpr int WARP_ROWS = 8;
 constexpr unsigned FULL = 0xffffffffu;
+// K4's half-height tile: scenarios a block, rows a lane.
+constexpr int SMALL_TB = 32;
+constexpr int SMALL_RL = 2;
+
+// RL consecutive floats of a scenario-minor row (16- or 8-byte aligned)
+// in one load or store.
+template <int RL>
+__device__ __forceinline__ void ld_rows(const float* p, float (&v)[RL]) {
+  static_assert(RL == 4 || RL == 2, "a lane holds 4 or 2 rows");
+  if constexpr (RL == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  } else {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x;
+    v[1] = a.y;
+  }
+}
+
+template <int RL>
+__device__ __forceinline__ void st_rows(float* p, const float (&v)[RL]) {
+  if constexpr (RL == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
 
 // A block's shared-memory floats: the operators (K5: one rung's), the
 // carry rows xin, pre, vc, zth and d = s - w (s and w live in
@@ -530,21 +574,29 @@ __device__ __forceinline__ void alpha_l1(const float* th, const float* dcol,
 // output over k = 0 .. nbox-1 from zero, as tile_product sums it. dcol is
 // d + r0; oc[j] is clamped inside the row, so a lane past nbox reads
 // valid memory and its sums are discarded.
-template <int NT>
+template <int NT, int RL>
 __device__ __forceinline__ void warp_product(const float* dcol, int LDS,
                                              const float* Vop, int ldv,
                                              int nbox, const int (&oc)[NT],
-                                             float (&acc)[NT][4][4]) {
+                                             float (&acc)[NT][4][RL]) {
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[j][c][r] = 0.f;
+      for (int r = 0; r < RL; ++r) acc[j][c][r] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < nbox; ++k) {
-    const float4 a4 = ld4(dcol + k * LDS);
-    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+    float av[RL];
+    if constexpr (RL == 4) {
+      const float4 a4 = ld4(dcol + k * LDS);
+      av[0] = a4.x;
+      av[1] = a4.y;
+      av[2] = a4.z;
+      av[3] = a4.w;
+    } else {
+      ld_rows<RL>(dcol + k * LDS, av);
+    }
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const float4 o4 = ld4(Vop + k * ldv + oc[j]);
@@ -552,7 +604,7 @@ __device__ __forceinline__ void warp_product(const float* dcol, int LDS,
 #pragma unroll
       for (int c = 0; c < 4; ++c)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < RL; ++r)
           acc[j][c][r] = fmaf(av[r], ov[c], acc[j][c][r]);
     }
   }
@@ -565,10 +617,17 @@ __device__ __forceinline__ void warp_product(const float* dcol, int LDS,
 // of n_iter iterations, each followed by the bound update
 //   bound = c_eps (1 + ||a_c + [theta; t] G||_1),  t = s - w
 // (alpha_l1), then sigma_pred = t @ Vop + vc, whose max |.| less the
-// bound judges the final iterate's feasibility.
-template <int NT, bool LADDER, bool NC = false>
+// bound judges the final iterate's feasibility. RL: rows a lane (2 only
+// in K4's half-height tile). Where a statement differs by RL, the RL = 4
+// branch keeps the 4-row body's own statements: written through the RL
+// helpers, nvcc compiled the NON_CONVEX instantiation into other code
+// (more spills, 5 % slower on an H100, its clock64 reads around the bound
+// update folded together).
+template <int NT, bool LADDER, bool NC = false, int RL = 4>
 __device__ __forceinline__ void admm_rollout(const Params& P,
                                              const Shape& d) {
+  static_assert(RL == 4 || (!LADDER && !NC), "K5 and NON_CONVEX: 4 rows");
+  constexpr int WARP_ROWS = 2 * RL;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int LDS = d.LDS, TB = d.TB;
@@ -596,10 +655,10 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
   float* part = dbuf + nbox * LDS;    // K5: (WARPS, 4): max rp, rd, |s|, |w|
   float* acs = dbuf + max(nbox, S) * LDS;  // NC: a_c (lda)
 
-  // The lane's share, rows lr0 .. lr0 + 3: warp-uniform `owner`,
+  // The lane's share, rows lr0 .. lr0 + RL - 1: warp-uniform `owner`,
   // lane-level `mine`.
   const bool owner = WARP_ROWS * warp < TB;
-  const int lr0 = WARP_ROWS * warp + 4 * (lane >> 4);
+  const int lr0 = WARP_ROWS * warp + RL * (lane >> 4);
   const bool mine = owner && lr0 < TB;
   const int cg = lane & 15;
   int oc[NT];  // the product's column offsets, clamped inside the row
@@ -626,10 +685,10 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
   load_carry(zth, P.zth0, nxi, row0, d);
   if (NC) load_op(acs, P.a_c, 1, d.lda, d.lda);
   // NC: each row's bound, and the counters' cycles and counts.
-  float bnd[4] = {0.f, 0.f, 0.f, 0.f};
+  float bnd[RL] = {};
   if (NC) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < RL; ++r) {
       const int b = row0 + lr0 + r;
       bnd[r] = mine && b < d.B ? P.bd0[b] : 0.f;
     }
@@ -639,13 +698,13 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
   long long cyc_bound = 0;
   unsigned long long n_active = 0;
   // s and w into the owning lanes' registers (zero past B and nbox).
-  float s[NT][4][4], w[NT][4][4];
+  float s[NT][4][RL], w[NT][4][RL];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < RL; ++r) {
         const int col = col_of(j, c), b = row0 + lr0 + r;
         const bool ok = mine && col < nbox && b < d.B;
         const size_t o = (size_t)b * nbox + col;
@@ -670,12 +729,20 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = col_of(j, c);
-        if (col < nbox)
-          *reinterpret_cast<float4*>(drow + col * LDS) = make_float4(
-              __fsub_rn(s[j][c][0], w[j][c][0]),
-              __fsub_rn(s[j][c][1], w[j][c][1]),
-              __fsub_rn(s[j][c][2], w[j][c][2]),
-              __fsub_rn(s[j][c][3], w[j][c][3]));
+        if constexpr (RL == 4) {
+          if (col < nbox)
+            *reinterpret_cast<float4*>(drow + col * LDS) = make_float4(
+                __fsub_rn(s[j][c][0], w[j][c][0]),
+                __fsub_rn(s[j][c][1], w[j][c][1]),
+                __fsub_rn(s[j][c][2], w[j][c][2]),
+                __fsub_rn(s[j][c][3], w[j][c][3]));
+        } else if (col < nbox) {
+          float dv[RL];
+#pragma unroll
+          for (int r = 0; r < RL; ++r)
+            dv[r] = __fsub_rn(s[j][c][r], w[j][c][r]);
+          st_rows<RL>(drow + col * LDS, dv);
+        }
       }
   };
   if (LADDER) store_d();
@@ -714,36 +781,51 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
 
     // ADMM iterations, each warp on its own scenarios, no block barrier.
     // rpm, rdm: the last iteration's residual maxima per row.
-    float rpm[4] = {0.f, 0.f, 0.f, 0.f}, rdm[4] = {0.f, 0.f, 0.f, 0.f};
+    float rpm[RL] = {}, rdm[RL] = {};
     // NC: the last bound update's relative step, max |sigma_pred| less
     // the bound.
-    float dl[4] = {0.f, 0.f, 0.f, 0.f}, gp[4] = {0.f, 0.f, 0.f, 0.f};
+    float dl[RL] = {}, gp[RL] = {};
     if (owner) {
-      float vcr[NT][4][4];
+      float vcr[NT][4][RL];
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int col = col_of(j, c);
-          float4 v4 = mine && col < nbox ? ld4(vc + col * LDS + lr0)
-                                         : make_float4(0.f, 0.f, 0.f, 0.f);
-          if (!LADDER && add != nullptr && mine && col < nbox) {
-            const float a = add[Mw + col];
-            v4 = make_float4(__fadd_rn(v4.x, a), __fadd_rn(v4.y, a),
-                             __fadd_rn(v4.z, a), __fadd_rn(v4.w, a));
+          float (&v)[RL] = vcr[j][c];
+          if constexpr (RL == 4) {
+            float4 v4 = mine && col < nbox ? ld4(vc + col * LDS + lr0)
+                                           : make_float4(0.f, 0.f, 0.f, 0.f);
+            if (!LADDER && add != nullptr && mine && col < nbox) {
+              const float a = add[Mw + col];
+              v4 = make_float4(__fadd_rn(v4.x, a), __fadd_rn(v4.y, a),
+                               __fadd_rn(v4.z, a), __fadd_rn(v4.w, a));
+            }
+            v[0] = v4.x;
+            v[1] = v4.y;
+            v[2] = v4.z;
+            v[3] = v4.w;
+          } else {
+            if (mine && col < nbox) {
+              ld_rows<RL>(vc + col * LDS + lr0, v);
+            } else {
+#pragma unroll
+              for (int r = 0; r < RL; ++r) v[r] = 0.f;
+            }
+            if (!LADDER && add != nullptr && mine && col < nbox) {
+              const float a = add[Mw + col];
+#pragma unroll
+              for (int r = 0; r < RL; ++r) v[r] = __fadd_rn(v[r], a);
+            }
           }
-          vcr[j][c][0] = v4.x;
-          vcr[j][c][1] = v4.y;
-          vcr[j][c][2] = v4.z;
-          vcr[j][c][3] = v4.w;
         }
       const int n_out = NC ? d.n_outer : 1;
       for (int o = 0; o < n_out; ++o) {
       for (int it = 0; it < d.n_iter; ++it) {
         const bool last = it == d.n_iter - 1 && o == n_out - 1;
-        float acc[NT][4][4];
+        float acc[NT][4][RL];
         __syncwarp();  // the warp's d writes are in
-        warp_product<NT>(drow, LDS, Vop, d.ldv, nbox, oc, acc);
+        warp_product<NT, RL>(drow, LDS, Vop, d.ldv, nbox, oc, acc);
         __syncwarp();  // every lane has read d
         if (!mine) continue;
 #pragma unroll
@@ -752,9 +834,9 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
           for (int c = 0; c < 4; ++c) {
             const int col = col_of(j, c);
             if (col >= nbox) continue;
-            float dnv[4];
+            float dnv[RL];
 #pragma unroll
-            for (int r = 0; r < 4; ++r) {
+            for (int r = 0; r < RL; ++r) {
               const float v = __fadd_rn(acc[j][c][r], vcr[j][c][r]);
               const float sv = s[j][c][r], wv = w[j][c][r];
               const float vh =
@@ -771,8 +853,11 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
               s[j][c][r] = sn;
               w[j][c][r] = wn;
             }
-            *reinterpret_cast<float4*>(drow + col * LDS) =
-                make_float4(dnv[0], dnv[1], dnv[2], dnv[3]);
+            if constexpr (RL == 4)
+              *reinterpret_cast<float4*>(drow + col * LDS) =
+                  make_float4(dnv[0], dnv[1], dnv[2], dnv[3]);
+            else
+              st_rows<RL>(drow + col * LDS, dnv);
           }
       }
       if (NC) {  // the bound update, on the d the iterations left
@@ -782,7 +867,7 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
         alpha_l1(xin + (S - d.nth) * LDS + lr0, drow, LDS, P.G, acs, d, cg,
                  l1);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
+        for (int r = 0; r < RL; ++r) {
           const float bn = __fmul_rn(P.c_eps, __fadd_rn(1.f, l1[r]));
           dl[r] = __fdiv_rn(fabsf(__fsub_rn(bn, bnd[r])),
                             __fadd_rn(P.c_eps, bn));
@@ -792,21 +877,21 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
       }
       }
       if (NC) {  // sigma_pred of the final t, against the final bound
-        float acc[NT][4][4];
-        warp_product<NT>(drow, LDS, Vop, d.ldv, nbox, oc, acc);
-        float sig[4] = {0.f, 0.f, 0.f, 0.f};
+        float acc[NT][4][RL];
+        warp_product<NT, RL>(drow, LDS, Vop, d.ldv, nbox, oc, acc);
+        float sig[RL] = {};
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             if (col_of(j, c) >= nbox) continue;
 #pragma unroll
-            for (int r = 0; r < 4; ++r)
+            for (int r = 0; r < RL; ++r)
               sig[r] = nan_max(sig[r],
                                fabsf(__fadd_rn(acc[j][c][r], vcr[j][c][r])));
           }
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < RL; ++r)
           gp[r] = __fsub_rn(row_group_max(sig[r]), bnd[r]);
       }
       // Per row: the residuals (and, for K5 or when n_iter = 0, max |s|;
@@ -814,21 +899,21 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
       // K5 then takes the warp's maxima over its rows before B, as one
       // slot of the group maxima.
       const bool need_smag = LADDER || d.n_iter == 0;
-      float smag[4] = {0.f, 0.f, 0.f, 0.f}, wmag[4] = {0.f, 0.f, 0.f, 0.f};
+      float smag[RL] = {}, wmag[RL] = {};
       if (need_smag) {
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int c = 0; c < 4; ++c)
 #pragma unroll
-            for (int r = 0; r < 4; ++r) {  // zero past nbox and TB
+            for (int r = 0; r < RL; ++r) {  // zero past nbox and TB
               smag[r] = nan_max(smag[r], fabsf(s[j][c][r]));
               if (LADDER) wmag[r] = nan_max(wmag[r], fabsf(w[j][c][r]));
             }
       }
       float g[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < RL; ++r) {
         if (need_smag) smag[r] = row_group_max(smag[r]);
         if (LADDER) wmag[r] = row_group_max(wmag[r]);
         if (d.n_iter == 0) {  // v_last = s_prev = 0: both are max |s|
@@ -864,16 +949,23 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
     // Cost and residuals of the warp's scenarios: each lane sums every
     // 16th z^2 of its rows, the row group sums the 16 partial sums.
     if (owner) {
-      float cs[4] = {0.f, 0.f, 0.f, 0.f};
+      float cs[RL] = {};
       for (int j = cg; mine && j < nxi; j += 16) {
-        const float4 z4 = ld4(zth + j * LDS + lr0);
-        cs[0] = __fadd_rn(cs[0], z4.x);
-        cs[1] = __fadd_rn(cs[1], z4.y);
-        cs[2] = __fadd_rn(cs[2], z4.z);
-        cs[3] = __fadd_rn(cs[3], z4.w);
+        if constexpr (RL == 4) {
+          const float4 z4 = ld4(zth + j * LDS + lr0);
+          cs[0] = __fadd_rn(cs[0], z4.x);
+          cs[1] = __fadd_rn(cs[1], z4.y);
+          cs[2] = __fadd_rn(cs[2], z4.z);
+          cs[3] = __fadd_rn(cs[3], z4.w);
+        } else {
+          float z[RL];
+          ld_rows<RL>(zth + j * LDS + lr0, z);
+#pragma unroll
+          for (int r = 0; r < RL; ++r) cs[r] = __fadd_rn(cs[r], z[r]);
+        }
       }
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < RL; ++r) {
 #pragma unroll
         for (int off = 8; off >= 1; off >>= 1)
           cs[r] = __fadd_rn(cs[r], __shfl_xor_sync(FULL, cs[r], off));
@@ -911,7 +1003,7 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
       const int rn = ri + (int)up - (int)down;
       if (mine) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
+        for (int r = 0; r < RL; ++r) {
           const int b = row0 + lr0 + r;
           if (cg == r && b < d.B) P.RUNG[(size_t)b * d.n_blocks + t] = rn;
         }
@@ -925,7 +1017,7 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
 #pragma unroll
           for (int c = 0; c < 4; ++c)
 #pragma unroll
-            for (int r = 0; r < 4; ++r) w[j][c][r] = __fmul_rn(w[j][c][r], fac);
+            for (int r = 0; r < RL; ++r) w[j][c][r] = __fmul_rn(w[j][c][r], fac);
         store_d();
         load_rung(Vop, M1, M2, b2, P, d, rn);
         ri = rn;
@@ -942,9 +1034,16 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
     } else if (mine) {
       // K4: each warp moves its own scenarios' snext out of d, so the
       // next solve may store d over it after a __syncwarp.
-      for (int i = cg; i < S; i += 16)
-        *reinterpret_cast<float4*>(xin + i * LDS + lr0) =
-            ld4(snext + i * LDS + lr0);
+      for (int i = cg; i < S; i += 16) {
+        if constexpr (RL == 4) {
+          *reinterpret_cast<float4*>(xin + i * LDS + lr0) =
+              ld4(snext + i * LDS + lr0);
+        } else {
+          float v[RL];
+          ld_rows<RL>(snext + i * LDS + lr0, v);
+          st_rows<RL>(xin + i * LDS + lr0, v);
+        }
+      }
     }
     // The barrier after the next solve's iterations orders this copy
     // before M2 reads xin again.
@@ -956,7 +1055,7 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
 #pragma unroll
     for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < RL; ++r) {
         const int col = col_of(j, c), b = row0 + lr0 + r;
         if (mine && col < nbox && b < d.B) {
           P.sa_fin[(size_t)b * nbox + col] = s[j][c][r];
@@ -965,7 +1064,7 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
       }
   if (NC) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < RL; ++r) {
       const int b = row0 + lr0 + r;
       if (mine && cg == r && b < d.B) P.bd_fin[b] = bnd[r];
     }
@@ -986,11 +1085,12 @@ __device__ __forceinline__ void admm_rollout(const Params& P,
   }
 }
 
-// At NT = 1, two blocks share an SM: at most 128 registers a thread.
-template <int NT>
+// At NT = 1, two blocks share an SM: at most 128 registers a thread. RL:
+// rows a lane (4, or SMALL_RL in the half-height tile).
+template <int NT, int RL>
 __global__ void __launch_bounds__(THREADS, NT == 1 ? 2 : 1)
 fused_admm_kernel(const Params P, const Shape d) {
-  admm_rollout<NT, false>(P, d);
+  admm_rollout<NT, false, false, RL>(P, d);
 }
 
 template <int NT>
@@ -1008,15 +1108,24 @@ fused_admm_nonconvex_kernel(const Params P, const Shape d) {
 
 using RolloutKernel = void (*)(const Params, const Shape);
 
-// The instantiation for nbox box lanes (NT = ceil(nbox / 64) column tiles
-// per lane), or null beyond three.
+// K4's instantiation for nbox box lanes (NT = ceil(nbox / 64) column
+// tiles per lane) at RL rows a lane, or null beyond three.
+template <int RL>
+RolloutKernel admm_kernel_for(int nbox) {
+  if (nbox <= 64) return fused_admm_kernel<1, RL>;
+  if (nbox <= 128) return fused_admm_kernel<2, RL>;
+  if (nbox <= 192) return fused_admm_kernel<3, RL>;
+  return nullptr;
+}
+
+// The instantiation for nbox box lanes (K4's at 4 rows a lane), or null
+// beyond three column tiles.
 template <bool LADDER>
 RolloutKernel kernel_for(int nbox) {
-  if (nbox <= 64) return LADDER ? fused_ladder_kernel<1> : fused_admm_kernel<1>;
-  if (nbox <= 128)
-    return LADDER ? fused_ladder_kernel<2> : fused_admm_kernel<2>;
-  if (nbox <= 192)
-    return LADDER ? fused_ladder_kernel<3> : fused_admm_kernel<3>;
+  if (!LADDER) return admm_kernel_for<4>(nbox);
+  if (nbox <= 64) return fused_ladder_kernel<1>;
+  if (nbox <= 128) return fused_ladder_kernel<2>;
+  if (nbox <= 192) return fused_ladder_kernel<3>;
   return nullptr;
 }
 
@@ -1031,18 +1140,63 @@ cudaError_t prepare(RolloutKernel kernel, size_t smem) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
+// Blocks of `kernel` resident per SM with `bytes` of dynamic shared
+// memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), 0 without a
+// kernel, or minus a CUDA error.
+int occupancy(RolloutKernel kernel, size_t bytes) {
+  if (kernel == nullptr) return 0;
+  cudaError_t err = prepare(kernel, bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        THREADS, bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// The current device's SMs (cudaDevAttrMultiProcessorCount), read once
+// per device; 0 where it cannot be read.
+int sm_count() {
+  static int counts[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    counts[dev] = 0;
+  return counts[dev];
+}
+
 constexpr int TILES[] = {64, 32, 16, 8, 4};
 
-// K4's scenarios per block: the largest of TILES whose block fits in
-// shared memory (the most warps owning scenarios), or 0 when none fits
-// or nbox is above 192.
-int admm_tile_rows(int S, int nbm, int nbp, int nbox, int nxi) {
-  if (kernel_for<false>(nbox) == nullptr) return 0;
-  for (int TB : TILES)
-    if (kernel_smem_bytes<false>(make_shape(S, nbm, nbp, nbox, nxi, TB)) <=
+// K4's tile: TB scenarios a block (0: none fits), RL rows a lane.
+struct AdmmTile {
+  int TB, RL;
+};
+
+// K4's tile for a batch of B scenarios (B < 1: a batch that fills the
+// card): the largest of TILES whose block fits in shared memory (the
+// most warps owning scenarios), 4 rows a lane, or none when no tile fits
+// or nbox is above 192; where that is 64 scenarios and a grid of
+// SMALL_TB-scenario blocks would put at most one on each SM of the
+// current device, the half-height tile: SMALL_TB scenarios, SMALL_RL
+// rows a lane, twice the blocks on the same 8 warps each.
+AdmmTile admm_tile(int S, int nbm, int nbp, int nbox, int nxi, int B) {
+  if (kernel_for<false>(nbox) == nullptr) return {0, 4};
+  for (int TB : TILES) {
+    if (kernel_smem_bytes<false>(make_shape(S, nbm, nbp, nbox, nxi, TB)) >
         SMEM_LIMIT)
-      return TB;
-  return 0;
+      continue;
+    if (TB == 64 && B > 0 &&
+        ((long long)B + SMALL_TB - 1) / SMALL_TB <= sm_count())
+      return {SMALL_TB, SMALL_RL};
+    return {TB, 4};
+  }
+  return {0, 4};
+}
+
+RolloutKernel admm_kernel(const AdmmTile& tile, int nbox) {
+  return tile.RL == SMALL_RL ? admm_kernel_for<SMALL_RL>(nbox)
+                             : admm_kernel_for<4>(nbox);
 }
 
 // K5's rung group: the largest of TILES whose group rule fits, or 0.
@@ -1088,11 +1242,12 @@ int nonconvex_tile_rows(int S, int nbm, int nbp, int nbox, int nxi,
   return 0;
 }
 
-template <bool LADDER>
-int launch(const Params& P, const Shape& d, void* stream) {
-  const RolloutKernel kernel = kernel_for<LADDER>(d.nbox);
+// Launches `kernel` on `stream` with `smem` bytes of dynamic shared
+// memory, ceil(B / TB) blocks of THREADS; the launch's error, or
+// cudaErrorInvalidValue without a kernel.
+int launch(RolloutKernel kernel, size_t smem, const Params& P,
+           const Shape& d, void* stream) {
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = kernel_smem_bytes<LADDER>(d);
   const cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((d.B + d.TB - 1) / d.TB);
@@ -1100,32 +1255,11 @@ int launch(const Params& P, const Shape& d, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Blocks of the kernel resident per SM at a tile of TB scenarios
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), 0 when no tile fits,
-// or minus a CUDA error.
-template <bool LADDER>
-int blocks_per_sm(int S, int nbm, int nbp, int nbox, int nxi, int TB) {
-  const RolloutKernel kernel = kernel_for<LADDER>(nbox);
-  if (TB == 0 || kernel == nullptr) return 0;
-  const size_t bytes =
-      kernel_smem_bytes<LADDER>(make_shape(S, nbm, nbp, nbox, nxi, TB));
-  cudaError_t err = prepare(kernel, bytes);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                        THREADS, bytes);
-  return err == cudaSuccess ? blocks : -(int)err;
-}
-
-// Registers and local (spill) bytes per thread of the instantiation for
-// nbox box lanes (cudaFuncGetAttributes); returns the CUDA error, or
-// cudaErrorInvalidValue when no instantiation takes nbox; with
-// nonconvex, K4's NON_CONVEX instantiation.
-template <bool LADDER>
-int kernel_attributes(int nbox, int* registers, int* local_bytes,
-                      bool nonconvex = false) {
-  const RolloutKernel kernel =
-      nonconvex ? nonconvex_kernel_for(nbox) : kernel_for<LADDER>(nbox);
+// Registers and local (spill) bytes per thread of `kernel`
+// (cudaFuncGetAttributes); returns the CUDA error, or
+// cudaErrorInvalidValue without a kernel.
+int kernel_attributes(RolloutKernel kernel, int* registers,
+                      int* local_bytes) {
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
@@ -1890,33 +2024,43 @@ int launch_wide(const Params& P, Shape d, void* stream) {
 
 extern "C" {
 
-// Scenarios per block the fixed-penalty kernel uses for these sizes, or
-// 0 when none fits.
-int fused_admm_tile_rows(int S, int nbm, int nbp, int nbox, int nxi) {
-  return admm_tile_rows(S, nbm, nbp, nbox, nxi);
+// Scenarios per block the fixed-penalty kernel uses for these sizes and
+// a batch of B scenarios on the current device (B < 1: a batch that
+// fills the card; admm_tile), or 0 when none fits.
+int fused_admm_tile_rows(int S, int nbm, int nbp, int nbox, int nxi, int B) {
+  return admm_tile(S, nbm, nbp, nbox, nxi, B).TB;
 }
 
-// Dynamic shared memory, in bytes, of a K4 block at those sizes (0 when
-// none fits).
-int fused_admm_smem_bytes(int S, int nbm, int nbp, int nbox, int nxi) {
-  const int TB = admm_tile_rows(S, nbm, nbp, nbox, nxi);
+// Dynamic shared memory, in bytes, of a K4 block at those sizes and B (0
+// when none fits).
+int fused_admm_smem_bytes(int S, int nbm, int nbp, int nbox, int nxi,
+                          int B) {
+  const int TB = admm_tile(S, nbm, nbp, nbox, nxi, B).TB;
   return TB ? (int)kernel_smem_bytes<false>(
                   make_shape(S, nbm, nbp, nbox, nxi, TB))
             : 0;
 }
 
-// K4 blocks resident per SM at those sizes, 0 when none fits, or minus
-// a CUDA error.
-int fused_admm_blocks_per_sm(int S, int nbm, int nbp, int nbox, int nxi) {
-  return blocks_per_sm<false>(S, nbm, nbp, nbox, nxi,
-                              admm_tile_rows(S, nbm, nbp, nbox, nxi));
+// K4 blocks resident per SM at those sizes and B, 0 when none fits, or
+// minus a CUDA error.
+int fused_admm_blocks_per_sm(int S, int nbm, int nbp, int nbox, int nxi,
+                             int B) {
+  const AdmmTile tile = admm_tile(S, nbm, nbp, nbox, nxi, B);
+  if (tile.TB == 0) return 0;
+  return occupancy(admm_kernel(tile, nbox),
+                   kernel_smem_bytes<false>(
+                       make_shape(S, nbm, nbp, nbox, nxi, tile.TB)));
 }
 
 // Registers and local (spill) bytes per thread of the K4 instantiation
-// for nbox box lanes; 0, a CUDA error, or cudaErrorInvalidValue.
-int fused_admm_kernel_attributes(int nbox, int* registers,
+// for nbox box lanes with warp_rows scenarios a warp (8, or 4 in the
+// half-height tile); 0, a CUDA error, or cudaErrorInvalidValue.
+int fused_admm_kernel_attributes(int nbox, int warp_rows, int* registers,
                                  int* local_bytes) {
-  return kernel_attributes<false>(nbox, registers, local_bytes);
+  if (warp_rows != 8 && warp_rows != 2 * SMALL_RL)
+    return (int)cudaErrorInvalidValue;
+  return kernel_attributes(admm_kernel({0, warp_rows / 2}, nbox), registers,
+                           local_bytes);
 }
 
 // Scenarios per block of the ladder kernel, its rung group: the largest
@@ -1937,15 +2081,18 @@ int fused_ladder_smem_bytes(int S, int nbm, int nbp, int nbox, int nxi) {
 // K5 blocks resident per SM at those sizes, 0 when none fits, or minus
 // a CUDA error.
 int fused_ladder_blocks_per_sm(int S, int nbm, int nbp, int nbox, int nxi) {
-  return blocks_per_sm<true>(S, nbm, nbp, nbox, nxi,
-                             rung_group_rows(S, nbm, nbp, nbox, nxi));
+  const int TB = rung_group_rows(S, nbm, nbp, nbox, nxi);
+  return TB ? occupancy(kernel_for<true>(nbox),
+                        kernel_smem_bytes<true>(
+                            make_shape(S, nbm, nbp, nbox, nxi, TB)))
+            : 0;
 }
 
 // Registers and local (spill) bytes per thread of the K5 instantiation
 // for nbox box lanes; 0, a CUDA error, or cudaErrorInvalidValue.
 int fused_ladder_kernel_attributes(int nbox, int* registers,
                                    int* local_bytes) {
-  return kernel_attributes<true>(nbox, registers, local_bytes);
+  return kernel_attributes(kernel_for<true>(nbox), registers, local_bytes);
 }
 
 // Launches the rollout on `stream`; returns cudaGetLastError() (0 on
@@ -1967,10 +2114,10 @@ int fused_admm_launch(const float* Vop, const float* M1, const float* M2,
                       float* wa_fin, int B, int S, int nbm, int nbp,
                       int nbox, int nxi, int n_blocks, int n_iter,
                       float alpha, float beta, float rho, void* stream) {
-  const int TB = admm_tile_rows(S, nbm, nbp, nbox, nxi);
-  if (TB == 0 || B < 1 || n_blocks < 1 || n_iter < 0)
-    return (int)cudaErrorInvalidValue;
-  Shape d = make_shape(S, nbm, nbp, nbox, nxi, TB);
+  if (B < 1 || n_blocks < 1 || n_iter < 0) return (int)cudaErrorInvalidValue;
+  const AdmmTile tile = admm_tile(S, nbm, nbp, nbox, nxi, B);
+  if (tile.TB == 0) return (int)cudaErrorInvalidValue;
+  Shape d = make_shape(S, nbm, nbp, nbox, nxi, tile.TB);
   d.B = B;
   d.n_blocks = n_blocks;
   d.n_iter = n_iter;
@@ -1979,7 +2126,8 @@ int fused_admm_launch(const float* Vop, const float* M1, const float* M2,
                  U,     Y,    C,    RP,      RD,      s_fin,  sa_fin,
                  wa_fin, alpha, beta, rho,   nullptr, nullptr, nullptr,
                  1,     0.f};
-  return launch<false>(P, d, stream);
+  return launch(admm_kernel(tile, nbox), kernel_smem_bytes<false>(d), P, d,
+                stream);
 }
 
 // K4's NON_CONVEX mode: scenarios per block (0 when no block fits), the
@@ -2004,19 +2152,13 @@ int fused_admm_nonconvex_blocks_per_sm(int S, int nbm, int nbp, int nbox,
                                        int nxi, int n_alpha) {
   const int bytes =
       fused_admm_nonconvex_smem_bytes(S, nbm, nbp, nbox, nxi, n_alpha);
-  if (bytes == 0) return 0;
-  const RolloutKernel kernel = nonconvex_kernel_for(nbox);
-  cudaError_t err = prepare(kernel, bytes);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                        THREADS, bytes);
-  return err == cudaSuccess ? blocks : -(int)err;
+  return bytes ? occupancy(nonconvex_kernel_for(nbox), bytes) : 0;
 }
 
 int fused_admm_nonconvex_kernel_attributes(int nbox, int* registers,
                                            int* local_bytes) {
-  return kernel_attributes<false>(nbox, registers, local_bytes, true);
+  return kernel_attributes(nonconvex_kernel_for(nbox), registers,
+                           local_bytes);
 }
 
 // Launches K4's NON_CONVEX rollout on `stream`; returns
@@ -2060,13 +2202,8 @@ int fused_admm_nonconvex_launch(
   P.BD = BD;
   P.counters = counters;
   P.c_eps = c_eps;
-  const RolloutKernel kernel = nonconvex_kernel_for(nbox);
-  const size_t smem = nonconvex_smem_bytes(d);
-  const cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((d.B + d.TB - 1) / d.TB);
-  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(P, d);
-  return (int)cudaGetLastError();
+  return launch(nonconvex_kernel_for(nbox), nonconvex_smem_bytes(d), P, d,
+                stream);
 }
 
 // Launches the ladder rollout (kernel K5) on `stream`, one block per
@@ -2100,7 +2237,8 @@ int fused_ladder_launch(const float* Vop, const float* M1, const float* M2,
                  U,      Y,    C,    RP,    RD,    s_fin, sa_fin,
                  wa_fin, alpha, beta, 0.f,  rhos,  rung0, RUNG,
                  R,      ratio};
-  return launch<true>(P, d, stream);
+  return launch(kernel_for<true>(nbox), kernel_smem_bytes<true>(d), P, d,
+                stream);
 }
 
 

@@ -20,7 +20,9 @@ runs as the hand-written CUDA kernel ``csrc/fused_admm.cu`` on CUDA
 tensors (:func:`fused_admm`) and as :func:`fused_admm_reference` on CPU
 tensors and in comparisons. The kernel has two bodies, and the plan picks
 one, with no option: the resident body (:func:`admm_plan`) holds the
-operators in shared memory and ``s``, ``w`` in registers; where that does
+operators in shared memory and ``s``, ``w`` in registers, 64 scenarios a
+block, or 32 where the batch is too small for the 64-scenario grid to
+fill the card (the same bits); where that does
 not fit (``nbox`` above 192, or operators too large for one block, as at
 ``bench.py``'s ``large_plant``) the wide body (:func:`admm_wide_plan`)
 holds every scenario's state in shared memory and streams the operators
@@ -83,6 +85,9 @@ _OP_KEYS = ("v_c", "V_theta", "V_s", "u_c", "U_theta", "U_s", "cost_P",
             "cost_q", "cost_r")
 #: Opt-in shared memory of one thread block (bytes), as in the .cu.
 _SMEM_LIMIT = 232448
+#: K4's half-height tile (``SMALL_TB`` of the .cu): scenarios a block,
+#: 4 a warp, where its grid puts at most one block on each SM.
+SMALL_TILE = 32
 #: The widest box the resident body takes: three 64-column register
 #: tiles per lane (the wide body takes any box its plan fits).
 _MAX_NBOX = 192
@@ -618,23 +623,36 @@ def nonconvex_plan(dims: FusedADMMDims) -> Tuple[int, int]:
     return 0, nbytes
 
 
-def admm_plan(dims: FusedADMMDims) -> Tuple[int, int]:
+def admm_plan(dims: FusedADMMDims, B: Optional[int] = None,
+              sms: int = 0) -> Tuple[int, int]:
     """``(rows, bytes)``: kernel K4's scenarios per thread block and its
     shared memory, as ``csrc/fused_admm.cu`` plans them
     (``fused_admm_tile_rows`` and ``fused_admm_smem_bytes``): the largest
     of 64, 32, 16, 8, 4 scenarios whose block fits, so the most warps
-    own scenarios; ``(0, bytes of the 4-row block)`` when none fits or
-    ``nbox`` is above 192, where :func:`fused_admm` takes the wide body
-    (:func:`admm_wide_plan`). A block holds the operators, the carry rows
-    ``[s | u | w]``, ``pre``, ``vc``, ``zth`` and ``d = s - w``, over
-    which ``s_next`` is laid (``max(nbox, S)`` rows); ``s`` and ``w``
-    live in registers. 111,168 bytes for 64 scenarios at
-    ``four_tank_convex``, so two blocks share an SM."""
+    own scenarios, 8 a warp; ``(0, bytes of the 4-row block)`` when none
+    fits or ``nbox`` is above 192, where :func:`fused_admm` takes the
+    wide body (:func:`admm_wide_plan`). A block holds the operators, the
+    carry rows ``[s | u | w]``, ``pre``, ``vc``, ``zth`` and ``d = s -
+    w``, over which ``s_next`` is laid (``max(nbox, S)`` rows); ``s`` and
+    ``w`` live in registers. 111,168 bytes for 64 scenarios at
+    ``four_tank_convex``, so two blocks share an SM.
+
+    With a batch of ``B`` scenarios on a card of ``sms`` SMs
+    (:func:`sm_count`), the 64-scenario tile is halved where a grid of
+    :data:`SMALL_TILE`-scenario blocks would put at most one on each SM
+    (``ceil(B / 32) <= sms``): 32 scenarios a block, 4 a warp, twice the
+    blocks (82,624 bytes at ``four_tank_convex``, taken up to B = 4224 on
+    a 132-SM H100). Without ``B`` the plan is the full batch's. The
+    library decides the tile (:func:`fused_admm` takes its
+    ``fused_admm_tile_rows``); this mirror is what the tests hold it to."""
     D2 = dims.S + dims.nb * (dims.m + dims.p)
     rows_per = D2 + dims.Mw + dims.nbox + dims.nxi + max(dims.nbox, dims.S)
     for rows in (64, 32, 16, 8, 4):
         nbytes = 4 * (_op_floats(dims) + rows_per * (rows + 4))
         if nbytes <= _SMEM_LIMIT and dims.nbox <= _MAX_NBOX:
+            if rows == 64 and B is not None and -(-B // SMALL_TILE) <= sms:
+                rows = SMALL_TILE
+                nbytes = 4 * (_op_floats(dims) + rows_per * (rows + 4))
             return rows, nbytes
     return 0, nbytes
 
@@ -760,6 +778,31 @@ def _card(device) -> str:
     return str(device)
 
 
+def sm_count(device) -> int:
+    """The SMs of ``device`` (``torch.cuda.get_device_properties``), read
+    once per card: the ``sms`` of :func:`admm_plan`."""
+    key = _card(device)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(
+            torch.device(key)).multi_processor_count
+    return _SMS[key]
+
+
+_SMS: dict = {}
+
+
+def _count_grid(device, B: int, rows: int, small: bool) -> None:
+    """Add a resident launch's grid to K4's counters: the SMs its
+    ``ceil(B / rows)`` blocks can reach, ``min(blocks, SMs)``, to
+    ``fused_admm.sms_reached``, the card's SMs to ``fused_admm.sms_total``,
+    and one to ``fused_admm.small_tile_launches`` on the half-height
+    tile."""
+    sms = sm_count(device)
+    fused_admm.sms_reached += min(-(-B // rows), sms)
+    fused_admm.sms_total += sms
+    fused_admm.small_tile_launches += int(small)
+
+
 def _nonconvex_counters(device) -> torch.Tensor:
     """The card's NON_CONVEX counters (4 x int64, made zero once)."""
     key = _card(device)
@@ -834,7 +877,12 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
     CPU tensors run the plain version. CUDA tensors launch kernel K4
     (``csrc/fused_admm.cu``, float32, contiguous): its resident body
     ``fused_admm_kernel`` where :func:`admm_plan` gives rows, adding one
-    to ``fused_admm.launches``, else its wide body
+    to ``fused_admm.launches`` (and to ``fused_admm.small_tile_launches``
+    on the half-height tile that the library's ``fused_admm_tile_rows``
+    takes for a batch too small to fill the card, as :func:`admm_plan`
+    mirrors it; each resident launch adds its grid's SMs to
+    ``fused_admm.sms_reached`` and the card's to ``fused_admm.sms_total``),
+    else its wide body
     ``fused_admm_wide_kernel`` (K4w) where :func:`admm_wide_plan` does,
     on the operators of :func:`wide_operators`, adding one to
     ``fused_admm.wide_launches``; the launch call alone is the span
@@ -883,10 +931,11 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
             raise RuntimeError(f"fused_admm NON_CONVEX kernel launch "
                                f"failed: CUDA error {err}")
         fused_admm.launches += 1
+        _count_grid(carry.s.device, Bsz, rows, False)
         return outs
 
-    rows, nbytes = admm_plan(dims)
-    wide = rows == 0
+    full_rows, nbytes = admm_plan(dims)
+    wide = full_rows == 0
     wide_rows, wide_bytes = admm_wide_plan(dims)
     if wide and wide_rows == 0:
         raise ValueError(
@@ -914,6 +963,8 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
     sa_fin = torch.empty((Bsz, dims.nbox), **kw)
     wa_fin = torch.empty((Bsz, dims.nbox), **kw)
     with torch.cuda.device(carry.s.device):
+        if not wide:  # the library's tile for this batch on this card
+            rows = lib.fused_admm_tile_rows(*sizes, Bsz)
         stream = torch.cuda.current_stream().cuda_stream
         args = (
             Vop.data_ptr(), M1.data_ptr(), M2.data_ptr(),
@@ -938,13 +989,19 @@ def fused_admm(ops: FusedADMMOperator, dims: FusedADMMDims,
         fused_admm.wide_launches += 1
     else:
         fused_admm.launches += 1
+        _count_grid(carry.s.device, Bsz, rows, rows != full_rows)
     return U, Y, C, RP, RD, s_fin, sa_fin, wa_fin
 
 
 #: Launches of the resident body (K4) made by :func:`fused_admm` in this
-#: process, and of the wide body (K4w).
+#: process, and of the wide body (K4w); of the resident launches, those
+#: on the half-height tile, and the totals of the SMs their grids reach
+#: and of the card's SMs (:func:`_count_grid`).
 fused_admm.launches = 0
 fused_admm.wide_launches = 0
+fused_admm.small_tile_launches = 0
+fused_admm.sms_reached = 0
+fused_admm.sms_total = 0
 
 
 def make_fused_admm_rollout(

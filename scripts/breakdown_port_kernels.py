@@ -10,7 +10,10 @@ by kernel over the amortized rollouts; and at K = 10 and 25 solves per
 block beside 50 (the TPU's tuning constant, measured here, not changed).
 
 K4 and K5 are timed as shipped, at 0 and at twice their iterations (the
-fixed and per-iteration costs), and pinned to one block per SM. The wide
+fixed and per-iteration costs), and pinned to one block per SM; K4 also
+alone at four_tank_convex x 400 steps at B = 4096, 8192, 12288 and 16384,
+as shipped and held to each of its tiles (64 scenarios, 8 a warp; 32, 4
+a warp), in turns. The wide
 bodies K4w (``large_plant_convex``) and K5w (``large_plant_ladder``, both
 B = 16384 x T = 400, as ``chip_smoke.py`` phase 48) are timed the same
 way and in variants of their body (``WIDE``: a deeper ring, 8 consumer
@@ -23,8 +26,8 @@ closed-loop steps): where cuBLAS sums the plain version's products as
 one FMA chain, the two are bit-equal.
 
 Run from the repository root: ``python3 scripts/breakdown_port_kernels.py
-[k1] [k4] [k5] [k3] [k4w] [k5w] [batch]`` (all seven parts when none is
-named).
+[k1] [k4] [k4tiles] [k5] [k3] [k4w] [k5w] [batch]`` (all eight parts when
+none is named).
 It builds patched copies of the kernel sources under
 ``build/breakdown/`` (one nvcc each, all together), swaps each in for
 the shipped library and times it with CUDA events at the main shapes of
@@ -129,16 +132,23 @@ VARIANTS = [
      "(the same code, its dynamic shared memory raised to a whole "
      "block's 232,448 bytes)",
      lambda t: t.replace(
-         "const size_t smem = kernel_smem_bytes<LADDER>(d);",
-         "const size_t smem = LADDER ? SMEM_LIMIT : "
-         "kernel_smem_bytes<LADDER>(d);")),
+         "launch(kernel_for<true>(nbox), kernel_smem_bytes<true>(d), P, d,",
+         "launch(kernel_for<true>(nbox), SMEM_LIMIT, P, d,")),
     ("fused_admm", "k4_one_block_per_sm", "K4 pinned to one block per SM "
      "(the same code, its dynamic shared memory raised to a whole "
      "block's 232,448 bytes)",
      lambda t: t.replace(
-         "const size_t smem = kernel_smem_bytes<LADDER>(d);",
-         "const size_t smem = LADDER ? kernel_smem_bytes<LADDER>(d) : "
-         "SMEM_LIMIT;")),
+         "launch(admm_kernel(tile, nbox), kernel_smem_bytes<false>(d), P, d,",
+         "launch(admm_kernel(tile, nbox), SMEM_LIMIT, P, d,")),
+    ("fused_admm", "k4tiles_full", "K4 on its 64-scenario tile at every "
+     "batch",
+     lambda t: t.replace("    if (TB == 64 && B > 0 &&\n",
+                         "    if (false &&\n")),
+    ("fused_admm", "k4tiles_half", "K4 on the half-height tile (32 "
+     "scenarios, 4 a warp) wherever the 64-scenario tile fits",
+     lambda t: t.replace(
+         "        ((long long)B + SMALL_TB - 1) / SMALL_TB <= sm_count())\n",
+         "        sm_count() >= 0)\n")),
 ]
 
 def _skip(*calls):
@@ -438,7 +448,8 @@ def main() -> int:
         check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
-    paths = sys.argv[1:] or ["k1", "k4", "k5", "k3", "k4w", "k5w", "batch"]
+    paths = sys.argv[1:] or ["k1", "k4", "k4tiles", "k5", "k3", "k4w", "k5w",
+                             "batch"]
     wanted = [v for v in VARIANTS
               if any(v[1].startswith(f"{p}_") for p in paths)]
     if {"k4w", "k5w"} & set(paths):
@@ -483,6 +494,42 @@ def main() -> int:
                   f"{cs.cuda_ms(fn, reps=3):.3f} ms per launch [{smi}]",
                   flush=True)
         del store, args, ins
+
+    if "k4tiles" in paths:
+        # K4 alone at four_tank_convex by batch: as shipped, and held to
+        # each of its two tiles, in turns.
+        plant, ctrl, op, kw = cs.admm_config("four_tank_convex")
+        T = cs.T_ADMM
+        for B in (4096, 8192, 12288, 16384):
+            ins = (*cs.scenario_batch(plant, ctrl, B, dev),
+                   draw_noise_batch(0, B, T, ctrl.p, plant.get_eps_max(),
+                                    device=dev))
+            store = {}
+
+            def keep_args(*args):
+                store["args"] = args
+                return fa.fused_admm(*args)
+
+            fa.make_fused_admm_rollout(plant.as_params(), op, 4, 2, 2, T,
+                                       device=dev, rollout=keep_args,
+                                       **kw)(*ins)
+            args = store["args"]
+            rows = fa.admm_plan(args[1], B, fa.sm_count(dev))[0]
+            ms = {"shipped": [], "k4tiles_full": [], "k4tiles_half": []}
+            for _ in range(3):
+                for tag in ms:
+                    lib = patched.get(tag)
+                    ms[tag].append(cs.cuda_ms(
+                        (lambda: fa.fused_admm(*args)) if lib is None else
+                        (lambda lib=lib: swapped(
+                            "fused_admm", lib, lambda: fa.fused_admm(*args))),
+                        reps=3))
+            print(f"four_tank_convex K4 alone at B = {B} x T = {T} (ms a "
+                  f"launch, three turns): shipped (the {rows}-scenario "
+                  f"tile) {ms['shipped']}; the 64-scenario tile "
+                  f"{ms['k4tiles_full']}; the 32-scenario tile "
+                  f"{ms['k4tiles_half']} [{smi}]", flush=True)
+            del store, args, ins
 
     if "k5" in paths:
         # K5 at four_tank_ladder: the rollout's own kernel arguments.

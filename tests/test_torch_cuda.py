@@ -747,26 +747,34 @@ def test_ladder_kernel_bit_equal_to_plain_version(cuda, L, batch, iters,
     _assert_bit_equal(got, want)
 
 
-@pytest.mark.parametrize("L,N,iters,track,rows", [
-    (30, 400, (4, 5, 2), False, 64),   # four_tank_convex, nbox 60: NT = 1
-    (60, 800, (4, 5, 2), False, 32),   # long_horizon_convex, nbox 120: NT = 2
-    (30, 400, (4, 6, 2), True, 64),    # tracked: the adds on pre, vc, zth
-    (30, 400, (0, 0, 0), False, 64),   # n_iter = 0: rp = rd = max |s|
+@pytest.mark.parametrize("L,N,iters,track,batch,rows", [
+    (30, 400, (4, 5, 2), False, 8179, 64),  # four_tank_convex, nbox 60: NT = 1
+    (60, 800, (4, 5, 2), False, 8179, 32),  # long_horizon_convex, nbox 120: NT = 2
+    (30, 400, (4, 6, 2), True, 8179, 64),   # tracked: the adds on pre, vc, zth
+    (30, 400, (0, 0, 0), False, 8179, 64),  # n_iter = 0: rp = rd = max |s|
+    (30, 400, (4, 5, 2), False, 4083, 32),  # the half-height tile
+    (30, 400, (4, 6, 2), True, 4083, 32),   # the half-height tile, tracked
 ])
 def test_admm_kernel_bit_equal_to_plain_version(cuda, L, N, iters, track,
-                                                rows):
+                                                batch, rows):
     """Kernel K4 (warp-owned scenarios, s and w in registers) stays
     bit-equal to its plain version on a ragged batch: u, y, the final
     windows, s and w equal, costs (summed by 16 lanes, in another order)
-    at rtol 1e-3 / atol 1e-5. The batch is 8179, where cuBLAS sums the
-    plain version's products as one FMA chain (at B = 1000 to 6131 it
-    does not, and the two are up to 1.5e-5 apart)."""
+    at rtol 1e-3 / atol 1e-5. The plain version runs 8179 scenarios,
+    where cuBLAS sums its products as one FMA chain (at B = 1000 to 6131
+    it does not, and the two are up to 1.5e-5 apart). At 4083, where the
+    plan halves the four-tank tile (``rows``, on a 132-SM H100), the
+    kernel runs the first 4083 of the plain version's inputs, from the
+    same carry (the entry's cold start and first maps are cuBLAS
+    products too), and holds its outputs to the plain version's first
+    rows: U, Y, the residuals, the final window, s and w equal."""
     from chip_smoke import build_four_tank_robust
 
     plant, ctrl = build_four_tank_robust(N=N, L=L, slack="CONVEX")
     op = compute_admm_operator_np(ctrl.spec, return_setpoint_maps=track)
-    n_steps, batch = 30, 8192 - 13
-    ins = _bit_equal_inputs(ctrl, plant.get_state(), batch, n_steps, cuda)
+    n_steps = 30
+    ins = _bit_equal_inputs(ctrl, plant.get_state(), 8192 - 13, n_steps,
+                            cuda)
     kw = dict(iters=iters, cold_iters=24, tol=1e-5, device=cuda)
     if track:  # four phases around the baked setpoints
         phases = np.repeat([1.0, 0.85, 1.1, 0.95], 8)[:n_steps]
@@ -774,45 +782,88 @@ def test_admm_kernel_bit_equal_to_plain_version(cuda, L, N, iters, track,
     args = (plant.as_params(), op, 4, 2, 2, n_steps)
     _, dims = fa.build_fused_admm_operator(*args[:5], track=track,
                                            device=cuda)
-    assert fa.admm_plan(dims)[0] == rows
-    before = fa.fused_admm.launches
-    got = fa.make_fused_admm_rollout(*args, **kw)(*ins)
+    assert fa.admm_plan(dims, batch, fa.sm_count(cuda))[0] == rows
+    store = {}
+
+    def keep(*a):
+        store["args"], store["out"] = a, fa.fused_admm_reference(*a)
+        return store["out"]
+
+    want = fa.make_fused_admm_rollout(*args, rollout=keep, **kw)(*ins)
+    before = (fa.fused_admm.launches, fa.fused_admm.small_tile_launches)
+    if batch == len(ins[0]):
+        got = fa.make_fused_admm_rollout(*args, **kw)(*ins)
+    else:
+        ops, dims, carry, W, n_iter, adds = store["args"]
+        got = fa.fused_admm(ops, dims, fa.ADMMCarry(
+            *(c[:batch].contiguous() for c in carry)),
+            W[:batch].contiguous(), n_iter, adds)
     torch.cuda.synchronize()
-    assert fa.fused_admm.launches == before + 1
-    want = fa.make_fused_admm_rollout(
-        *args, rollout=fa.fused_admm_reference, **kw)(*ins)
-    _assert_bit_equal(got, want)
+    assert (fa.fused_admm.launches, fa.fused_admm.small_tile_launches) == (
+        before[0] + 1, before[1] + (rows != fa.admm_plan(dims)[0]))
+    if batch == len(ins[0]):
+        _assert_bit_equal(got, want)
+        return
+    names = ("U", "Y", "C", "RP", "RD", "s_fin", "sa_fin", "wa_fin")
+    for name, a, b in zip(names, got, store["out"]):
+        if name == "C":
+            torch.testing.assert_close(a, b[:batch], rtol=1e-3, atol=1e-5)
+        else:
+            assert torch.equal(a, b[:batch]), name
 
 
 def test_admm_kernel_two_blocks_per_sm(cuda):
-    """At four_tank_convex the K4 block (111,168 bytes, at most 128
-    registers a thread, nothing spilled) leaves room for two per SM."""
+    """At four_tank_convex the K4 block of the full batch (65536: 64
+    scenarios, 111,168 bytes) and of the half-height tile (4096: 32
+    scenarios, 4 a warp, 82,624 bytes) each leave room for two per SM;
+    their instantiations' registers are pinned (the 64-scenario one's as
+    before the half tile came; nvcc 12.8 on an H100), at most 128 a
+    thread, nothing spilled."""
     import ctypes
 
     from direct_data_driven_mpc_tpu_torch.ops import _kernels
 
     lib = _kernels.load("fused_admm").lib
     sizes = (20, 2, 2, 60, 76)
-    assert lib.fused_admm_tile_rows(*sizes) == 64
-    assert lib.fused_admm_smem_bytes(*sizes) == 111168
-    assert lib.fused_admm_blocks_per_sm(*sizes) == 2
-    regs, local = ctypes.c_int(), ctypes.c_int()
-    assert lib.fused_admm_kernel_attributes(60, ctypes.byref(regs),
-                                            ctypes.byref(local)) == 0
-    assert 0 < regs.value <= 128
-    assert local.value == 0
+    for B, rows, nbytes, warp_rows, registers in (
+            (65536, 64, 111168, 8, K4_REGISTERS[8]),
+            (4096, 32, 82624, 4, K4_REGISTERS[4])):
+        assert lib.fused_admm_tile_rows(*sizes, B) == rows
+        assert lib.fused_admm_smem_bytes(*sizes, B) == nbytes
+        assert lib.fused_admm_blocks_per_sm(*sizes, B) == 2
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        assert lib.fused_admm_kernel_attributes(
+            60, warp_rows, ctypes.byref(regs), ctypes.byref(local)) == 0
+        assert regs.value == registers
+        assert local.value == 0
+    assert lib.fused_admm_tile_rows(*sizes, 0) == 64  # no batch: the full
+    assert lib.fused_admm_kernel_attributes(
+        60, 2, ctypes.byref(regs), ctypes.byref(local)) != 0
+
+
+#: Registers a thread of K4's NT = 1 instantiations (nvcc 12.8,
+#: sm_90a), by scenarios a warp.
+K4_REGISTERS = {8: 128, 4: 120}
 
 
 def test_admm_plan_matches_library(cuda):
     """``admm_plan`` mirrors the library's K4 plan (rows and bytes, 0
     bytes where no block fits) at the four-tank window for boxes of 4 to
     196 lanes, with and without tracking features, at one and four
-    steps per solve."""
+    steps per solve, for no batch and batches of 1, 4096, 4224, 4225,
+    8448, 8449 and 65536 on this card (``sm_count``); at four_tank_convex
+    on a 132-SM H100 the tile halves up to 4224."""
     from direct_data_driven_mpc_tpu_torch.ops import _kernels
 
     lib = _kernels.load("fused_admm").lib
     g, op, kw = _admm_setup("CONVEX")
     _, dims = fa.build_fused_admm_operator(PLANT, op, 4, 2, 2, device=cuda)
+    sms = fa.sm_count(cuda)
+    assert sms == torch.cuda.get_device_properties(cuda).multi_processor_count
+    batches = (1, 4096, 4224, 4225, 8448, 8449, 65536)
+    if sms == 132:
+        assert [fa.admm_plan(dims, B, sms)[0] for B in batches] == [
+            32, 32, 32, 64, 64, 64, 64]
     for nb in (1, 4):
         for extra in (0, 4):
             for nbox in range(4, 200, 8):
@@ -821,10 +872,70 @@ def test_admm_plan_matches_library(cuda):
                 d = dims._replace(nb=nb, Mw=2 * nb + 1, D2=D2, nbox=nbox,
                                   nxi=nxi, W2=D2 + 1 + nbox + nxi)
                 sizes = (d.S, 2 * nb, 2 * nb, nbox, nxi)
-                rows, nbytes = fa.admm_plan(d)
-                assert lib.fused_admm_tile_rows(*sizes) == rows, sizes
-                assert lib.fused_admm_smem_bytes(*sizes) == (
-                    nbytes if rows else 0), sizes
+                for B in (0, *batches):
+                    rows, nbytes = (fa.admm_plan(d, B, sms) if B
+                                    else fa.admm_plan(d))
+                    assert lib.fused_admm_tile_rows(*sizes, B) == rows, (
+                        sizes, B)
+                    assert lib.fused_admm_smem_bytes(*sizes, B) == (
+                        nbytes if rows else 0), (sizes, B)
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("iters", [(4, 5, 2), (0, 0, 0)])
+def test_admm_half_tile_bit_equal_to_full_tile(cuda, track, iters):
+    """K4's half-height tile (32 scenarios a block, 4 a warp) gives the
+    bits of its 64-scenario tile: the same scenarios run as a batch of
+    4096 (the half tile, 128 blocks) and as the first rows of a batch of
+    16896 (the full tile, 264 blocks) give equal U, Y, costs, residuals,
+    final windows and ADMM state, with and without tracking adds, at 11
+    and 0 iterations; so do ragged batches of 4099 and 33, whose last
+    block is partial. Each launch adds its grid to the counters: one
+    ``small_tile_launches`` on the half tile, ``min(blocks, SMs)`` to
+    ``sms_reached``, the card's SMs to ``sms_total``."""
+    from chip_smoke import build_four_tank_robust
+
+    plant, ctrl = build_four_tank_robust(slack="CONVEX")
+    op = compute_admm_operator_np(ctrl.spec, return_setpoint_maps=track)
+    n_steps, full = 30, 16896
+    ins = _bit_equal_inputs(ctrl, plant.get_state(), full, n_steps, cuda)
+    kw = dict(iters=iters, cold_iters=24, tol=1e-5, device=cuda)
+    if track:  # four phases around the baked setpoints
+        phases = np.repeat([1.0, 0.85, 1.1, 0.95], 8)[:n_steps]
+        kw["setpoints"] = phases[:, None] * op["r_bar"][None]
+    store = {}
+
+    def keep(*args):
+        store["args"] = args
+        return fa.fused_admm(*args)
+
+    fa.make_fused_admm_rollout(plant.as_params(), op, 4, 2, 2, n_steps,
+                               rollout=keep, **kw)(*ins)
+    ops, dims, carry, W, n_iter, adds = store["args"]
+    assert (adds is not None) == track and n_iter == sum(iters)
+    sms = fa.sm_count(cuda)
+
+    def counted(B, rows, small):
+        before = (fa.fused_admm.small_tile_launches,
+                  fa.fused_admm.sms_reached, fa.fused_admm.sms_total)
+        assert fa.admm_plan(dims, B, sms)[0] == rows
+        out = fa.fused_admm(ops, dims, fa.ADMMCarry(
+            *(c[:B].contiguous() for c in carry)), W[:B].contiguous(),
+            n_iter, adds)
+        torch.cuda.synchronize()
+        assert (fa.fused_admm.small_tile_launches, fa.fused_admm.sms_reached,
+                fa.fused_admm.sms_total) == (
+            before[0] + small, before[1] + min(-(-B // rows), sms),
+            before[2] + sms)
+        return out
+
+    want = counted(full, 64, False)
+    names = ("U", "Y", "C", "RP", "RD", "s_fin", "sa_fin", "wa_fin")
+    for B in (4096, 4099, 33):
+        got = counted(B, 32, True)
+        for name, a, b in zip(names, got, want):
+            assert torch.equal(a, b[:B]), (B, name)
+    assert bool((want[3][:, -1] > 0).any())  # the residuals are not void
 
 
 def _nonconvex_case(c, cuda, batch=8192 - 13, n_steps=30):

@@ -484,6 +484,41 @@ def test_admm_plan_pins_rows_and_bytes(convex_dims, nbox, plan):
         assert 2 * (plan[1] + 1024) <= 228 * 1024
 
 
+@pytest.mark.parametrize("nbox,B,plan", [
+    (60, None, (64, 111168)),  # no batch: the full batch's plan
+    (60, 1, (32, 82624)),      # one block of 64 would leave 131 SMs empty
+    (60, 33, (32, 82624)),
+    (60, 4096, (32, 82624)),   # four_tank_convex.b4096: 128 blocks of 32
+    (60, 4224, (32, 82624)),   # 132 blocks of 32: one on each SM
+    (60, 4225, (64, 111168)),  # 133 of 32 would put two on an SM
+    (60, 8192, (64, 111168)),
+    (60, 65536, (64, 111168)),
+    (30, 4096, (32, 39920)),   # four_tank_convex_q4: the tile halves too
+    (120, 1, (32, 212224)),    # no 64 tile to halve: the 32 that fits
+    (120, 4096, (32, 212224)),
+    (144, 4096, (4, 226992)),
+    (148, 4096, (0, 237872)),  # none fits at any batch
+])
+def test_admm_plan_by_batch(convex_dims, nbox, B, plan):
+    """K4's plan by batch on a card of 132 SMs: the 64-scenario tile is
+    halved to 32 scenarios, 4 a warp, while a grid of 32-scenario blocks
+    puts at most one on each SM (``ceil(B / 32) <= 132``: B <= 4224),
+    and kept above; a shape whose largest tile is not 64 keeps its plan
+    at every batch, and one with no tile that fits gets none."""
+    assert fa.admm_plan(_sized(convex_dims, nbox), B, 132) == plan
+
+
+def test_admm_plan_by_batch_follows_the_card(convex_dims):
+    """The switch is at ``ceil(B / 32) <= sms``: where the card's SMs are
+    unknown (0) the tile is never halved; on a card of half the SMs the
+    switch comes at half the batch."""
+    for B in (1, 4096, 65536):
+        assert fa.admm_plan(convex_dims, B, 0) == fa.admm_plan(convex_dims)
+    assert fa.admm_plan(convex_dims, 2112, 66)[0] == 32
+    assert fa.admm_plan(convex_dims, 2113, 66)[0] == 64
+    assert fa.SMALL_TILE == 32
+
+
 def test_admm_plan_keeps_the_old_reach(convex_dims):
     """Every size the fixed-penalty kernel took before its redesign
     (the rung-group rule's layout without the balancer's four maxima)
